@@ -1,0 +1,139 @@
+"""lrn_pwl — LRN with PipeCNN's piecewise-linear exponent-segmented LUT.
+
+The paper approximates z^(-beta) piecewise-linearly, with segment
+boundaries at powers of 2^(-n): the segment index is read off the float's
+exponent bits plus the top n mantissa bits,
+
+    Addr = (bitcast(z) >> Shift_Bit) - base
+
+Kernel: ``csrc/lrn_pwl.cu``, which replaces the TPU kernel
+``src/repro/kernels/lrn_pwl.py:lrn_pwl``. It is bound by device-memory
+bytes (one read and one write of the activation); see the source for the
+design. :func:`lrn_pwl` launches it on a CUDA tensor and runs
+:func:`lrn_pwl_plain` on a CPU tensor.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+# AlexNet LRN constants
+LRN_N = 5
+LRN_K = 2.0
+LRN_ALPHA = 1e-4
+LRN_BETA = 0.75
+
+
+@functools.lru_cache(maxsize=None)
+def build_pwl_lut(beta: float = LRN_BETA, n_sub_bits: int = 2,
+                  z_min_exp: int = 0, z_max_exp: int = 16
+                  ) -> Tuple[np.ndarray, np.ndarray, int, int]:
+    """Slope/intercept LUT for f(z)=z^-beta over z in [2^min, 2^max).
+
+    A copy of the JAX package's ``build_pwl_lut``: the exponent plus the
+    top-n mantissa bits split each octave into 2^n linear segments, and
+    each chord is shifted down by half its peak deviation (minimax), which
+    is what lets n=2 meet the paper's 0.5 % bound. Cached: callers must not
+    write to the returned arrays.
+    """
+    n_sub = 1 << n_sub_bits
+    n_seg = (z_max_exp - z_min_exp) * n_sub
+    edges = np.concatenate([
+        2.0 ** e * (1.0 + np.arange(n_sub) / n_sub)
+        for e in range(z_min_exp, z_max_exp)] + [[2.0 ** z_max_exp]])
+    f = edges ** (-beta)
+    slope = (f[1:] - f[:-1]) / (edges[1:] - edges[:-1])
+    intercept = f[:-1] - slope * edges[:-1]
+    for i in range(n_seg):
+        zs = np.linspace(edges[i], edges[i + 1], 65)
+        dev = (slope[i] * zs + intercept[i]) - zs ** (-beta)
+        intercept[i] -= dev.max() / 2.0
+    shift = 23 - n_sub_bits
+    base = (127 + z_min_exp) << n_sub_bits
+    slope, intercept = slope.astype(np.float32), intercept.astype(np.float32)
+    slope.setflags(write=False)
+    intercept.setflags(write=False)
+    return slope, intercept, shift, base
+
+
+def lrn_pwl_plain(x: torch.Tensor, *, n: int = LRN_N, k: float = LRN_K,
+                  alpha: float = LRN_ALPHA, beta: float = LRN_BETA,
+                  n_sub_bits: int = 2) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, in the kernel's order of
+    operations. x (B, H, W, C) fp32."""
+    slope, icpt, shift, base = build_pwl_lut(beta, n_sub_bits)
+    slope = torch.from_numpy(slope.copy()).to(x.device)
+    icpt = torch.from_numpy(icpt.copy()).to(x.device)
+    sq = x * x
+    acc = sq
+    for d in range(1, n // 2 + 1):
+        acc = acc + torch.nn.functional.pad(sq[..., d:], (0, d))
+        acc = acc + torch.nn.functional.pad(sq[..., :-d], (d, 0))
+    z = k + (alpha / n) * acc
+    addr = ((z.view(torch.int32) >> shift) - base).clamp(0, len(slope) - 1)
+    return x * (slope[addr] * z + icpt[addr])
+
+
+_LUTS: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _device_lut(device: torch.device, beta: float, n_sub_bits: int):
+    key = (str(device), beta, n_sub_bits)
+    if key not in _LUTS:
+        slope, icpt, _, _ = build_pwl_lut(beta, n_sub_bits)
+        _LUTS[key] = (torch.from_numpy(slope.copy()).to(device),
+                      torch.from_numpy(icpt.copy()).to(device))
+    return _LUTS[key]
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    from repro_torch.kernels import build
+    fn = build.load("lrn_pwl").lrn_pwl_f32
+    fn.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def lrn_pwl(x: torch.Tensor, *, n: int = LRN_N, k: float = LRN_K,
+            alpha: float = LRN_ALPHA, beta: float = LRN_BETA,
+            n_sub_bits: int = 2) -> torch.Tensor:
+    """LRN with the PWL-exponent approximation. x (B, H, W, C) fp32.
+
+    A CPU tensor runs :func:`lrn_pwl_plain`; a CUDA tensor launches the
+    kernel (counted in ``lrn_pwl.launches``) or raises."""
+    if x.device.type == "cpu":
+        return lrn_pwl_plain(x, n=n, k=k, alpha=alpha, beta=beta,
+                             n_sub_bits=n_sub_bits)
+    if x.device.type != "cuda":
+        raise ValueError(f"lrn_pwl: unsupported device {x.device}")
+    if x.dim() != 4 or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(
+            f"lrn_pwl: needs a contiguous 4-D float32 NHWC tensor, got "
+            f"{tuple(x.shape)} {x.dtype} contiguous={x.is_contiguous()}")
+    slope, icpt = _device_lut(x.device, beta, n_sub_bits)
+    _, _, shift, base = build_pwl_lut(beta, n_sub_bits)
+    y = torch.empty_like(x)
+    total = x.numel()
+    if total == 0:
+        return y
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    n_blocks = min(-(-total // 256), sms * 16)
+    err = _entry()(x.data_ptr(), y.data_ptr(), slope.data_ptr(),
+                   icpt.data_ptr(), len(slope), total, x.shape[3], n,
+                   k, alpha / n, shift, base, n_blocks,
+                   torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"lrn_pwl kernel launch failed: CUDA error {err}")
+    lrn_pwl.launches += 1
+    return y
+
+
+lrn_pwl.launches = 0

@@ -1,0 +1,164 @@
+"""The port's kernel modules against the JAX package, on the CPU.
+
+Inputs are made with numpy from a seed and fed to both sides. On a CPU
+tensor each port wrapper runs its kernel's plain version. The Pallas
+``conv_pipe`` cannot run under this jax (no ``pl.Unblocked``), so the
+conv is held against ``repro.kernels.ops.fused_conv(use_pallas=False)``,
+i.e. ``conv_pipe_ref``; ``matmul_pipe`` and ``lrn_pwl`` are held against
+the Pallas kernels in interpret mode.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.lrn_pwl import build_pwl_lut as jax_build_pwl_lut
+from repro.kernels.lrn_pwl import lrn_pwl as jax_lrn_pwl
+from repro.kernels.matmul_pipe import matmul_pipe as jax_matmul_pipe
+from repro_torch.kernels import ref
+from repro_torch.kernels.conv_pipe import TILE_POSITIONS, conv_pipe, pool_tile
+from repro_torch.kernels.lrn_pwl import build_pwl_lut, lrn_pwl
+from repro_torch.kernels.matmul_pipe import matmul_pipe
+
+FP32 = dict(rtol=1e-4, atol=1e-4)        # tests/test_kernels.py fp32 tolerance
+
+
+def _both(a):
+    a = np.ascontiguousarray(a, np.float32)
+    return jnp.asarray(a), torch.from_numpy(a.copy())
+
+
+def _np(t):
+    return np.asarray(t, np.float32)
+
+
+@pytest.mark.parametrize(
+    "B,H,C,K,M,stride,pad,pool,pool_k,pool_s,groups",
+    [
+        (1, 8, 3, 3, 8, 1, 1, None, 2, 2, 1),
+        (2, 16, 4, 3, 16, 1, 0, "max", 2, 2, 1),
+        (1, 23, 3, 5, 8, 2, 2, "avg", 3, 2, 1),
+        (1, 27, 3, 11, 16, 4, 0, "max", 3, 2, 1),   # AlexNet conv1 geometry
+        (2, 14, 8, 1, 8, 1, 0, None, 2, 2, 1),       # 1x1 conv
+        (1, 12, 6, 3, 12, 3, 1, None, 2, 2, 1),      # stride 3
+        (2, 13, 16, 3, 24, 1, 1, None, 2, 2, 2),     # grouped (conv4)
+        (2, 13, 8, 5, 16, 1, 2, None, 2, 2, 2),      # grouped 5x5 (conv2)
+        (2, 13, 16, 3, 16, 1, 1, "max", 3, 2, 2),    # grouped + 3/2 pool (conv5)
+    ])
+def test_conv_matches_jax(B, H, C, K, M, stride, pad, pool, pool_k, pool_s,
+                          groups):
+    rng = np.random.default_rng(0)
+    xj, xt = _both(rng.standard_normal((B, H, H, C)))
+    wj, wt = _both(rng.standard_normal((K, K, C // groups, M)) * 0.2)
+    bj, bt = _both(rng.standard_normal(M))
+    kw = dict(stride=stride, pad=pad, pool=pool, pool_k=pool_k,
+              pool_s=pool_s, groups=groups)
+    want = jops.fused_conv(xj, wj, bj, use_pallas=False, **kw)
+    n0 = conv_pipe.launches
+    got = conv_pipe(xt, wt, bt, **kw)
+    assert conv_pipe.launches == n0          # a CPU tensor launches nothing
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(_np(got), _np(want), **FP32)
+    np.testing.assert_allclose(
+        _np(ref.conv_pipe_ref(xt, wt, bt, **kw)), _np(want), **FP32)
+
+
+@pytest.mark.parametrize("M,K,N,bm,bn,bk", [
+    (64, 128, 32, 32, 16, 64),
+    (100, 300, 70, 32, 32, 64),       # non-divisible => padded
+    (1, 256, 1000, 8, 128, 128),      # single-row FC
+    (64, 9216, 128, 64, 64, 256),     # AlexNet fc6-like K
+])
+def test_matmul_matches_jax_kernel(M, K, N, bm, bn, bk):
+    rng = np.random.default_rng(1)
+    xj, xt = _both(rng.standard_normal((M, K)) * 0.3)
+    wj, wt = _both(rng.standard_normal((K, N)) * 0.05)
+    bj, bt = _both(rng.standard_normal(N))
+    want = jax_matmul_pipe(xj, wj, bj, relu=True, bm=bm, bn=bn, bk=bk,
+                           interpret=True)
+    got = matmul_pipe(xt, wt, bt, relu=True)
+    np.testing.assert_allclose(_np(got), _np(want), **FP32)
+    np.testing.assert_allclose(
+        _np(ref.matmul_pipe_ref(xt, wt, bt, relu=False)),
+        _np(jref.matmul_pipe_ref(xj, wj, bj, relu=False)), **FP32)
+
+
+@pytest.mark.parametrize("n_sub_bits", [0, 1, 2, 3])
+def test_pwl_lut_bit_equal_to_jax(n_sub_bits):
+    s, i, shift, base = build_pwl_lut(n_sub_bits=n_sub_bits)
+    js, ji, jshift, jbase = jax_build_pwl_lut(n_sub_bits=n_sub_bits)
+    assert s.dtype == js.dtype == np.float32
+    assert s.tobytes() == js.tobytes() and i.tobytes() == ji.tobytes()
+    assert (shift, base) == (jshift, jbase)
+
+
+@pytest.mark.parametrize("C", [8, 32, 96])
+def test_lrn_pwl_matches_jax_kernel(C):
+    rng = np.random.default_rng(2)
+    xj, xt = _both(rng.standard_normal((2, 6, 6, C)) * 4)
+    n0 = lrn_pwl.launches
+    got = lrn_pwl(xt)
+    assert lrn_pwl.launches == n0
+    np.testing.assert_allclose(_np(got), _np(jax_lrn_pwl(xj, interpret=True)),
+                               rtol=1e-5, atol=1e-6)
+    exact = _np(ref.lrn_ref(xt))
+    rel = np.max(np.abs(_np(got) - exact) / (np.abs(exact) + 1e-9))
+    assert rel < 0.005, f"PWL error {rel:.4%} exceeds the paper's 0.5%"
+
+
+@pytest.mark.parametrize("C", [3, 8, 96])
+def test_lrn_ref_matches_jax(C):
+    rng = np.random.default_rng(3)
+    xj, xt = _both(rng.standard_normal((2, 5, 5, C)) * 4)
+    np.testing.assert_allclose(_np(ref.lrn_ref(xt)), _np(jref.lrn_ref(xj)),
+                               rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("pool,k,s", [("max", 2, 2), ("max", 3, 2),
+                                      ("avg", 2, 2), ("avg", 3, 2)])
+def test_pool_ref_matches_jax(pool, k, s):
+    rng = np.random.default_rng(4)
+    xj, xt = _both(rng.standard_normal((2, 13, 11, 5)))
+    np.testing.assert_allclose(_np(ref.pool_ref(xt, pool, k, s)),
+                               _np(jref.pool_ref(xj, pool, k, s)),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_pool_ref_max_on_int8_codes_matches_jax():
+    codes = np.random.default_rng(5).integers(-127, 128, (1, 7, 7, 3),
+                                              dtype=np.int8)
+    got = ref.pool_ref(torch.from_numpy(codes), "max", 3, 2)
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jref.pool_ref(jnp.asarray(codes), "max", 3, 2)))
+
+
+@pytest.mark.parametrize("ph,pw,k,s", [(6, 6, 3, 2), (13, 13, 3, 2),
+                                       (112, 112, 2, 2), (1, 1, 8, 1)])
+def test_pool_tile_fits_and_is_minimal(ph, pw, k, s):
+    tph, tpw = pool_tile(ph, pw, k, s)
+    area = ((tph - 1) * s + k) * ((tpw - 1) * s + k)
+    assert 1 <= tph <= ph and 1 <= tpw <= pw and area <= TILE_POSITIONS
+    blocks = -(-ph // tph) * -(-pw // tpw)
+    assert all(-(-ph // a) * -(-pw // b) >= blocks
+               for a in range(1, ph + 1) for b in range(1, pw + 1)
+               if ((a - 1) * s + k) * ((b - 1) * s + k) <= TILE_POSITIONS)
+
+
+def test_pool_tile_refuses_a_window_larger_than_the_tile():
+    with pytest.raises(ValueError):
+        pool_tile(2, 2, 9, 1)
+
+
+def test_wrappers_refuse_devices_without_a_kernel():
+    x = torch.zeros((1, 4, 4, 8), device="meta")
+    with pytest.raises(ValueError):
+        conv_pipe(x, torch.zeros((1, 1, 8, 8), device="meta"),
+                  torch.zeros(8, device="meta"))
+    with pytest.raises(ValueError):
+        lrn_pwl(x)
+    with pytest.raises(ValueError):
+        matmul_pipe(x.reshape(8, 16), torch.zeros((16, 4), device="meta"),
+                    torch.zeros(4, device="meta"))
