@@ -1,12 +1,13 @@
-// matmul_pipe: y = relu?(x @ w + b), fp32 with fp32 FFMA accumulation.
+// matmul_pipe: y = relu?(x @ w + b), fp32 with fp32 FFMA accumulation; or
+// int8 x and w with an int32 accumulator and a requantize epilogue.
 //
 // Replaces the TPU kernel src/repro/kernels/matmul_pipe.py:matmul_pipe (body
-// _matmul_kernel), fp32 mode. x (M, K), w (K, N), b (N,), y (M, N), all
+// _matmul_kernel), both modes. x (M, K), w (K, N), b (N,), y (M, N), all
 // row-major.
 //
 // Bound on an H100: device-memory bytes of w. At the serving shape M is the
-// micro-batch (8), so each weight element takes 2*M flops: AlexNet fc6 reads
-// 151 MB of weights for 0.6 GFLOP.
+// micro-batch (8), so each weight element takes 2*M operations: AlexNet fc6
+// reads 151 MB of fp32 weights (38 MB in int8) for 0.6 GOP.
 //
 // Design: the paper's batched-FC reuse. A block owns a slab of NCOL columns
 // and MT rows of x (all of them at M <= MT), so every weight element is read
@@ -14,10 +15,24 @@
 // The TPU's sequential K-tile grid axis and its VMEM accumulator become a
 // loop inside the block: KL lanes of threads split K, each keeps MT x 4
 // partial sums, and the lanes are summed in shared memory in a fixed order
-// (deterministic, no atomics). Each thread issues KC/KL 16-byte weight loads
-// before using any of them, to keep enough bytes in flight to stream HBM.
-// x is staged KC columns at a time in shared memory. Ragged M, N and K edges
-// are masked; the float4 path needs N % 4 == 0, else loads are scalar.
+// (deterministic, no atomics). Each thread issues all its weight loads of a
+// chunk before using any of them, to keep enough bytes in flight to stream
+// HBM. x is staged a chunk at a time in shared memory. Ragged M, N and K
+// edges are masked.
+//
+// fp32 mode: each thread issues KC/KL 16-byte loads (4 columns of one row)
+// a chunk; the float4 path needs N % 4 == 0, else loads are scalar.
+//
+// int8 mode: a weight row of the thread's 4 columns is one 4-byte word, so
+// to keep the fp32 mode's 128 bytes in flight a thread issues 32 word loads
+// a chunk: U groups of 4 consecutive rows. Each group of 4 rows x 4 columns
+// is transposed in registers with __byte_perm into 4 words of 4 k each, and
+// __dp4a multiplies each with the packed x word of the same 4 k (staged
+// packed in shared memory) into the int32 sums: 4 products an instruction.
+// Epilogue, as the JAX kernel rounds it (matmul_pipe.py:52-63): y =
+// float(acc) * scale[n], then + b[n] (two roundings, never one FMA), ReLU,
+// then clip(rint(y / out_scale), -127, 127) to int8, or y itself as fp32.
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
@@ -99,6 +114,120 @@ matmul_pipe_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// ---- int8 mode ------------------------------------------------------------
+
+constexpr int U8 = 8;              // groups of 4 weight rows per thread
+constexpr int KC8 = KL * 4 * U8;   // K columns of x staged per chunk
+
+__device__ __forceinline__ int pack4(const int8_t (&v)[4]) {
+  return (int)((uint32_t)(uint8_t)v[0] | (uint32_t)(uint8_t)v[1] << 8 |
+               (uint32_t)(uint8_t)v[2] << 16 | (uint32_t)(uint8_t)v[3] << 24);
+}
+
+// columns n..n+3 of weight row k as one word (byte j = column n+j)
+__device__ __forceinline__ int load_w4(const int8_t* __restrict__ w, int k,
+                                       int n, int K, int N, bool vec) {
+  if (k >= K) return 0;
+  const int8_t* row = w + (size_t)k * N;
+  if (vec && n + 3 < N) return __ldg(reinterpret_cast<const int*>(row + n));
+  int8_t v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v[j] = n + j < N ? __ldg(row + n + j) : 0;
+  return pack4(v);
+}
+
+__device__ __forceinline__ void store(float* y, size_t o, float v, float) {
+  y[o] = v;
+}
+__device__ __forceinline__ void store(int8_t* y, size_t o, float v,
+                                      float out_scale) {
+  const float q = rintf(__fdiv_rn(v, out_scale));
+  y[o] = (int8_t)fminf(fmaxf(q, -127.f), 127.f);
+}
+
+template <typename TO>
+__global__ void __launch_bounds__(NT)
+matmul_pipe_s8_kernel(const int8_t* __restrict__ x,
+                      const int8_t* __restrict__ w,
+                      const float* __restrict__ b,
+                      const float* __restrict__ scale, TO* __restrict__ y,
+                      int M, int K, int N, int relu, float out_scale) {
+  __shared__ int xs[MT][KC8 / 4];        // x, 4 consecutive k a word
+  __shared__ int red[KL][MT][NCOL];
+  const int tx = threadIdx.x % (NCOL / 4), ty = threadIdx.x / (NCOL / 4);
+  const int n = blockIdx.x * NCOL + tx * 4;
+  const int m0 = blockIdx.y * MT;
+  const bool vec = (N % 4) == 0, xvec = (K % 4) == 0;
+
+  int acc[MT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[m][j] = 0;
+
+  for (int k0 = 0; k0 < K; k0 += KC8) {
+    for (int i = threadIdx.x; i < MT * (KC8 / 4); i += NT) {
+      const int m = i / (KC8 / 4), k = k0 + 4 * (i % (KC8 / 4));
+      int v = 0;
+      if (m0 + m < M) {
+        const int8_t* row = x + (size_t)(m0 + m) * K;
+        if (xvec && k < K) {
+          v = *reinterpret_cast<const int*>(row + k);
+        } else {
+          int8_t e[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) e[j] = k + j < K ? row[k + j] : 0;
+          v = pack4(e);
+        }
+      }
+      xs[m][i % (KC8 / 4)] = v;
+    }
+    __syncthreads();
+    int r[U8][4];
+#pragma unroll
+    for (int u = 0; u < U8; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        r[u][e] = load_w4(w, k0 + (ty + u * KL) * 4 + e, n, K, N, vec);
+#pragma unroll
+    for (int u = 0; u < U8; ++u) {
+      // 4 rows x 4 columns -> 4 columns x 4 rows (byte e of c[j]: row e)
+      const int t0 = __byte_perm(r[u][0], r[u][1], 0x5140);
+      const int t1 = __byte_perm(r[u][0], r[u][1], 0x7362);
+      const int t2 = __byte_perm(r[u][2], r[u][3], 0x5140);
+      const int t3 = __byte_perm(r[u][2], r[u][3], 0x7362);
+      const int c[4] = {__byte_perm(t0, t2, 0x5410),
+                        __byte_perm(t0, t2, 0x7632),
+                        __byte_perm(t1, t3, 0x5410),
+                        __byte_perm(t1, t3, 0x7632)};
+      const int kq = ty + u * KL;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const int xw = xs[m][kq];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[m][j] = __dp4a(xw, c[j], acc[m][j]);
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) red[ty][m][tx * 4 + j] = acc[m][j];
+  __syncthreads();
+  for (int i = threadIdx.x; i < MT * NCOL; i += NT) {
+    const int m = i / NCOL, c = i % NCOL;
+    const int row = m0 + m, col = blockIdx.x * NCOL + c;
+    if (row >= M || col >= N) continue;
+    int s = 0;
+    for (int l = 0; l < KL; ++l) s += red[l][m][c];
+    float v = __fadd_rn(__fmul_rn(__int2float_rn(s), scale[col]), b[col]);
+    if (relu) v = fmaxf(v, 0.f);
+    store(y, (size_t)row * N + col, v, out_scale);
+  }
+}
+
 }  // namespace
 
 // Plain C entry point; returns cudaGetLastError().
@@ -108,5 +237,21 @@ extern "C" int matmul_pipe_f32(const float* x, const float* w, const float* b,
   dim3 grid((N + NCOL - 1) / NCOL, (M + MT - 1) / MT);
   matmul_pipe_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(x, w, b, y, M, K,
                                                             N, relu);
+  return (int)cudaGetLastError();
+}
+
+// int8 x and w, fp32 b and scale (N,) = s_x * s_w[n]. out_s8: the output is
+// int8 quantized by out_scale, else fp32. Returns cudaGetLastError().
+extern "C" int matmul_pipe_s8(const int8_t* x, const int8_t* w, const float* b,
+                              const float* scale, void* y, int out_s8,
+                              float out_scale, int M, int K, int N, int relu,
+                              void* stream) {
+  dim3 grid((N + NCOL - 1) / NCOL, (M + MT - 1) / MT);
+  if (out_s8)
+    matmul_pipe_s8_kernel<int8_t><<<grid, NT, 0, (cudaStream_t)stream>>>(
+        x, w, b, scale, (int8_t*)y, M, K, N, relu, out_scale);
+  else
+    matmul_pipe_s8_kernel<float><<<grid, NT, 0, (cudaStream_t)stream>>>(
+        x, w, b, scale, (float*)y, M, K, N, relu, out_scale);
   return (int)cudaGetLastError();
 }

@@ -1,13 +1,14 @@
-"""conv_pipe — the PipeCNN pipeline as one fused CUDA kernel, fp32.
+"""conv_pipe — the PipeCNN pipeline as one fused CUDA kernel.
 
 conv + bias + ReLU (+ max/avg pool), grouped, in one launch per fusion
-group. Kernel: ``csrc/conv_pipe.cu``, which replaces the TPU kernel
-``src/repro/kernels/conv_pipe.py:conv_pipe`` (fp32 mode). It is bound by
-fp32 operations on the CUDA cores; it computes an implicit GEMM with the
-bias/ReLU/pool epilogue on a tile staged in shared memory, so the
-unpooled activation never reaches device memory. See the source for the
-design. The plain version is the exact oracle
-:func:`repro_torch.kernels.ref.conv_pipe_ref`.
+group, in fp32 or in int8 (``scale=`` given: int8 x and w, an int32
+accumulator, and the requantize -> bias -> ReLU -> pool -> round
+epilogue). Kernel: ``csrc/conv_pipe.cu``, which replaces the TPU kernel
+``src/repro/kernels/conv_pipe.py:conv_pipe`` (both modes). It is bound by
+operations on the CUDA cores; it computes an implicit GEMM with the
+epilogue on a tile staged in shared memory, so the unpooled activation
+never reaches device memory. See the source for the design. The plain
+version, :func:`conv_pipe_plain`, is the exact oracle of each mode.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.ref import conv_pipe_ref as conv_pipe_plain
+from repro_torch.kernels.ref import conv_pipe_ref
+from repro_torch.quant.ref import conv_int8_ref
 
 __all__ = ["conv_pipe", "conv_pipe_plain", "pool_tile"]
 
@@ -44,28 +46,47 @@ def pool_tile(ph: int, pw: int, pool_k: int, pool_s: int) -> Tuple[int, int]:
     return best[2], best[3]
 
 
+def conv_pipe_plain(x, w, b, *, scale=None, out_scale=None, **kw):
+    """The plain version of both modes: the exact fp32 oracle, or with
+    ``scale`` the exact-int oracle of the int8 mode."""
+    if scale is None:
+        return conv_pipe_ref(x, w, b, **kw)
+    return conv_int8_ref(x, w, b, scale, out_scale=out_scale, **kw)
+
+
 @functools.lru_cache(maxsize=None)
-def _entry():
+def _entry(int8: bool):
     from repro_torch.kernels import build
-    fn = build.load("conv_pipe").conv_pipe_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 + [
-        ctypes.c_void_p]
+    lib = build.load("conv_pipe")
+    if int8:
+        fn = lib.conv_pipe_s8
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_float] \
+            + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+    else:
+        fn = lib.conv_pipe_f32
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 + [
+            ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def conv_pipe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
+              scale: Optional[torch.Tensor] = None,
+              out_scale: Optional[float] = None,
               stride: int = 1, pad: int = 0, relu: bool = True,
               pool: Optional[str] = None, pool_k: int = 2, pool_s: int = 2,
               groups: int = 1) -> torch.Tensor:
     """Fused conv(+bias)(+ReLU)(+pool). x (B,H,W,C); w (KH,KW,C/G,M); b (M,).
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (counted in ``conv_pipe.launches``) or raises."""
+    int8 mode: ``scale`` ((M,) fp32, s_x * s_w[m]) given, x and w int8;
+    ``out_scale`` (a float) selects int8 output quantized by that step,
+    None fp32 output. A CPU tensor runs :func:`conv_pipe_plain`; a CUDA
+    tensor launches the kernel (counted in ``conv_pipe.launches``, fp32,
+    or ``conv_pipe.launches_s8``, int8) or raises."""
     if x.device.type == "cpu":
-        return conv_pipe_plain(x, w, b, stride=stride, pad=pad, relu=relu,
-                               pool=pool, pool_k=pool_k, pool_s=pool_s,
-                               groups=groups)
+        return conv_pipe_plain(x, w, b, scale=scale, out_scale=out_scale,
+                               stride=stride, pad=pad, relu=relu, pool=pool,
+                               pool_k=pool_k, pool_s=pool_s, groups=groups)
     if x.device.type != "cuda":
         raise ValueError(f"conv_pipe: unsupported device {x.device}")
     if pool not in _POOL_CODES:
@@ -76,12 +97,20 @@ def conv_pipe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
         raise ValueError(
             f"conv_pipe: x {tuple(x.shape)}, w {tuple(w.shape)}, "
             f"b {tuple(b.shape)} disagree for groups={groups}")
-    for name, t in (("x", x), ("w", w), ("b", b)):
-        if (t.device != x.device or t.dtype != torch.float32
-                or not t.is_contiguous()):
+    int8 = scale is not None
+    want = (("x", x, torch.int8), ("w", w, torch.int8), ("b", b, torch.float32),
+            ("scale", scale, torch.float32)) if int8 else (
+        ("x", x, torch.float32), ("w", w, torch.float32),
+        ("b", b, torch.float32))
+    for name, t, dtype in want:
+        if (t.device != x.device or t.dtype != dtype or not t.is_contiguous()
+                or t.data_ptr() % 4):
             raise ValueError(
-                f"conv_pipe: {name} must be a contiguous float32 tensor on "
-                f"{x.device}, got {t.dtype} on {t.device}")
+                f"conv_pipe: {name} must be a contiguous, 4-byte aligned "
+                f"{dtype} tensor on {x.device}, got {t.dtype} on {t.device}")
+    if int8 and scale.shape != (M,):
+        raise ValueError(f"conv_pipe: scale {tuple(scale.shape)} for "
+                         f"{M} output channels")
     OH = (H + 2 * pad - KH) // stride + 1
     OW = (W + 2 * pad - KW) // stride + 1
     ph, pw = (OH, OW) if pool is None else (
@@ -92,17 +121,29 @@ def conv_pipe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                          f"pool {pool}")
     pk, ps, tph, tpw = (1, 1, 1, 1) if pool is None else (
         pool_k, pool_s, *pool_tile(ph, pw, pool_k, pool_s))
-    out = torch.empty((B, ph, pw, M), device=x.device, dtype=torch.float32)
+    out_s8 = int8 and out_scale is not None
+    out = torch.empty((B, ph, pw, M), device=x.device,
+                      dtype=torch.int8 if out_s8 else torch.float32)
     if out.numel() == 0:
         return out
-    err = _entry()(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                   B, H, W, C, KH, KW, M, groups, stride, pad, int(relu),
-                   _POOL_CODES[pool], pk, ps, tph, tpw,
-                   torch.cuda.current_stream(x.device).cuda_stream)
+    geo = (B, H, W, C, KH, KW, M, groups, stride, pad, int(relu),
+           _POOL_CODES[pool], pk, ps, tph, tpw,
+           torch.cuda.current_stream(x.device).cuda_stream)
+    if int8:
+        err = _entry(True)(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                           scale.data_ptr(), out.data_ptr(), int(out_s8),
+                           float(out_scale) if out_s8 else 1.0, *geo)
+    else:
+        err = _entry(False)(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                            out.data_ptr(), *geo)
     if err:
         raise RuntimeError(f"conv_pipe kernel launch failed: CUDA error {err}")
-    conv_pipe.launches += 1
+    if int8:
+        conv_pipe.launches_s8 += 1
+    else:
+        conv_pipe.launches += 1
     return out
 
 
-conv_pipe.launches = 0
+conv_pipe.launches = 0           # fp32 launches
+conv_pipe.launches_s8 = 0        # int8 launches

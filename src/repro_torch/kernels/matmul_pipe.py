@@ -1,67 +1,110 @@
-"""matmul_pipe — PipeCNN's multi-mode compute engine in FC mode, fp32.
+"""matmul_pipe — PipeCNN's multi-mode compute engine in FC mode.
 
-``y = relu?(x @ w + b)``. Kernel: ``csrc/matmul_pipe.cu``, which replaces
-the TPU kernel ``src/repro/kernels/matmul_pipe.py:matmul_pipe`` (fp32
-mode). At the serving shape (M = the micro-batch) it is bound by the
-device-memory bytes of ``w``; a block holds every batch row against its
-weight slab so each weight is read once (the paper's batched-FC reuse).
-See the source for the design. The plain version is the exact oracle
-:func:`repro_torch.kernels.ref.matmul_pipe_ref`.
+``y = relu?(x @ w + b)`` in fp32, or in int8 (``scale=`` given: int8 x and
+w, an int32 accumulator, and the requantize -> bias -> ReLU -> round
+epilogue). Kernel: ``csrc/matmul_pipe.cu``, which replaces the TPU kernel
+``src/repro/kernels/matmul_pipe.py:matmul_pipe`` (both modes). At the
+serving shape (M = the micro-batch) it is bound by the device-memory
+bytes of ``w``; a block holds every batch row against its weight slab so
+each weight is read once (the paper's batched-FC reuse). See the source
+for the design. The plain version, :func:`matmul_pipe_plain`, is the
+exact oracle of each mode.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
-from repro_torch.kernels.ref import matmul_pipe_ref as matmul_pipe_plain
+from repro_torch.kernels.ref import matmul_pipe_ref
+from repro_torch.quant.ref import fc_int8_ref
 
 __all__ = ["matmul_pipe", "matmul_pipe_plain"]
 
 
+def matmul_pipe_plain(x, w, b, *, relu=False, scale=None, out_scale=None):
+    """The plain version of both modes: the exact fp32 oracle, or with
+    ``scale`` the exact-int oracle of the int8 mode."""
+    if scale is None:
+        return matmul_pipe_ref(x, w, b, relu=relu)
+    return fc_int8_ref(x, w, b, scale, relu=relu, out_scale=out_scale)
+
+
 @functools.lru_cache(maxsize=None)
-def _entry():
+def _entry(int8: bool):
     from repro_torch.kernels import build
-    fn = build.load("matmul_pipe").matmul_pipe_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
+    lib = build.load("matmul_pipe")
+    if int8:
+        fn = lib.matmul_pipe_s8
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_float] \
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    else:
+        fn = lib.matmul_pipe_f32
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def matmul_pipe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
-                relu: bool = False) -> torch.Tensor:
-    """y = relu(x @ w + b). x (M, K); w (K, N); b (N,); fp32.
+                relu: bool = False, scale: Optional[torch.Tensor] = None,
+                out_scale: Optional[float] = None) -> torch.Tensor:
+    """y = relu(x @ w + b). x (M, K); w (K, N); b (N,).
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (counted in ``matmul_pipe.launches``) or raises."""
+    int8 mode: ``scale`` ((N,) fp32, s_x * s_w[n]) given, x and w int8;
+    ``out_scale`` (a float) selects int8 output quantized by that step,
+    None fp32 output. A CPU tensor runs :func:`matmul_pipe_plain`; a CUDA
+    tensor launches the kernel (counted in ``matmul_pipe.launches``, fp32,
+    or ``matmul_pipe.launches_s8``, int8) or raises."""
     if x.device.type == "cpu":
-        return matmul_pipe_plain(x, w, b, relu=relu)
+        return matmul_pipe_plain(x, w, b, relu=relu, scale=scale,
+                                 out_scale=out_scale)
     if x.device.type != "cuda":
         raise ValueError(f"matmul_pipe: unsupported device {x.device}")
     M, K = x.shape
     if w.shape[0] != K or b.shape != (w.shape[1],):
         raise ValueError(f"matmul_pipe: shapes x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}, b {tuple(b.shape)} disagree")
-    for name, t in (("x", x), ("w", w), ("b", b)):
-        if (t.device != x.device or t.dtype != torch.float32
+    int8 = scale is not None
+    want = (("x", x, torch.int8), ("w", w, torch.int8), ("b", b, torch.float32),
+            ("scale", scale, torch.float32)) if int8 else (
+        ("x", x, torch.float32), ("w", w, torch.float32),
+        ("b", b, torch.float32))
+    for name, t, dtype in want:
+        if (t.device != x.device or t.dtype != dtype
                 or not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(
                 f"matmul_pipe: {name} must be a contiguous, 16-byte aligned "
-                f"float32 tensor on {x.device}, got {t.dtype} on {t.device}")
+                f"{dtype} tensor on {x.device}, got {t.dtype} on {t.device}")
     N = w.shape[1]
-    y = torch.empty((M, N), device=x.device, dtype=torch.float32)
+    if int8 and scale.shape != (N,):
+        raise ValueError(f"matmul_pipe: scale {tuple(scale.shape)} for "
+                         f"{N} output features")
+    out_s8 = int8 and out_scale is not None
+    y = torch.empty((M, N), device=x.device,
+                    dtype=torch.int8 if out_s8 else torch.float32)
     if y.numel() == 0:
         return y
-    err = _entry()(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                   M, K, N, int(relu),
-                   torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if int8:
+        err = _entry(True)(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                           scale.data_ptr(), y.data_ptr(), int(out_s8),
+                           float(out_scale) if out_s8 else 1.0, M, K, N,
+                           int(relu), stream)
+    else:
+        err = _entry(False)(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                            y.data_ptr(), M, K, N, int(relu), stream)
     if err:
         raise RuntimeError(
             f"matmul_pipe kernel launch failed: CUDA error {err}")
-    matmul_pipe.launches += 1
+    if int8:
+        matmul_pipe.launches_s8 += 1
+    else:
+        matmul_pipe.launches += 1
     return y
 
 
-matmul_pipe.launches = 0
+matmul_pipe.launches = 0         # fp32 launches
+matmul_pipe.launches_s8 = 0      # int8 launches

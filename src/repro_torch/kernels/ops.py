@@ -2,8 +2,9 @@
 
 ``use_kernels`` mirrors the JAX package's ``use_pallas``: True runs the
 fused kernels (on a CUDA tensor the hand-written kernel, on a CPU tensor
-its plain version), False the exact oracles of :mod:`.ref` (for LRN the
-exact power, not the PWL approximation).
+its plain version), False the exact oracles of :mod:`.ref` and
+:mod:`repro_torch.quant.ref` (for LRN the exact power, not the PWL
+approximation).
 """
 from __future__ import annotations
 
@@ -11,8 +12,9 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.conv_pipe import conv_pipe
 from repro_torch.kernels.lrn_pwl import lrn_pwl
 from repro_torch.kernels.matmul_pipe import matmul_pipe
+from repro_torch.quant import ref as quant_ref
 
-__all__ = ["fc", "fused_conv", "lrn"]
+__all__ = ["fc", "fc_q", "fused_conv", "fused_conv_q", "lrn"]
 
 
 def fused_conv(x, w, b, *, stride=1, pad=0, relu=True, pool=None, pool_k=2,
@@ -23,6 +25,20 @@ def fused_conv(x, w, b, *, stride=1, pad=0, relu=True, pool=None, pool_k=2,
               pool_k=pool_k, pool_s=pool_s, groups=groups)
 
 
+def fused_conv_q(x_q, w_q, b, scale, *, out_scale=None, stride=1, pad=0,
+                 relu=True, pool=None, pool_k=2, pool_s=2, groups=1,
+                 use_kernels=True):
+    """int8 fused conv, the fixed-point twin of :func:`fused_conv`: int8
+    x_q/w_q, fp32 b, ``scale`` the (M,) s_x*s_w requantize multiplier,
+    ``out_scale`` the output step (None: fp32 output). The oracle is the
+    exact int32 reference, bit-equal to the kernel."""
+    kw = dict(stride=stride, pad=pad, relu=relu, pool=pool, pool_k=pool_k,
+              pool_s=pool_s, groups=groups, out_scale=out_scale)
+    if use_kernels:
+        return conv_pipe(x_q, w_q, b, scale=scale, **kw)
+    return quant_ref.conv_int8_ref(x_q, w_q, b, scale, **kw)
+
+
 def lrn(x, *, use_kernels=True):
     """Cross-channel LRN: the PWL kernel, or the exact power."""
     return lrn_pwl(x) if use_kernels else ref.lrn_ref(x)
@@ -31,3 +47,14 @@ def lrn(x, *, use_kernels=True):
 def fc(x, w, b, *, relu=False, use_kernels=True):
     fn = matmul_pipe if use_kernels else ref.matmul_pipe_ref
     return fn(x, w, b, relu=relu)
+
+
+def fc_q(x_q, w_q, b, scale, *, relu=False, out_scale=None,
+         use_kernels=True):
+    """int8 batched FC: int8 x/w, int32 accumulation, requantize epilogue;
+    the oracle is the exact int32 reference, bit-equal to the kernel."""
+    if use_kernels:
+        return matmul_pipe(x_q, w_q, b, scale=scale, relu=relu,
+                           out_scale=out_scale)
+    return quant_ref.fc_int8_ref(x_q, w_q, b, scale, relu=relu,
+                                 out_scale=out_scale)

@@ -27,14 +27,24 @@ def conv_pipe_ref(x, w, b, *, stride=1, pad=0, relu=True, pool=None,
 
 def pool_ref(x, pool="max", k=2, s=2):
     """VALID k x k / s pooling over H and W of an NHWC tensor; max also
-    takes integer codes (max commutes with the int8 map)."""
-    win = x.unfold(1, k, s).unfold(2, k, s)        # (B, PH, PW, C, k, k)
+    takes integer codes (max commutes with the int8 map). avg sums each
+    window element by element in row-major order and divides by a k*k
+    tensor, as the kernels do, so the sum rounds the same way."""
     if pool == "max":
+        win = x.unfold(1, k, s).unfold(2, k, s)    # (B, PH, PW, C, k, k)
         return win.amax(dim=(-2, -1)).contiguous()
     if not x.is_floating_point():
         raise NotImplementedError(
             "avg-pool on integer codes needs a requantize; dequantize first")
-    return (win.sum(dim=(-2, -1)) / (k * k)).contiguous()
+    ph = (x.shape[1] - k) // s + 1
+    pw = (x.shape[2] - k) // s + 1
+    out = None
+    for i in range(k):
+        for j in range(k):
+            sl = x[:, i:i + (ph - 1) * s + 1:s, j:j + (pw - 1) * s + 1:s]
+            out = sl if out is None else out + sl
+    return (out / torch.tensor(float(k * k), dtype=x.dtype,
+                               device=x.device)).contiguous()
 
 
 def lrn_ref(x, *, n=LRN_N, k=LRN_K, alpha=LRN_ALPHA, beta=LRN_BETA):

@@ -7,6 +7,14 @@ torch op, and FC layers run ``matmul_pipe`` in batched-FC mode.
 Parameters are a per-layer list aligned with ``cfg.layers``: ``{"w", "b"}``
 for conv (HWIO) and fc ((K, N)) layers, ``None`` for pool and lrn — the
 JAX package's layout, so parameters carry over with no transpose.
+
+Fixed-point serving (the paper's precision trade): with a
+:class:`~repro_torch.quant.QuantizedCNNParams` (from ``calibrate_cnn``)
+the same groups run in int8 (:func:`run_group_quant`): int8 codes flow
+between groups, conv and fc run the int8 kernel modes (int32
+accumulation, requantize epilogue), standalone max-pools run on the
+codes, and LRN dequantizes around its kernel, off the fixed-point
+pipeline as in the paper. The final fc emits fp32 logits.
 """
 from __future__ import annotations
 
@@ -20,6 +28,8 @@ from torch import nn
 from repro_torch.core.config import CNNConfig, fuse_groups
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import pool_ref
+from repro_torch.quant.calibrate import QuantizedCNNParams, QuantLayer
+from repro_torch.quant.core import dequantize, quantize
 
 Params = List[Optional[Dict[str, torch.Tensor]]]
 
@@ -139,6 +149,128 @@ class CNN(nn.Module):
     def forward_groups(self, x: torch.Tensor, groups) -> torch.Tensor:
         return cnn_forward_stage(self.params, x, self.cfg, groups,
                                  use_kernels=self.use_kernels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.forward_groups(x, self.groups)
+
+
+# ---------------------------------------------------------------------------
+# the int8 pipeline
+# ---------------------------------------------------------------------------
+
+def run_group_quant(qp: QuantizedCNNParams, q: torch.Tensor, cfg: CNNConfig,
+                    group: Tuple[int, ...], *, use_kernels: bool = True
+                    ) -> torch.Tensor:
+    """Execute ONE fusion group of the int8 pipeline on int8 codes; every
+    scale it needs is a constant inside ``qp``."""
+    l = cfg.layers[group[0]]
+    ql = qp.layers[group[0]]
+    if l.kind == "conv":
+        pool = cfg.layers[group[1]] if len(group) == 2 else None
+        return ops.fused_conv_q(
+            q, ql.w_q, ql.b, ql.scale, out_scale=ql.y_scale, stride=l.stride,
+            pad=l.pad, relu=l.relu, pool=pool.pool if pool else None,
+            pool_k=pool.kernel if pool else 2,
+            pool_s=pool.stride if pool else 2, groups=l.groups,
+            use_kernels=use_kernels)
+    if l.kind == "pool":
+        # max-pool commutes with the int8 map: pool the codes, keep scale
+        return pool_ref(q, l.pool, l.kernel, l.stride)
+    if l.kind == "lrn":
+        # LRN is nonlinear in scale: run it off the fixed-point pipeline
+        # (as PipeCNN does) and requantize its output
+        xf = ops.lrn(dequantize(q, ql.x_scale), use_kernels=use_kernels)
+        return quantize(xf, ql.y_scale)
+    return ops.fc_q(q.reshape(q.shape[0], -1), ql.w_q, ql.b, ql.scale,
+                    relu=l.relu, out_scale=ql.y_scale,
+                    use_kernels=use_kernels)
+
+
+def cnn_forward_stage_quant(qp: QuantizedCNNParams, q: torch.Tensor,
+                            cfg: CNNConfig, groups, *,
+                            use_kernels: bool = True) -> torch.Tensor:
+    """Run a contiguous slice of int8 fusion groups (one pipeline stage).
+    ``q`` is int8 codes at an interior boundary, or the raw fp32 batch
+    for the first stage, which is quantized at the network edge."""
+    if q.dtype != torch.int8:
+        q = quantize(q, qp.in_scale)
+    for group in groups:
+        q = run_group_quant(qp, q, cfg, group, use_kernels=use_kernels)
+    return q
+
+
+def _quant_groups(qp: QuantizedCNNParams, x: torch.Tensor, cfg: CNNConfig,
+                  *, use_kernels: bool = True):
+    """Run the int8 pipeline one fusion group at a time, yielding
+    ``(group, activation, scale)``: int8 codes with step ``scale``, or the
+    final fp32 logits with ``scale=None``."""
+    q = quantize(x, qp.in_scale)
+    s = qp.in_scale
+    for group in fuse_plan(cfg):
+        l = cfg.layers[group[0]]
+        ql = qp.layers[group[0]]
+        q = run_group_quant(qp, q, cfg, group, use_kernels=use_kernels)
+        if l.kind != "pool":           # pool passes the scale through
+            s = ql.y_scale
+        yield group, q, s
+
+
+def cnn_forward_quant(qp: QuantizedCNNParams, x: torch.Tensor,
+                      cfg: CNNConfig, *, use_kernels: bool = True
+                      ) -> torch.Tensor:
+    """int8 pipeline forward: x (B, H, W, C) fp32 -> fp32 logits."""
+    out = None
+    for _, out, _ in _quant_groups(qp, x, cfg, use_kernels=use_kernels):
+        pass
+    return out
+
+
+_QTENSORS = ("w_q", "w_scale", "scale", "b")
+
+
+class QuantCNN(nn.Module):
+    """The int8 network as a module: x (B, H, W, C) fp32 -> fp32 logits.
+
+    Holds a :class:`QuantizedCNNParams`: int8 codes and fp32 vectors as
+    buffers (moved by ``.to``), scales as Python floats. Folds
+    :func:`run_group_quant` over :func:`fuse_plan`; the same interface as
+    :class:`CNN`."""
+
+    def __init__(self, cfg: CNNConfig, qparams: QuantizedCNNParams, *,
+                 use_kernels: bool = True):
+        super().__init__()
+        if len(qparams.layers) != len(cfg.layers):
+            raise ValueError(f"{len(qparams.layers)} quantized entries for "
+                             f"{len(cfg.layers)} layers of {cfg.name!r}")
+        self.cfg = cfg
+        self.use_kernels = use_kernels
+        self.groups = fuse_plan(cfg)
+        self.in_scale = qparams.in_scale
+        self._scales = [None if ql is None else (ql.kind, ql.x_scale,
+                                                 ql.y_scale)
+                        for ql in qparams.layers]
+        for i, ql in enumerate(qparams.layers):
+            for k in _QTENSORS:
+                if ql is not None and getattr(ql, k) is not None:
+                    self.register_buffer(f"{k}{i}", getattr(ql, k))
+
+    @property
+    def qparams(self) -> QuantizedCNNParams:
+        layers = []
+        for i, sc in enumerate(self._scales):
+            if sc is None:
+                layers.append(None)
+                continue
+            kind, x_scale, y_scale = sc
+            layers.append(QuantLayer(kind=kind, x_scale=x_scale,
+                                     y_scale=y_scale, **{
+                                         k: getattr(self, f"{k}{i}", None)
+                                         for k in _QTENSORS}))
+        return QuantizedCNNParams(layers=layers, in_scale=self.in_scale)
+
+    def forward_groups(self, x: torch.Tensor, groups) -> torch.Tensor:
+        return cnn_forward_stage_quant(self.qparams, x, self.cfg, groups,
+                                       use_kernels=self.use_kernels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.forward_groups(x, self.groups)

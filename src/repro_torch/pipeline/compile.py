@@ -1,27 +1,31 @@
 """compile_cnn: the compile phase of the port's pipeline.
 
-``compile_cnn(cfg, spec)`` resolves the parameters, the device and the
-spec into an immutable :class:`CompiledCNN` whose methods only run:
-``.forward``, ``.forward_stage`` and ``.serve``. Entry points run on the
-CUDA device by default and raise when there is none, unless the caller
-passes ``device="cpu"`` (the kernels then run their plain versions).
+``compile_cnn(cfg, spec)`` resolves the parameters, the precision, the
+device and the spec into an immutable :class:`CompiledCNN` whose methods
+only run: ``.forward``, ``.forward_stage`` and ``.serve``. With
+``Precision(quant="int8")`` the compile calibrates the model (the JAX
+package's precision lifecycle) and the forward runs the int8 pipeline.
+Entry points run on the CUDA device by default and raise when there is
+none, unless the caller passes ``device="cpu"`` (the kernels then run
+their plain versions).
 
-What the JAX ``compile_cnn`` also does — the DSE plan tables, int8
-calibration, dp/pp placement, artifacts, measured profiles and static
-verification — is refused with an error naming the ``ROADMAP.md`` item
-that will bring it.
+What the JAX ``compile_cnn`` also does — the DSE plan tables, dp/pp
+placement, artifacts, measured profiles and static verification — is
+refused with an error naming the ``ROADMAP.md`` item that will bring it.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Union
 
+import numpy as np
 import torch
 
 from repro_torch.core.config import CNNConfig
-from repro_torch.models.cnn import CNN, Params, init_cnn_params
+from repro_torch.models.cnn import CNN, Params, QuantCNN, init_cnn_params
 from repro_torch.pipeline.spec import (LATER_ARTIFACTS, LATER_DSE,
                                        LATER_FLEET, LATER_OBS, ExecutionSpec,
                                        refuse)
+from repro_torch.quant.calibrate import QuantizedCNNParams, calibrate_cnn
 
 # keyword arguments of the JAX compile_cnn the port does not run yet
 _LATER_KWARGS = {"plans": LATER_DSE, "plan_path": LATER_DSE,
@@ -44,13 +48,14 @@ def resolve_device(device=None) -> torch.device:
 
 
 class CompiledCNN:
-    """A compiled fp32 CNN pipeline on one device.
+    """A compiled CNN pipeline on one device, fp32 or int8.
 
     Construct via :func:`compile_cnn`. ``model`` is the :class:`CNN`
-    module holding the parameters on ``device``."""
+    module (fp32) or the :class:`QuantCNN` module (int8, ``quant`` True)
+    holding the parameters on ``device``."""
 
-    def __init__(self, *, cfg: CNNConfig, spec: ExecutionSpec, model: CNN,
-                 device: torch.device):
+    def __init__(self, *, cfg: CNNConfig, spec: ExecutionSpec,
+                 model: Union[CNN, QuantCNN], device: torch.device):
         self.cfg = cfg
         self.spec = spec
         self.model = model
@@ -62,8 +67,15 @@ class CompiledCNN:
         return self.spec.mode
 
     @property
-    def params(self) -> Params:
-        return self.model.params
+    def quant(self) -> bool:
+        """True when the pipeline runs int8 (a calibrated model)."""
+        return isinstance(self.model, QuantCNN)
+
+    @property
+    def params(self) -> Union[Params, QuantizedCNNParams]:
+        """The fp32 parameter list, or the calibrated
+        :class:`QuantizedCNNParams` of an int8 pipeline."""
+        return self.model.qparams if self.quant else self.model.params
 
     @property
     def stages(self):
@@ -82,7 +94,10 @@ class CompiledCNN:
             return self.model(x.contiguous())
 
     def forward_stage(self, i: int, h: torch.Tensor) -> torch.Tensor:
-        """Run compiled stage ``i`` on its boundary activation ``h``."""
+        """Run compiled stage ``i`` on its boundary activation ``h``: int8
+        codes between the groups of an int8 pipeline (the raw fp32 batch
+        for stage 0, which quantizes at the network edge), fp32
+        otherwise."""
         with torch.inference_mode():
             return self.model.forward_groups(h.contiguous(), self.stages[i])
 
@@ -121,22 +136,37 @@ class CompiledCNN:
     def __repr__(self) -> str:
         return (f"CompiledCNN({self.cfg.name}, mode={self.mode}, "
                 f"dtype={self.spec.precision.dtype}, "
+                f"quant={self.spec.precision.quant}, "
                 f"batch={self.spec.serving.batch}, "
                 f"stages={self.n_stages}, device={self.device}, "
                 f"use_kernels={self.spec.use_kernels})")
 
 
 def compile_cnn(cfg: CNNConfig, spec: Optional[ExecutionSpec] = None,
-                params: Optional[Params] = None, *,
+                params_or_calib=None, *,
                 generator: Optional[torch.Generator] = None,
                 device=None, **later) -> CompiledCNN:
     """Compile a CNN into a :class:`CompiledCNN`.
 
-    ``params`` is the per-layer list of :mod:`repro_torch.models.cnn`
-    (for JAX parameters, :func:`~repro_torch.models.cnn.params_from_jax`);
-    None draws fresh ones from ``generator`` (default: a CPU generator
-    seeded 0). ``device`` defaults to the CUDA device and raises without
-    one (see :func:`resolve_device`).
+    ``params_or_calib`` takes the JAX package's precision lifecycle:
+
+    * ``None`` -- fresh parameters from ``generator`` (default: a CPU
+      generator seeded 0);
+    * a parameter list (:mod:`repro_torch.models.cnn`; for JAX parameters
+      :func:`~repro_torch.models.cnn.params_from_jax`) -- used as it is,
+      calibrated here when quantizing;
+    * a :class:`~repro_torch.quant.QuantizedCNNParams` -- pre-calibrated
+      fixed-point parameters (for JAX ones,
+      :func:`~repro_torch.quant.qparams_from_jax`);
+    * an fp32 batch (a tensor or an array) -- a calibration batch: fresh
+      parameters are calibrated on it (needs ``quant='int8'``);
+    * ``(params, calib_batch)`` -- an explicit pair for quantization.
+
+    With ``Precision(quant="int8")`` and no batch, the model is calibrated
+    on the JAX package's default batch: ``Precision.calib`` standard-normal
+    images from ``np.random.default_rng(123)``. ``device`` defaults to the
+    CUDA device and raises without one (see :func:`resolve_device`);
+    calibration runs there.
     """
     for name in later:
         if name not in _LATER_KWARGS:
@@ -145,10 +175,40 @@ def compile_cnn(cfg: CNNConfig, spec: Optional[ExecutionSpec] = None,
         raise refuse(f"compile_cnn.{name}", f"compile_cnn({name}=...)",
                      _LATER_KWARGS[name])
     spec = spec if spec is not None else ExecutionSpec()
+    quantize = spec.precision.quant == "int8"
+
+    params, calib = params_or_calib, None
+    if isinstance(params_or_calib, tuple):
+        params, calib = params_or_calib
+    elif params_or_calib is not None and hasattr(params_or_calib, "shape"):
+        params, calib = None, params_or_calib   # a bare calibration batch
+    if calib is not None and not quantize:
+        raise ValueError(
+            "a calibration batch was provided but "
+            "spec.precision.quant='none' — set quant='int8' or drop the "
+            "batch")
+    if isinstance(params, QuantizedCNNParams) and not quantize:
+        raise ValueError(
+            "params are QuantizedCNNParams but spec.precision.quant="
+            "'none' — compile with Precision(quant='int8')")
     dev = resolve_device(device)
     if params is None:
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         params = init_cnn_params(cfg, generator=generator, device=dev)
-    model = CNN(cfg, params, use_kernels=spec.use_kernels).to(dev).eval()
-    return CompiledCNN(cfg=cfg, spec=spec, model=model, device=dev)
+    if not quantize:
+        model = CNN(cfg, params, use_kernels=spec.use_kernels)
+    else:
+        if not isinstance(params, QuantizedCNNParams):
+            if calib is None:
+                # the serving default: a deterministic synthetic batch
+                # from the request distribution, as the JAX compile draws it
+                calib = np.random.default_rng(123).standard_normal(
+                    (spec.precision.calib, cfg.input_hw, cfg.input_hw,
+                     cfg.input_ch)).astype(np.float32)
+            params = calibrate_cnn(
+                [None if p is None else {k: v.to(dev) for k, v in p.items()}
+                 for p in params], calib, cfg)
+        model = QuantCNN(cfg, params, use_kernels=spec.use_kernels)
+    return CompiledCNN(cfg=cfg, spec=spec, model=model.to(dev).eval(),
+                       device=dev)

@@ -12,32 +12,35 @@ builds the CUDA kernels.
 from __future__ import annotations
 
 import time
-from typing import List, Tuple
+from typing import List, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.models.cnn import CNN
+from repro_torch.models.cnn import CNN, QuantCNN
 from repro_torch.pipeline.spec import LATER_FLEET, ExecutionSpec, refuse
 from repro_torch.serve.report import FleetReport, fleet_report
 from repro_torch.serve.router import Completion, Request, Router
 
 
 class ServeEngine:
-    """Serves request streams through ``model`` on its device."""
+    """Serves request streams through ``model`` (fp32 or int8) on the
+    device of its first tensor: a parameter, or a buffer of an int8
+    model, which has no parameters."""
 
-    def __init__(self, model: CNN, *, batch: int = 8, max_queue: int = 0,
-                 slo: float = 0.0):
+    def __init__(self, model: Union[CNN, QuantCNN], *, batch: int = 8,
+                 max_queue: int = 0, slo: float = 0.0):
         self.model = model
         self.cfg = model.cfg
         self.batch = batch
         self.slo = float(slo)
-        self.device = next(model.parameters()).device
+        self.device = next(iter(model.state_dict().values())).device
         self.router = Router(1, batch, max_queue=max_queue)
         self._warm = False
 
     @classmethod
-    def from_spec(cls, model: CNN, spec: ExecutionSpec) -> "ServeEngine":
+    def from_spec(cls, model: Union[CNN, QuantCNN],
+                  spec: ExecutionSpec) -> "ServeEngine":
         return cls(model, batch=spec.serving.batch,
                    max_queue=spec.serving.max_queue, slo=spec.serving.slo)
 

@@ -8,15 +8,20 @@ conftest:
 
 Tolerances: conv/matmul ``|kernel - plain| <= 1e-4 * max(1, max|plain|)``
 (fp32 sums in another order, TF32 off on the plain side); LRN
-``rtol=1e-5, atol=1e-6`` (same operations, same rounding).
+``rtol=1e-5, atol=1e-6`` (same operations, same rounding). The int8
+modes are held bit for bit (``torch.equal``): the int32 accumulator is
+exact on both sides and the epilogue rounds the same steps.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.kernels.conv_pipe import conv_pipe, conv_pipe_plain
 from repro_torch.kernels.lrn_pwl import lrn_pwl, lrn_pwl_plain
 from repro_torch.kernels.matmul_pipe import matmul_pipe, matmul_pipe_plain
+from repro_torch.models.cnn import init_cnn_params
+from repro_torch.quant import calibrate_cnn, quantize
 
 
 @pytest.fixture
@@ -40,9 +45,7 @@ def _close(got, want):
     assert err <= tol, f"max abs err {err:.3e} > {tol:.1e}"
 
 
-@pytest.mark.parametrize(
-    "B,H,C,K,M,stride,pad,pool,pool_k,pool_s,groups",
-    [
+CONV_GEOMETRIES = [
         (1, 8, 3, 3, 8, 1, 1, None, 2, 2, 1),
         (2, 16, 4, 3, 16, 1, 0, "max", 2, 2, 1),
         (1, 23, 3, 5, 8, 2, 2, "avg", 3, 2, 1),
@@ -53,7 +56,13 @@ def _close(got, want):
         (2, 13, 16, 3, 16, 1, 1, "max", 3, 2, 2),    # grouped + 3/2 pool (conv5)
         (3, 29, 6, 5, 160, 1, 2, "max", 3, 2, 2),    # several M and H tiles
         (1, 32, 5, 3, 70, 1, 1, "max", 2, 2, 1),     # VGG 2/2 pool, ragged M
-    ])
+]
+MATMUL_SHAPES = [(64, 128, 32), (100, 300, 70), (1, 256, 1000),
+                 (64, 9216, 128), (8, 9216, 4096), (8, 300, 1001)]
+
+
+@pytest.mark.parametrize(
+    "B,H,C,K,M,stride,pad,pool,pool_k,pool_s,groups", CONV_GEOMETRIES)
 def test_conv_pipe_kernel_matches_plain(cuda, B, H, C, K, M, stride, pad,
                                         pool, pool_k, pool_s, groups):
     rng = np.random.default_rng(0)
@@ -67,9 +76,7 @@ def test_conv_pipe_kernel_matches_plain(cuda, B, H, C, K, M, stride, pad,
     assert conv_pipe.launches == n0 + 1
 
 
-@pytest.mark.parametrize("M,K,N", [
-    (64, 128, 32), (100, 300, 70), (1, 256, 1000), (64, 9216, 128),
-    (8, 9216, 4096), (8, 300, 1001)])
+@pytest.mark.parametrize("M,K,N", MATMUL_SHAPES)
 @pytest.mark.parametrize("relu", [True, False])
 def test_matmul_pipe_kernel_matches_plain(cuda, M, K, N, relu):
     rng = np.random.default_rng(1)
@@ -109,3 +116,140 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         matmul_pipe(x.reshape(16, 16), w.reshape(36, 8), b)   # K mismatch
     with pytest.raises(ValueError):
         lrn_pwl(x.reshape(4, 4, 16))                  # not 4-D
+
+
+def _codes(rng, shape, lo=-127, hi=128):
+    return torch.from_numpy(rng.integers(lo, hi, shape, dtype=np.int8))
+
+
+def _requant(rng, n, k, dev):
+    """A per-channel multiplier that maps the int32 sums of k random
+    int8 products to O(1), and a bias."""
+    scale = (0.5 + rng.random(n)) / (127.0 ** 2 / 3 * np.sqrt(k))
+    return _t(scale, dev), _t(rng.standard_normal(n) * 0.5, dev)
+
+
+OUT_SCALE = 3.0 / 127          # int8 output step: |y| <= 3 keeps its code
+
+
+def _equal(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    diff = (got.float() - want.float()).abs()
+    assert torch.equal(got, want), (
+        f"{int((diff > 0).sum())} of {diff.numel()} differ, "
+        f"max {diff.max().item()}")
+
+
+@pytest.mark.parametrize("quant_out", [True, False], ids=["s8out", "f32out"])
+@pytest.mark.parametrize(
+    "B,H,C,K,M,stride,pad,pool,pool_k,pool_s,groups", CONV_GEOMETRIES)
+def test_conv_pipe_int8_kernel_equals_plain(cuda, B, H, C, K, M, stride,
+                                            pad, pool, pool_k, pool_s,
+                                            groups, quant_out):
+    rng = np.random.default_rng(10)
+    x = _codes(rng, (B, H, H, C)).to(cuda)
+    w = _codes(rng, (K, K, C // groups, M)).to(cuda)
+    scale, b = _requant(rng, M, K * K * C // groups, cuda)
+    kw = dict(stride=stride, pad=pad, pool=pool, pool_k=pool_k,
+              pool_s=pool_s, groups=groups, scale=scale,
+              out_scale=OUT_SCALE if quant_out else None)
+    n0, s0 = conv_pipe.launches, conv_pipe.launches_s8
+    _equal(conv_pipe(x, w, b, **kw), conv_pipe_plain(x, w, b, **kw))
+    assert (conv_pipe.launches, conv_pipe.launches_s8) == (n0, s0 + 1)
+
+
+@pytest.mark.parametrize("quant_out", [True, False], ids=["s8out", "f32out"])
+@pytest.mark.parametrize("M,K,N", MATMUL_SHAPES)
+@pytest.mark.parametrize("relu", [True, False])
+def test_matmul_pipe_int8_kernel_equals_plain(cuda, M, K, N, relu,
+                                              quant_out):
+    rng = np.random.default_rng(11)
+    x, w = _codes(rng, (M, K)).to(cuda), _codes(rng, (K, N)).to(cuda)
+    scale, b = _requant(rng, N, K, cuda)
+    kw = dict(relu=relu, scale=scale,
+              out_scale=OUT_SCALE if quant_out else None)
+    n0, s0 = matmul_pipe.launches, matmul_pipe.launches_s8
+    _equal(matmul_pipe(x, w, b, **kw), matmul_pipe_plain(x, w, b, **kw))
+    assert (matmul_pipe.launches, matmul_pipe.launches_s8) == (n0, s0 + 1)
+
+
+@pytest.mark.parametrize("quant_out", [True, False], ids=["s8out", "f32out"])
+def test_int8_sums_past_2_to_the_24_round_alike(cuda, quant_out):
+    """fc6's K = 9216 with large positive codes: |acc| ~ 1e8 > 2^24, so
+    the int32 -> fp32 conversion rounds; kernel and plain must agree."""
+    rng = np.random.default_rng(12)
+    x = _codes(rng, (8, 9216), 90, 128).to(cuda)
+    w = _codes(rng, (9216, 256), 60, 128).to(cuda)
+    acc = x.double() @ w.double()
+    assert acc.abs().min().item() > 2 ** 24
+    scale = torch.full((256,), 1.0 / acc.max().item(), device=cuda)
+    b = torch.zeros(256, device=cuda)
+    kw = dict(scale=scale, out_scale=1.0 / 127 if quant_out else None)
+    _equal(matmul_pipe(x, w, b, **kw), matmul_pipe_plain(x, w, b, **kw))
+    xc, wc = x.reshape(8, 1, 1, 9216), w.reshape(1, 1, 9216, 256)
+    _equal(conv_pipe(xc, wc, b, **kw), conv_pipe_plain(xc, wc, b, **kw))
+
+
+def test_quantize_on_the_card_equals_the_cpu(cuda):
+    """1M values, a quarter of them exact ties (k + 0.5) * s: a division
+    by the reciprocal would flip codes at the ties."""
+    rng = np.random.default_rng(13)
+    s = 0.0371
+    ties = (rng.integers(-140, 140, 250_000) + 0.5) * np.float32(s)
+    x = np.concatenate([ties, rng.standard_normal(750_000) * 3]).astype(
+        np.float32)
+    cpu = torch.from_numpy(x)
+    for scale in (s, torch.full((1,), s)):
+        want = quantize(cpu, scale)
+        got = quantize(cpu.to(cuda), scale.to(cuda) if torch.is_tensor(scale)
+                       else scale)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_calibrate_on_the_card_matches_the_cpu(cuda):
+    cfg = get_config("alexnet").smoke()
+    params = init_cnn_params(cfg, generator=torch.Generator().manual_seed(0),
+                             device="cpu")
+    calib = np.random.default_rng(123).standard_normal(
+        (4, cfg.input_hw, cfg.input_hw, cfg.input_ch)).astype(np.float32)
+    want = calibrate_cnn(params, calib, cfg)
+    got = calibrate_cnn([None if p is None else {k: v.to(cuda) for k, v in
+                                                 p.items()} for p in params],
+                        calib, cfg)
+    assert got.in_scale == want.in_scale
+    for g, w in zip(got.layers, want.layers, strict=True):
+        assert (g is None) == (w is None)
+        if w is None:
+            continue
+        for name in ("x_scale", "y_scale"):
+            a, b = getattr(g, name), getattr(w, name)
+            assert (a is None) == (b is None)
+            if b is not None:
+                assert a == pytest.approx(b, rel=1e-5)
+        if w.w_q is not None:
+            assert torch.equal(g.w_q.cpu(), w.w_q)
+            assert torch.equal(g.w_scale.cpu(), w.w_scale)
+
+
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((1, 8, 8, 4), dtype=torch.int8, device=cuda)
+    w = torch.zeros((3, 3, 4, 8), dtype=torch.int8, device=cuda)
+    b = torch.zeros(8, device=cuda)
+    s = torch.ones(8, device=cuda)
+    with pytest.raises(ValueError):
+        conv_pipe(x.float(), w, b, scale=s)                 # fp32 x
+    with pytest.raises(ValueError):
+        conv_pipe(x, w, b.to(torch.int8), scale=s)          # int8 bias
+    with pytest.raises(ValueError):
+        conv_pipe(x.transpose(1, 2), w, b, scale=s)         # not contiguous
+    with pytest.raises(ValueError):
+        conv_pipe(x, w, b, scale=s[:4])                     # scale shape
+    xf, wf = x.reshape(16, 16), torch.zeros((16, 8), dtype=torch.int8,
+                                            device=cuda)
+    with pytest.raises(ValueError):
+        matmul_pipe(xf.float(), wf, b, scale=s)             # fp32 x
+    with pytest.raises(ValueError):
+        matmul_pipe(xf, wf, b.to(torch.int8), scale=s)      # int8 bias
+    with pytest.raises(ValueError):
+        matmul_pipe(xf, wf.t().contiguous().t(), b, scale=s)  # not contiguous

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.pipeline import compile_cnn
+from repro_torch.pipeline import ExecutionSpec, Precision, compile_cnn
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
@@ -58,6 +58,13 @@ def test_compile_without_cuda_or_device_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         compile_cnn(get_config("alexnet").smoke())
+
+
+def test_int8_compile_without_cuda_or_device_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compile_cnn(get_config("alexnet").smoke(),
+                    ExecutionSpec(precision=Precision(quant="int8")))
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -111,7 +111,6 @@ def compiled():
 
 
 REFUSED = {
-    "int8": lambda c: ExecutionSpec(precision=Precision(quant="int8")),
     "bfloat16": lambda c: ExecutionSpec(precision=Precision(dtype="bfloat16")),
     "replicas": lambda c: ExecutionSpec(placement=Placement(replicas=2)),
     "pp_stages": lambda c: ExecutionSpec(placement=Placement(pp_stages=2)),
@@ -156,6 +155,44 @@ def test_serve_cnn_cli_on_cpu(capsys):
     main(["--smoke", "--device", "cpu", "--requests", "5", "--batch", "4"])
     out = capsys.readouterr().out
     assert "5 served" in out and "on cpu" in out
+
+
+def test_serve_cnn_cli_int8_on_cpu(capsys):
+    main(["--smoke", "--device", "cpu", "--quant", "int8", "--calib", "4",
+          "--requests", "5", "--batch", "4"])
+    out = capsys.readouterr().out
+    assert "5 served" in out and "on cpu, int8" in out
+    assert "int8 calibration: 4 images, 5 conv layers" in out
+
+
+@pytest.fixture(scope="module")
+def served_int8():
+    jcfg = jax_get_config("alexnet").smoke()
+    cfg = get_config("alexnet").smoke()
+    jparams = jax_init_cnn_params(jax.random.key(3), jcfg)
+    n = default_request_count(8)
+    compiled = compile_cnn(cfg, ExecutionSpec(
+        precision=Precision(quant="int8"), serving=Serving(batch=8)),
+        params_from_jax(jparams, "cpu"), device="cpu")
+    reqs = synthetic_requests(n, cfg.input_hw, cfg.input_ch, 200.0)
+    return n, reqs, compiled, compiled.serve(reqs)
+
+
+def test_int8_serve_completes_every_request_ok(served_int8):
+    n, _, compiled, rep = served_int8
+    assert compiled.quant and compiled.engine.device == torch.device("cpu")
+    assert sorted(c.rid for c in rep.completions) == list(range(n))
+    assert all(c.status == "ok" for c in rep.completions)
+    assert rep.n_done == n and rep.n_rejected == 0
+
+
+def test_int8_serve_preds_equal_the_forward(served_int8):
+    n, reqs, compiled, rep = served_int8
+    imgs = np.stack([r.image for r in reqs])
+    preds = np.concatenate([compiled.forward(imgs[i:i + 8]).argmax(-1)
+                            for i in range(0, n, 8)])
+    assert {c.rid: c.pred for c in rep.completions} == dict(
+        enumerate(preds.tolist()))
 
 
 def test_forward_stage_fold_equals_forward(compiled):
