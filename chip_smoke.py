@@ -31,8 +31,30 @@ Phases (any failure exits non-zero):
    the PWL, so it is printed beside them, as is the top-1 agreement with
    the fp32 forward).
 4b. int8 serve: the same 19 requests through the int8 model.
-5. One JSON line ``{"kernels": [...]}`` (each kernel and mode), then the
-   last line ``{"ok": true, "device": {...}}``.
+5. Attention kernels vs plain, with TF32 off, at Qwen3-8B's head
+   geometry (32 query heads, 8 KV heads, d_head 128), in fp32 and bf16,
+   inputs from the seeded generator: ``ops.attention`` (the
+   flash_attention kernel) on a 4096-token prefill (``prefill_32k`` cut
+   from S 32768 and batch 32), and ``decode_attention`` on caches of
+   8 x 32768 slots (``decode_32k`` cut from batch 128) at pos 0, 16383
+   and 32767, with the device-side pos. Every output element within
+   rtol x (|plain| + the RMS of its row), rtol 1e-4 (fp32) or 2e-2
+   (bf16), caches bit-equal to the plain version's after the write; each
+   row timed beside the plain version, one library call (SDPA) and the
+   card's bound.
+6. The attention layer at full width, the slice's main path: Qwen3-8B
+   (d_model 4096), B 1, S 4096, seeded weights, fp32 and bf16.
+   ``models.attention.attn_forward`` (plain, chunked) against the same
+   projections -> ``ops.attention`` kernel -> ``wo``, and ``attn_decode``
+   at pos 4095 against the projections -> ``decode_attention`` kernel ->
+   ``wo``, held as in 5 (the row is a token); each mode must launch
+   exactly its two attention kernels once. Then each kernel is held
+   against its plain version on the inputs this path gave it and timed
+   as in 5. The CNN phases above must launch no attention kernel.
+7. One JSON line ``{"kernels": [...]}`` (each kernel and mode; launches
+   from phases 3, 3b and 6; the CNN entries sum the times of one
+   forward's launches, the attention entries give phase 6's one launch
+   at its shape), then the last line ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``. Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no result.
@@ -55,14 +77,27 @@ KERNEL_RTOL = 1e-4     # |kernel - plain| <= KERNEL_RTOL * max(1, max|plain|)
 LRN_RTOL = 1e-5        # same op order and rounding as the plain PWL
 PWL_BOUND = 5e-3       # the paper's 0.5 % PWL error against the exact LRN
 # launches per forward, by kernel and mode (name_s8: the int8 mode)
+# (the CNN paths launch no attention kernel)
+NO_ATTENTION = {"flash_attention": 0, "flash_attention_bf16": 0,
+                "decode_attention": 0, "decode_attention_bf16": 0}
 EXPECTED_LAUNCHES = {"conv_pipe": 5, "conv_pipe_s8": 0, "lrn_pwl": 2,
-                     "matmul_pipe": 3, "matmul_pipe_s8": 0}
+                     "matmul_pipe": 3, "matmul_pipe_s8": 0, **NO_ATTENTION}
 EXPECTED_LAUNCHES_INT8 = {"conv_pipe": 0, "conv_pipe_s8": 5, "lrn_pwl": 2,
-                          "matmul_pipe": 0, "matmul_pipe_s8": 3}
+                          "matmul_pipe": 0, "matmul_pipe_s8": 3,
+                          **NO_ATTENTION}
 REPLACES = {"conv_pipe": "src/repro/kernels/conv_pipe.py:198",
             "lrn_pwl": "src/repro/kernels/lrn_pwl.py:88",
-            "matmul_pipe": "src/repro/kernels/matmul_pipe.py:66"}
+            "matmul_pipe": "src/repro/kernels/matmul_pipe.py:66",
+            "flash_attention": "src/repro/kernels/flash_attention.py:63",
+            "decode_attention": "src/repro/kernels/decode_attention.py:83"}
 INT8_OPS_PER_CLOCK_SM = 8192   # dense int8 tensor-core ops / clock / SM
+BF16_OPS_PER_CLOCK_SM = 4096   # dense bf16 tensor-core FLOP / clock / SM
+BF16_RTOL = 2e-2               # tests/test_kernels.py:17-19, bf16
+# attention at Qwen3-8B's head geometry (src/repro_torch/configs/qwen3_8b.py)
+ATTN_ARCH = "qwen3_8b"
+PREFILL_S = 4096               # prefill_32k cut: S 32768 -> 4096, batch 32 -> 1
+DECODE_B, DECODE_S = 8, 32768  # decode_32k cut: batch 128 -> 8
+DECODE_POS = (0, 16383, 32767)
 INT_MM_ROWS = 32               # torch._int_mm needs more than 16 rows
 # published HBM rates (NVIDIA data sheets), by the name nvidia-smi reports
 MEM_BW = {"H100 80GB HBM3": 3.35e12, "H100 PCIe": 2.0e12,
@@ -75,21 +110,35 @@ def smi(query: str) -> str:
         check=True, capture_output=True, text=True).stdout.splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call, CUDA events around each call."""
+def time_ms(fn, iters: int = 20, warmup: int = 3, runs: int = 3) -> float:
+    """Device time of one call: one pair of CUDA events around ``iters``
+    back-to-back calls, divided by ``iters`` (so the host's pace drops out
+    of launches shorter than their wrapper's host time); the median over
+    ``runs`` such runs."""
     import torch
     for _ in range(warmup):
         fn()
     pairs = []
-    for _ in range(iters):
+    for _ in range(runs):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
-        fn()
+        for _ in range(iters):
+            fn()
         e.record()
         pairs.append((s, e))
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+    return statistics.median(s.elapsed_time(e) / iters for s, e in pairs)
+
+
+def attn_ratio(got, want, rtol: float) -> float:
+    """The worst ratio of |got - want| to its allowance, rtol x (|want| +
+    the RMS of want's row), over every element; 1 or less passes. The
+    row's RMS is the absolute part, so each output row (a head's query
+    row, a token) is held at its own scale, however small its values."""
+    g, w = got.float(), want.float()
+    rms = w.square().mean(-1, keepdim=True).sqrt()
+    return ((g - w).abs() / (rtol * (w.abs() + rms))).max().item()
 
 
 def check(ok: bool, what: str) -> None:
@@ -106,12 +155,18 @@ def main() -> int:
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels import ops as kernel_ops
     from repro_torch.kernels.conv_pipe import conv_pipe, conv_pipe_plain
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
     from repro_torch.kernels.lrn_pwl import lrn_pwl, lrn_pwl_plain
     from repro_torch.kernels.matmul_pipe import matmul_pipe, matmul_pipe_plain
     from repro_torch.kernels.ref import lrn_ref, pool_ref
     from repro_torch.launch.serve_cnn import (default_request_count,
                                               synthetic_requests)
+    from repro_torch.models import attention as attn
     from repro_torch.models.cnn import fuse_plan, run_group
     from repro_torch.pipeline import (ExecutionSpec, Precision, Serving,
                                       compile_cnn)
@@ -122,13 +177,19 @@ def main() -> int:
         conv_pipe.launches = conv_pipe.launches_s8 = 0
         matmul_pipe.launches = matmul_pipe.launches_s8 = 0
         lrn_pwl.launches = 0
+        flash_attention.launches = flash_attention.launches_bf16 = 0
+        decode_attention.launches = decode_attention.launches_bf16 = 0
 
     def launch_counts():
         return {"conv_pipe": conv_pipe.launches,
                 "conv_pipe_s8": conv_pipe.launches_s8,
                 "lrn_pwl": lrn_pwl.launches,
                 "matmul_pipe": matmul_pipe.launches,
-                "matmul_pipe_s8": matmul_pipe.launches_s8}
+                "matmul_pipe_s8": matmul_pipe.launches_s8,
+                "flash_attention": flash_attention.launches,
+                "flash_attention_bf16": flash_attention.launches_bf16,
+                "decode_attention": decode_attention.launches,
+                "decode_attention_bf16": decode_attention.launches_bf16}
 
     def measure(row, rate):
         """Time the row's kernel, plain version and library call; add the
@@ -142,14 +203,18 @@ def main() -> int:
         row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
         lib_ms = ("none" if row["library_ms"] is None
                   else f"{row['library_ms']:.4f} ms")
+        # attention rows are held element by element (attn_ratio)
+        tol = (f"tol {row['tol']:.1e}" if "tol" in row
+               else f"{row['err_ratio']:.3f} of its allowance")
         print(f"[kernel] {row['layer']:>14} {row['kernel']:<14} "
               f"{str(row['shape']):<22} err {row['max_abs_err']:.3e}"
-              f" (tol {row['tol']:.1e})  kernel {row['ms']:.4f} ms"
+              f" ({tol})  kernel {row['ms']:.4f} ms"
               f"  plain {row['plain_ms']:.4f} ms  library {lib_ms}  "
               f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
-        check(row["max_abs_err"] <= row["tol"],
+        check(row["max_abs_err"] <= row["tol"] if "tol" in row
+              else row["err_ratio"] <= 1.0,
               f"{row['layer']} {row['kernel']}: error "
-              f"{row['max_abs_err']:.3e} > tol {row['tol']:.1e}")
+              f"{row['max_abs_err']:.3e} ({tol})")
 
     # -- 1. device and build ------------------------------------------------
     card = smi("name,power.limit")
@@ -160,13 +225,17 @@ def main() -> int:
     fp32_rate = props.multi_processor_count * 128 * 2 * sm_mhz * 1e6
     int8_rate = (props.multi_processor_count * INT8_OPS_PER_CLOCK_SM
                  * sm_mhz * 1e6)
+    bf16_rate = (props.multi_processor_count * BF16_OPS_PER_CLOCK_SM
+                 * sm_mhz * 1e6)
     bw = next((v for k, v in MEM_BW.items() if k in name), None)
     bw_src = "published" if bw else "assumed (H100 SXM)"
     bw = bw or MEM_BW["H100 80GB HBM3"]
     print(f"[device] {name}: {props.multi_processor_count} SMs, max SM "
           f"clock {sm_mhz:.0f} MHz -> fp32 FFMA {fp32_rate / 1e12:.1f} "
           f"TFLOP/s, dense int8 tensor cores ({INT8_OPS_PER_CLOCK_SM} "
-          f"ops/clock/SM) {int8_rate / 1e12:.1f} TOP/s; HBM "
+          f"ops/clock/SM) {int8_rate / 1e12:.1f} TOP/s, dense bf16 tensor "
+          f"cores ({BF16_OPS_PER_CLOCK_SM} FLOP/clock/SM) "
+          f"{bf16_rate / 1e12:.1f} TFLOP/s; HBM "
           f"{bw / 1e12:.2f} TB/s ({bw_src}); torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
@@ -456,16 +525,239 @@ def main() -> int:
     # -- 4b. int8 serve -------------------------------------------------------------
     qrep, qlat = serve(qcompiled, EXPECTED_LAUNCHES_INT8, "int8 serve")
 
-    # -- 5. the kernels line ----------------------------------------------------
+    # -- 5. the attention kernels vs their plain versions -------------------
+    acfg = get_config(ATTN_ARCH)
+    hq, hkv, dh = acfg.n_heads, acfg.n_kv_heads, acfg.d_head
+    G = hq // hkv
+    arows = []
+    dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+    def attn_row(row, got, want, mode, rows):
+        """Hold ``got`` against the plain ``want``, time the row and add
+        it to ``rows``."""
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{row['layer']}: {got.dtype} {tuple(got.shape)} vs "
+              f"{want.dtype} {tuple(want.shape)}")
+        rtol = KERNEL_RTOL if mode == "fp32" else BF16_RTOL
+        row["max_abs_err"] = (got.float() - want.float()).abs().max().item()
+        row["err_ratio"] = attn_ratio(got, want, rtol)
+        row["mode"] = mode
+        measure(row, fp32_rate if mode == "fp32" else bf16_rate)
+        rows.append(row)
+
+    with torch.inference_mode():
+        for mode, dt in dtypes.items():
+            es = torch.finfo(dt).bits // 8
+            sfx = "" if mode == "fp32" else "_bf16"
+            q = torch.randn((1, hq, PREFILL_S, dh), generator=gen,
+                            device="cuda").to(dt)
+            k = torch.randn((1, hkv, PREFILL_S, dh), generator=gen,
+                            device="cuda").to(dt)
+            v = torch.randn((1, hkv, PREFILL_S, dh), generator=gen,
+                            device="cuda").to(dt)
+            got = kernel_ops.attention(q, k, v)
+            want = flash_attention_plain(q, k, v)
+            S = PREFILL_S
+            attn_row(dict(
+                kernel="flash_attention" + sfx, layer=f"prefill {mode}",
+                shape=[1, hq, hkv, S, dh],
+                cut="prefill_32k cut: S 32768 -> 4096, batch 32 -> 1",
+                run=lambda q=q, k=k, v=v: kernel_ops.attention(q, k, v),
+                plain=lambda q=q, k=k, v=v: flash_attention_plain(q, k, v),
+                library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True),
+                ops=4 * hq * dh * S * (S + 1) // 2,
+                bytes=es * (2 * q.numel() + k.numel() + v.numel())),
+                got, want, mode, arows)
+            print(f"[attention] prefill {mode}: cut from prefill_32k "
+                  f"(S 32768 -> {S}, batch 32 -> 1) so the full-matrix "
+                  f"plain version fits")
+            del q, k, v, got, want
+
+            B = DECODE_B
+            kc = torch.randn((B, DECODE_S, hkv, dh), generator=gen,
+                             device="cuda").to(dt)
+            vc = torch.randn((B, DECODE_S, hkv, dh), generator=gen,
+                             device="cuda").to(dt)
+            for pos in DECODE_POS:
+                q = torch.randn((B, hkv, G, dh), generator=gen,
+                                device="cuda").to(dt)
+                nk = torch.randn((B, hkv, dh), generator=gen,
+                                 device="cuda").to(dt)
+                nv = torch.randn((B, hkv, dh), generator=gen,
+                                 device="cuda").to(dt)
+                pos_dev = torch.tensor(pos, dtype=torch.int32, device="cuda")
+                kp, vp = kc.clone(), vc.clone()
+                want, kp, vp = decode_attention_plain(q, kp, vp, nk, nv,
+                                                      pos_dev)
+                got, kc, vc = decode_attention(q, kc, vc, nk, nv, pos_dev)
+                torch.cuda.synchronize()
+                check(torch.equal(kc, kp) and torch.equal(vc, vp),
+                      f"decode {mode} pos {pos}: the caches differ from the "
+                      f"plain version's after the write")
+
+                def library(q=q, kp=kp, vp=vp, nk=nk, nv=nv, pos=pos):
+                    kp[:, pos] = nk
+                    vp[:, pos] = nv
+                    return F.scaled_dot_product_attention(
+                        q.reshape(B, hkv * G, 1, dh),
+                        kp[:, :pos + 1].transpose(1, 2),
+                        vp[:, :pos + 1].transpose(1, 2), enable_gqa=True)
+                n = pos + 1
+                attn_row(dict(
+                    kernel="decode_attention" + sfx,
+                    layer=f"decode {mode} pos {pos}",
+                    shape=[B, DECODE_S, hkv, G, dh],
+                    cut="decode_32k cut: batch 128 -> 8",
+                    run=lambda q=q, nk=nk, nv=nv, p=pos_dev:
+                    decode_attention(q, kc, vc, nk, nv, p),
+                    plain=lambda q=q, kp=kp, vp=vp, nk=nk, nv=nv, p=pos_dev:
+                    decode_attention_plain(q, kp, vp, nk, nv, p),
+                    library=library, ops=4 * B * hkv * G * dh * n,
+                    bytes=es * B * hkv * dh * (2 * n + 2 * G + 4)),
+                    got, want, mode, arows)
+                del kp, vp
+            del kc, vc
+    print("[attention] every kernel within tolerance of its plain version; "
+          "decode caches bit-equal to the plain version's after the write")
+
+    # -- 6. the attention layer at full width: the slice's main path --------
+    layer = {}
+    mrows = []                      # each kernel at the shape this path gives it
+    for mode, dt in dtypes.items():
+        lgen = torch.Generator(device="cuda").manual_seed(1)
+        p = attn.init_attn_params(acfg, dt, lgen)
+        x = torch.randn((1, PREFILL_S, acfg.d_model), generator=lgen,
+                        device="cuda").to(dt)
+        x_new = torch.randn((1, 1, acfg.d_model), generator=lgen,
+                            device="cuda").to(dt)
+        pos = PREFILL_S - 1
+        rtol = KERNEL_RTOL if mode == "fp32" else BF16_RTOL
+        es = torch.finfo(dt).bits // 8
+        sfx = "" if mode == "fp32" else "_bf16"
+        with torch.inference_mode():
+            want = attn.attn_forward(p, x, acfg)       # chunked: S > 1024
+            positions = torch.arange(PREFILL_S, device="cuda")[None]
+            q, k, v = attn._project_qkv(p, x, acfg, positions)
+            cache = attn.KVCache(k.contiguous(), v.contiguous())
+            want_dec, want_cache = attn.attn_decode(p, x_new, acfg, cache,
+                                                    pos)
+            torch.cuda.synchronize()
+            reset_launches()
+            qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            o = kernel_ops.attention(qh, kh, vh)
+            got = o.transpose(1, 2).reshape(1, PREFILL_S, hq * dh) @ p["wo"]
+            pos_dev = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            qn, kn, vn = attn._project_qkv(
+                p, x_new, acfg, pos_dev.reshape(1, 1))
+            qd = qn.reshape(1, hkv, G, dh)
+            nk, nv = kn[:, 0].contiguous(), vn[:, 0].contiguous()
+            kc, vc = cache.k.clone(), cache.v.clone()
+            od, kc, vc = decode_attention(qd, kc, vc, nk, nv, pos_dev)
+            got_dec = od.reshape(1, 1, hq * dh) @ p["wo"]
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        p_err = (got.float() - want.float()).abs().max().item()
+        p_ratio = attn_ratio(got, want, rtol)
+        d_err = (got_dec.float() - want_dec.float()).abs().max().item()
+        d_ratio = attn_ratio(got_dec, want_dec, rtol)
+        caches_equal = (torch.equal(kc, want_cache.k)
+                        and torch.equal(vc, want_cache.v))
+        print(f"[layer] {ATTN_ARCH} {mode} B 1 S {PREFILL_S}: attn_forward "
+              f"(plain, chunked) vs projections -> ops.attention kernel -> "
+              f"wo: max abs err {p_err:.3e}, {p_ratio:.3f} of the allowance "
+              f"{rtol:g} x (|plain| + its token's RMS); attn_decode at pos "
+              f"{pos} vs projections -> decode_attention kernel -> wo: "
+              f"{d_err:.3e}, {d_ratio:.3f} of it; caches bit-equal "
+              f"{caches_equal}; launches flash_attention{sfx} "
+              f"{counts['flash_attention' + sfx]}, decode_attention{sfx} "
+              f"{counts['decode_attention' + sfx]}")
+        check(bool(torch.isfinite(got).all() and torch.isfinite(got_dec).all())
+              and got.shape == want.shape and got_dec.shape == want_dec.shape,
+              f"layer {mode}: outputs not finite or of the wrong shape")
+        check(p_ratio <= 1.0, f"layer {mode} prefill: {p_ratio:.3f} x the "
+              f"allowance")
+        check(d_ratio <= 1.0, f"layer {mode} decode: {d_ratio:.3f} x the "
+              f"allowance")
+        check(caches_equal, f"layer {mode}: decode caches differ")
+        want_counts = {n: int(n in (f"flash_attention{sfx}",
+                                    f"decode_attention{sfx}"))
+                       for n in counts}
+        check(counts == want_counts,
+              f"layer {mode} launches {counts} != {want_counts}")
+        layer[mode] = {"prefill_err": p_err, "prefill_ratio": p_ratio,
+                       "decode_err": d_err, "decode_ratio": d_ratio,
+                       "launches": counts}
+
+        # each kernel vs its plain version on the inputs this path gave it,
+        # timed (after the counts were read)
+        with torch.inference_mode():
+            S = PREFILL_S
+            attn_row(dict(
+                kernel="flash_attention" + sfx, layer=f"layer prefill {mode}",
+                shape=[1, hq, hkv, S, dh],
+                run=lambda qh=qh, kh=kh, vh=vh:
+                kernel_ops.attention(qh, kh, vh),
+                plain=lambda qh=qh, kh=kh, vh=vh:
+                flash_attention_plain(qh, kh, vh),
+                library=lambda qh=qh, kh=kh, vh=vh:
+                F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                               enable_gqa=True),
+                ops=4 * hq * dh * S * (S + 1) // 2,
+                bytes=es * (2 * qh.numel() + kh.numel() + vh.numel())),
+                o, flash_attention_plain(qh, kh, vh), mode, mrows)
+            kp, vp = cache.k.clone(), cache.v.clone()
+            want_od, kp, vp = decode_attention_plain(qd, kp, vp, nk, nv,
+                                                     pos_dev)
+            torch.cuda.synchronize()
+            check(torch.equal(kc, kp) and torch.equal(vc, vp),
+                  f"layer decode {mode}: the caches differ from the plain "
+                  f"version's after the write")
+
+            def library(qd=qd, kp=kp, vp=vp, nk=nk, nv=nv, pos=pos):
+                kp[:, pos] = nk
+                vp[:, pos] = nv
+                return F.scaled_dot_product_attention(
+                    qd.reshape(1, hq, 1, dh),
+                    kp[:, :pos + 1].transpose(1, 2),
+                    vp[:, :pos + 1].transpose(1, 2), enable_gqa=True)
+            n = pos + 1
+            attn_row(dict(
+                kernel="decode_attention" + sfx, layer=f"layer decode {mode}",
+                shape=[1, PREFILL_S, hkv, G, dh],
+                run=lambda qd=qd, kc=kc, vc=vc, nk=nk, nv=nv, p=pos_dev:
+                decode_attention(qd, kc, vc, nk, nv, p),
+                plain=lambda qd=qd, kp=kp, vp=vp, nk=nk, nv=nv, p=pos_dev:
+                decode_attention_plain(qd, kp, vp, nk, nv, p),
+                library=library, ops=4 * hkv * G * dh * n,
+                bytes=es * hkv * dh * (2 * n + 2 * G + 4)),
+                od, want_od, mode, mrows)
+        del p, x, q, k, v, qh, kh, vh, o, cache, want, got, want_cache
+        del kc, vc, kp, vp
+
+    # -- 7. the kernels line ----------------------------------------------------
+    # CNN entries sum over one forward's launches (phases 2, 2b); attention
+    # entries are the one launch of phase 6's main path, at its shape
     line = []
     for kname, mode, rs, rate, count in (
             ("conv_pipe", "fp32", rows, fp32_rate, launches),
             ("conv_pipe_s8", "int8", qrows, int8_rate, qlaunches),
             ("matmul_pipe", "fp32", rows, fp32_rate, launches),
             ("matmul_pipe_s8", "int8", qrows, int8_rate, qlaunches),
-            ("lrn_pwl", "fp32", rows, fp32_rate, launches)):
+            ("lrn_pwl", "fp32", rows, fp32_rate, launches),
+            ("flash_attention", "fp32", mrows, fp32_rate,
+             layer["fp32"]["launches"]),
+            ("flash_attention_bf16", "bf16", mrows, bf16_rate,
+             layer["bf16"]["launches"]),
+            ("decode_attention", "fp32", mrows, fp32_rate,
+             layer["fp32"]["launches"]),
+            ("decode_attention_bf16", "bf16", mrows, bf16_rate,
+             layer["bf16"]["launches"])):
+        main = rs is mrows
         rs = [r for r in rs if r["kernel"] == kname]
-        base = kname.removesuffix("_s8")
+        at = {"shape": rs[0]["shape"]} if main else {}
+        base = kname.removesuffix("_s8").removesuffix("_bf16")
         t_ops = sum(r["ops"] for r in rs) / rate
         t_bytes = sum(r["bytes"] for r in rs) / bw
         libs = [r["library_ms"] for r in rs]
@@ -478,11 +770,13 @@ def main() -> int:
             "plain_ms": sum(r["plain_ms"] for r in rs),
             "bound_ms": sum(r["bound_ms"] for r in rs),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None if None in libs else sum(libs)})
+            "library_ms": None if None in libs else sum(libs), **at})
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "device": name, "fp32_rate": fp32_rate,
-                   "int8_rate": int8_rate, "mem_bw": bw,
+                   "int8_rate": int8_rate, "bf16_rate": bf16_rate,
+                   "mem_bw": bw, "attention_rows": arows,
+                   "attention_layer": layer, "attention_layer_rows": mrows,
                    "mem_bw_source": bw_src, "rows": rows, "int8_rows": qrows,
                    "kernels": line,
                    "forward": {"ms": fwd_ms, "logit_err": err,

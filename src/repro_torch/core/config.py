@@ -1,9 +1,15 @@
-"""CNN configuration for the PyTorch port (the paper's own models).
+"""Configuration for the PyTorch port.
 
-A copy of the CNN half of the JAX package's ``core/config.py``: the layer
-record, the fusion grouping, the architecture config and the FLOP count.
-The runtime knobs the JAX ``CNNConfig`` also carries (tiling, placement,
-serving) live only in :class:`repro_torch.pipeline.ExecutionSpec` here.
+A copy of the JAX package's ``core/config.py``, in two halves:
+
+* :class:`ModelConfig`, the LM-family architectures, with ``smoke()``,
+  cut to the fields the attention slice reads. The other fields and the
+  analytic parameter counts wait for the LM model (``models/lm.py``,
+  ROADMAP.md Queue 1 slice 8).
+* The paper's CNNs: the layer record, the fusion grouping, the
+  architecture config and the FLOP count. The runtime knobs the JAX
+  ``CNNConfig`` also carries (tiling, placement, serving) live only in
+  :class:`repro_torch.pipeline.ExecutionSpec` here.
 """
 from __future__ import annotations
 
@@ -11,6 +17,7 @@ from dataclasses import dataclass, replace
 from typing import List, Sequence, Tuple
 
 LAYER_KINDS = ("conv", "pool", "lrn", "fc")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 class SpecError(ValueError):
@@ -23,6 +30,60 @@ class SpecError(ValueError):
     def __init__(self, field: str, message: str):
         self.field = field
         super().__init__(message)
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """The LM-family architecture record, cut to the fields the attention
+    slice reads. The JAX config's MoE, SSM, xLSTM, frontend, memory and
+    technique fields come with the LM model that reads them (ROADMAP.md
+    Queue 1 slice 8); the fields kept here carry the JAX names and
+    defaults."""
+
+    name: str
+    family: str                       # one of FAMILIES
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int                         # dense FFN width (0 => no FFN, e.g. xLSTM)
+    vocab: int
+
+    # --- attention details ---
+    d_head: int = 0                   # 0 => d_model // n_heads
+    qk_norm: bool = False             # RMSNorm on q/k per head (Qwen3)
+    rope_theta: float = 1e6
+    norm_eps: float = 1e-6
+
+    dtype: str = "bfloat16"           # activation/param compute dtype
+    attention_impl: str = "chunked"   # "chunked" (online-softmax) | "naive"
+    attn_chunk: int = 1024            # KV chunk for chunked attention
+
+    def __post_init__(self):
+        if self.family not in FAMILIES:
+            raise ValueError(f"unknown family {self.family!r}")
+        if self.d_head == 0 and self.n_heads:
+            object.__setattr__(self, "d_head", self.d_model // self.n_heads)
+
+    # -- smoke-test reduction -------------------------------------------------
+    def smoke(self) -> "ModelConfig":
+        """A tiny config of the same family for CPU smoke tests."""
+        nh = min(self.n_heads, 4) or 4
+        nkv = max(1, min(self.n_kv_heads, 2))
+        if self.n_kv_heads == self.n_heads:   # MHA stays MHA
+            nkv = nh
+        return replace(
+            self,
+            n_layers=4 if self.family == "ssm" else 2,
+            d_model=64,
+            n_heads=nh,
+            n_kv_heads=nkv,
+            d_head=16,
+            d_ff=0 if self.d_ff == 0 else 128,
+            vocab=512,
+            attn_chunk=16,
+            dtype="float32",
+        )
 
 
 @dataclass(frozen=True)

@@ -4,17 +4,19 @@
 fused kernels (on a CUDA tensor the hand-written kernel, on a CPU tensor
 its plain version), False the exact oracles of :mod:`.ref` and
 :mod:`repro_torch.quant.ref` (for LRN the exact power, not the PWL
-approximation).
+approximation; for attention the JAX oracle with its ``tril`` mask).
 """
 from __future__ import annotations
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.conv_pipe import conv_pipe
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.lrn_pwl import lrn_pwl
 from repro_torch.kernels.matmul_pipe import matmul_pipe
 from repro_torch.quant import ref as quant_ref
 
-__all__ = ["fc", "fc_q", "fused_conv", "fused_conv_q", "lrn"]
+__all__ = ["attention", "fc", "fc_q", "fused_conv", "fused_conv_q", "lrn"]
 
 
 def fused_conv(x, w, b, *, stride=1, pad=0, relu=True, pool=None, pool_k=2,
@@ -58,3 +60,18 @@ def fc_q(x_q, w_q, b, scale, *, relu=False, out_scale=None,
                            out_scale=out_scale)
     return quant_ref.fc_int8_ref(x_q, w_q, b, scale, relu=relu,
                                  out_scale=out_scale)
+
+
+def attention(q, k, v, *, use_kernels=True):
+    """Causal attention, GQA-aware: q (B, Hq, S, D), k/v (B, Hkv, S, D).
+
+    Query head ``h`` attends with KV head ``h // (Hq // Hkv)``, the order
+    the JAX package's ``jnp.repeat(k, g, axis=1)`` gives. The kernel reads
+    that head in place; ``use_kernels=False`` repeats the heads and runs
+    the oracle ``ref.flash_attention_ref``, as JAX does (the kernel's
+    plain version). The kernel masks ``k_pos > q_pos`` and the oracle
+    ``tril(k=Sk-Sq)``: they agree at Sq == Sk, the only case the JAX
+    package runs and the only one the kernel takes."""
+    if use_kernels:
+        return flash_attention(q, k, v)
+    return flash_attention_plain(q, k, v)

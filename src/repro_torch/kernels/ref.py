@@ -2,9 +2,12 @@
 
 Each function computes what one JAX oracle in ``repro/kernels/ref.py``
 computes, on the same layouts: NHWC activations, HWIO conv weights,
-(K, N) FC weights. ``use_kernels=False`` runs the model on these.
+(K, N) FC weights, (B, H, S, D) attention heads and (B, S, HKV, D) KV
+caches. ``use_kernels=False`` runs the model on these.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -67,3 +70,37 @@ def matmul_pipe_ref(x, w, b=None, *, relu=False):
     if relu:
         y = torch.clamp_min(y, 0.0)
     return y.to(x.dtype)
+
+
+def flash_attention_ref(q, k, v):
+    """Causal MHA oracle, fp32 softmax. q/k/v (B, H, S, D).
+
+    The mask is ``tril(k=Sk-Sq)``, as in the JAX oracle; the kernel masks
+    ``q_pos >= k_pos``, and the two agree only at Sq == Sk."""
+    Sq, D = q.shape[2], q.shape[3]
+    Sk = k.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(D)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device).tril(
+        Sk - Sq)
+    s = torch.where(mask, s, torch.tensor(-1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    return o.to(q.dtype)
+
+
+def decode_attention_ref(q, k_cache, v_cache, new_k, new_v, pos):
+    """Oracle of the decode kernel (update, then attend), functional: the
+    caches given are not written. q (B, HKV, G, D); caches (B, S, HKV, D);
+    new_k/v (B, HKV, D); pos a scalar (int or 0-d tensor).
+    Returns (o (B, HKV, G, D), k_cache', v_cache')."""
+    S, D = k_cache.shape[1], k_cache.shape[3]
+    slots = torch.arange(S, device=q.device)
+    at = (slots == pos)[None, :, None, None]
+    ck = torch.where(at, new_k[:, None], k_cache)
+    cv = torch.where(at, new_v[:, None], v_cache)
+    s = torch.einsum("bhgd,bshd->bhgs", q.float(), ck.float()) / math.sqrt(D)
+    s = torch.where((slots <= pos)[None, None, None], s,
+                    torch.tensor(-1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgs,bshd->bhgd", p, cv.float())
+    return o.to(q.dtype), ck, cv

@@ -10,14 +10,23 @@ Tolerances: conv/matmul ``|kernel - plain| <= 1e-4 * max(1, max|plain|)``
 (fp32 sums in another order, TF32 off on the plain side); LRN
 ``rtol=1e-5, atol=1e-6`` (same operations, same rounding). The int8
 modes are held bit for bit (``torch.equal``): the int32 accumulator is
-exact on both sides and the epilogue rounds the same steps.
+exact on both sides and the epilogue rounds the same steps. Attention
+(flash and decode): ``1e-4 * max(1, max|plain|)`` in fp32 (online vs
+full softmax, fp32 sums in another order) and ``2e-2`` in bf16 (the
+reference's bf16 tolerance, ``tests/test_kernels.py:17-19``); the decode
+caches bit for bit (one slot copied, nothing computed).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.kernels import ops
 from repro_torch.kernels.conv_pipe import conv_pipe, conv_pipe_plain
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_plain)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.lrn_pwl import lrn_pwl, lrn_pwl_plain
 from repro_torch.kernels.matmul_pipe import matmul_pipe, matmul_pipe_plain
 from repro_torch.models.cnn import init_cnn_params
@@ -253,3 +262,174 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         matmul_pipe(xf, wf, b.to(torch.int8), scale=s)      # int8 bias
     with pytest.raises(ValueError):
         matmul_pipe(xf, wf.t().contiguous().t(), b, scale=s)  # not contiguous
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+ATTN_DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _randn(rng, shape, dtype, dev):
+    return _t(rng.standard_normal(shape), dev).to(dtype)
+
+
+def _close_attn(got, want):
+    """Every element within rtol x (|want| + the RMS of want's row), rtol
+    1e-4 in fp32 and 2e-2 in bf16: each output row (a head's query row)
+    is held at its own scale, as chip_smoke.py holds them."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    rtol = 1e-4 if want.dtype == torch.float32 else 2e-2
+    allow = rtol * (w.abs() + w.square().mean(-1, keepdim=True).sqrt())
+    ratio = ((g - w).abs() / allow).max().item()
+    assert ratio <= 1.0, f"an element is off by {ratio:.3f} x its allowance"
+
+
+@pytest.mark.parametrize("dtype", ATTN_DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D", [
+    (1, 2, 2, 32, 32, 16),
+    (2, 4, 4, 64, 64, 32),
+    (1, 1, 1, 128, 128, 64),
+    (1, 4, 2, 100, 100, 128),      # GQA, S not a multiple of the 64 tile
+    (2, 8, 2, 200, 200, 64),       # GQA g=4, ragged
+    (1, 2, 1, 130, 130, 32),       # g=2, one query tile and a ragged one
+])
+def test_flash_attention_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Sk, D,
+                                              dtype):
+    rng = np.random.default_rng(1)
+    q = _randn(rng, (B, Hq, Sq, D), dtype, cuda)
+    k = _randn(rng, (B, Hkv, Sk, D), dtype, cuda)
+    v = _randn(rng, (B, Hkv, Sk, D), dtype, cuda)
+    counter = "launches" if dtype == torch.float32 else "launches_bf16"
+    n0 = getattr(flash_attention, counter)
+    _close_attn(flash_attention(q, k, v), flash_attention_plain(q, k, v))
+    assert getattr(flash_attention, counter) == n0 + 1
+
+
+@pytest.mark.parametrize("dtype", ATTN_DTYPES, ids=["f32", "bf16"])
+def test_ops_attention_gqa_reads_head_h_over_g(cuda, dtype):
+    """Query head h attends with KV head h // g (jnp.repeat's order): the
+    kernel on the GQA inputs equals the oracle on repeated heads."""
+    rng = np.random.default_rng(2)
+    q = _randn(rng, (1, 8, 96, 64), dtype, cuda)
+    k = _randn(rng, (1, 2, 96, 64), dtype, cuda)
+    v = _randn(rng, (1, 2, 96, 64), dtype, cuda)
+    got = ops.attention(q, k, v)
+    _close_attn(got, ops.attention(q, k, v, use_kernels=False))
+    want = flash_attention(q, k.repeat_interleave(4, 1),
+                           v.repeat_interleave(4, 1))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_flash_attention_is_causal_on_the_card(cuda):
+    rng = np.random.default_rng(3)
+    q, k, v = (_randn(rng, (1, 2, 96, 32), torch.float32, cuda)
+               for _ in range(3))
+    o1 = flash_attention(q, k, v)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, 70:] = 99.0
+    v2[:, :, 70:] = -99.0
+    o2 = flash_attention(q, k2, v2)
+    torch.cuda.synchronize()
+    assert torch.equal(o1[:, :, :70], o2[:, :, :70])
+
+
+def _decode_inputs(rng, B, S, HKV, G, D, dtype, dev):
+    return (_randn(rng, (B, HKV, G, D), dtype, dev),
+            _randn(rng, (B, S, HKV, D), dtype, dev),
+            _randn(rng, (B, S, HKV, D), dtype, dev),
+            _randn(rng, (B, HKV, D), dtype, dev),
+            _randn(rng, (B, HKV, D), dtype, dev))
+
+
+@pytest.mark.parametrize("dtype", ATTN_DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,HKV,G,D,pos", [
+    (1, 32, 2, 2, 16, 7),
+    (2, 64, 4, 2, 16, 37),
+    (2, 128, 2, 4, 32, 127),       # the last slot
+    (1, 64, 1, 8, 16, 0),          # the first slot
+    (2, 300, 8, 4, 128, 299),      # S not a multiple of the 64-slot tile
+    (1, 300, 2, 4, 128, 130),
+    (1, 200, 2, 3, 64, 199),
+])
+@pytest.mark.parametrize("pos_on_device", [False, True], ids=["int", "dev"])
+def test_decode_attention_kernel_matches_plain(cuda, B, S, HKV, G, D, pos,
+                                               dtype, pos_on_device):
+    rng = np.random.default_rng(4)
+    q, kc, vc, nk, nv = _decode_inputs(rng, B, S, HKV, G, D, dtype, cuda)
+    p = (torch.tensor(pos, dtype=torch.int32, device=cuda)
+         if pos_on_device else pos)
+    kp, vp = kc.clone(), vc.clone()
+    o_plain, kp, vp = decode_attention_plain(q, kp, vp, nk, nv, p)
+    counter = "launches" if dtype == torch.float32 else "launches_bf16"
+    n0 = getattr(decode_attention, counter)
+    o, k_out, v_out = decode_attention(q, kc, vc, nk, nv, p)
+    assert getattr(decode_attention, counter) == n0 + 1
+    assert k_out is kc and v_out is vc                  # in place
+    _close_attn(o, o_plain)
+    assert torch.equal(kc, kp) and torch.equal(vc, vp)
+
+
+@pytest.mark.parametrize("pos", [0, 127])
+def test_decode_attention_writes_slot_pos_only(cuda, pos):
+    rng = np.random.default_rng(5)
+    q, kc, vc, nk, nv = _decode_inputs(rng, 2, 128, 2, 4, 64,
+                                       torch.bfloat16, cuda)
+    k0, v0 = kc.clone(), vc.clone()
+    decode_attention(q, kc, vc, nk, nv, pos)
+    torch.cuda.synchronize()
+    others = [s for s in range(128) if s != pos]
+    assert torch.equal(kc[:, others], k0[:, others])
+    assert torch.equal(vc[:, others], v0[:, others])
+    assert torch.equal(kc[:, pos], nk) and torch.equal(vc[:, pos], nv)
+
+
+def test_decode_attention_ignores_stale_future_slots(cuda):
+    rng = np.random.default_rng(6)
+    q, kc, vc, nk, nv = _decode_inputs(rng, 1, 200, 2, 2, 64,
+                                       torch.float32, cuda)
+    kc2, vc2 = kc.clone(), vc.clone()
+    kc2[:, 100:] = float("inf")            # never read past pos
+    vc2[:, 100:] = float("nan")
+    o1, _, _ = decode_attention(q, kc, vc, nk, nv, 90)
+    o2, _, _ = decode_attention(q, kc2, vc2, nk, nv, 90)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2)
+
+
+def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros((1, 4, 32, 64), device=cuda)
+    k = torch.zeros((1, 2, 32, 64), device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention(q.half(), k.half(), k.half())       # fp16
+    with pytest.raises(ValueError):
+        flash_attention(q.double(), k.double(), k.double())
+    with pytest.raises(ValueError):
+        flash_attention(q, k.transpose(2, 3), k)             # shape
+    with pytest.raises(ValueError):
+        flash_attention(q, torch.zeros((1, 3, 32, 64), device=cuda),
+                        torch.zeros((1, 3, 32, 64), device=cuda))  # Hq % Hkv
+    with pytest.raises(ValueError):
+        flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                        k[..., :48].contiguous())            # head width 48
+    with pytest.raises(ValueError):
+        flash_attention(q, torch.zeros((1, 2, 40, 64), device=cuda),
+                        torch.zeros((1, 2, 40, 64), device=cuda))  # Sk != Sq
+    qd = torch.zeros((1, 2, 4, 64), device=cuda)
+    kc = torch.zeros((1, 16, 2, 64), device=cuda)
+    nk = torch.zeros((1, 2, 64), device=cuda)
+    with pytest.raises(ValueError):
+        decode_attention(qd.half(), kc.half(), kc.half(), nk.half(),
+                         nk.half(), 3)                       # fp16
+    with pytest.raises(ValueError):
+        decode_attention(qd, kc, kc.clone(), nk, nk, 16)     # pos >= S
+    with pytest.raises(ValueError):
+        decode_attention(qd, kc, kc.clone(), nk, nk,
+                         torch.tensor(3, device=cuda))       # int64 pos
+    with pytest.raises(ValueError):
+        decode_attention(torch.zeros((1, 2, 9, 64), device=cuda), kc,
+                         kc.clone(), nk, nk, 3)              # G > 8
