@@ -9,10 +9,11 @@ Phases (any failure exits non-zero):
    kernels from ``src/repro_torch/csrc`` with nvcc (build time printed).
 2. Kernel vs plain, with TF32 off: each of conv_pipe, lrn_pwl and
    matmul_pipe is held against its plain PyTorch version on the inputs
-   AlexNet's batch-8 forward gives it, and timed beside the plain version,
-   one library call and the card's bound.
+   AlexNet's batch-8 forward gives it (seeded weights, random biases; the
+   fold over the plain versions), and timed beside the plain version, one
+   library call and the card's bound.
 3. Full forward: ``compile_cnn(alexnet, batch 8).forward(x)`` at full
-   width with seeded random weights must launch conv_pipe 5x, lrn_pwl 2x
+   width with the same weights must launch conv_pipe 5x, lrn_pwl 2x
    and matmul_pipe 3x (all fp32), and its logits must match the same
    forward on the CPU (plain versions).
 4. Serve: 19 synthetic requests through ``.serve`` launch the same
@@ -51,10 +52,35 @@ Phases (any failure exits non-zero):
    exactly its two attention kernels once. Then each kernel is held
    against its plain version on the inputs this path gave it and timed
    as in 5. The CNN phases above must launch no attention kernel.
-7. One JSON line ``{"kernels": [...]}`` (each kernel and mode; launches
-   from phases 3, 3b and 6; the CNN entries sum the times of one
-   forward's launches, the attention entries give phase 6's one launch
-   at its shape), then the last line ``{"ok": true, "device": {...}}``.
+7. VGG-16 at full width (batch 8, 224x224x3, seeded weights, random
+   biases), fp32 and int8: each fp32 and int8 kernel against its plain
+   version on the inputs the forward gives it, timed as in 2 and 2b (the
+   2x2/2 pooled tiles at 224x224x64 included); the fp32 forward must
+   launch conv_pipe 13x and matmul_pipe 3x and come within 1e-3 x
+   max|logit| of the fold over the plain versions; the int8 forward,
+   calibrated on the card on the default batch, must launch the int8
+   modes 13x and 3x and equal its plain fold bit for bit.
+8. bf16 kernels vs plain: ``compile_cnn(..., Precision(dtype="bfloat16"))``
+   of the same AlexNet and VGG-16 weights; at every layer of each bf16
+   forward, the bf16 modes of conv_pipe, lrn_pwl and matmul_pipe within
+   rtol = atol = 2e-2 of their plain versions (fp32 on the widened
+   operands, rounded once; the worst error also printed in bf16 ulps),
+   timed beside the plain version, one bf16 library call and the bound
+   (operations at the bf16 tensor-core rate, bytes at 2 B an element).
+9. bf16 forwards: AlexNet must launch the bf16 modes 5/2/3x, VGG-16
+   13/0/3x, and nothing else; logits within 2e-2 x max|logit| of the
+   fold of 8 over the plain versions; the top-1 agreement with the fp32
+   forward of the same weights is printed.
+10. bf16 serve: the 19 requests through VGG-16 in bf16, each one ``ok``
+   completion whose prediction matches the forward.
+11. One JSON line ``{"kernels": [...]}`` (each kernel and mode; launches
+   from phases 3, 3b, 6 and 9; the CNN entries sum the times of one
+   AlexNet forward's launches, the bf16 entries those of one AlexNet and
+   one VGG-16 forward, with each model's share under ``models``; the
+   attention entries give phase 6's one launch at its shape), then the
+   last line ``{"ok": true, "device": {...}}``.
+
+Every phase prints its seconds.
 
 Details go to ``chiprun_out/chip_smoke.json``. Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no result.
@@ -76,15 +102,27 @@ LOGIT_RTOL = 1e-3      # |gpu - cpu| <= LOGIT_RTOL * max|cpu logit|
 KERNEL_RTOL = 1e-4     # |kernel - plain| <= KERNEL_RTOL * max(1, max|plain|)
 LRN_RTOL = 1e-5        # same op order and rounding as the plain PWL
 PWL_BOUND = 5e-3       # the paper's 0.5 % PWL error against the exact LRN
-# launches per forward, by kernel and mode (name_s8: the int8 mode)
-# (the CNN paths launch no attention kernel)
-NO_ATTENTION = {"flash_attention": 0, "flash_attention_bf16": 0,
-                "decode_attention": 0, "decode_attention_bf16": 0}
-EXPECTED_LAUNCHES = {"conv_pipe": 5, "conv_pipe_s8": 0, "lrn_pwl": 2,
-                     "matmul_pipe": 3, "matmul_pipe_s8": 0, **NO_ATTENTION}
-EXPECTED_LAUNCHES_INT8 = {"conv_pipe": 0, "conv_pipe_s8": 5, "lrn_pwl": 2,
-                          "matmul_pipe": 0, "matmul_pipe_s8": 3,
-                          **NO_ATTENTION}
+# the launch counters, by kernel and mode (name_s8: the int8 mode,
+# name_bf16: the bf16 mode)
+COUNTERS = ("conv_pipe", "conv_pipe_s8", "conv_pipe_bf16", "lrn_pwl",
+            "lrn_pwl_bf16", "matmul_pipe", "matmul_pipe_s8",
+            "matmul_pipe_bf16", "flash_attention", "flash_attention_bf16",
+            "decode_attention", "decode_attention_bf16")
+
+
+def expected(**n):
+    """Launches per forward: the counters named, every other one 0 (the
+    CNN paths launch no attention kernel and no other mode)."""
+    return {c: n.get(c, 0) for c in COUNTERS}
+
+
+EXPECTED_LAUNCHES = expected(conv_pipe=5, lrn_pwl=2, matmul_pipe=3)
+EXPECTED_LAUNCHES_INT8 = expected(conv_pipe_s8=5, lrn_pwl=2, matmul_pipe_s8=3)
+EXPECTED_VGG = expected(conv_pipe=13, matmul_pipe=3)
+EXPECTED_VGG_INT8 = expected(conv_pipe_s8=13, matmul_pipe_s8=3)
+EXPECTED_BF16 = {"alexnet": expected(conv_pipe_bf16=5, lrn_pwl_bf16=2,
+                                     matmul_pipe_bf16=3),
+                 "vgg16": expected(conv_pipe_bf16=13, matmul_pipe_bf16=3)}
 REPLACES = {"conv_pipe": "src/repro/kernels/conv_pipe.py:198",
             "lrn_pwl": "src/repro/kernels/lrn_pwl.py:88",
             "matmul_pipe": "src/repro/kernels/matmul_pipe.py:66",
@@ -93,6 +131,8 @@ REPLACES = {"conv_pipe": "src/repro/kernels/conv_pipe.py:198",
 INT8_OPS_PER_CLOCK_SM = 8192   # dense int8 tensor-core ops / clock / SM
 BF16_OPS_PER_CLOCK_SM = 4096   # dense bf16 tensor-core FLOP / clock / SM
 BF16_RTOL = 2e-2               # tests/test_kernels.py:17-19, bf16
+BF16_LOGIT_RTOL = 2e-2         # |bf16 - plain| <= this x max|plain logit|
+BIAS_STD = 0.1                 # the random biases the CNN phases give
 # attention at Qwen3-8B's head geometry (src/repro_torch/configs/qwen3_8b.py)
 ATTN_ARCH = "qwen3_8b"
 PREFILL_S = 4096               # prefill_32k cut: S 32768 -> 4096, batch 32 -> 1
@@ -110,14 +150,26 @@ def smi(query: str) -> str:
         check=True, capture_output=True, text=True).stdout.splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3, runs: int = 3) -> float:
+def time_ms(fn, iters: int = 20, warmup: int = 3, runs: int = 3,
+            budget_ms: float = 100.0) -> float:
     """Device time of one call: one pair of CUDA events around ``iters``
     back-to-back calls, divided by ``iters`` (so the host's pace drops out
     of launches shorter than their wrapper's host time); the median over
-    ``runs`` such runs."""
+    ``runs`` such runs. A call longer than ``budget_ms / iters`` (timed
+    once after the first warm-up call) runs fewer times a pair, at least
+    once, so slow plain versions stay within the script's time."""
     import torch
-    for _ in range(warmup):
+    fn()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    fn()
+    e.record()
+    torch.cuda.synchronize()
+    n = max(1, min(iters, int(budget_ms / max(s.elapsed_time(e), 1e-3))))
+    for _ in range(warmup - 2 if n == iters else 0):
         fn()
+    iters = n
     pairs = []
     for _ in range(runs):
         s = torch.cuda.Event(enable_timing=True)
@@ -141,9 +193,36 @@ def attn_ratio(got, want, rtol: float) -> float:
     return ((g - w).abs() / (rtol * (w.abs() + rms))).max().item()
 
 
+def bf16_ulps(got, want) -> float:
+    """The worst |got - want| in units of the bf16 spacing at
+    max(|want|, max|want| / 128): a sum that cancels to near zero is held
+    at 1/128 of its tensor's scale, where fp32 sums in another order
+    differ by more than the spacing at the value itself."""
+    import torch
+    w = want.float()
+    floor = max(w.abs().max().item() / 128, 2.0 ** -126)
+    exp = torch.frexp(w.abs().clamp_min(floor)).exponent
+    ulp = torch.ldexp(torch.ones_like(w), exp - 8)
+    return ((got.float() - w).abs() / ulp).max().item()
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+class Phases:
+    """Prints each phase's seconds as it ends."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.seconds = {}
+
+    def done(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = now - self.t
+        print(f"[phase {name}] {now - self.t:.1f} s")
+        self.t = now
 
 
 def main() -> int:
@@ -167,29 +246,30 @@ def main() -> int:
     from repro_torch.launch.serve_cnn import (default_request_count,
                                               synthetic_requests)
     from repro_torch.models import attention as attn
-    from repro_torch.models.cnn import fuse_plan, run_group
+    from repro_torch.models.cnn import fuse_plan
     from repro_torch.pipeline import (ExecutionSpec, Precision, Serving,
                                       compile_cnn)
     from repro_torch.quant import dequantize, quantize
     from repro_torch.serve import latency_report
 
+    wrappers = {"conv_pipe": conv_pipe, "lrn_pwl": lrn_pwl,
+                "matmul_pipe": matmul_pipe,
+                "flash_attention": flash_attention,
+                "decode_attention": decode_attention}
+
+    def counter(c):
+        """(wrapper, attribute) of counter ``c``."""
+        base = c.removesuffix("_s8").removesuffix("_bf16")
+        return wrappers[base], "launches" + c[len(base):]
+
     def reset_launches():
-        conv_pipe.launches = conv_pipe.launches_s8 = 0
-        matmul_pipe.launches = matmul_pipe.launches_s8 = 0
-        lrn_pwl.launches = 0
-        flash_attention.launches = flash_attention.launches_bf16 = 0
-        decode_attention.launches = decode_attention.launches_bf16 = 0
+        for c in COUNTERS:
+            setattr(*counter(c), 0)
 
     def launch_counts():
-        return {"conv_pipe": conv_pipe.launches,
-                "conv_pipe_s8": conv_pipe.launches_s8,
-                "lrn_pwl": lrn_pwl.launches,
-                "matmul_pipe": matmul_pipe.launches,
-                "matmul_pipe_s8": matmul_pipe.launches_s8,
-                "flash_attention": flash_attention.launches,
-                "flash_attention_bf16": flash_attention.launches_bf16,
-                "decode_attention": decode_attention.launches,
-                "decode_attention_bf16": decode_attention.launches_bf16}
+        return {c: getattr(*counter(c)) for c in COUNTERS}
+
+    phases = Phases()
 
     def measure(row, rate):
         """Time the row's kernel, plain version and library call; add the
@@ -251,99 +331,229 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    phases.done("1")
+
+    def conv_kw(cfg, group):
+        l = cfg.layers[group[0]]
+        pool = cfg.layers[group[1]] if len(group) == 2 else None
+        return l, pool, dict(stride=l.stride, pad=l.pad, relu=l.relu,
+                             pool=pool.pool if pool else None,
+                             pool_k=pool.kernel if pool else 2,
+                             pool_s=pool.stride if pool else 2,
+                             groups=l.groups)
+
+    def conv_ops(h, w, l):
+        return 2 * h.shape[0] * w.numel() * (
+            (h.shape[1] + 2 * l.pad - l.kernel) // l.stride + 1) * (
+            (h.shape[2] + 2 * l.pad - l.kernel) // l.stride + 1)
+
+    def float_rows(cfg, params, x, mode):
+        """Each fp32 or bf16 kernel of one forward held against its plain
+        version on the inputs the fold over the plain versions gives it,
+        and timed (phases 2, 7 and 8). Returns (rows, the fold's logits)."""
+        sfx = "" if mode == "fp32" else "_bf16"
+        es = x.element_size()
+        rows = []
+        h = x
+        with torch.inference_mode():
+            for group in fuse_plan(cfg):
+                l = cfg.layers[group[0]]
+                p = params[group[0]]
+                row = None
+                if l.kind == "conv":
+                    l, pool, kw = conv_kw(cfg, group)
+                    w, b = p["w"], p["b"]
+                    got = conv_pipe(h, w, b, **kw)
+                    want = conv_pipe_plain(h, w, b, **kw)
+                    xc = h.permute(0, 3, 1, 2).contiguous()
+                    wc = w.permute(3, 2, 0, 1).contiguous()
+
+                    def library(xc=xc, wc=wc, b=b, l=l, pool=pool):
+                        y = F.relu(F.conv2d(xc, wc, b, stride=l.stride,
+                                            padding=l.pad, groups=l.groups))
+                        if pool is None:
+                            return y
+                        fn = F.max_pool2d if pool.pool == "max" \
+                            else F.avg_pool2d
+                        return fn(y, pool.kernel, pool.stride)
+                    row = dict(kernel="conv_pipe" + sfx, layer=f"conv{group}",
+                               shape=list(h.shape),
+                               run=lambda h=h, w=w, b=b, kw=kw:
+                               conv_pipe(h, w, b, **kw),
+                               plain=lambda h=h, w=w, b=b, kw=kw:
+                               conv_pipe_plain(h, w, b, **kw),
+                               library=library, ops=conv_ops(h, w, l),
+                               bytes=es * (h.numel() + w.numel() + b.numel()
+                                           + got.numel()))
+                elif l.kind == "lrn":
+                    got = lrn_pwl(h)
+                    want = lrn_pwl_plain(h)
+                    exact = lrn_ref(h.float())
+                    pwl_err = ((lrn_pwl_plain(h.float()) - exact).abs()
+                               / (exact.abs() + 1e-9)).max().item()
+                    check(pwl_err < PWL_BOUND,
+                          f"PWL error {pwl_err:.3%} vs exact LRN > 0.5%")
+                    xc = h.permute(0, 3, 1, 2).contiguous()
+                    row = dict(kernel="lrn_pwl" + sfx, layer=f"lrn{group}",
+                               shape=list(h.shape), pwl_vs_exact=pwl_err,
+                               run=lambda h=h: lrn_pwl(h),
+                               plain=lambda h=h: lrn_pwl_plain(h),
+                               library=lambda xc=xc: F.local_response_norm(
+                                   xc, 5, alpha=1e-4, beta=0.75, k=2.0),
+                               ops=14 * h.numel(), bytes=2 * es * h.numel())
+                elif l.kind == "fc":
+                    xf = h.reshape(h.shape[0], -1)
+                    w, b = p["w"], p["b"]
+                    got = matmul_pipe(xf, w, b, relu=l.relu)
+                    want = matmul_pipe_plain(xf, w, b, relu=l.relu)
+                    M, K = xf.shape
+                    N = w.shape[1]
+                    row = dict(kernel="matmul_pipe" + sfx, layer=f"fc{group}",
+                               shape=[M, K, N],
+                               run=lambda xf=xf, w=w, b=b, r=l.relu:
+                               matmul_pipe(xf, w, b, relu=r),
+                               plain=lambda xf=xf, w=w, b=b, r=l.relu:
+                               matmul_pipe_plain(xf, w, b, relu=r),
+                               library=lambda xf=xf, w=w, b=b, r=l.relu:
+                               (torch.addmm(b, xf, w).relu_() if r
+                                else torch.addmm(b, xf, w)),
+                               ops=2 * M * K * N,
+                               bytes=es * (M * K + K * N + N + M * N))
+                else:
+                    want = pool_ref(h, l.pool, l.kernel, l.stride)
+                if row is not None:
+                    torch.cuda.synchronize()
+                    check(got.shape == want.shape and got.dtype == want.dtype,
+                          f"{cfg.name} {row['layer']}: {got.dtype} "
+                          f"{tuple(got.shape)} vs {want.dtype} "
+                          f"{tuple(want.shape)}")
+                    diff = (got.float() - want.float()).abs()
+                    row["max_abs_err"] = diff.max().item()
+                    row["mode"] = mode
+                    row["model"] = cfg.name
+                    if mode == "fp32":
+                        peak = want.abs().max().item()
+                        row["tol"] = LRN_RTOL * peak if l.kind == "lrn" \
+                            else KERNEL_RTOL * max(1.0, peak)
+                    else:
+                        row["err_ratio"] = (diff / (BF16_RTOL * (
+                            1.0 + want.float().abs()))).max().item()
+                        row["ulps"] = bf16_ulps(got, want)
+                        row["n_differ"] = int((diff > 0).sum())
+                        print(f"[bf16] {cfg.name} {row['layer']}: worst "
+                              f"error {row['ulps']:.2f} bf16 ulps (of "
+                              f"max(|plain|, max|plain|/128)), "
+                              f"{row['n_differ']} of {got.numel()} differ")
+                    measure(row, fp32_rate if mode == "fp32" else bf16_rate)
+                    rows.append(row)
+                h = want
+        return rows, h
+
+    def int8_rows(cfg, qp, x):
+        """Each int8 kernel of one int8 forward held bit for bit against
+        its plain version (the exact-int oracle) on the codes the fold over
+        the plain versions gives it, and timed (phases 2b and 7). Returns
+        (rows, the fold's logits)."""
+        rows = []
+        h = quantize(x, qp.in_scale)
+        with torch.inference_mode():
+            for group in fuse_plan(cfg):
+                l = cfg.layers[group[0]]
+                ql = qp.layers[group[0]]
+                row = None
+                if l.kind == "conv":
+                    l, _, kw = conv_kw(cfg, group)
+                    kw.update(scale=ql.scale, out_scale=ql.y_scale)
+                    got = conv_pipe(h, ql.w_q, ql.b, **kw)
+                    want = conv_pipe_plain(h, ql.w_q, ql.b, **kw)
+                    row = dict(kernel="conv_pipe_s8", layer=f"conv{group}",
+                               shape=list(h.shape),
+                               run=lambda h=h, ql=ql, kw=kw:
+                               conv_pipe(h, ql.w_q, ql.b, **kw),
+                               plain=lambda h=h, ql=ql, kw=kw:
+                               conv_pipe_plain(h, ql.w_q, ql.b, **kw),
+                               library=None, ops=conv_ops(h, ql.w_q, l))
+                    nbytes = h.numel() + ql.w_q.numel() + 8 * ql.b.numel()
+                elif l.kind == "fc":
+                    xf = h.reshape(h.shape[0], -1)
+                    kw = dict(relu=l.relu, scale=ql.scale,
+                              out_scale=ql.y_scale)
+                    got = matmul_pipe(xf, ql.w_q, ql.b, **kw)
+                    want = matmul_pipe_plain(xf, ql.w_q, ql.b, **kw)
+                    M, K = xf.shape
+                    N = ql.w_q.shape[1]
+                    xpad = torch.zeros((max(M, INT_MM_ROWS), K),
+                                       dtype=torch.int8, device="cuda")
+                    xpad[:M] = xf
+
+                    def library(xpad=xpad, M=M, ql=ql, relu=l.relu):
+                        y = torch._int_mm(xpad, ql.w_q)[:M].float() * ql.scale
+                        y = y + ql.b
+                        if relu:
+                            y = y.relu_()
+                        return y if ql.y_scale is None else quantize(
+                            y, ql.y_scale)
+                    row = dict(kernel="matmul_pipe_s8", layer=f"fc{group}",
+                               shape=[M, K, N],
+                               run=lambda xf=xf, ql=ql, kw=kw:
+                               matmul_pipe(xf, ql.w_q, ql.b, **kw),
+                               plain=lambda xf=xf, ql=ql, kw=kw:
+                               matmul_pipe_plain(xf, ql.w_q, ql.b, **kw),
+                               library=library, ops=2 * M * K * N)
+                    nbytes = xf.numel() + ql.w_q.numel() + 8 * N
+                elif l.kind == "lrn":
+                    xf = dequantize(h, ql.x_scale)
+                    check(torch.equal(lrn_pwl(xf), lrn_pwl_plain(xf)),
+                          f"lrn{group}: lrn_pwl differs from its plain "
+                          f"version on the int8 path's input")
+                    want = quantize(lrn_pwl_plain(xf), ql.y_scale)
+                else:
+                    want = pool_ref(h, l.pool, l.kernel, l.stride)
+                if row is not None:
+                    torch.cuda.synchronize()
+                    check(got.shape == want.shape and got.dtype == want.dtype,
+                          f"{cfg.name} {row['layer']}: {got.dtype} "
+                          f"{tuple(got.shape)} vs {want.dtype} "
+                          f"{tuple(want.shape)}")
+                    diff = (got.float() - want.float()).abs()
+                    row["bytes"] = nbytes + got.numel() * got.element_size()
+                    row["out"] = str(got.dtype).replace("torch.", "")
+                    row["n_differ"] = int((diff > 0).sum())
+                    row["max_abs_err"] = diff.max().item()
+                    row["tol"] = 0.0
+                    row["mode"] = "int8"
+                    row["model"] = cfg.name
+                    measure(row, int8_rate)
+                    check(torch.equal(got, want),
+                          f"{cfg.name} {row['layer']} {row['kernel']}: "
+                          f"{row['n_differ']} outputs differ from the plain "
+                          f"version")
+                    rows.append(row)
+                h = want
+        return rows, h
+
+    def with_biases(params, gen):
+        """The parameters with random biases in place of the zeros the
+        initialiser gives, so every check runs the bias path."""
+        return [None if p is None else {
+            "w": p["w"], "b": BIAS_STD * torch.randn(
+                p["b"].shape, generator=gen, device="cuda")}
+            for p in params]
 
     cfg = get_config("alexnet")
     spec = ExecutionSpec(serving=Serving(batch=BATCH))
     gen = torch.Generator(device="cuda").manual_seed(0)
-    compiled = compile_cnn(cfg, spec, generator=gen, device="cuda")
-    params = compiled.params
+    params = compile_cnn(cfg, spec, generator=gen, device="cuda").params
     x = torch.randn((BATCH, cfg.input_hw, cfg.input_hw, cfg.input_ch),
                     generator=gen, device="cuda")
+    params = with_biases(params, gen)
+    compiled = compile_cnn(cfg, spec, params, device="cuda")
+    x_alex = x                      # phase 6 reuses the name x
 
     # -- 2. each kernel vs its plain version at AlexNet's shapes ------------
-    rows = []
-    h = x
-    with torch.inference_mode():
-        for group in fuse_plan(cfg):
-            l = cfg.layers[group[0]]
-            p = params[group[0]]
-            row = None
-            if l.kind == "conv":
-                pool = cfg.layers[group[1]] if len(group) == 2 else None
-                kw = dict(stride=l.stride, pad=l.pad, relu=l.relu,
-                          pool=pool.pool if pool else None,
-                          pool_k=pool.kernel if pool else 2,
-                          pool_s=pool.stride if pool else 2, groups=l.groups)
-                b = 0.1 * torch.randn(l.out_ch, generator=gen, device="cuda")
-                got = conv_pipe(h, p["w"], b, **kw)
-                want = conv_pipe_plain(h, p["w"], b, **kw)
-                xc = h.permute(0, 3, 1, 2).contiguous()
-                wc = p["w"].permute(3, 2, 0, 1).contiguous()
+    rows, _ = float_rows(cfg, params, x, "fp32")
+    phases.done("2")
 
-                def library(xc=xc, wc=wc, b=b, l=l, pool=pool):
-                    y = F.relu(F.conv2d(xc, wc, b, stride=l.stride,
-                                        padding=l.pad, groups=l.groups))
-                    return F.max_pool2d(y, pool.kernel, pool.stride) \
-                        if pool else y
-                ops = 2 * got.shape[0] * p["w"].numel() * (
-                    (h.shape[1] + 2 * l.pad - l.kernel) // l.stride + 1) * (
-                    (h.shape[2] + 2 * l.pad - l.kernel) // l.stride + 1)
-                nbytes = 4 * (h.numel() + p["w"].numel() + b.numel()
-                              + got.numel())
-                row = dict(kernel="conv_pipe", layer=f"conv{group}",
-                           shape=list(h.shape), tol=KERNEL_RTOL * max(
-                               1.0, want.abs().max().item()),
-                           run=lambda h=h, w=p["w"], b=b, kw=kw:
-                           conv_pipe(h, w, b, **kw),
-                           plain=lambda h=h, w=p["w"], b=b, kw=kw:
-                           conv_pipe_plain(h, w, b, **kw),
-                           library=library, ops=ops, bytes=nbytes)
-            elif l.kind == "lrn":
-                got = lrn_pwl(h)
-                want = lrn_pwl_plain(h)
-                exact = lrn_ref(h)
-                pwl_err = ((want - exact).abs()
-                           / (exact.abs() + 1e-9)).max().item()
-                check(pwl_err < PWL_BOUND,
-                      f"PWL error {pwl_err:.3%} vs exact LRN > 0.5%")
-                xc = h.permute(0, 3, 1, 2).contiguous()
-                row = dict(kernel="lrn_pwl", layer=f"lrn{group}",
-                           shape=list(h.shape),
-                           tol=LRN_RTOL * want.abs().max().item(),
-                           pwl_vs_exact=pwl_err,
-                           run=lambda h=h: lrn_pwl(h),
-                           plain=lambda h=h: lrn_pwl_plain(h),
-                           library=lambda xc=xc: F.local_response_norm(
-                               xc, 5, alpha=1e-4, beta=0.75, k=2.0),
-                           ops=14 * h.numel(), bytes=8 * h.numel())
-            elif l.kind == "fc":
-                xf = h.reshape(h.shape[0], -1)
-                b = 0.1 * torch.randn(l.out_ch, generator=gen, device="cuda")
-                got = matmul_pipe(xf, p["w"], b, relu=l.relu)
-                want = matmul_pipe_plain(xf, p["w"], b, relu=l.relu)
-                M, K = xf.shape
-                N = p["w"].shape[1]
-                row = dict(kernel="matmul_pipe", layer=f"fc{group}",
-                           shape=[M, K, N], tol=KERNEL_RTOL * max(
-                               1.0, want.abs().max().item()),
-                           run=lambda xf=xf, w=p["w"], b=b, r=l.relu:
-                           matmul_pipe(xf, w, b, relu=r),
-                           plain=lambda xf=xf, w=p["w"], b=b, r=l.relu:
-                           matmul_pipe_plain(xf, w, b, relu=r),
-                           library=lambda xf=xf, w=p["w"], b=b, r=l.relu:
-                           (torch.addmm(b, xf, w).relu_() if r
-                            else torch.addmm(b, xf, w)),
-                           ops=2 * M * K * N,
-                           bytes=4 * (M * K + K * N + N + M * N))
-            if row is not None:
-                torch.cuda.synchronize()
-                check(got.shape == want.shape,
-                      f"{row['layer']}: shape {tuple(got.shape)} vs "
-                      f"{tuple(want.shape)}")
-                row["max_abs_err"] = (got - want).abs().max().item()
-                measure(row, fp32_rate)
-                rows.append(row)
-            h = run_group(params, h, cfg, group, use_kernels=False)
 
     # -- 3. the full forward through the entry point --------------------------
     reset_launches()
@@ -370,16 +580,18 @@ def main() -> int:
     fwd_ms = time_ms(lambda: compiled.forward(x))
     print(f"[forward] alexnet batch {BATCH}: {fwd_ms:.3f} ms median, "
           f"{BATCH / fwd_ms * 1e3:.1f} images/s")
+    phases.done("3")
 
     # -- 4. serve ---------------------------------------------------------------
     n_req = default_request_count(BATCH)
-    reqs = synthetic_requests(n_req, cfg.input_hw, cfg.input_ch, 200.0)
-    imgs = torch.from_numpy(np.stack([r.image for r in reqs])).cuda()
 
     def serve(model, expected, tag):
-        """Serve ``reqs`` through ``model``: every request one ``ok``
-        completion with the forward's prediction, ``expected`` launches
-        per forward."""
+        """Serve ``n_req`` synthetic requests of the model's input size
+        through ``model``: every request one ``ok`` completion with the
+        forward's prediction, ``expected`` launches per forward."""
+        reqs = synthetic_requests(n_req, model.cfg.input_hw,
+                                  model.cfg.input_ch, 200.0)
+        imgs = torch.from_numpy(np.stack([r.image for r in reqs])).cuda()
         reset_launches()
         rep = model.serve(reqs)
         torch.cuda.synchronize()
@@ -402,6 +614,7 @@ def main() -> int:
         return rep, lat
 
     rep, lat = serve(compiled, EXPECTED_LAUNCHES, "serve")
+    phases.done("4")
 
     # -- 2b. the int8 kernel modes vs their plain versions --------------------
     qspec = ExecutionSpec(precision=Precision(quant="int8"),
@@ -412,85 +625,8 @@ def main() -> int:
     print(f"[int8] calibrated on the default batch ({qspec.precision.calib} "
           f"images, on the card) in {time.perf_counter() - t0:.2f} s; input "
           f"scale {qp.in_scale:.6g}")
-    qrows = []
-    h = quantize(x, qp.in_scale)
-    with torch.inference_mode():
-        for group in fuse_plan(cfg):
-            l = cfg.layers[group[0]]
-            ql = qp.layers[group[0]]
-            row = None
-            if l.kind == "conv":
-                pool = cfg.layers[group[1]] if len(group) == 2 else None
-                kw = dict(stride=l.stride, pad=l.pad, relu=l.relu,
-                          pool=pool.pool if pool else None,
-                          pool_k=pool.kernel if pool else 2,
-                          pool_s=pool.stride if pool else 2, groups=l.groups,
-                          scale=ql.scale, out_scale=ql.y_scale)
-                got = conv_pipe(h, ql.w_q, ql.b, **kw)
-                want = conv_pipe_plain(h, ql.w_q, ql.b, **kw)
-                ops = 2 * h.shape[0] * ql.w_q.numel() * (
-                    (h.shape[1] + 2 * l.pad - l.kernel) // l.stride + 1) * (
-                    (h.shape[2] + 2 * l.pad - l.kernel) // l.stride + 1)
-                row = dict(kernel="conv_pipe_s8", layer=f"conv{group}",
-                           shape=list(h.shape),
-                           run=lambda h=h, ql=ql, kw=kw:
-                           conv_pipe(h, ql.w_q, ql.b, **kw),
-                           plain=lambda h=h, ql=ql, kw=kw:
-                           conv_pipe_plain(h, ql.w_q, ql.b, **kw),
-                           library=None, ops=ops)
-                nbytes = h.numel() + ql.w_q.numel() + 8 * ql.b.numel()
-            elif l.kind == "fc":
-                xf = h.reshape(h.shape[0], -1)
-                kw = dict(relu=l.relu, scale=ql.scale, out_scale=ql.y_scale)
-                got = matmul_pipe(xf, ql.w_q, ql.b, **kw)
-                want = matmul_pipe_plain(xf, ql.w_q, ql.b, **kw)
-                M, K = xf.shape
-                N = ql.w_q.shape[1]
-                xpad = torch.zeros((max(M, INT_MM_ROWS), K), dtype=torch.int8,
-                                   device="cuda")
-                xpad[:M] = xf
-
-                def library(xpad=xpad, M=M, ql=ql, relu=l.relu):
-                    y = torch._int_mm(xpad, ql.w_q)[:M].float() * ql.scale
-                    y = y + ql.b
-                    if relu:
-                        y = y.relu_()
-                    return y if ql.y_scale is None else quantize(
-                        y, ql.y_scale)
-                row = dict(kernel="matmul_pipe_s8", layer=f"fc{group}",
-                           shape=[M, K, N],
-                           run=lambda xf=xf, ql=ql, kw=kw:
-                           matmul_pipe(xf, ql.w_q, ql.b, **kw),
-                           plain=lambda xf=xf, ql=ql, kw=kw:
-                           matmul_pipe_plain(xf, ql.w_q, ql.b, **kw),
-                           library=library, ops=2 * M * K * N)
-                nbytes = xf.numel() + ql.w_q.numel() + 8 * N
-            elif l.kind == "lrn":
-                xf = dequantize(h, ql.x_scale)
-                check(torch.equal(lrn_pwl(xf), lrn_pwl_plain(xf)),
-                      f"lrn{group}: lrn_pwl differs from its plain version "
-                      f"on the int8 path's input")
-                want = quantize(lrn_pwl_plain(xf), ql.y_scale)
-            else:
-                want = pool_ref(h, l.pool, l.kernel, l.stride)
-            if row is not None:
-                torch.cuda.synchronize()
-                check(got.shape == want.shape and got.dtype == want.dtype,
-                      f"{row['layer']}: {got.dtype} {tuple(got.shape)} vs "
-                      f"{want.dtype} {tuple(want.shape)}")
-                diff = (got.float() - want.float()).abs()
-                row["bytes"] = nbytes + got.numel() * got.element_size()
-                row["out"] = str(got.dtype).replace("torch.", "")
-                row["n_differ"] = int((diff > 0).sum())
-                row["max_abs_err"] = diff.max().item()
-                row["tol"] = 0.0
-                measure(row, int8_rate)
-                check(torch.equal(got, want),
-                      f"{row['layer']} {row['kernel']}: {row['n_differ']} "
-                      f"outputs differ from the plain version")
-                qrows.append(row)
-            h = want
-    plain_qlogits = h
+    qrows, plain_qlogits = int8_rows(cfg, qp, x)
+    phases.done("2b")
 
     # -- 3b. the int8 forward through the entry point --------------------------
     reset_launches()
@@ -521,9 +657,11 @@ def main() -> int:
     print(f"[int8 forward] alexnet batch {BATCH}: int8 {qfwd_ms:.3f} ms "
           f"median, {BATCH / qfwd_ms * 1e3:.1f} images/s; fp32 "
           f"{fwd_ms:.3f} ms, {BATCH / fwd_ms * 1e3:.1f} images/s")
+    phases.done("3b")
 
     # -- 4b. int8 serve -------------------------------------------------------------
     qrep, qlat = serve(qcompiled, EXPECTED_LAUNCHES_INT8, "int8 serve")
+    phases.done("4b")
 
     # -- 5. the attention kernels vs their plain versions -------------------
     acfg = get_config(ATTN_ARCH)
@@ -621,6 +759,7 @@ def main() -> int:
             del kc, vc
     print("[attention] every kernel within tolerance of its plain version; "
           "decode caches bit-equal to the plain version's after the write")
+    phases.done("5")
 
     # -- 6. the attention layer at full width: the slice's main path --------
     layer = {}
@@ -735,17 +874,131 @@ def main() -> int:
                 od, want_od, mode, mrows)
         del p, x, q, k, v, qh, kh, vh, o, cache, want, got, want_cache
         del kc, vc, kp, vp
+    phases.done("6")
 
-    # -- 7. the kernels line ----------------------------------------------------
-    # CNN entries sum over one forward's launches (phases 2, 2b); attention
-    # entries are the one launch of phase 6's main path, at its shape
+    # -- 7. VGG-16 at full width, fp32 and int8 ------------------------------
+    def forward_launches(model, xb, expect, tag):
+        """One forward through the entry point with the counts set to 0
+        just before it and read just after; they must equal ``expect``."""
+        reset_launches()
+        out = model.forward(xb)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        print(f"[{tag}] launches {counts}")
+        check(counts == expect, f"{tag} launches {counts} != {expect}")
+        check(tuple(out.shape) == (BATCH, model.cfg.n_classes)
+              and bool(torch.isfinite(out).all()),
+              f"{tag}: logits not finite or of the wrong shape")
+        return out, counts
+
+    vcfg = get_config("vgg16")
+    vgen = torch.Generator(device="cuda").manual_seed(2)
+    vparams = with_biases(compile_cnn(vcfg, spec, generator=vgen,
+                                      device="cuda").params, vgen)
+    x_vgg = torch.randn((BATCH, vcfg.input_hw, vcfg.input_hw, vcfg.input_ch),
+                        generator=vgen, device="cuda")
+    vcompiled = compile_cnn(vcfg, spec, vparams, device="cuda")
+    vrows, v_plain = float_rows(vcfg, vparams, x_vgg, "fp32")
+    vlogits, vlaunches = forward_launches(vcompiled, x_vgg, EXPECTED_VGG,
+                                          "vgg16 forward")
+    v_err = (vlogits - v_plain).abs().max().item()
+    v_tol = LOGIT_RTOL * v_plain.abs().max().item()
+    print(f"[vgg16 forward] logits vs the fold over the plain versions (TF32 "
+          f"off): max abs err {v_err:.3e} (tol {v_tol:.3e} = {LOGIT_RTOL} x "
+          f"max|logit|)")
+    check(v_err <= v_tol, f"vgg16 logits differ from the plain fold: "
+          f"{v_err} > {v_tol}")
+    vfwd_ms = time_ms(lambda: vcompiled.forward(x_vgg))
+    t0 = time.perf_counter()
+    vqcompiled = compile_cnn(vcfg, qspec, vparams, device="cuda")
+    print(f"[vgg16 int8] calibrated on the default batch "
+          f"({qspec.precision.calib} images, on the card) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    vqrows, vq_plain = int8_rows(vcfg, vqcompiled.params, x_vgg)
+    vqlogits, vqlaunches = forward_launches(vqcompiled, x_vgg,
+                                            EXPECTED_VGG_INT8,
+                                            "vgg16 int8 forward")
+    vq_differ = int((vqlogits != vq_plain).sum())
+    vq_top1 = (vqlogits.argmax(-1) == vlogits.argmax(-1)).float().mean().item()
+    print(f"[vgg16 int8 forward] logits vs the fold over the plain versions: "
+          f"{vq_differ} of {vqlogits.numel()} differ (bit-equal required); "
+          f"top-1 agreement with the fp32 forward {vq_top1:.0%}")
+    check(vq_differ == 0, "vgg16 int8 logits differ from the plain fold")
+    vqfwd_ms = time_ms(lambda: vqcompiled.forward(x_vgg))
+    print(f"[vgg16 forward] batch {BATCH}: fp32 {vfwd_ms:.3f} ms, int8 "
+          f"{vqfwd_ms:.3f} ms median")
+    phases.done("7")
+
+    # -- 8. the bf16 kernel modes vs their plain versions ---------------------
+    bspec = ExecutionSpec(precision=Precision(dtype="bfloat16"),
+                          serving=Serving(batch=BATCH))
+    bf16 = {}
+    for bcfg, bparams, xb, c32, l32 in (
+            (cfg, params, x_alex, compiled, logits),
+            (vcfg, vparams, x_vgg, vcompiled, vlogits)):
+        bc = compile_cnn(bcfg, bspec, bparams, device="cuda")
+        xb16 = xb.to(torch.bfloat16)
+        brows, b_plain = float_rows(bcfg, bc.params, xb16, "bf16")
+        bf16[bcfg.name] = dict(compiled=bc, x=xb16, rows=brows,
+                               plain=b_plain, fp32_logits=l32)
+    phases.done("8")
+
+    # -- 9. the bf16 forwards through the entry point -----------------------
+    for arch, b in bf16.items():
+        out, counts = forward_launches(b["compiled"], b["x"],
+                                       EXPECTED_BF16[arch],
+                                       f"{arch} bf16 forward")
+        check(out.dtype == torch.bfloat16, f"{arch} bf16 logits: {out.dtype}")
+        b_err = (out.float() - b["plain"].float()).abs().max().item()
+        b_tol = BF16_LOGIT_RTOL * b["plain"].float().abs().max().item()
+        b_top1 = (out.float().argmax(-1)
+                  == b["fp32_logits"].argmax(-1)).float().mean().item()
+        b_ms = time_ms(lambda c=b["compiled"], xb=b["x"]: c.forward(xb))
+        print(f"[{arch} bf16 forward] logits vs the fold over the plain "
+              f"versions: max abs err {b_err:.3e} (tol {b_tol:.3e} = "
+              f"{BF16_LOGIT_RTOL} x max|logit|), "
+              f"{bf16_ulps(out, b['plain']):.1f} bf16 ulps; top-1 agreement "
+              f"with the fp32 forward {b_top1:.0%}; batch {BATCH}: "
+              f"{b_ms:.3f} ms median")
+        check(b_err <= b_tol, f"{arch} bf16 logits differ from the plain "
+              f"fold: {b_err} > {b_tol}")
+        b.update(launches=counts, logit_err=b_err, logit_tol=b_tol,
+                 top1_vs_fp32=b_top1, ms=b_ms)
+    phases.done("9")
+
+    # -- 10. bf16 serve -------------------------------------------------------
+    brep, blat = serve(bf16["vgg16"]["compiled"], EXPECTED_BF16["vgg16"],
+                       "vgg16 bf16 serve")
+    phases.done("10")
+
+    # -- 11. the kernels line -------------------------------------------------
+    # CNN entries sum over one forward's launches (phases 2, 2b; the bf16
+    # entries over one AlexNet and one VGG-16 forward, phase 8, with each
+    # model's share under "models"); attention entries are the one launch
+    # of phase 6's main path, at its shape
+    def entry(kname, rs, rate, count):
+        rs = [r for r in rs if r["kernel"] == kname]
+        t_ops = sum(r["ops"] for r in rs) / rate
+        t_bytes = sum(r["bytes"] for r in rs) / bw
+        libs = [r["library_ms"] for r in rs]
+        return {"launches": count[kname],
+                "max_abs_err": max(r["max_abs_err"] for r in rs),
+                "ms": sum(r["ms"] for r in rs),
+                "plain_ms": sum(r["plain_ms"] for r in rs),
+                "bound_ms": sum(r["bound_ms"] for r in rs),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": None if None in libs else sum(libs)}
+
     line = []
     for kname, mode, rs, rate, count in (
             ("conv_pipe", "fp32", rows, fp32_rate, launches),
             ("conv_pipe_s8", "int8", qrows, int8_rate, qlaunches),
+            ("conv_pipe_bf16", "bf16", None, bf16_rate, None),
             ("matmul_pipe", "fp32", rows, fp32_rate, launches),
             ("matmul_pipe_s8", "int8", qrows, int8_rate, qlaunches),
+            ("matmul_pipe_bf16", "bf16", None, bf16_rate, None),
             ("lrn_pwl", "fp32", rows, fp32_rate, launches),
+            ("lrn_pwl_bf16", "bf16", None, bf16_rate, None),
             ("flash_attention", "fp32", mrows, fp32_rate,
              layer["fp32"]["launches"]),
             ("flash_attention_bf16", "bf16", mrows, bf16_rate,
@@ -754,23 +1007,24 @@ def main() -> int:
              layer["fp32"]["launches"]),
             ("decode_attention_bf16", "bf16", mrows, bf16_rate,
              layer["bf16"]["launches"])):
-        main = rs is mrows
-        rs = [r for r in rs if r["kernel"] == kname]
-        at = {"shape": rs[0]["shape"]} if main else {}
         base = kname.removesuffix("_s8").removesuffix("_bf16")
-        t_ops = sum(r["ops"] for r in rs) / rate
-        t_bytes = sum(r["bytes"] for r in rs) / bw
-        libs = [r["library_ms"] for r in rs]
-        line.append({
-            "name": kname, "mode": mode, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{base}.cu",
-            "replaces": REPLACES[base], "launches": count[kname],
-            "max_abs_err": max(r["max_abs_err"] for r in rs),
-            "ms": sum(r["ms"] for r in rs),
-            "plain_ms": sum(r["plain_ms"] for r in rs),
-            "bound_ms": sum(r["bound_ms"] for r in rs),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None if None in libs else sum(libs), **at})
+        e = {"name": kname, "mode": mode, "route": "cuda",
+             "source": f"src/repro_torch/csrc/{base}.cu",
+             "replaces": REPLACES[base]}
+        if rs is None:              # a bf16 CNN mode: both models' forwards
+            models = {a: entry(kname, b["rows"], rate, b["launches"])
+                      for a, b in bf16.items() if b["launches"][kname]}
+            e.update(entry(kname, [r for b in bf16.values()
+                                   for r in b["rows"]], rate,
+                           {kname: sum(m["launches"]
+                                       for m in models.values())}))
+            e["models"] = models
+        else:
+            e.update(entry(kname, rs, rate, count))
+            if rs is mrows:
+                e["shape"] = [r for r in rs if r["kernel"] == kname][0][
+                    "shape"]
+        line.append(e)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "device": name, "fp32_rate": fp32_rate,
@@ -790,7 +1044,21 @@ def main() -> int:
                                     "launches": qlaunches,
                                     "in_scale": qp.in_scale},
                    "int8_serve": {"report": qrep.to_dict(),
-                                  "latency": qlat}},
+                                  "latency": qlat},
+                   "vgg16": {"rows": vrows, "int8_rows": vqrows,
+                             "forward": {"ms": vfwd_ms, "logit_err": v_err,
+                                         "logit_tol": v_tol,
+                                         "launches": vlaunches},
+                             "int8_forward": {"ms": vqfwd_ms,
+                                              "logits_differ": vq_differ,
+                                              "top1_vs_fp32": vq_top1,
+                                              "launches": vqlaunches}},
+                   "bf16": {a: {k: v for k, v in b.items()
+                                if k not in ("compiled", "x", "plain",
+                                             "fp32_logits")}
+                            for a, b in bf16.items()},
+                   "bf16_serve": {"report": brep.to_dict(), "latency": blat},
+                   "phase_seconds": phases.seconds},
                   f, indent=1, sort_keys=True)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 // conv_pipe: fused conv + bias + ReLU (+ max/avg pool), grouped, in one
-// launch per fusion group; fp32, or int8 with an int32 accumulator.
+// launch per fusion group; fp32, int8 with an int32 accumulator, or bf16
+// with an fp32 accumulator.
 //
 // Replaces the TPU kernel src/repro/kernels/conv_pipe.py:conv_pipe (body
-// _conv_pipe_kernel), both modes. Layouts as there: x NHWC, w HWIO
+// _conv_pipe_kernel), all three modes. Layouts as there: x NHWC, w HWIO
 // (KH, KW, C/G, M), b (M,), out NHWC.
 //
 // Bound on an H100: operations. fp32 runs FFMA on the CUDA cores (no TF32:
@@ -10,14 +11,19 @@
 // do 10.65 GFLOP at batch 8 against tens of MB of traffic, far above the
 // card's fp32 ridge point. The int8 mode runs __dp4a (four int8 products and
 // an int32 add per instruction) on the CUDA cores, not the tensor cores.
+// The bf16 mode also runs FFMA on the CUDA cores (each bf16 value widened to
+// fp32), so its bound on the bf16 tensor cores is far out of its reach.
 //
 // Design: an implicit GEMM. A block owns a tile of TP conv output positions
 // (GEMM rows) x TM output channels of one group (GEMM cols) and loops over the
 // reduction K = KH*KW*C/G in chunks of TK words inside the block: the TPU's
 // sequential C-tile grid axis and its VMEM accumulator become this loop and
-// registers (4x4 outputs a thread). A word is one fp32 value, or four int8
-// values of consecutive k packed for __dp4a, so the int8 mode keeps the fp32
-// tile geometry and shared-memory layout and reduces 64 k per chunk. The
+// registers (4x4 outputs a thread). A word is one fp32 value, four int8
+// values of consecutive k packed for __dp4a, or two bf16 values of
+// consecutive k, so the int8 and bf16 modes keep the fp32 tile geometry and
+// shared-memory layout and reduce 64 or 32 k per chunk. k past the end of
+// the reduction is zero in both operands, element by element, so a word may
+// straddle the end (C/G = 3 at conv1 gives an odd K). The
 // im2col gather bounds-checks every input read, so zero padding costs no
 // copy (exact in int8: the scheme is symmetric, zero point 0). The group is
 // picked by blockIdx.y, which selects the group's input-channel slab and
@@ -34,7 +40,12 @@
 // float(acc) * scale[m], then + b[m] (two roundings, never one FMA), ReLU,
 // pool (avg: the window summed in row-major order, then divided), then
 // clip(rint(y / out_scale), -127, 127) to int8, or y itself as fp32.
+//
+// bf16 epilogue, as the JAX kernel rounds it (conv_pipe.py:165-195, out in
+// x's dtype): the fp32 accumulator + b (bf16, widened), ReLU and the pool in
+// fp32, exactly as the fp32 mode, then one rounding to bf16 on store.
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -49,18 +60,21 @@ struct Geo {
   int B, H, W, C, KH, KW, Cg, M, Mg, stride, pad, OH, OW;
   int relu, pool, pk, ps, PH, PW;   // pool: 0 none, 1 max, 2 avg
   int tph, tpw, cw, tiles_h, tiles_w, ktot, m_tiles;
-  int cvec;                         // int8: 4 consecutive k share (kh, kw)
+  int cvec;                         // the KP consecutive k of a word share
+                                    // (kh, kw): one aligned word load
   float out_scale;                  // int8 output step (int8 out only)
 };
 
 // What differs between the modes: the element, the packed word of KP
-// elements, the accumulator and its multiply-add.
+// elements, the accumulator and its multiply-add, and the bias element.
 template <typename T> struct Mode;
 template <> struct Mode<float> {
   using Word = float;
   using Vec = float4;
   using Acc = float;
+  using Bias = float;
   static constexpr int KP = 1;
+  __device__ static float zero() { return 0.f; }
   __device__ static Word pack(const float (&v)[1]) { return v[0]; }
   __device__ static Acc mac(Word a, Word b, Acc c) { return fmaf(a, b, c); }
   __device__ static float requant(Acc acc, float) { return acc; }
@@ -69,7 +83,9 @@ template <> struct Mode<int8_t> {
   using Word = int;
   using Vec = int4;
   using Acc = int;
+  using Bias = float;
   static constexpr int KP = 4;
+  __device__ static int8_t zero() { return 0; }
   __device__ static Word pack(const int8_t (&v)[4]) {
     return (int)((uint32_t)(uint8_t)v[0] | (uint32_t)(uint8_t)v[1] << 8 |
                  (uint32_t)(uint8_t)v[2] << 16 | (uint32_t)(uint8_t)v[3] << 24);
@@ -79,6 +95,34 @@ template <> struct Mode<int8_t> {
     return __fmul_rn(__int2float_rn(acc), s);
   }
 };
+// bf16: a word is the raw bits of two bf16 of consecutive k (k even in the
+// low half, as they lie in memory); a bf16 widens to fp32 exactly by
+// moving its bits to the top of the word.
+template <> struct Mode<__nv_bfloat16> {
+  using Word = uint32_t;
+  using Vec = uint4;
+  using Acc = float;
+  using Bias = __nv_bfloat16;
+  static constexpr int KP = 2;
+  __device__ static __nv_bfloat16 zero() {
+    return __ushort_as_bfloat16((unsigned short)0);
+  }
+  __device__ static Word pack(const __nv_bfloat16 (&v)[2]) {
+    return (uint32_t)__bfloat16_as_ushort(v[0]) |
+           (uint32_t)__bfloat16_as_ushort(v[1]) << 16;
+  }
+  __device__ static Acc mac(Word a, Word b, Acc c) {
+    c = fmaf(__uint_as_float(a << 16), __uint_as_float(b << 16), c);
+    return fmaf(__uint_as_float(a & 0xffff0000u),
+                __uint_as_float(b & 0xffff0000u), c);
+  }
+  __device__ static float requant(Acc acc, float) { return acc; }
+};
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 
 __device__ __forceinline__ void store(float* out, size_t o, float v, float) {
   out[o] = v;
@@ -88,11 +132,15 @@ __device__ __forceinline__ void store(int8_t* out, size_t o, float v,
   const float q = rintf(__fdiv_rn(v, out_scale));
   out[o] = (int8_t)fminf(fmaxf(q, -127.f), 127.f);
 }
+__device__ __forceinline__ void store(__nv_bfloat16* out, size_t o, float v,
+                                      float) {
+  out[o] = __float2bfloat16_rn(v);
+}
 
 template <typename T, typename TO>
 __global__ void __launch_bounds__(NT)
 conv_pipe_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                 const float* __restrict__ bias,
+                 const typename Mode<T>::Bias* __restrict__ bias,
                  const float* __restrict__ scale, TO* __restrict__ out,
                  Geo g) {
   using Md = Mode<T>;
@@ -171,9 +219,9 @@ conv_pipe_kernel(const T* __restrict__ x, const T* __restrict__ w,
       const int b = s_img[p];
       Word v;
       if (KP > 1 && g.cvec && kin[KP - 1]) {
-        // four channels of one pixel: one aligned 4-byte load
+        // KP channels of one pixel: one aligned 4-byte word load
         const int ih = s_ih[p] + kh[0], iw = s_iw[p] + kw[0];
-        v = 0;
+        v = Word(0);
         if (b >= 0 && ih >= 0 && ih < g.H && iw >= 0 && iw < g.W)
           v = *reinterpret_cast<const Word*>(
               &x[((size_t)(b * g.H + ih) * g.W + iw) * g.C + cbase + c[0]]);
@@ -182,7 +230,7 @@ conv_pipe_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
         for (int e = 0; e < KP; ++e) {
           const int ih = s_ih[p] + kh[e], iw = s_iw[p] + kw[e];
-          e_v[e] = 0;
+          e_v[e] = Md::zero();
           if (kin[e] && b >= 0 && ih >= 0 && ih < g.H && iw >= 0 && iw < g.W)
             e_v[e] = x[((size_t)(b * g.H + ih) * g.W + iw) * g.C + cbase +
                        c[e]];
@@ -198,7 +246,7 @@ conv_pipe_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
       for (int e = 0; e < KP; ++e) {
         const int k = k0 + kk * KP + e;
-        e_v[e] = 0;
+        e_v[e] = Md::zero();
         if (k < g.ktot && m0 + b_m < g.Mg)
           e_v[e] = w[(size_t)k * g.M + obase + b_m];
       }
@@ -224,7 +272,7 @@ conv_pipe_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int m = m0 + tx * 4 + j;
-    bj[j] = m < g.Mg ? bias[grp * g.Mg + m] : 0.f;
+    bj[j] = m < g.Mg ? widen(bias[grp * g.Mg + m]) : 0.f;
     sj[j] = scale != nullptr && m < g.Mg ? scale[grp * g.Mg + m] : 0.f;
   }
 #pragma unroll
@@ -274,7 +322,7 @@ conv_pipe_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
 Geo make_geo(int B, int H, int W, int C, int KH, int KW, int M, int groups,
              int stride, int pad, int relu, int pool, int pk, int ps,
-             int tph, int tpw) {
+             int tph, int tpw, int kp) {
   Geo g;
   g.B = B; g.H = H; g.W = W; g.C = C; g.KH = KH; g.KW = KW;
   g.Cg = C / groups; g.M = M; g.Mg = M / groups;
@@ -290,13 +338,14 @@ Geo make_geo(int B, int H, int W, int C, int KH, int KW, int M, int groups,
   g.tiles_w = (g.PW + tpw - 1) / tpw;
   g.ktot = KH * KW * g.Cg;
   g.m_tiles = (g.Mg + TM - 1) / TM;
-  g.cvec = g.Cg % 4 == 0 && C % 4 == 0;
+  g.cvec = kp > 1 && g.Cg % kp == 0 && C % kp == 0;
   g.out_scale = 1.f;
   return g;
 }
 
 template <typename T, typename TO>
-int launch(const T* x, const T* w, const float* b, const float* scale,
+int launch(const T* x, const T* w, const typename Mode<T>::Bias* b,
+           const float* scale,
            TO* out, const Geo& g, int groups, void* stream) {
   const long long n_tiles =
       g.pool ? (long long)g.B * g.tiles_h * g.tiles_w
@@ -319,8 +368,21 @@ extern "C" int conv_pipe_f32(const float* x, const float* w, const float* b,
                              int relu, int pool, int pk, int ps, int tph,
                              int tpw, void* stream) {
   const Geo g = make_geo(B, H, W, C, KH, KW, M, groups, stride, pad, relu,
-                         pool, pk, ps, tph, tpw);
+                         pool, pk, ps, tph, tpw, 1);
   return launch<float, float>(x, w, b, nullptr, out, g, groups, stream);
+}
+
+// bf16 x, w, b and out; fp32 accumulation and epilogue, one rounding.
+extern "C" int conv_pipe_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                              const __nv_bfloat16* b, __nv_bfloat16* out,
+                              int B, int H, int W, int C, int KH, int KW,
+                              int M, int groups, int stride, int pad,
+                              int relu, int pool, int pk, int ps, int tph,
+                              int tpw, void* stream) {
+  const Geo g = make_geo(B, H, W, C, KH, KW, M, groups, stride, pad, relu,
+                         pool, pk, ps, tph, tpw, 2);
+  return launch<__nv_bfloat16, __nv_bfloat16>(x, w, b, nullptr, out, g,
+                                              groups, stream);
 }
 
 // int8 x and w, fp32 b and scale (M,) = s_x * s_w[m]. out_s8: the output is
@@ -332,7 +394,7 @@ extern "C" int conv_pipe_s8(const int8_t* x, const int8_t* w, const float* b,
                             int pad, int relu, int pool, int pk, int ps,
                             int tph, int tpw, void* stream) {
   Geo g = make_geo(B, H, W, C, KH, KW, M, groups, stride, pad, relu, pool,
-                   pk, ps, tph, tpw);
+                   pk, ps, tph, tpw, 4);
   g.out_scale = out_scale;
   if (out_s8)
     return launch<int8_t, int8_t>(x, w, b, scale, (int8_t*)out, g, groups,

@@ -1,7 +1,8 @@
 // lrn_pwl: cross-channel LRN with the paper's piecewise-linear z^-beta.
 //
 // Replaces the TPU kernel src/repro/kernels/lrn_pwl.py:lrn_pwl (body
-// _lrn_kernel, _pwlf). x (B, H, W, C) fp32, NHWC; y the same shape.
+// _lrn_kernel, _pwlf), both of its element types. x (B, H, W, C) fp32 or
+// bf16, NHWC; y the same shape and type.
 //
 //   acc = x[c]^2 + sum_{d=1..n/2} (x[c+d]^2 + x[c-d]^2)   (zeros past the edges)
 //   z   = k + (alpha/n) * acc
@@ -19,12 +20,28 @@
 // rounded __fmul_rn/__fadd_rn, in the order the reference uses, so nvcc
 // contracts nothing into an FMA and z, the LUT address and y match the
 // plain version bit for bit.
+//
+// bf16: every value is widened to fp32 on load and the computation is the
+// fp32 one, in the same order; y is rounded once to bf16 on store, as the
+// JAX kernel computes in fp32 and casts on output (lrn_pwl.py:74,85).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void lrn_pwl_kernel(const float* __restrict__ x,
-                               float* __restrict__ y,
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void put(float* y, long long i, float v) {
+  y[i] = v;
+}
+__device__ __forceinline__ void put(__nv_bfloat16* y, long long i, float v) {
+  y[i] = __float2bfloat16_rn(v);
+}
+
+template <typename T>
+__global__ void lrn_pwl_kernel(const T* __restrict__ x, T* __restrict__ y,
                                const float* __restrict__ slope,
                                const float* __restrict__ icpt, int n_seg,
                                long long total, int C, int half, float k,
@@ -39,31 +56,51 @@ __global__ void lrn_pwl_kernel(const float* __restrict__ x,
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < total; i += stride) {
     const int c = (int)(i % C);
-    const float xc = x[i];
+    const float xc = widen(x[i]);
     float acc = __fmul_rn(xc, xc);
     for (int d = 1; d <= half; ++d) {
-      const float r = c + d < C ? x[i + d] : 0.f;
+      const float r = c + d < C ? widen(x[i + d]) : 0.f;
       acc = __fadd_rn(acc, __fmul_rn(r, r));
-      const float l = c - d >= 0 ? x[i - d] : 0.f;
+      const float l = c - d >= 0 ? widen(x[i - d]) : 0.f;
       acc = __fadd_rn(acc, __fmul_rn(l, l));
     }
     const float z = __fadd_rn(k, __fmul_rn(alpha_n, acc));
     int a = (__float_as_int(z) >> shift) - base;
     a = min(max(a, 0), n_seg - 1);
-    y[i] = __fmul_rn(xc, __fadd_rn(__fmul_rn(lut[a], z), lut[n_seg + a]));
+    put(y, i,
+        __fmul_rn(xc, __fadd_rn(__fmul_rn(lut[a], z), lut[n_seg + a])));
   }
+}
+
+template <typename T>
+int launch(const T* x, T* y, const float* slope, const float* icpt, int n_seg,
+           long long total, int C, int n, float k, float alpha_n, int shift,
+           int base, int n_blocks, void* stream) {
+  const int threads = 256;
+  lrn_pwl_kernel<T><<<n_blocks, threads, 2 * n_seg * sizeof(float),
+                      (cudaStream_t)stream>>>(x, y, slope, icpt, n_seg, total,
+                                              C, n / 2, k, alpha_n, shift,
+                                              base);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point; returns cudaGetLastError().
+// Plain C entry points (fp32 and bf16 x/y; fp32 LUT); each returns
+// cudaGetLastError().
 extern "C" int lrn_pwl_f32(const float* x, float* y, const float* slope,
                            const float* icpt, int n_seg, long long total,
                            int C, int n, float k, float alpha_n, int shift,
                            int base, int n_blocks, void* stream) {
-  const int threads = 256;
-  lrn_pwl_kernel<<<n_blocks, threads, 2 * n_seg * sizeof(float),
-                   (cudaStream_t)stream>>>(x, y, slope, icpt, n_seg, total, C,
-                                           n / 2, k, alpha_n, shift, base);
-  return (int)cudaGetLastError();
+  return launch(x, y, slope, icpt, n_seg, total, C, n, k, alpha_n, shift,
+                base, n_blocks, stream);
+}
+
+extern "C" int lrn_pwl_bf16(const __nv_bfloat16* x, __nv_bfloat16* y,
+                            const float* slope, const float* icpt, int n_seg,
+                            long long total, int C, int n, float k,
+                            float alpha_n, int shift, int base, int n_blocks,
+                            void* stream) {
+  return launch(x, y, slope, icpt, n_seg, total, C, n, k, alpha_n, shift,
+                base, n_blocks, stream);
 }

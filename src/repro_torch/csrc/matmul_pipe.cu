@@ -1,13 +1,14 @@
-// matmul_pipe: y = relu?(x @ w + b), fp32 with fp32 FFMA accumulation; or
-// int8 x and w with an int32 accumulator and a requantize epilogue.
+// matmul_pipe: y = relu?(x @ w + b), fp32 with fp32 FFMA accumulation; int8
+// x and w with an int32 accumulator and a requantize epilogue; or bf16 x, w
+// and b with an fp32 accumulator and bf16 y.
 //
 // Replaces the TPU kernel src/repro/kernels/matmul_pipe.py:matmul_pipe (body
-// _matmul_kernel), both modes. x (M, K), w (K, N), b (N,), y (M, N), all
+// _matmul_kernel), all three modes. x (M, K), w (K, N), b (N,), y (M, N), all
 // row-major.
 //
 // Bound on an H100: device-memory bytes of w. At the serving shape M is the
 // micro-batch (8), so each weight element takes 2*M operations: AlexNet fc6
-// reads 151 MB of fp32 weights (38 MB in int8) for 0.6 GOP.
+// reads 151 MB of fp32 weights (75 MB in bf16, 38 MB in int8) for 0.6 GOP.
 //
 // Design: the paper's batched-FC reuse. A block owns a slab of NCOL columns
 // and MT rows of x (all of them at M <= MT), so every weight element is read
@@ -32,7 +33,16 @@
 // Epilogue, as the JAX kernel rounds it (matmul_pipe.py:52-63): y =
 // float(acc) * scale[n], then + b[n] (two roundings, never one FMA), ReLU,
 // then clip(rint(y / out_scale), -127, 127) to int8, or y itself as fp32.
+//
+// bf16 mode: a weight row of the thread's 4 columns is 8 bytes, so to keep
+// the fp32 mode's 128 bytes in flight a thread issues 16 such loads a chunk
+// (twice the fp32 mode's K per chunk). Each bf16 is widened to fp32 exactly
+// (its bits moved to the top of the word) and multiplied into fp32 sums by
+// FFMA; x is staged in shared memory as bf16. Epilogue, as the JAX kernel
+// rounds it (matmul_pipe.py:52-63, out in x's dtype): the fp32 sum + b
+// (widened), ReLU, then one rounding to bf16.
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -228,6 +238,95 @@ matmul_pipe_s8_kernel(const int8_t* __restrict__ x,
   }
 }
 
+// ---- bf16 mode ------------------------------------------------------------
+
+constexpr int U16 = 16;            // 8-byte weight loads in flight a thread
+constexpr int KC16 = KL * U16;     // K columns of x staged per chunk
+
+__device__ __forceinline__ float lo(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+__device__ __forceinline__ float hi(uint32_t v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+
+// columns n..n+3 of weight row k as raw bf16 bits (uint2.x: n, n+1)
+__device__ __forceinline__ uint2 load_w_bf16(
+    const unsigned short* __restrict__ w, int k, int n, int K, int N,
+    bool vec) {
+  if (k >= K) return make_uint2(0u, 0u);
+  const unsigned short* row = w + (size_t)k * N;
+  if (vec && n + 3 < N) return __ldg(reinterpret_cast<const uint2*>(row + n));
+  uint32_t v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) v[j] = n + j < N ? __ldg(row + n + j) : 0u;
+  return make_uint2(v[0] | v[1] << 16, v[2] | v[3] << 16);
+}
+
+__global__ void __launch_bounds__(NT)
+matmul_pipe_bf16_kernel(const unsigned short* __restrict__ x,
+                        const unsigned short* __restrict__ w,
+                        const __nv_bfloat16* __restrict__ b,
+                        __nv_bfloat16* __restrict__ y, int M, int K, int N,
+                        int relu) {
+  __shared__ unsigned short xs[MT][KC16];
+  __shared__ float red[KL][MT][NCOL];
+  const int tx = threadIdx.x % (NCOL / 4), ty = threadIdx.x / (NCOL / 4);
+  const int n = blockIdx.x * NCOL + tx * 4;
+  const int m0 = blockIdx.y * MT;
+  const bool vec = (N % 4) == 0;
+
+  float acc[MT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += KC16) {
+    for (int i = threadIdx.x; i < MT * KC16; i += NT) {
+      const int m = i / KC16, kk = i % KC16;
+      xs[m][kk] = (m0 + m < M && k0 + kk < K)
+                      ? x[(size_t)(m0 + m) * K + k0 + kk] : (unsigned short)0;
+    }
+    __syncthreads();
+    uint2 wv[U16];
+#pragma unroll
+    for (int u = 0; u < U16; ++u)
+      wv[u] = load_w_bf16(w, k0 + ty + u * KL, n, K, N, vec);
+#pragma unroll
+    for (int u = 0; u < U16; ++u) {
+      const int kk = ty + u * KL;
+      const float w0 = lo(wv[u].x), w1 = hi(wv[u].x);
+      const float w2 = lo(wv[u].y), w3 = hi(wv[u].y);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float xv = __uint_as_float((uint32_t)xs[m][kk] << 16);
+        acc[m][0] = fmaf(xv, w0, acc[m][0]);
+        acc[m][1] = fmaf(xv, w1, acc[m][1]);
+        acc[m][2] = fmaf(xv, w2, acc[m][2]);
+        acc[m][3] = fmaf(xv, w3, acc[m][3]);
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) red[ty][m][tx * 4 + j] = acc[m][j];
+  __syncthreads();
+  for (int i = threadIdx.x; i < MT * NCOL; i += NT) {
+    const int m = i / NCOL, c = i % NCOL;
+    const int row = m0 + m, col = blockIdx.x * NCOL + c;
+    if (row >= M || col >= N) continue;
+    float s = 0.f;
+    for (int l = 0; l < KL; ++l) s += red[l][m][c];
+    s = __fadd_rn(s, __bfloat162float(b[col]));
+    if (relu) s = fmaxf(s, 0.f);
+    y[(size_t)row * N + col] = __float2bfloat16_rn(s);
+  }
+}
+
 }  // namespace
 
 // Plain C entry point; returns cudaGetLastError().
@@ -253,5 +352,17 @@ extern "C" int matmul_pipe_s8(const int8_t* x, const int8_t* w, const float* b,
   else
     matmul_pipe_s8_kernel<float><<<grid, NT, 0, (cudaStream_t)stream>>>(
         x, w, b, scale, (float*)y, M, K, N, relu, out_scale);
+  return (int)cudaGetLastError();
+}
+
+// bf16 x, w, b and y; fp32 accumulation, one rounding. Returns
+// cudaGetLastError().
+extern "C" int matmul_pipe_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                                const __nv_bfloat16* b, __nv_bfloat16* y,
+                                int M, int K, int N, int relu, void* stream) {
+  dim3 grid((N + NCOL - 1) / NCOL, (M + MT - 1) / MT);
+  matmul_pipe_bf16_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
+      reinterpret_cast<const unsigned short*>(x),
+      reinterpret_cast<const unsigned short*>(w), b, y, M, K, N, relu);
   return (int)cudaGetLastError();
 }

@@ -1,14 +1,16 @@
 """conv_pipe — the PipeCNN pipeline as one fused CUDA kernel.
 
 conv + bias + ReLU (+ max/avg pool), grouped, in one launch per fusion
-group, in fp32 or in int8 (``scale=`` given: int8 x and w, an int32
+group, in fp32, in bf16 (bf16 x, w and b, an fp32 accumulator and
+epilogue, bf16 out), or in int8 (``scale=`` given: int8 x and w, an int32
 accumulator, and the requantize -> bias -> ReLU -> pool -> round
 epilogue). Kernel: ``csrc/conv_pipe.cu``, which replaces the TPU kernel
-``src/repro/kernels/conv_pipe.py:conv_pipe`` (both modes). It is bound by
-operations on the CUDA cores; it computes an implicit GEMM with the
-epilogue on a tile staged in shared memory, so the unpooled activation
-never reaches device memory. See the source for the design. The plain
-version, :func:`conv_pipe_plain`, is the exact oracle of each mode.
+``src/repro/kernels/conv_pipe.py:conv_pipe`` (all three modes). It is
+bound by operations on the CUDA cores; it computes an implicit GEMM with
+the epilogue on a tile staged in shared memory, so the unpooled
+activation never reaches device memory. See the source for the design.
+The plain version, :func:`conv_pipe_plain`, computes each mode as the
+kernel rounds it.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.ref import conv_pipe_ref
+from repro_torch.kernels.ref import conv_pipe_ref, float_dtypes
 from repro_torch.quant.ref import conv_int8_ref
 
 __all__ = ["conv_pipe", "conv_pipe_plain", "pool_tile"]
@@ -47,23 +49,32 @@ def pool_tile(ph: int, pw: int, pool_k: int, pool_s: int) -> Tuple[int, int]:
 
 
 def conv_pipe_plain(x, w, b, *, scale=None, out_scale=None, **kw):
-    """The plain version of both modes: the exact fp32 oracle, or with
-    ``scale`` the exact-int oracle of the int8 mode."""
-    if scale is None:
-        return conv_pipe_ref(x, w, b, **kw)
-    return conv_int8_ref(x, w, b, scale, out_scale=out_scale, **kw)
+    """The plain version of each mode: the exact fp32 oracle; in bf16 the
+    fp32 oracle on the widened operands, rounded once to bf16 (the
+    kernel's rounding; :func:`~repro_torch.kernels.ref.conv_pipe_ref` on
+    bf16 rounds twice, as the JAX oracle does); or with ``scale`` the
+    exact-int oracle of the int8 mode."""
+    if scale is not None:
+        return conv_int8_ref(x, w, b, scale, out_scale=out_scale, **kw)
+    float_dtypes("conv_pipe", x, w, b)
+    if x.dtype == torch.bfloat16:
+        return conv_pipe_ref(x.float(), w.float(), b.float(),
+                             **kw).to(torch.bfloat16)
+    return conv_pipe_ref(x, w, b, **kw)
+
+
+_FLOAT_ENTRY = {torch.float32: "conv_pipe_f32",
+                torch.bfloat16: "conv_pipe_bf16"}
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(int8: bool):
+def _entry(name: str):
     from repro_torch.kernels import build
-    lib = build.load("conv_pipe")
-    if int8:
-        fn = lib.conv_pipe_s8
+    fn = getattr(build.load("conv_pipe"), name)
+    if name == "conv_pipe_s8":
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_float] \
             + [ctypes.c_int] * 16 + [ctypes.c_void_p]
     else:
-        fn = lib.conv_pipe_f32
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 + [
             ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -78,11 +89,13 @@ def conv_pipe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
               groups: int = 1) -> torch.Tensor:
     """Fused conv(+bias)(+ReLU)(+pool). x (B,H,W,C); w (KH,KW,C/G,M); b (M,).
 
+    x, w and b all fp32 or all bf16 (the output in their dtype); or the
     int8 mode: ``scale`` ((M,) fp32, s_x * s_w[m]) given, x and w int8;
     ``out_scale`` (a float) selects int8 output quantized by that step,
     None fp32 output. A CPU tensor runs :func:`conv_pipe_plain`; a CUDA
     tensor launches the kernel (counted in ``conv_pipe.launches``, fp32,
-    or ``conv_pipe.launches_s8``, int8) or raises."""
+    ``conv_pipe.launches_bf16`` or ``conv_pipe.launches_s8``, int8) or
+    raises."""
     if x.device.type == "cpu":
         return conv_pipe_plain(x, w, b, scale=scale, out_scale=out_scale,
                                stride=stride, pad=pad, relu=relu, pool=pool,
@@ -98,10 +111,11 @@ def conv_pipe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
             f"conv_pipe: x {tuple(x.shape)}, w {tuple(w.shape)}, "
             f"b {tuple(b.shape)} disagree for groups={groups}")
     int8 = scale is not None
+    if not int8:
+        float_dtypes("conv_pipe", x, w, b)
     want = (("x", x, torch.int8), ("w", w, torch.int8), ("b", b, torch.float32),
             ("scale", scale, torch.float32)) if int8 else (
-        ("x", x, torch.float32), ("w", w, torch.float32),
-        ("b", b, torch.float32))
+        ("x", x, x.dtype), ("w", w, x.dtype), ("b", b, x.dtype))
     for name, t, dtype in want:
         if (t.device != x.device or t.dtype != dtype or not t.is_contiguous()
                 or t.data_ptr() % 4):
@@ -123,27 +137,33 @@ def conv_pipe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
         pool_k, pool_s, *pool_tile(ph, pw, pool_k, pool_s))
     out_s8 = int8 and out_scale is not None
     out = torch.empty((B, ph, pw, M), device=x.device,
-                      dtype=torch.int8 if out_s8 else torch.float32)
+                      dtype=torch.int8 if out_s8 else
+                      torch.float32 if int8 else x.dtype)
     if out.numel() == 0:
         return out
     geo = (B, H, W, C, KH, KW, M, groups, stride, pad, int(relu),
            _POOL_CODES[pool], pk, ps, tph, tpw,
            torch.cuda.current_stream(x.device).cuda_stream)
     if int8:
-        err = _entry(True)(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                           scale.data_ptr(), out.data_ptr(), int(out_s8),
-                           float(out_scale) if out_s8 else 1.0, *geo)
+        err = _entry("conv_pipe_s8")(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), int(out_s8), float(out_scale) if out_s8 else 1.0,
+            *geo)
     else:
-        err = _entry(False)(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                            out.data_ptr(), *geo)
+        err = _entry(_FLOAT_ENTRY[x.dtype])(x.data_ptr(), w.data_ptr(),
+                                            b.data_ptr(), out.data_ptr(),
+                                            *geo)
     if err:
         raise RuntimeError(f"conv_pipe kernel launch failed: CUDA error {err}")
     if int8:
         conv_pipe.launches_s8 += 1
+    elif x.dtype == torch.bfloat16:
+        conv_pipe.launches_bf16 += 1
     else:
         conv_pipe.launches += 1
     return out
 
 
 conv_pipe.launches = 0           # fp32 launches
+conv_pipe.launches_bf16 = 0      # bf16 launches
 conv_pipe.launches_s8 = 0        # int8 launches

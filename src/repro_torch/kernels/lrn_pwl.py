@@ -7,10 +7,11 @@ exponent bits plus the top n mantissa bits,
     Addr = (bitcast(z) >> Shift_Bit) - base
 
 Kernel: ``csrc/lrn_pwl.cu``, which replaces the TPU kernel
-``src/repro/kernels/lrn_pwl.py:lrn_pwl``. It is bound by device-memory
-bytes (one read and one write of the activation); see the source for the
-design. :func:`lrn_pwl` launches it on a CUDA tensor and runs
-:func:`lrn_pwl_plain` on a CPU tensor.
+``src/repro/kernels/lrn_pwl.py:lrn_pwl`` in both of its element types
+(fp32, and bf16 computed in fp32 and rounded once on output). It is bound
+by device-memory bytes (one read and one write of the activation); see
+the source for the design. :func:`lrn_pwl` launches it on a CUDA tensor
+and runs :func:`lrn_pwl_plain` on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -64,7 +65,11 @@ def lrn_pwl_plain(x: torch.Tensor, *, n: int = LRN_N, k: float = LRN_K,
                   alpha: float = LRN_ALPHA, beta: float = LRN_BETA,
                   n_sub_bits: int = 2) -> torch.Tensor:
     """The kernel's function in plain PyTorch, in the kernel's order of
-    operations. x (B, H, W, C) fp32."""
+    operations. x (B, H, W, C) fp32, or bf16: computed in fp32 on the
+    widened values and rounded once to bf16, as the kernel does."""
+    if x.dtype == torch.bfloat16:
+        return lrn_pwl_plain(x.float(), n=n, k=k, alpha=alpha, beta=beta,
+                             n_sub_bits=n_sub_bits).to(torch.bfloat16)
     slope, icpt, shift, base = build_pwl_lut(beta, n_sub_bits)
     slope = torch.from_numpy(slope.copy()).to(x.device)
     icpt = torch.from_numpy(icpt.copy()).to(x.device)
@@ -90,10 +95,13 @@ def _device_lut(device: torch.device, beta: float, n_sub_bits: int):
     return _LUTS[key]
 
 
+_ENTRY = {torch.float32: "lrn_pwl_f32", torch.bfloat16: "lrn_pwl_bf16"}
+
+
 @functools.lru_cache(maxsize=None)
-def _entry():
+def _entry(dtype: torch.dtype):
     from repro_torch.kernels import build
-    fn = build.load("lrn_pwl").lrn_pwl_f32
+    fn = getattr(build.load("lrn_pwl"), _ENTRY[dtype])
     fn.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
@@ -105,19 +113,22 @@ def _entry():
 def lrn_pwl(x: torch.Tensor, *, n: int = LRN_N, k: float = LRN_K,
             alpha: float = LRN_ALPHA, beta: float = LRN_BETA,
             n_sub_bits: int = 2) -> torch.Tensor:
-    """LRN with the PWL-exponent approximation. x (B, H, W, C) fp32.
+    """LRN with the PWL-exponent approximation. x (B, H, W, C) fp32 or
+    bf16; y in x's dtype.
 
     A CPU tensor runs :func:`lrn_pwl_plain`; a CUDA tensor launches the
-    kernel (counted in ``lrn_pwl.launches``) or raises."""
+    kernel (counted in ``lrn_pwl.launches``, fp32, or
+    ``lrn_pwl.launches_bf16``) or raises."""
     if x.device.type == "cpu":
         return lrn_pwl_plain(x, n=n, k=k, alpha=alpha, beta=beta,
                              n_sub_bits=n_sub_bits)
     if x.device.type != "cuda":
         raise ValueError(f"lrn_pwl: unsupported device {x.device}")
-    if x.dim() != 4 or x.dtype != torch.float32 or not x.is_contiguous():
+    if x.dim() != 4 or x.dtype not in _ENTRY or not x.is_contiguous():
         raise ValueError(
-            f"lrn_pwl: needs a contiguous 4-D float32 NHWC tensor, got "
-            f"{tuple(x.shape)} {x.dtype} contiguous={x.is_contiguous()}")
+            f"lrn_pwl: needs a contiguous 4-D float32 or bfloat16 NHWC "
+            f"tensor, got {tuple(x.shape)} {x.dtype} "
+            f"contiguous={x.is_contiguous()}")
     slope, icpt = _device_lut(x.device, beta, n_sub_bits)
     _, _, shift, base = build_pwl_lut(beta, n_sub_bits)
     y = torch.empty_like(x)
@@ -126,14 +137,18 @@ def lrn_pwl(x: torch.Tensor, *, n: int = LRN_N, k: float = LRN_K,
         return y
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     n_blocks = min(-(-total // 256), sms * 16)
-    err = _entry()(x.data_ptr(), y.data_ptr(), slope.data_ptr(),
-                   icpt.data_ptr(), len(slope), total, x.shape[3], n,
-                   k, alpha / n, shift, base, n_blocks,
-                   torch.cuda.current_stream(x.device).cuda_stream)
+    err = _entry(x.dtype)(x.data_ptr(), y.data_ptr(), slope.data_ptr(),
+                          icpt.data_ptr(), len(slope), total, x.shape[3], n,
+                          k, alpha / n, shift, base, n_blocks,
+                          torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"lrn_pwl kernel launch failed: CUDA error {err}")
-    lrn_pwl.launches += 1
+    if x.dtype == torch.bfloat16:
+        lrn_pwl.launches_bf16 += 1
+    else:
+        lrn_pwl.launches += 1
     return y
 
 
-lrn_pwl.launches = 0
+lrn_pwl.launches = 0             # fp32 launches
+lrn_pwl.launches_bf16 = 0        # bf16 launches

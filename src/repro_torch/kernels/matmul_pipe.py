@@ -1,14 +1,15 @@
 """matmul_pipe — PipeCNN's multi-mode compute engine in FC mode.
 
-``y = relu?(x @ w + b)`` in fp32, or in int8 (``scale=`` given: int8 x and
-w, an int32 accumulator, and the requantize -> bias -> ReLU -> round
-epilogue). Kernel: ``csrc/matmul_pipe.cu``, which replaces the TPU kernel
-``src/repro/kernels/matmul_pipe.py:matmul_pipe`` (both modes). At the
-serving shape (M = the micro-batch) it is bound by the device-memory
+``y = relu?(x @ w + b)`` in fp32, in bf16 (bf16 x, w and b, an fp32
+accumulator, bf16 y), or in int8 (``scale=`` given: int8 x and w, an
+int32 accumulator, and the requantize -> bias -> ReLU -> round epilogue).
+Kernel: ``csrc/matmul_pipe.cu``, which replaces the TPU kernel
+``src/repro/kernels/matmul_pipe.py:matmul_pipe`` (all three modes). At
+the serving shape (M = the micro-batch) it is bound by the device-memory
 bytes of ``w``; a block holds every batch row against its weight slab so
 each weight is read once (the paper's batched-FC reuse). See the source
-for the design. The plain version, :func:`matmul_pipe_plain`, is the
-exact oracle of each mode.
+for the design. The plain version, :func:`matmul_pipe_plain`, computes
+each mode as the kernel rounds it.
 """
 from __future__ import annotations
 
@@ -18,30 +19,34 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.ref import matmul_pipe_ref
+from repro_torch.kernels.ref import float_dtypes, matmul_pipe_ref
 from repro_torch.quant.ref import fc_int8_ref
 
 __all__ = ["matmul_pipe", "matmul_pipe_plain"]
 
 
 def matmul_pipe_plain(x, w, b, *, relu=False, scale=None, out_scale=None):
-    """The plain version of both modes: the exact fp32 oracle, or with
+    """The plain version of each mode: the exact fp32 oracle, which in bf16
+    sums in fp32 and rounds once to bf16, as the kernel does; or with
     ``scale`` the exact-int oracle of the int8 mode."""
-    if scale is None:
-        return matmul_pipe_ref(x, w, b, relu=relu)
-    return fc_int8_ref(x, w, b, scale, relu=relu, out_scale=out_scale)
+    if scale is not None:
+        return fc_int8_ref(x, w, b, scale, relu=relu, out_scale=out_scale)
+    float_dtypes("matmul_pipe", x, w, b)
+    return matmul_pipe_ref(x, w, b, relu=relu)
+
+
+_FLOAT_ENTRY = {torch.float32: "matmul_pipe_f32",
+                torch.bfloat16: "matmul_pipe_bf16"}
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(int8: bool):
+def _entry(name: str):
     from repro_torch.kernels import build
-    lib = build.load("matmul_pipe")
-    if int8:
-        fn = lib.matmul_pipe_s8
+    fn = getattr(build.load("matmul_pipe"), name)
+    if name == "matmul_pipe_s8":
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_float] \
             + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     else:
-        fn = lib.matmul_pipe_f32
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -53,11 +58,13 @@ def matmul_pipe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                 out_scale: Optional[float] = None) -> torch.Tensor:
     """y = relu(x @ w + b). x (M, K); w (K, N); b (N,).
 
-    int8 mode: ``scale`` ((N,) fp32, s_x * s_w[n]) given, x and w int8;
+    x, w and b all fp32 or all bf16 (y in their dtype); or the int8 mode:
+    ``scale`` ((N,) fp32, s_x * s_w[n]) given, x and w int8;
     ``out_scale`` (a float) selects int8 output quantized by that step,
     None fp32 output. A CPU tensor runs :func:`matmul_pipe_plain`; a CUDA
     tensor launches the kernel (counted in ``matmul_pipe.launches``, fp32,
-    or ``matmul_pipe.launches_s8``, int8) or raises."""
+    ``matmul_pipe.launches_bf16`` or ``matmul_pipe.launches_s8``, int8) or
+    raises."""
     if x.device.type == "cpu":
         return matmul_pipe_plain(x, w, b, relu=relu, scale=scale,
                                  out_scale=out_scale)
@@ -68,10 +75,11 @@ def matmul_pipe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
         raise ValueError(f"matmul_pipe: shapes x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}, b {tuple(b.shape)} disagree")
     int8 = scale is not None
+    if not int8:
+        float_dtypes("matmul_pipe", x, w, b)
     want = (("x", x, torch.int8), ("w", w, torch.int8), ("b", b, torch.float32),
             ("scale", scale, torch.float32)) if int8 else (
-        ("x", x, torch.float32), ("w", w, torch.float32),
-        ("b", b, torch.float32))
+        ("x", x, x.dtype), ("w", w, x.dtype), ("b", b, x.dtype))
     for name, t, dtype in want:
         if (t.device != x.device or t.dtype != dtype
                 or not t.is_contiguous() or t.data_ptr() % 16):
@@ -84,27 +92,32 @@ def matmul_pipe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                          f"{N} output features")
     out_s8 = int8 and out_scale is not None
     y = torch.empty((M, N), device=x.device,
-                    dtype=torch.int8 if out_s8 else torch.float32)
+                    dtype=torch.int8 if out_s8 else
+                    torch.float32 if int8 else x.dtype)
     if y.numel() == 0:
         return y
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if int8:
-        err = _entry(True)(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                           scale.data_ptr(), y.data_ptr(), int(out_s8),
-                           float(out_scale) if out_s8 else 1.0, M, K, N,
-                           int(relu), stream)
+        err = _entry("matmul_pipe_s8")(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
+            y.data_ptr(), int(out_s8), float(out_scale) if out_s8 else 1.0,
+            M, K, N, int(relu), stream)
     else:
-        err = _entry(False)(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                            y.data_ptr(), M, K, N, int(relu), stream)
+        err = _entry(_FLOAT_ENTRY[x.dtype])(x.data_ptr(), w.data_ptr(),
+                                            b.data_ptr(), y.data_ptr(), M, K,
+                                            N, int(relu), stream)
     if err:
         raise RuntimeError(
             f"matmul_pipe kernel launch failed: CUDA error {err}")
     if int8:
         matmul_pipe.launches_s8 += 1
+    elif x.dtype == torch.bfloat16:
+        matmul_pipe.launches_bf16 += 1
     else:
         matmul_pipe.launches += 1
     return y
 
 
 matmul_pipe.launches = 0         # fp32 launches
+matmul_pipe.launches_bf16 = 0    # bf16 launches
 matmul_pipe.launches_s8 = 0      # int8 launches

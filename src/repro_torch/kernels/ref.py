@@ -15,9 +15,20 @@ import torch.nn.functional as F
 from repro_torch.kernels.lrn_pwl import LRN_ALPHA, LRN_BETA, LRN_K, LRN_N
 
 
+def float_dtypes(name: str, *ts) -> None:
+    """Refuse float operands of mixed dtypes, as the JAX oracles do: all
+    float32 or all bfloat16."""
+    dts = [t.dtype for t in ts]
+    if dts[0] not in (torch.float32, torch.bfloat16) or len(set(dts)) > 1:
+        raise ValueError(f"{name}: operands must be all float32 or all "
+                         f"bfloat16, got {', '.join(map(str, dts))}")
+
+
 def conv_pipe_ref(x, w, b, *, stride=1, pad=0, relu=True, pool=None,
                   pool_k=2, pool_s=2, groups=1):
-    """conv + bias + ReLU + pool, grouped. x (B,H,W,C); w (KH,KW,C/G,M)."""
+    """conv + bias + ReLU + pool, grouped. x (B,H,W,C); w (KH,KW,C/G,M).
+    In x's dtype throughout: in bf16 the conv rounds to bf16, then ``+ b``
+    rounds again, as the JAX oracle computes."""
     out = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
                    stride=stride, padding=pad, groups=groups)
     out = out.permute(0, 2, 3, 1) + b
@@ -51,7 +62,8 @@ def pool_ref(x, pool="max", k=2, s=2):
 
 
 def lrn_ref(x, *, n=LRN_N, k=LRN_K, alpha=LRN_ALPHA, beta=LRN_BETA):
-    """Exact cross-channel LRN (the function the PWL kernel approximates)."""
+    """Exact cross-channel LRN (the function the PWL kernel approximates),
+    in fp32, cast to x's dtype."""
     xf = x.float()
     sq = xf * xf
     acc = sq
@@ -63,7 +75,8 @@ def lrn_ref(x, *, n=LRN_N, k=LRN_K, alpha=LRN_ALPHA, beta=LRN_BETA):
 
 
 def matmul_pipe_ref(x, w, b=None, *, relu=False):
-    """relu?(x @ w + b) in fp32. x (M, K); w (K, N); b (N,)."""
+    """relu?(x @ w + b) in fp32, cast to x's dtype. x (M, K); w (K, N);
+    b (N,)."""
     y = x.float() @ w.float()
     if b is not None:
         y = y + b.float()

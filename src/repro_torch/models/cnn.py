@@ -35,15 +35,16 @@ Params = List[Optional[Dict[str, torch.Tensor]]]
 
 
 def init_cnn_params(cfg: CNNConfig, *, generator: torch.Generator,
-                    device) -> Params:
+                    device, dtype: torch.dtype = torch.float32) -> Params:
     """Random parameters with the JAX package's scaling: He-normal conv
-    weights, 1/sqrt(fan_in) fc weights, zero biases. Drawn on the
-    generator's device, then moved to ``device``. (torch's RNG cannot
+    weights, 1/sqrt(fan_in) fc weights, zero biases. Drawn in fp32 on the
+    generator's device, then cast to ``dtype`` (the run dtype, as the JAX
+    package casts to ``cfg.dtype``) on ``device``. (torch's RNG cannot
     reproduce ``jax.random``; carry JAX parameters with
     :func:`params_from_jax`.)"""
     def normal(shape, std):
         t = torch.randn(shape, generator=generator, device=generator.device)
-        return (t * std).to(device)
+        return (t * std).to(device=device, dtype=dtype)
 
     params: Params = []
     c, hw = cfg.input_ch, cfg.input_hw
@@ -53,7 +54,7 @@ def init_cnn_params(cfg: CNNConfig, *, generator: torch.Generator,
             params.append({
                 "w": normal((l.kernel, l.kernel, cg, l.out_ch),
                             math.sqrt(2.0 / (l.kernel * l.kernel * cg))),
-                "b": torch.zeros(l.out_ch, device=device)})
+                "b": torch.zeros(l.out_ch, device=device, dtype=dtype)})
             hw = (hw + 2 * l.pad - l.kernel) // l.stride + 1
             c = l.out_ch
         elif l.kind == "pool":
@@ -65,7 +66,7 @@ def init_cnn_params(cfg: CNNConfig, *, generator: torch.Generator,
             fan_in = c * hw * hw
             params.append({
                 "w": normal((fan_in, l.out_ch), 1.0 / math.sqrt(fan_in)),
-                "b": torch.zeros(l.out_ch, device=device)})
+                "b": torch.zeros(l.out_ch, device=device, dtype=dtype)})
             hw, c = 1, l.out_ch
     return params
 
@@ -73,11 +74,17 @@ def init_cnn_params(cfg: CNNConfig, *, generator: torch.Generator,
 def params_from_jax(params: Sequence[Optional[Dict[str, Any]]],
                     device) -> Params:
     """The JAX package's per-layer parameter list (numpy or any array
-    ``np.asarray`` takes) as the port's, on ``device``. No transposes: both
-    sides keep HWIO conv and (K, N) fc weights."""
+    ``np.asarray`` takes) as the port's, on ``device``: bf16 stays bf16
+    (through fp32, which holds it exactly), anything else becomes fp32.
+    No transposes: both sides keep HWIO conv and (K, N) fc weights."""
+    def tensor(v):
+        a = np.asarray(v)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
     return [None if p is None else
-            {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
-             for k, v in p.items()}
+            {k: tensor(v).to(device) for k, v in p.items()}
             for p in params]
 
 
@@ -89,7 +96,8 @@ def fuse_plan(cfg: CNNConfig) -> List[Tuple[int, ...]]:
 def run_group(params: Params, x: torch.Tensor, cfg: CNNConfig,
               group: Tuple[int, ...], *, use_kernels: bool = True
               ) -> torch.Tensor:
-    """Execute ONE fusion group of the fp32 pipeline on NHWC ``x``."""
+    """Execute ONE fusion group of the fp32 or bf16 pipeline on NHWC ``x``
+    (the dtype of ``x`` and the parameters)."""
     l = cfg.layers[group[0]]
     p = params[group[0]]
     if l.kind == "conv":
@@ -119,7 +127,8 @@ def cnn_forward_stage(params: Params, x: torch.Tensor, cfg: CNNConfig,
 
 
 class CNN(nn.Module):
-    """The whole network as a module: x (B, H, W, C) -> logits.
+    """The whole network as a module: x (B, H, W, C) -> logits, in the
+    parameters' dtype (fp32 or bf16, the batch in the same dtype).
 
     Holds the per-layer parameters (moved by ``.to``) and folds
     :func:`run_group` over :func:`fuse_plan`.
@@ -139,6 +148,11 @@ class CNN(nn.Module):
                 for k in ("w", "b"):
                     self.register_parameter(
                         f"{k}{i}", nn.Parameter(p[k], requires_grad=False))
+
+    @property
+    def in_dtype(self) -> torch.dtype:
+        """The dtype the forward takes its batch in: the parameters'."""
+        return next(self.parameters()).dtype
 
     @property
     def params(self) -> Params:
@@ -253,6 +267,12 @@ class QuantCNN(nn.Module):
             for k in _QTENSORS:
                 if ql is not None and getattr(ql, k) is not None:
                     self.register_buffer(f"{k}{i}", getattr(ql, k))
+
+    @property
+    def in_dtype(self) -> torch.dtype:
+        """The dtype the forward takes its batch in (it quantizes at the
+        network edge)."""
+        return torch.float32
 
     @property
     def qparams(self) -> QuantizedCNNParams:

@@ -4,7 +4,9 @@
 device and the spec into an immutable :class:`CompiledCNN` whose methods
 only run: ``.forward``, ``.forward_stage`` and ``.serve``. With
 ``Precision(quant="int8")`` the compile calibrates the model (the JAX
-package's precision lifecycle) and the forward runs the int8 pipeline.
+package's precision lifecycle) and the forward runs the int8 pipeline;
+with ``Precision(dtype="bfloat16")`` the parameters, activations and
+logits are bf16 and the kernels run their bf16 modes.
 Entry points run on the CUDA device by default and raise when there is
 none, unless the caller passes ``device="cpu"`` (the kernels then run
 their plain versions).
@@ -48,7 +50,7 @@ def resolve_device(device=None) -> torch.device:
 
 
 class CompiledCNN:
-    """A compiled CNN pipeline on one device, fp32 or int8.
+    """A compiled CNN pipeline on one device, fp32, bf16 or int8.
 
     Construct via :func:`compile_cnn`. ``model`` is the :class:`CNN`
     module (fp32) or the :class:`QuantCNN` module (int8, ``quant`` True)
@@ -73,7 +75,7 @@ class CompiledCNN:
 
     @property
     def params(self) -> Union[Params, QuantizedCNNParams]:
-        """The fp32 parameter list, or the calibrated
+        """The fp32 or bf16 parameter list, or the calibrated
         :class:`QuantizedCNNParams` of an int8 pipeline."""
         return self.model.qparams if self.quant else self.model.params
 
@@ -87,17 +89,22 @@ class CompiledCNN:
         return len(self.stages)
 
     def forward(self, x) -> torch.Tensor:
-        """x (B, H, W, C) fp32 (a tensor or an array) -> logits (B, n_classes)
-        on the compiled device."""
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        """x (B, H, W, C) in any float dtype (a tensor or an array) ->
+        logits (B, n_classes) on the compiled device. The batch is
+        converted to the run dtype first (fp32 for int8, which quantizes
+        at the network edge); the logits are bf16 in a bf16 pipeline, else
+        fp32."""
+        x = torch.as_tensor(x, device=self.device).to(self.model.in_dtype)
         with torch.inference_mode():
             return self.model(x.contiguous())
 
     def forward_stage(self, i: int, h: torch.Tensor) -> torch.Tensor:
         """Run compiled stage ``i`` on its boundary activation ``h``: int8
         codes between the groups of an int8 pipeline (the raw fp32 batch
-        for stage 0, which quantizes at the network edge), fp32
-        otherwise."""
+        for stage 0, which quantizes at the network edge), the run dtype
+        otherwise (a float ``h`` is converted to it)."""
+        if h.is_floating_point():
+            h = h.to(self.model.in_dtype)
         with torch.inference_mode():
             return self.model.forward_groups(h.contiguous(), self.stages[i])
 
@@ -153,8 +160,8 @@ def compile_cnn(cfg: CNNConfig, spec: Optional[ExecutionSpec] = None,
     * ``None`` -- fresh parameters from ``generator`` (default: a CPU
       generator seeded 0);
     * a parameter list (:mod:`repro_torch.models.cnn`; for JAX parameters
-      :func:`~repro_torch.models.cnn.params_from_jax`) -- used as it is,
-      calibrated here when quantizing;
+      :func:`~repro_torch.models.cnn.params_from_jax`) -- cast to the run
+      dtype (``Precision.dtype``), or calibrated here when quantizing;
     * a :class:`~repro_torch.quant.QuantizedCNNParams` -- pre-calibrated
       fixed-point parameters (for JAX ones,
       :func:`~repro_torch.quant.qparams_from_jax`);
@@ -192,11 +199,16 @@ def compile_cnn(cfg: CNNConfig, spec: Optional[ExecutionSpec] = None,
             "params are QuantizedCNNParams but spec.precision.quant="
             "'none' — compile with Precision(quant='int8')")
     dev = resolve_device(device)
+    dtype = getattr(torch, spec.precision.dtype)
     if params is None:
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        params = init_cnn_params(cfg, generator=generator, device=dev)
+        params = init_cnn_params(cfg, generator=generator, device=dev,
+                                 dtype=dtype)
     if not quantize:
+        params = [None if p is None else
+                  {k: v.to(dtype=dtype) for k, v in p.items()}
+                  for p in params]
         model = CNN(cfg, params, use_kernels=spec.use_kernels)
     else:
         if not isinstance(params, QuantizedCNNParams):

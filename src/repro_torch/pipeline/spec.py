@@ -3,8 +3,8 @@
 The same sub-specs and field names as the JAX package's
 ``pipeline/spec.py`` — :class:`Precision`, :class:`Placement`,
 :class:`Serving` — validated at construction. The port runs one
-combination of them so far: fp32 or calibrated int8, one replica, gang
-rounds on the measured clock. Every other value is refused with a :class:`SpecError`
+combination of them so far: fp32, bf16 or calibrated int8, one replica,
+gang rounds on the measured clock. Every other value is refused with a :class:`SpecError`
 that names the ``ROADMAP.md`` item that will bring it; so is ``tiling``
 (the DSE knobs, which wait for the Hopper cost model).
 """
@@ -16,8 +16,6 @@ from typing import Any, Optional
 from repro_torch.core.config import SpecError
 
 # what the port does not run yet, and the ROADMAP.md item that brings it
-LATER_BF16 = ("ROADMAP.md Queue 2 (the bf16 tensor-core modes of "
-              "conv_pipe/matmul_pipe)")
 LATER_DSE = ("ROADMAP.md Queue 1, slice 4 (the Hopper DSE and cost model, "
              "with the modelled clock)")
 LATER_ARTIFACTS = "ROADMAP.md Queue 1, slice 5 (artifacts)"
@@ -36,9 +34,9 @@ def refuse(field_name: str, what: str, later: str) -> SpecError:
 
 @dataclass(frozen=True)
 class Precision:
-    """What numbers flow through the pipeline: fp32, or int8 codes
-    calibrated on ``calib`` images (fp32 at the boundaries)."""
-    dtype: str = "float32"             # float32 (bfloat16: later)
+    """What numbers flow through the pipeline: fp32, bf16 (``dtype``), or
+    int8 codes calibrated on ``calib`` images (fp32 at the boundaries)."""
+    dtype: str = "float32"             # float32 | bfloat16
     quant: str = "none"                # none | int8
     calib: int = 8                     # calibration images (int8 only)
 
@@ -102,9 +100,6 @@ class ExecutionSpec:
                 "Precision.quant='int8' needs a calibration source: set "
                 "Precision.calib > 0 or hand compile_cnn a calibration "
                 "batch / a QuantizedCNNParams")
-        if p.dtype == "bfloat16":
-            raise refuse("Precision.dtype", "Precision.dtype='bfloat16'",
-                         LATER_BF16)
         if self.tiling is not None:
             raise refuse("ExecutionSpec.tiling", "Tiling (the DSE knobs)",
                          LATER_DSE)

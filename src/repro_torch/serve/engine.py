@@ -24,7 +24,7 @@ from repro_torch.serve.router import Completion, Request, Router
 
 
 class ServeEngine:
-    """Serves request streams through ``model`` (fp32 or int8) on the
+    """Serves request streams through ``model`` (fp32, bf16 or int8) on the
     device of its first tensor: a parameter, or a buffer of an int8
     model, which has no parameters."""
 
@@ -48,9 +48,12 @@ class ServeEngine:
         raise refuse("ServeEngine.hot_swap", "hot_swap", LATER_FLEET)
 
     def _preds(self, imgs: np.ndarray) -> np.ndarray:
-        x = torch.from_numpy(imgs).to(self.device)
+        """The padded batch, converted to the model's input dtype, ->
+        the argmax of the logits widened to fp32, as the JAX engine takes
+        it."""
+        x = torch.from_numpy(imgs).to(self.device, self.model.in_dtype)
         with torch.inference_mode():
-            return self.model(x).argmax(-1).cpu().numpy()
+            return self.model(x).float().argmax(-1).cpu().numpy()
 
     def serve(self, requests: List[Request]
               ) -> Tuple[List[Completion], FleetReport]:

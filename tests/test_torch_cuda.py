@@ -14,7 +14,9 @@ exact on both sides and the epilogue rounds the same steps. Attention
 (flash and decode): ``1e-4 * max(1, max|plain|)`` in fp32 (online vs
 full softmax, fp32 sums in another order) and ``2e-2`` in bf16 (the
 reference's bf16 tolerance, ``tests/test_kernels.py:17-19``); the decode
-caches bit for bit (one slot copied, nothing computed).
+caches bit for bit (one slot copied, nothing computed). The bf16 modes of
+conv_pipe, matmul_pipe and lrn_pwl: ``rtol = atol = 2e-2`` against plain
+versions that compute in fp32 and round once to bf16, as the kernels do.
 """
 import numpy as np
 import pytest
@@ -30,6 +32,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.kernels.lrn_pwl import lrn_pwl, lrn_pwl_plain
 from repro_torch.kernels.matmul_pipe import matmul_pipe, matmul_pipe_plain
 from repro_torch.models.cnn import init_cnn_params
+from repro_torch.pipeline import ExecutionSpec, Precision, compile_cnn
 from repro_torch.quant import calibrate_cnn, quantize
 
 
@@ -262,6 +265,102 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         matmul_pipe(xf, wf, b.to(torch.int8), scale=s)      # int8 bias
     with pytest.raises(ValueError):
         matmul_pipe(xf, wf.t().contiguous().t(), b, scale=s)  # not contiguous
+
+
+# ---------------------------------------------------------------------------
+# the bf16 modes of the CNN kernels
+# ---------------------------------------------------------------------------
+
+BF16 = dict(rtol=2e-2, atol=2e-2)        # tests/test_kernels.py:17-19, bf16
+
+
+def _bf(a, dev):
+    return _t(a, dev).to(torch.bfloat16)
+
+
+def _close_bf16(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **BF16)
+
+
+def _counts(fn):
+    return fn.launches, fn.launches_bf16, getattr(fn, "launches_s8", 0)
+
+
+@pytest.mark.parametrize(
+    "B,H,C,K,M,stride,pad,pool,pool_k,pool_s,groups", CONV_GEOMETRIES)
+def test_conv_pipe_bf16_kernel_matches_plain(cuda, B, H, C, K, M, stride,
+                                             pad, pool, pool_k, pool_s,
+                                             groups):
+    rng = np.random.default_rng(20)
+    x = _bf(rng.standard_normal((B, H, H, C)), cuda)
+    w = _bf(rng.standard_normal((K, K, C // groups, M)) * 0.2, cuda)
+    b = _bf(rng.standard_normal(M), cuda)
+    kw = dict(stride=stride, pad=pad, pool=pool, pool_k=pool_k,
+              pool_s=pool_s, groups=groups)
+    n0, h0, s0 = _counts(conv_pipe)
+    _close_bf16(conv_pipe(x, w, b, **kw), conv_pipe_plain(x, w, b, **kw))
+    assert _counts(conv_pipe) == (n0, h0 + 1, s0)
+
+
+@pytest.mark.parametrize("M,K,N", MATMUL_SHAPES)
+@pytest.mark.parametrize("relu", [True, False])
+def test_matmul_pipe_bf16_kernel_matches_plain(cuda, M, K, N, relu):
+    rng = np.random.default_rng(21)
+    x = _bf(rng.standard_normal((M, K)) * 0.3, cuda)
+    w = _bf(rng.standard_normal((K, N)) * 0.05, cuda)
+    b = _bf(rng.standard_normal(N), cuda)
+    n0, h0, s0 = _counts(matmul_pipe)
+    _close_bf16(matmul_pipe(x, w, b, relu=relu),
+                matmul_pipe_plain(x, w, b, relu=relu))
+    assert _counts(matmul_pipe) == (n0, h0 + 1, s0)
+
+
+@pytest.mark.parametrize("shape", [(2, 6, 6, 8), (2, 6, 6, 96),
+                                   (1, 5, 7, 3), (8, 27, 27, 256)])
+def test_lrn_pwl_bf16_kernel_matches_plain(cuda, shape):
+    rng = np.random.default_rng(22)
+    x = _bf(rng.standard_normal(shape) * 4, cuda)
+    n0, h0, _ = _counts(lrn_pwl)
+    _close_bf16(lrn_pwl(x), lrn_pwl_plain(x))
+    assert _counts(lrn_pwl) == (n0, h0 + 1, 0)
+
+
+def test_bf16_wrappers_refuse_mixed_dtypes(cuda):
+    x = torch.zeros((1, 8, 8, 4), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((3, 3, 4, 8), dtype=torch.bfloat16, device=cuda)
+    b = torch.zeros(8, dtype=torch.bfloat16, device=cuda)
+    before = [_counts(f) for f in (conv_pipe, lrn_pwl, matmul_pipe)]
+    for args in ((x.float(), w, b), (x, w.float(), b), (x, w, b.float())):
+        with pytest.raises(ValueError, match="float32 or all bfloat16"):
+            conv_pipe(*args)
+    xf, wf = x.reshape(16, 16), torch.zeros((16, 8), dtype=torch.bfloat16,
+                                            device=cuda)
+    for args in ((xf.float(), wf, b), (xf, wf.float(), b),
+                 (xf, wf, b.float())):
+        with pytest.raises(ValueError, match="float32 or all bfloat16"):
+            matmul_pipe(*args)
+    with pytest.raises(ValueError):
+        lrn_pwl(x.half())                                  # fp16
+    assert [_counts(f) for f in (conv_pipe, lrn_pwl, matmul_pipe)] == before
+
+
+def test_bf16_forward_launches_only_the_bf16_modes(cuda):
+    cfg = get_config("alexnet").smoke()
+    compiled = compile_cnn(cfg, ExecutionSpec(
+        precision=Precision(dtype="bfloat16")),
+        generator=torch.Generator().manual_seed(0), device="cuda")
+    x = torch.randn((2, cfg.input_hw, cfg.input_hw, cfg.input_ch),
+                    generator=torch.Generator().manual_seed(1))
+    before = [_counts(f) for f in (conv_pipe, lrn_pwl, matmul_pipe)]
+    logits = compiled.forward(x)
+    after = [_counts(f) for f in (conv_pipe, lrn_pwl, matmul_pipe)]
+    assert logits.dtype == torch.bfloat16
+    assert [tuple(a - b for a, b in zip(x1, x0))
+            for x1, x0 in zip(after, before)] == [(0, 5, 0), (0, 2, 0),
+                                                  (0, 3, 0)]
 
 
 # ---------------------------------------------------------------------------

@@ -111,7 +111,6 @@ def compiled():
 
 
 REFUSED = {
-    "bfloat16": lambda c: ExecutionSpec(precision=Precision(dtype="bfloat16")),
     "replicas": lambda c: ExecutionSpec(placement=Placement(replicas=2)),
     "pp_stages": lambda c: ExecutionSpec(placement=Placement(pp_stages=2)),
     "microbatches": lambda c: ExecutionSpec(
