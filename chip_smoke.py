@@ -67,6 +67,11 @@ Phases (any failure exits non-zero):
    operands, rounded once; the worst error also printed in bf16 ulps),
    timed beside the plain version, one bf16 library call and the bound
    (operations at the bf16 tensor-core rate, bytes at 2 B an element).
+   conv_pipe's bf16 mode runs on the tensor cores (``mma.sync``); each
+   of its rows also prints the tile it got, its TFLOP/s, its share of the
+   bound and the earlier FFMA kernel's time for that layer
+   (``FFMA_CONV_BF16_MS``), and each model's sum of those launches is
+   printed beside cuDNN's (the library rows) and the earlier sum.
 9. bf16 forwards: AlexNet must launch the bf16 modes 5/2/3x, VGG-16
    13/0/3x, and nothing else; logits within 2e-2 x max|logit| of the
    fold of 8 over the plain versions; the top-1 agreement with the fp32
@@ -139,6 +144,19 @@ PREFILL_S = 4096               # prefill_32k cut: S 32768 -> 4096, batch 32 -> 1
 DECODE_B, DECODE_S = 8, 32768  # decode_32k cut: batch 128 -> 8
 DECODE_POS = (0, 16383, 32767)
 INT_MM_ROWS = 32               # torch._int_mm needs more than 16 rows
+# conv_pipe_bf16 a launch (ms) with the earlier FFMA kernel (bf16 widened
+# on the CUDA cores, before the tensor-core kernel), at batch 8 on the
+# inputs of phase 8, by model and layer, measured by this script on the
+# card named (PERF.md section 5)
+FFMA_CONV_BF16_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+FFMA_CONV_BF16_MS = {
+    "alexnet": {"conv(0,)": 0.1373, "conv(3,)": 0.1942, "conv(6,)": 0.1627,
+                "conv(7,)": 0.1206, "conv(8, 9)": 0.1162},
+    "vgg16": {"conv(0,)": 0.1386, "conv(1, 2)": 1.3486, "conv(3,)": 0.6829,
+              "conv(4, 5)": 1.3358, "conv(6,)": 0.6804, "conv(7,)": 1.3492,
+              "conv(8, 9)": 1.3504, "conv(10,)": 0.6946, "conv(11,)": 1.3949,
+              "conv(12, 13)": 1.5956, "conv(14,)": 0.5347,
+              "conv(15,)": 0.5346, "conv(16, 17)": 0.5279}}
 # published HBM rates (NVIDIA data sheets), by the name nvidia-smi reports
 MEM_BW = {"H100 80GB HBM3": 3.35e12, "H100 PCIe": 2.0e12,
           "H100 NVL": 3.9e12, "H200": 4.8e12}
@@ -235,7 +253,8 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels import ops as kernel_ops
-    from repro_torch.kernels.conv_pipe import conv_pipe, conv_pipe_plain
+    from repro_torch.kernels.conv_pipe import (bf16_tile, conv_pipe,
+                                               conv_pipe_plain)
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_plain)
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -445,9 +464,28 @@ def main() -> int:
                               f"max(|plain|, max|plain|/128)), "
                               f"{row['n_differ']} of {got.numel()} differ")
                     measure(row, fp32_rate if mode == "fp32" else bf16_rate)
+                    if row["kernel"] == "conv_pipe_bf16":
+                        bf16_conv_line(cfg, row, h, l, kw)
                     rows.append(row)
                 h = want
         return rows, h
+
+    def bf16_conv_line(cfg, row, h, l, kw):
+        """Print a bf16 conv row's tile, rate, share of the bound and the
+        earlier FFMA kernel's time for the layer."""
+        oh = (h.shape[1] + 2 * l.pad - l.kernel) // l.stride + 1
+        ow = (h.shape[2] + 2 * l.pad - l.kernel) // l.stride + 1
+        row["tile"] = bf16_tile(h.shape[0], oh, ow, l.out_ch // l.groups,
+                                l.groups, kw["pool"], kw["pool_k"],
+                                kw["pool_s"], props.multi_processor_count)
+        row["tflops"] = row["ops"] / row["ms"] / 1e9
+        row["pct_of_bound"] = 100 * row["bound_ms"] / row["ms"]
+        row["ffma_ms"] = FFMA_CONV_BF16_MS[cfg.name][row["layer"]]
+        print(f"[bf16 conv] {cfg.name} {row['layer']}: tile "
+              f"{row['tile'][0]}x{row['tile'][1]}, {row['ms']:.4f} ms, "
+              f"{row['tflops']:.1f} TFLOP/s, {row['pct_of_bound']:.1f} % of "
+              f"the bound; FFMA kernel {row['ffma_ms']:.4f} ms "
+              f"({FFMA_CONV_BF16_CARD}), {row['ffma_ms'] / row['ms']:.1f}x")
 
     def int8_rows(cfg, qp, x):
         """Each int8 kernel of one int8 forward held bit for bit against
@@ -941,6 +979,15 @@ def main() -> int:
         brows, b_plain = float_rows(bcfg, bc.params, xb16, "bf16")
         bf16[bcfg.name] = dict(compiled=bc, x=xb16, rows=brows,
                                plain=b_plain, fp32_logits=l32)
+        crows = [r for r in brows if r["kernel"] == "conv_pipe_bf16"]
+        conv_ms = sum(r["ms"] for r in crows)
+        print(f"[bf16 conv] {bcfg.name}: {len(crows)} launches "
+              f"{conv_ms:.4f} ms (bound "
+              f"{sum(r['bound_ms'] for r in crows):.4f} ms); cuDNN bf16 conv"
+              f"+ReLU+pool {sum(r['library_ms'] for r in crows):.4f} ms; FFMA "
+              f"kernel {sum(r['ffma_ms'] for r in crows):.4f} ms "
+              f"({FFMA_CONV_BF16_CARD}); layers slower than it: "
+              f"{[r['layer'] for r in crows if r['ms'] > r['ffma_ms']]}")
     phases.done("8")
 
     # -- 9. the bf16 forwards through the entry point -----------------------

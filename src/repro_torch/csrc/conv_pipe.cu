@@ -2,28 +2,29 @@
 // launch per fusion group; fp32, int8 with an int32 accumulator, or bf16
 // with an fp32 accumulator.
 //
-// Replaces the TPU kernel src/repro/kernels/conv_pipe.py:conv_pipe (body
-// _conv_pipe_kernel), all three modes. Layouts as there: x NHWC, w HWIO
-// (KH, KW, C/G, M), b (M,), out NHWC.
+// Replaces the TPU kernel src/repro/kernels/conv_pipe.py:conv_pipe (line
+// 198, body _conv_pipe_kernel), all three modes. Layouts as there: x NHWC,
+// w HWIO (KH, KW, C/G, M), b (M,), out NHWC.
 //
 // Bound on an H100: operations. fp32 runs FFMA on the CUDA cores (no TF32:
 // the reference holds fp32 to 1e-4 at K in the thousands); AlexNet's convs
 // do 10.65 GFLOP at batch 8 against tens of MB of traffic, far above the
 // card's fp32 ridge point. The int8 mode runs __dp4a (four int8 products and
 // an int32 add per instruction) on the CUDA cores, not the tensor cores.
-// The bf16 mode also runs FFMA on the CUDA cores (each bf16 value widened to
-// fp32), so its bound on the bf16 tensor cores is far out of its reach.
+// The bf16 mode runs on the tensor cores (conv_bf16_mma_kernel below): its
+// bound is its operations at the dense bf16 tensor-core rate, 1070.5 TFLOP/s
+// at 132 SMs x 1980 MHz (VGG-16's 13 convs at batch 8: 0.244 ms).
 //
-// Design: an implicit GEMM. A block owns a tile of TP conv output positions
-// (GEMM rows) x TM output channels of one group (GEMM cols) and loops over the
-// reduction K = KH*KW*C/G in chunks of TK words inside the block: the TPU's
-// sequential C-tile grid axis and its VMEM accumulator become this loop and
-// registers (4x4 outputs a thread). A word is one fp32 value, four int8
-// values of consecutive k packed for __dp4a, or two bf16 values of
-// consecutive k, so the int8 and bf16 modes keep the fp32 tile geometry and
-// shared-memory layout and reduce 64 or 32 k per chunk. k past the end of
-// the reduction is zero in both operands, element by element, so a word may
-// straddle the end (C/G = 3 at conv1 gives an odd K). The
+// fp32 and int8 design: an implicit GEMM. A block owns a tile of TP conv
+// output positions (GEMM rows) x TM output channels of one group (GEMM
+// cols) and loops over the reduction K = KH*KW*C/G in chunks of TK words
+// inside the block: the TPU's sequential C-tile grid axis and its VMEM
+// accumulator become this loop and registers (4x4 outputs a thread). A word
+// is one fp32 value or four int8 values of consecutive k packed for __dp4a,
+// so the int8 mode keeps the fp32 tile geometry and shared-memory layout and
+// reduces 64 k per chunk. k past the end of the reduction is zero in both
+// operands, element by element, so a word may straddle the end (C/G = 3 at
+// conv1 gives an odd K). The
 // im2col gather bounds-checks every input read, so zero padding costs no
 // copy (exact in int8: the scheme is symmetric, zero point 0). The group is
 // picked by blockIdx.y, which selects the group's input-channel slab and
@@ -41,9 +42,26 @@
 // pool (avg: the window summed in row-major order, then divided), then
 // clip(rint(y / out_scale), -127, 127) to int8, or y itself as fp32.
 //
-// bf16 epilogue, as the JAX kernel rounds it (conv_pipe.py:165-195, out in
-// x's dtype): the fp32 accumulator + b (bf16, widened), ReLU and the pool in
-// fp32, exactly as the fp32 mode, then one rounding to bf16 on store.
+// bf16 design: the same implicit GEMM on mma.sync.m16n8k16 (bf16 operands,
+// exact products, fp32 sums: what the TPU's MXU computes for this mode). A
+// block of 8 warps owns TPB x TN (128 or 64 positions x 128 or 64 channels,
+// chosen by the wrapper per layer so that small layers still give a block
+// an SM; each warp a 64x32, 32x32 or 32x16 piece) and walks K in chunks of
+// BK = 32 through a ring of STAGES = 4 shared-memory stages filled by
+// cp.async, so three chunks are in flight while one is multiplied; one
+// __syncthreads a chunk. A is the im2col gather: a 16-byte vector is 8
+// channels of one pixel (C/G % 8 == 0: every conv but the first of each
+// model), its own (kh, kw, c), zero-filled by cp.async's src-size 0 for
+// padding, rows past the end and k past K. The first convs (C/G = 3, K = 363
+// and 27) gather element by element through registers into the same layout.
+// B is a 2-D tile of the group's [k][m] weight slab (Mg % 8 == 0: 16-byte
+// vectors, else element by element). Fragments come in through ldmatrix (A)
+// and ldmatrix.trans (B, so the [k][m] weights need no transposed copy);
+// rows padded by 16 bytes keep both conflict-free. The epilogue is the fp32
+// mode's on the fragments: + b (bf16, widened; __fadd_rn), ReLU, the tile
+// staged as fp32 in the ring's memory, the pool read from there, one
+// __float2bfloat16_rn on store (8 channels a 16-byte store), as the JAX
+// kernel rounds it (conv_pipe.py:162-195, out in x's dtype :311).
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,35 +113,6 @@ template <> struct Mode<int8_t> {
     return __fmul_rn(__int2float_rn(acc), s);
   }
 };
-// bf16: a word is the raw bits of two bf16 of consecutive k (k even in the
-// low half, as they lie in memory); a bf16 widens to fp32 exactly by
-// moving its bits to the top of the word.
-template <> struct Mode<__nv_bfloat16> {
-  using Word = uint32_t;
-  using Vec = uint4;
-  using Acc = float;
-  using Bias = __nv_bfloat16;
-  static constexpr int KP = 2;
-  __device__ static __nv_bfloat16 zero() {
-    return __ushort_as_bfloat16((unsigned short)0);
-  }
-  __device__ static Word pack(const __nv_bfloat16 (&v)[2]) {
-    return (uint32_t)__bfloat16_as_ushort(v[0]) |
-           (uint32_t)__bfloat16_as_ushort(v[1]) << 16;
-  }
-  __device__ static Acc mac(Word a, Word b, Acc c) {
-    c = fmaf(__uint_as_float(a << 16), __uint_as_float(b << 16), c);
-    return fmaf(__uint_as_float(a & 0xffff0000u),
-                __uint_as_float(b & 0xffff0000u), c);
-  }
-  __device__ static float requant(Acc acc, float) { return acc; }
-};
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
 __device__ __forceinline__ void store(float* out, size_t o, float v, float) {
   out[o] = v;
 }
@@ -132,9 +121,47 @@ __device__ __forceinline__ void store(int8_t* out, size_t o, float v,
   const float q = rintf(__fdiv_rn(v, out_scale));
   out[o] = (int8_t)fminf(fmaxf(q, -127.f), 127.f);
 }
-__device__ __forceinline__ void store(__nv_bfloat16* out, size_t o, float v,
-                                      float) {
-  out[o] = __float2bfloat16_rn(v);
+
+// Tile decode: which image and conv position each row p < tp of this
+// block's tile computes (s_img[p] = -1 past the valid rows; s_ih/s_iw the
+// input origin of its window, s_pix its flattened output position). With a
+// pool the tile is the conv patch under pooled outputs (th, tw) of image
+// img; without one, tp consecutive positions of the flattened (B, OH, OW).
+__device__ __forceinline__ void decode_rows(const Geo& g, int tp, int tid,
+                                            int* s_img, int* s_ih, int* s_iw,
+                                            int* s_pix, int& img, int& th,
+                                            int& tw) {
+  int oh0 = 0, ow0 = 0;
+  img = th = tw = 0;
+  if (g.pool) {
+    const int per_img = g.tiles_h * g.tiles_w;
+    img = blockIdx.x / per_img;
+    th = (blockIdx.x % per_img) / g.tiles_w;
+    tw = blockIdx.x % g.tiles_w;
+    oh0 = th * g.tph * g.ps;
+    ow0 = tw * g.tpw * g.ps;
+  }
+  if (tid < tp) {
+    int b = -1, oh = 0, ow = 0;
+    if (g.pool) {
+      const int ch = (g.tph - 1) * g.ps + g.pk;
+      const int r = tid / g.cw, c = tid % g.cw;
+      oh = oh0 + r;
+      ow = ow0 + c;
+      if (r < ch && oh < g.OH && ow < g.OW) b = img;
+    } else {
+      const int q = blockIdx.x * tp + tid;
+      if (q < g.B * g.OH * g.OW) {
+        b = q / (g.OH * g.OW);
+        oh = (q / g.OW) % g.OH;
+        ow = q % g.OW;
+      }
+    }
+    s_img[tid] = b;
+    s_ih[tid] = oh * g.stride - g.pad;
+    s_iw[tid] = ow * g.stride - g.pad;
+    s_pix[tid] = b < 0 ? -1 : (b * g.OH + oh) * g.OW + ow;
+  }
 }
 
 template <typename T, typename TO>
@@ -159,37 +186,8 @@ conv_pipe_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int cbase = grp * g.Cg;                 // this group's input slab
   const int obase = grp * g.Mg + m0;            // first output channel
 
-  // tile decode: which image/conv position each tile row p computes
-  int img = 0, oh0 = 0, ow0 = 0, th = 0, tw = 0;
-  if (g.pool) {
-    const int per_img = g.tiles_h * g.tiles_w;
-    img = blockIdx.x / per_img;
-    th = (blockIdx.x % per_img) / g.tiles_w;
-    tw = blockIdx.x % g.tiles_w;
-    oh0 = th * g.tph * g.ps;
-    ow0 = tw * g.tpw * g.ps;
-  }
-  if (tid < TP) {
-    int b = -1, oh = 0, ow = 0;
-    if (g.pool) {
-      const int ch = (g.tph - 1) * g.ps + g.pk;
-      const int r = tid / g.cw, c = tid % g.cw;
-      oh = oh0 + r;
-      ow = ow0 + c;
-      if (r < ch && oh < g.OH && ow < g.OW) b = img;
-    } else {
-      const int q = blockIdx.x * TP + tid;
-      if (q < g.B * g.OH * g.OW) {
-        b = q / (g.OH * g.OW);
-        oh = (q / g.OW) % g.OH;
-        ow = q % g.OW;
-      }
-    }
-    s_img[tid] = b;
-    s_ih[tid] = oh * g.stride - g.pad;
-    s_iw[tid] = ow * g.stride - g.pad;
-    s_pix[tid] = b < 0 ? -1 : (b * g.OH + oh) * g.OW + ow;
-  }
+  int img, th, tw;
+  decode_rows(g, TP, tid, s_img, s_ih, s_iw, s_pix, img, th, tw);
   __syncthreads();
 
   const int tx = tid % 16, ty = tid / 16;       // 4 channels x 4 positions
@@ -272,7 +270,7 @@ conv_pipe_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int m = m0 + tx * 4 + j;
-    bj[j] = m < g.Mg ? widen(bias[grp * g.Mg + m]) : 0.f;
+    bj[j] = m < g.Mg ? bias[grp * g.Mg + m] : 0.f;
     sj[j] = scale != nullptr && m < g.Mg ? scale[grp * g.Mg + m] : 0.f;
   }
 #pragma unroll
@@ -320,6 +318,312 @@ conv_pipe_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+// ---- bf16 mode: implicit GEMM on the tensor cores ------------------------
+
+constexpr int BK = 32;          // reduction chunk, in bf16 (two k16 steps)
+constexpr int STAGES = 4;       // cp.async ring depth
+constexpr int LDA = BK + 8;     // A row stride in bf16: 80 B, so the 8 rows
+                                // of an ldmatrix hit distinct bank groups
+
+// The geometry of one bf16 tile: TPB positions x TN channels, 8 warps in
+// WARPS_M x WARPS_N, each a WTM x WTN piece of MI x NI mma tiles.
+template <int TPB, int TN> struct BfTile {
+  static constexpr int WARPS_M = TPB >= 2 * TN ? 4 : 2;
+  static constexpr int WARPS_N = NT / 32 / WARPS_M;
+  static constexpr int WTM = TPB / WARPS_M, WTN = TN / WARPS_N;
+  static constexpr int MI = WTM / 16, NI = WTN / 8;
+  static constexpr int LDB = TN + 8;            // B row stride in bf16
+  static constexpr int LDC = TN + 8;            // staged fp32 tile stride
+  static constexpr int A_STAGE = TPB * LDA;     // bf16 elements a stage
+  static constexpr int STAGE = A_STAGE + BK * LDB;
+  static constexpr int RING = STAGES * STAGE * 2;            // bytes
+  static constexpr int CTILE = TPB * LDC * 4;                // bytes
+  static constexpr int SMEM = RING > CTILE ? RING : CTILE;
+  static_assert(MI >= 1 && NI % 2 == 0, "a warp takes whole x4 B loads");
+  static_assert(TPB * BK / 8 % NT == 0 && BK * TN / 8 % NT == 0,
+                "every thread moves the same number of 16-byte vectors");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronous; zero-filled when !valid (the
+// source is then not read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
+}
+
+// d += a (16x16, row) * b (16x8, col): bf16 products, fp32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// avec: x's 16-byte vectors hold 8 channels of one pixel (C/G % 8 == 0, x
+// 16-byte aligned); bvec: w's hold 8 output channels of one group (Mg % 8
+// == 0, w 16-byte aligned); ovec: out takes 16-byte stores (Mg % 8 == 0).
+template <int TPB, int TN>
+__global__ void __launch_bounds__(NT, 2)
+conv_bf16_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                     const __nv_bfloat16* __restrict__ w,
+                     const __nv_bfloat16* __restrict__ bias,
+                     __nv_bfloat16* __restrict__ out, Geo g, int avec,
+                     int bvec, int ovec) {
+  using Tl = BfTile<TPB, TN>;
+  constexpr int LDB = Tl::LDB, LDC = Tl::LDC;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* const ring = reinterpret_cast<__nv_bfloat16*>(smem);
+  __shared__ int s_img[TPB], s_ih[TPB], s_iw[TPB], s_pix[TPB];
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int grp = blockIdx.y / g.m_tiles;
+  const int m0 = (blockIdx.y % g.m_tiles) * TN;
+  const int cbase = grp * g.Cg;                 // this group's input slab
+  const int obase = grp * g.Mg + m0;            // first output channel
+  int img, th, tw;
+  decode_rows(g, TPB, tid, s_img, s_ih, s_iw, s_pix, img, th, tw);
+  __syncthreads();
+
+  // A, vector path: vector v = tid + NT*i is row v/KV, k offset (v%KV)*8
+  // of the chunk; this thread's rows are fixed, its k moves BK a chunk,
+  // and its (kh, kw, c) follow k without a division.
+  constexpr int KV = BK / 8, AV = TPB * KV / NT;
+  const int akv = tid % KV;
+  int a_b[AV], a_ih[AV], a_iw[AV];
+#pragma unroll
+  for (int i = 0; i < AV; ++i) {
+    const int p = tid / KV + NT / KV * i;
+    a_b[i] = s_img[p];
+    a_ih[i] = s_ih[p];
+    a_iw[i] = s_iw[p];
+  }
+  int ak = akv * 8, ac = ak % g.Cg, akw = ak / g.Cg % g.KW,
+      akh = ak / (g.Cg * g.KW);
+
+  // Fill ring stage `st` with chunk k0 (chunks are loaded in order, once).
+  auto load_stage = [&](int st, int k0) {
+    __nv_bfloat16* const As = ring + st * Tl::STAGE;
+    __nv_bfloat16* const Bs = As + Tl::A_STAGE;
+    if (avec) {
+      const bool kin = ak < g.ktot;
+#pragma unroll
+      for (int i = 0; i < AV; ++i) {
+        const int ih = a_ih[i] + akh, iw = a_iw[i] + akw;
+        const bool ok = kin && a_b[i] >= 0 && ih >= 0 && ih < g.H &&
+                        iw >= 0 && iw < g.W;
+        const __nv_bfloat16* src =
+            ok ? x + ((size_t)(a_b[i] * g.H + ih) * g.W + iw) * g.C + cbase +
+                     ac
+               : x;
+        cp_async16(smem_u32(As + (tid / KV + NT / KV * i) * LDA + akv * 8),
+                   src, ok);
+      }
+      ak += BK;
+      ac += BK;
+      while (ac >= g.Cg) {
+        ac -= g.Cg;
+        if (++akw == g.KW) {
+          akw = 0;
+          ++akh;
+        }
+      }
+    } else {
+      // element by element (C/G = 3): thread column kk, rows tid/BK + i*NT/BK
+      const int kk = tid % BK, k = k0 + kk;
+      const bool kin = k < g.ktot;
+      const int c = k % g.Cg, kw = k / g.Cg % g.KW, kh = k / (g.Cg * g.KW);
+#pragma unroll
+      for (int i = 0; i < TPB * BK / NT; ++i) {
+        const int p = tid / BK + NT / BK * i;
+        const int b = s_img[p], ih = s_ih[p] + kh, iw = s_iw[p] + kw;
+        __nv_bfloat16 v = __ushort_as_bfloat16((unsigned short)0);
+        if (kin && b >= 0 && ih >= 0 && ih < g.H && iw >= 0 && iw < g.W)
+          v = x[((size_t)(b * g.H + ih) * g.W + iw) * g.C + cbase + c];
+        As[p * LDA + kk] = v;
+      }
+    }
+    if (bvec) {
+#pragma unroll
+      for (int i = 0; i < BK * TN / 8 / NT; ++i) {
+        const int v = tid + NT * i, kr = v / (TN / 8), n = v % (TN / 8) * 8;
+        const bool ok = k0 + kr < g.ktot && m0 + n < g.Mg;
+        const __nv_bfloat16* src =
+            ok ? w + (size_t)(k0 + kr) * g.M + obase + n : w;
+        cp_async16(smem_u32(Bs + kr * LDB + n), src, ok);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BK * TN / NT; ++i) {
+        const int n = tid % TN, kr = tid / TN + NT / TN * i;
+        __nv_bfloat16 v = __ushort_as_bfloat16((unsigned short)0);
+        if (k0 + kr < g.ktot && m0 + n < g.Mg)
+          v = w[(size_t)(k0 + kr) * g.M + obase + n];
+        Bs[kr * LDB + n] = v;
+      }
+    }
+  };
+
+  float acc[Tl::MI][Tl::NI][4];
+#pragma unroll
+  for (int i = 0; i < Tl::MI; ++i)
+#pragma unroll
+    for (int j = 0; j < Tl::NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int nk = (g.ktot + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load_stage(s, s * BK);
+    cp_async_commit();
+  }
+  const int wm = warp / Tl::WARPS_N, wn = warp % Tl::WARPS_N;
+  // this lane's ldmatrix rows: A rows lane%16 at k half lane/16; B k rows
+  // lane%8 (+8 for lanes 8-15 and 24-31) at n half lane/16
+  const int a_off = (wm * Tl::WTM + lane % 16) * LDA + lane / 16 * 8;
+  const int b_off = (lane % 8 + lane / 8 % 2 * 8) * LDB + wn * Tl::WTN +
+                    lane / 16 * 8;
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();    // chunk kt has landed (this thread's)
+    __syncthreads();                // ... everyone's; stage kt-1 is free
+    const int nxt = kt + STAGES - 1;
+    if (nxt < nk) load_stage(nxt % STAGES, nxt * BK);
+    cp_async_commit();
+    const __nv_bfloat16* As = ring + kt % STAGES * Tl::STAGE;
+    const __nv_bfloat16* Bs = As + Tl::A_STAGE;
+#pragma unroll
+    for (int ks = 0; ks < BK; ks += 16) {
+      uint32_t a[Tl::MI][4], b[Tl::NI][2];
+#pragma unroll
+      for (int i = 0; i < Tl::MI; ++i)
+        ldmatrix_x4(a[i], smem_u32(As + a_off + i * 16 * LDA + ks));
+#pragma unroll
+      for (int j = 0; j < Tl::NI; j += 2) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, smem_u32(Bs + b_off + ks * LDB + j * 8));
+        b[j][0] = r[0];
+        b[j][1] = r[1];
+        b[j + 1][0] = r[2];
+        b[j + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < Tl::MI; ++i)
+#pragma unroll
+        for (int j = 0; j < Tl::NI; ++j)
+          mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                  // the ring is free for the staged tile
+
+  // epilogue 1: + bias, ReLU on the fragments, staged as fp32 (a lane holds
+  // rows lane/4 and +8, columns 2*(lane%4) and +1 of each mma tile)
+  float* const Cs = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int j = 0; j < Tl::NI; ++j) {
+    const int col = wn * Tl::WTN + j * 8 + lane % 4 * 2;
+    const int m = m0 + col;
+    const float b0 = m < g.Mg ? __bfloat162float(bias[grp * g.Mg + m]) : 0.f;
+    const float b1 =
+        m + 1 < g.Mg ? __bfloat162float(bias[grp * g.Mg + m + 1]) : 0.f;
+#pragma unroll
+    for (int i = 0; i < Tl::MI; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v0 = __fadd_rn(acc[i][j][2 * h], b0);
+        float v1 = __fadd_rn(acc[i][j][2 * h + 1], b1);
+        if (g.relu) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
+        const int row = wm * Tl::WTM + i * 16 + lane / 4 + 8 * h;
+        *reinterpret_cast<float2*>(&Cs[row * LDC + col]) =
+            make_float2(v0, v1);
+      }
+  }
+  __syncthreads();
+
+  // epilogue 2: pool windows out of the staged tile (or copy it out), 8
+  // channels at a time, one rounding to bf16 on store
+  const int nq = g.pool ? g.tph * g.tpw : TPB;
+  const int mvalid = min(TN, g.Mg - m0);
+  for (int idx = tid; idx < nq * (TN / 8); idx += NT) {
+    const int m = idx % (TN / 8) * 8, q = idx / (TN / 8);
+    if (m >= mvalid) continue;
+    auto load8 = [&](int row, float (&u)[8]) {
+      const float4 lo = *reinterpret_cast<const float4*>(&Cs[row * LDC + m]);
+      const float4 hi =
+          *reinterpret_cast<const float4*>(&Cs[row * LDC + m + 4]);
+      u[0] = lo.x; u[1] = lo.y; u[2] = lo.z; u[3] = lo.w;
+      u[4] = hi.x; u[5] = hi.y; u[6] = hi.z; u[7] = hi.w;
+    };
+    float v[8];
+    size_t o;
+    if (g.pool) {
+      const int qh = q / g.tpw, qw = q % g.tpw;
+      const int ph = th * g.tph + qh, pw = tw * g.tpw + qw;
+      if (ph >= g.PH || pw >= g.PW) continue;
+      const int r0 = qh * g.ps, c0 = qw * g.ps;
+      load8(r0 * g.cw + c0, v);
+      for (int i = 0; i < g.pk; ++i)
+        for (int j = 0; j < g.pk; ++j) {
+          if (i == 0 && j == 0) continue;
+          float u[8];
+          load8((r0 + i) * g.cw + c0 + j, u);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            v[e] = g.pool == 1 ? fmaxf(v[e], u[e]) : __fadd_rn(v[e], u[e]);
+        }
+      if (g.pool == 2)
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          v[e] = __fdiv_rn(v[e], (float)(g.pk * g.pk));
+      o = ((size_t)(img * g.PH + ph) * g.PW + pw) * g.M + obase + m;
+    } else {
+      const int pix = s_pix[q];
+      if (pix < 0) continue;
+      load8(q, v);
+      o = (size_t)pix * g.M + obase + m;
+    }
+    if (ovec && m + 8 <= mvalid) {
+      __align__(16) __nv_bfloat162 h[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+      *reinterpret_cast<uint4*>(out + o) = *reinterpret_cast<const uint4*>(h);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (m + e < mvalid) out[o + e] = __float2bfloat16_rn(v[e]);
+    }
+  }
+}
+
 Geo make_geo(int B, int H, int W, int C, int KH, int KW, int M, int groups,
              int stride, int pad, int relu, int pool, int pk, int ps,
              int tph, int tpw, int kp) {
@@ -356,6 +660,33 @@ int launch(const T* x, const T* w, const typename Mode<T>::Bias* b,
   return (int)cudaGetLastError();
 }
 
+// One bf16 launch at tile TPB x TN: dynamic shared memory above 48 KB is
+// allowed first; a refusal of either surfaces as the returned error.
+template <int TPB, int TN>
+int launch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                const __nv_bfloat16* b, __nv_bfloat16* out, Geo g,
+                int groups, void* stream) {
+  constexpr int smem = BfTile<TPB, TN>::SMEM;
+  const cudaError_t e = cudaFuncSetAttribute(
+      conv_bf16_mma_kernel<TPB, TN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  g.m_tiles = (g.Mg + TN - 1) / TN;
+  const long long n_tiles =
+      g.pool ? (long long)g.B * g.tiles_h * g.tiles_w
+             : ((long long)g.B * g.OH * g.OW + TPB - 1) / TPB;
+  const auto al16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const int avec = g.Cg % 8 == 0 && al16(x);
+  const int bvec = g.Mg % 8 == 0 && al16(w);
+  const int ovec = g.Mg % 8 == 0 && al16(out);
+  dim3 grid((unsigned)n_tiles, groups * g.m_tiles);
+  conv_bf16_mma_kernel<TPB, TN><<<grid, NT, smem, (cudaStream_t)stream>>>(
+      x, w, b, out, g, avec, bvec, ovec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points. pool: 0 none, 1 max, 2 avg; (tph, tpw) the pooled
@@ -372,17 +703,26 @@ extern "C" int conv_pipe_f32(const float* x, const float* w, const float* b,
   return launch<float, float>(x, w, b, nullptr, out, g, groups, stream);
 }
 
-// bf16 x, w, b and out; fp32 accumulation and epilogue, one rounding.
+// bf16 x, w, b and out, on the tensor cores; fp32 accumulation and
+// epilogue, one rounding. (tp, tn): the tile, 128 or 64 positions x 128 or
+// 64 channels, (tph, tpw) fitting tp rows.
 extern "C" int conv_pipe_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
                               const __nv_bfloat16* b, __nv_bfloat16* out,
                               int B, int H, int W, int C, int KH, int KW,
                               int M, int groups, int stride, int pad,
                               int relu, int pool, int pk, int ps, int tph,
-                              int tpw, void* stream) {
+                              int tpw, int tp, int tn, void* stream) {
   const Geo g = make_geo(B, H, W, C, KH, KW, M, groups, stride, pad, relu,
-                         pool, pk, ps, tph, tpw, 2);
-  return launch<__nv_bfloat16, __nv_bfloat16>(x, w, b, nullptr, out, g,
-                                              groups, stream);
+                         pool, pk, ps, tph, tpw, 1);
+  if (tp == 128 && tn == 128)
+    return launch_bf16<128, 128>(x, w, b, out, g, groups, stream);
+  if (tp == 128 && tn == 64)
+    return launch_bf16<128, 64>(x, w, b, out, g, groups, stream);
+  if (tp == 64 && tn == 128)
+    return launch_bf16<64, 128>(x, w, b, out, g, groups, stream);
+  if (tp == 64 && tn == 64)
+    return launch_bf16<64, 64>(x, w, b, out, g, groups, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // int8 x and w, fp32 b and scale (M,) = s_x * s_w[m]. out_s8: the output is

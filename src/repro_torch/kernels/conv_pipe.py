@@ -5,12 +5,15 @@ group, in fp32, in bf16 (bf16 x, w and b, an fp32 accumulator and
 epilogue, bf16 out), or in int8 (``scale=`` given: int8 x and w, an int32
 accumulator, and the requantize -> bias -> ReLU -> pool -> round
 epilogue). Kernel: ``csrc/conv_pipe.cu``, which replaces the TPU kernel
-``src/repro/kernels/conv_pipe.py:conv_pipe`` (all three modes). It is
-bound by operations on the CUDA cores; it computes an implicit GEMM with
-the epilogue on a tile staged in shared memory, so the unpooled
-activation never reaches device memory. See the source for the design.
-The plain version, :func:`conv_pipe_plain`, computes each mode as the
-kernel rounds it.
+``src/repro/kernels/conv_pipe.py:conv_pipe`` (line 198; all three modes).
+Every mode is bound by operations. fp32 (FFMA) and int8 (``__dp4a``) run
+on the CUDA cores; bf16 runs on the tensor cores (``mma.sync`` m16n8k16,
+bf16 products summed in fp32, as the TPU's MXU computes the mode), bound
+at the dense bf16 tensor-core rate, with its operands fed by a 4-stage
+``cp.async`` ring. Each computes an implicit GEMM with the epilogue on a
+tile staged in shared memory, so the unpooled activation never reaches
+device memory. See the source for the design. The plain version,
+:func:`conv_pipe_plain`, computes each mode as the kernel rounds it.
 """
 from __future__ import annotations
 
@@ -23,29 +26,66 @@ import torch
 from repro_torch.kernels.ref import conv_pipe_ref, float_dtypes
 from repro_torch.quant.ref import conv_int8_ref
 
-__all__ = ["conv_pipe", "conv_pipe_plain", "pool_tile"]
+__all__ = ["bf16_tile", "conv_pipe", "conv_pipe_plain", "pool_tile"]
 
-TILE_POSITIONS = 64          # conv positions a block computes (csrc TP)
+TILE_POSITIONS = 64          # conv positions a block computes, fp32 and int8
+                             # (csrc TP)
+BF16_POSITIONS = (128, 64)   # the bf16 kernel's tile rows (csrc TPB) ...
+BF16_CHANNELS = (128, 64)    # ... and columns (csrc TN)
 _POOL_CODES = {None: 0, "max": 1, "avg": 2}
 
 
-def pool_tile(ph: int, pw: int, pool_k: int, pool_s: int) -> Tuple[int, int]:
+@functools.lru_cache(maxsize=None)
+def pool_tile(ph: int, pw: int, pool_k: int, pool_s: int,
+              positions: int) -> Tuple[int, int]:
     """Pooled outputs per block, ``(tph, tpw)``, for a ``ph`` x ``pw``
     pooled map: the conv patch ``((tph-1)*s+k) x ((tpw-1)*s+k)`` must fit
-    the kernel's TILE_POSITIONS rows, and every block costs the same, so
-    take the fewest blocks (then the smallest patch)."""
+    the kernel's ``positions`` tile rows, and every block costs the same,
+    so take the fewest blocks (then the smallest patch). Memoised: the
+    search is ph x pw steps of Python (12544 at VGG-16's conv1_2), longer
+    than the kernel it sizes."""
     best = None
     for tph in range(1, ph + 1):
         for tpw in range(1, pw + 1):
             area = ((tph - 1) * pool_s + pool_k) * ((tpw - 1) * pool_s + pool_k)
-            if area > TILE_POSITIONS:
+            if area > positions:
                 continue
             key = (-(-ph // tph) * -(-pw // tpw), area, tph, tpw)
             best = key if best is None or key < best else best
     if best is None:
         raise ValueError(f"conv_pipe: a {pool_k}x{pool_k} pool window does "
-                         f"not fit the {TILE_POSITIONS}-position conv tile")
+                         f"not fit the {positions}-position conv tile")
     return best[2], best[3]
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_tile(B: int, OH: int, OW: int, mg: int, groups: int,
+              pool: Optional[str], pool_k: int, pool_s: int,
+              sms: int) -> Tuple[int, int, int, int]:
+    """The bf16 kernel's tile for one layer, ``(tp, tn, tph, tpw)``: tn 64
+    where a group has at most 64 output channels (VGG-16's conv1_x), else
+    128; the 128-position tile unless its grid gives fewer blocks than the
+    card's ``sms``, then the 64-position one, then tn 64 (the 13x13 and
+    14x14 layers). A pool window that fits neither tile raises."""
+    ph, pw = (OH, OW) if pool is None else (
+        (OH - pool_k) // pool_s + 1, (OW - pool_k) // pool_s + 1)
+    tn = BF16_CHANNELS[1] if mg <= BF16_CHANNELS[1] else BF16_CHANNELS[0]
+    big, small = BF16_POSITIONS
+    best = None
+    for tp, tn in ((big, tn), (small, tn), (small, BF16_CHANNELS[1])):
+        if pool is None:
+            t, tiles = (1, 1), -(-B * OH * OW // tp)
+        elif pool_k * pool_k <= tp:
+            t = pool_tile(ph, pw, pool_k, pool_s, tp)
+            tiles = B * -(-ph // t[0]) * -(-pw // t[1])
+        else:
+            continue
+        best = (tp, tn, *t)
+        if tiles * groups * -(-mg // tn) >= sms:
+            break
+    if best is None:
+        pool_tile(ph, pw, pool_k, pool_s, big)      # raises: too large
+    return best
 
 
 def conv_pipe_plain(x, w, b, *, scale=None, out_scale=None, **kw):
@@ -74,9 +114,9 @@ def _entry(name: str):
     if name == "conv_pipe_s8":
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_float] \
             + [ctypes.c_int] * 16 + [ctypes.c_void_p]
-    else:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 + [
-            ctypes.c_void_p]
+    else:                       # bf16 adds the tile (tp, tn)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (
+            18 if name == "conv_pipe_bf16" else 16) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -133,8 +173,16 @@ def conv_pipe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
         raise ValueError(f"conv_pipe: empty output for x {tuple(x.shape)}, "
                          f"kernel {KH}x{KW}, stride {stride}, pad {pad}, "
                          f"pool {pool}")
-    pk, ps, tph, tpw = (1, 1, 1, 1) if pool is None else (
-        pool_k, pool_s, *pool_tile(ph, pw, pool_k, pool_s))
+    bf16 = x.dtype == torch.bfloat16
+    tile = ()                   # the bf16 kernel's (tp, tn)
+    if bf16:
+        *tile, tph, tpw = bf16_tile(
+            B, OH, OW, M // groups, groups, pool, pool_k, pool_s,
+            torch.cuda.get_device_properties(x.device).multi_processor_count)
+    else:
+        tph, tpw = (1, 1) if pool is None else pool_tile(
+            ph, pw, pool_k, pool_s, TILE_POSITIONS)
+    pk, ps = (1, 1) if pool is None else (pool_k, pool_s)
     out_s8 = int8 and out_scale is not None
     out = torch.empty((B, ph, pw, M), device=x.device,
                       dtype=torch.int8 if out_s8 else
@@ -142,7 +190,7 @@ def conv_pipe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     if out.numel() == 0:
         return out
     geo = (B, H, W, C, KH, KW, M, groups, stride, pad, int(relu),
-           _POOL_CODES[pool], pk, ps, tph, tpw,
+           _POOL_CODES[pool], pk, ps, tph, tpw, *tile,
            torch.cuda.current_stream(x.device).cuda_stream)
     if int8:
         err = _entry("conv_pipe_s8")(
@@ -157,7 +205,7 @@ def conv_pipe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
         raise RuntimeError(f"conv_pipe kernel launch failed: CUDA error {err}")
     if int8:
         conv_pipe.launches_s8 += 1
-    elif x.dtype == torch.bfloat16:
+    elif bf16:
         conv_pipe.launches_bf16 += 1
     else:
         conv_pipe.launches += 1

@@ -16,15 +16,23 @@ full softmax, fp32 sums in another order) and ``2e-2`` in bf16 (the
 reference's bf16 tolerance, ``tests/test_kernels.py:17-19``); the decode
 caches bit for bit (one slot copied, nothing computed). The bf16 modes of
 conv_pipe, matmul_pipe and lrn_pwl: ``rtol = atol = 2e-2`` against plain
-versions that compute in fp32 and round once to bf16, as the kernels do.
+versions that compute in fp32 and round once to bf16, as the kernels do
+(conv_pipe's on the tensor cores: bf16 products, fp32 sums).
 """
+import importlib
+import shutil
+import subprocess
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
-from repro_torch.kernels.conv_pipe import conv_pipe, conv_pipe_plain
+from repro_torch.kernels.conv_pipe import (BF16_CHANNELS, BF16_POSITIONS,
+                                           conv_pipe, conv_pipe_plain,
+                                           pool_tile)
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
@@ -289,20 +297,113 @@ def _counts(fn):
     return fn.launches, fn.launches_bf16, getattr(fn, "launches_s8", 0)
 
 
-@pytest.mark.parametrize(
-    "B,H,C,K,M,stride,pad,pool,pool_k,pool_s,groups", CONV_GEOMETRIES)
+# bf16 geometries that reach the tensor-core kernel's 16-byte cp.async
+# gather (C/G % 8 == 0) and its edges: K not a multiple of the 32-wide
+# chunk, Mg not a multiple of the 64- or 128-channel tile, several row and
+# channel tiles, the 4-stage ring wrapping many times, groups, pools over
+# the larger tiles ragged at the pooled edge, batch 1 and 3; and the
+# element-by-element gather of the first convs (C/G = 3).
+BF16_CONV_GEOMETRIES = [
+    (2, 27, 96, 5, 256, 1, 2, None, 2, 2, 2),   # AlexNet conv2: C/G 48, K 1200
+    (1, 10, 8, 3, 16, 1, 1, None, 2, 2, 1),     # C/G 8, K 72: 2 chunks + tail
+    (3, 20, 48, 3, 96, 1, 1, None, 2, 2, 1),    # K 432 (13.5 chunks), Mg 96
+    (1, 30, 64, 3, 200, 1, 1, None, 2, 2, 1),   # K 576 (18 chunks), Mg 200
+    (3, 56, 64, 3, 200, 1, 1, None, 2, 2, 1),   # 74 row tiles of 128, 2 col
+    (1, 14, 512, 3, 512, 1, 1, None, 2, 2, 1),  # VGG-16 conv5: K 4608
+    (1, 30, 64, 3, 96, 1, 1, "max", 2, 2, 1),   # 2x2/2 pool, PH 15: ragged
+    (3, 27, 48, 3, 200, 1, 1, "max", 3, 2, 1),  # 3x3/2 pool, PH 13: ragged
+    (3, 29, 16, 3, 64, 1, 0, "avg", 3, 2, 2),   # G 2, C/G 8, avg pool
+    (2, 28, 64, 3, 64, 1, 1, "max", 2, 2, 1),   # VGG-16 conv1_2 + pool, cut
+    (3, 16, 3, 3, 64, 1, 1, None, 2, 2, 1),     # C/G 3, K 27: element gather
+    (1, 63, 3, 11, 96, 4, 0, None, 2, 2, 1),    # AlexNet conv1, cut: K 363
+]
+BF16_TILES = [(tp, tn) for tp in BF16_POSITIONS for tn in BF16_CHANNELS]
+
+
+def _bf16_conv_case(seed, B, H, C, K, M, stride, pad, pool, pool_k, pool_s,
+                    groups, dev):
+    rng = np.random.default_rng(seed)
+    x = _bf(rng.standard_normal((B, H, H, C)), dev)
+    w = _bf(rng.standard_normal((K, K, C // groups, M)) * 0.2, dev)
+    b = _bf(rng.standard_normal(M), dev)
+    return x, w, b, dict(stride=stride, pad=pad, pool=pool, pool_k=pool_k,
+                         pool_s=pool_s, groups=groups)
+
+
+@pytest.mark.parametrize("B,H,C,K,M,stride,pad,pool,pool_k,pool_s,groups",
+                         CONV_GEOMETRIES + BF16_CONV_GEOMETRIES)
 def test_conv_pipe_bf16_kernel_matches_plain(cuda, B, H, C, K, M, stride,
                                              pad, pool, pool_k, pool_s,
                                              groups):
-    rng = np.random.default_rng(20)
-    x = _bf(rng.standard_normal((B, H, H, C)), cuda)
-    w = _bf(rng.standard_normal((K, K, C // groups, M)) * 0.2, cuda)
-    b = _bf(rng.standard_normal(M), cuda)
-    kw = dict(stride=stride, pad=pad, pool=pool, pool_k=pool_k,
-              pool_s=pool_s, groups=groups)
+    x, w, b, kw = _bf16_conv_case(20, B, H, C, K, M, stride, pad, pool,
+                                  pool_k, pool_s, groups, cuda)
     n0, h0, s0 = _counts(conv_pipe)
     _close_bf16(conv_pipe(x, w, b, **kw), conv_pipe_plain(x, w, b, **kw))
     assert _counts(conv_pipe) == (n0, h0 + 1, s0)
+
+
+@pytest.mark.parametrize("tile", BF16_TILES, ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("B,H,C,K,M,stride,pad,pool,pool_k,pool_s,groups",
+                         BF16_CONV_GEOMETRIES)
+def test_conv_pipe_bf16_every_tile_matches_plain(cuda, monkeypatch, tile, B,
+                                                 H, C, K, M, stride, pad,
+                                                 pool, pool_k, pool_s,
+                                                 groups):
+    """Each of the kernel's four tiles on every geometry, whichever tile
+    the wrapper would choose there."""
+    def forced(B, OH, OW, mg, groups, pool, pool_k, pool_s, sms):
+        if pool is None:
+            return (*tile, 1, 1)
+        return (*tile, *pool_tile((OH - pool_k) // pool_s + 1,
+                                  (OW - pool_k) // pool_s + 1, pool_k,
+                                  pool_s, tile[0]))
+    monkeypatch.setattr(importlib.import_module(
+        "repro_torch.kernels.conv_pipe"), "bf16_tile", forced)
+    x, w, b, kw = _bf16_conv_case(23, B, H, C, K, M, stride, pad, pool,
+                                  pool_k, pool_s, groups, cuda)
+    _close_bf16(conv_pipe(x, w, b, **kw), conv_pipe_plain(x, w, b, **kw))
+
+
+def test_conv_pipe_bf16_unaligned_operands(cuda):
+    """x and w at 4-byte but not 16-byte aligned addresses take the
+    element-by-element gathers and give the same result."""
+    x, w, b, kw = _bf16_conv_case(24, 2, 20, 64, 3, 96, 1, 1, "max", 2, 2,
+                                  1, cuda)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 2, dtype=t.dtype, device=t.device)
+        u = buf[2:].view(t.shape)
+        u.copy_(t)
+        return u
+    xu, wu = shifted(x), shifted(w)
+    assert xu.data_ptr() % 16 and wu.data_ptr() % 16
+    _close_bf16(conv_pipe(xu, wu, b, **kw), conv_pipe_plain(x, w, b, **kw))
+
+
+def test_bf16_conv_runs_on_the_tensor_cores(cuda):
+    """cuobjdump's SASS of the built conv_pipe library: every bf16 kernel
+    holds HMMA (tensor-core) instructions, the fp32 kernel none (TF32
+    would break the reference's 1e-4)."""
+    from repro_torch.kernels import build
+    build.load("conv_pipe")
+    tool = shutil.which("cuobjdump") or str(
+        Path(build.nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([tool, "-sass",
+                           str(build.library_path("conv_pipe"))],
+                          check=True, capture_output=True, text=True).stdout
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            funcs[name] = ""
+        elif name is not None:
+            funcs[name] += line + "\n"
+    bf16 = [f for f in funcs if "conv_bf16_mma_kernel" in f]
+    fp32 = [f for f in funcs if "conv_pipe_kernelIffE" in f]
+    assert len(bf16) == len(BF16_TILES) and len(fp32) == 1, sorted(funcs)
+    for f in bf16:
+        assert "HMMA" in funcs[f], f
+    assert "HMMA" not in funcs[fp32[0]] and "FFMA" in funcs[fp32[0]]
 
 
 @pytest.mark.parametrize("M,K,N", MATMUL_SHAPES)

@@ -7,6 +7,8 @@ conv is held against ``repro.kernels.ops.fused_conv(use_pallas=False)``,
 i.e. ``conv_pipe_ref``; ``matmul_pipe`` and ``lrn_pwl`` are held against
 the Pallas kernels in interpret mode.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,7 +20,8 @@ from repro.kernels.lrn_pwl import build_pwl_lut as jax_build_pwl_lut
 from repro.kernels.lrn_pwl import lrn_pwl as jax_lrn_pwl
 from repro.kernels.matmul_pipe import matmul_pipe as jax_matmul_pipe
 from repro_torch.kernels import ref
-from repro_torch.kernels.conv_pipe import TILE_POSITIONS, conv_pipe, pool_tile
+from repro_torch.kernels.conv_pipe import (BF16_POSITIONS, TILE_POSITIONS,
+                                           bf16_tile, conv_pipe, pool_tile)
 from repro_torch.kernels.lrn_pwl import build_pwl_lut, lrn_pwl
 from repro_torch.kernels.matmul_pipe import matmul_pipe
 
@@ -135,21 +138,65 @@ def test_pool_ref_max_on_int8_codes_matches_jax():
         got.numpy(), np.asarray(jref.pool_ref(jnp.asarray(codes), "max", 3, 2)))
 
 
+# the fp32/int8 kernel's tile rows and the bf16 kernel's larger tile
+POSITIONS = sorted({TILE_POSITIONS, *BF16_POSITIONS})
+
+
+@pytest.mark.parametrize("positions", POSITIONS)
 @pytest.mark.parametrize("ph,pw,k,s", [(6, 6, 3, 2), (13, 13, 3, 2),
                                        (112, 112, 2, 2), (1, 1, 8, 1)])
-def test_pool_tile_fits_and_is_minimal(ph, pw, k, s):
-    tph, tpw = pool_tile(ph, pw, k, s)
+def test_pool_tile_fits_and_is_minimal(ph, pw, k, s, positions):
+    tph, tpw = pool_tile(ph, pw, k, s, positions)
     area = ((tph - 1) * s + k) * ((tpw - 1) * s + k)
-    assert 1 <= tph <= ph and 1 <= tpw <= pw and area <= TILE_POSITIONS
+    assert 1 <= tph <= ph and 1 <= tpw <= pw and area <= positions
     blocks = -(-ph // tph) * -(-pw // tpw)
     assert all(-(-ph // a) * -(-pw // b) >= blocks
                for a in range(1, ph + 1) for b in range(1, pw + 1)
-               if ((a - 1) * s + k) * ((b - 1) * s + k) <= TILE_POSITIONS)
+               if ((a - 1) * s + k) * ((b - 1) * s + k) <= positions)
 
 
-def test_pool_tile_refuses_a_window_larger_than_the_tile():
+@pytest.mark.parametrize("positions", POSITIONS)
+def test_pool_tile_refuses_a_window_larger_than_the_tile(positions):
+    k = math.isqrt(positions) + 1               # k*k > positions
     with pytest.raises(ValueError):
-        pool_tile(2, 2, 9, 1)
+        pool_tile(2, 2, k, 1, positions)
+
+
+# (B, OH, Mg, groups, pool, pool_k, pool_s) of each conv of AlexNet and
+# VGG-16 at batch 8, and the bf16 tile a 132-SM H100 gets: the largest
+# tile that still gives every SM a block, tn 64 where Mg <= 64
+BF16_LAYER_TILES = [
+    ((8, 55, 96, 1, None, 2, 2), (128, 128, 1, 1)),      # AlexNet conv1
+    ((8, 27, 128, 2, None, 2, 2), (64, 128, 1, 1)),      # conv2
+    ((8, 13, 384, 1, None, 2, 2), (64, 64, 1, 1)),       # conv3
+    ((8, 13, 192, 2, None, 2, 2), (64, 64, 1, 1)),       # conv4
+    ((8, 13, 128, 2, "max", 3, 2), (64, 64, 3, 3)),      # conv5 + pool
+    ((8, 224, 64, 1, None, 2, 2), (128, 64, 1, 1)),      # VGG-16 conv1_1
+    ((8, 224, 64, 1, "max", 2, 2), (128, 64, 2, 16)),    # conv1_2 + pool
+    ((8, 112, 128, 1, "max", 2, 2), (128, 128, 4, 8)),   # conv2_2 + pool
+    ((8, 56, 256, 1, None, 2, 2), (128, 128, 1, 1)),     # conv3_x
+    ((8, 28, 512, 1, "max", 2, 2), (128, 128, 2, 14)),   # conv4_3 + pool
+    ((8, 14, 512, 1, None, 2, 2), (64, 64, 1, 1)),       # conv5_x
+    ((8, 14, 512, 1, "max", 2, 2), (64, 64, 2, 7)),      # conv5_3 + pool
+]
+
+
+@pytest.mark.parametrize("layer,want", BF16_LAYER_TILES)
+def test_bf16_tile_fills_the_card_with_the_largest_tile(layer, want):
+    B, OH, mg, groups, pool, k, s = layer
+    tp, tn, tph, tpw = got = bf16_tile(B, OH, OH, mg, groups, pool, k, s, 132)
+    assert got == want
+    ph = OH if pool is None else (OH - k) // s + 1
+    if pool is not None:                # the pooled patch fits tp rows
+        assert (tph, tpw) == pool_tile(ph, ph, k, s, tp)
+    tiles = -(-B * OH * OH // tp) if pool is None else \
+        B * -(-ph // tph) * -(-ph // tpw)
+    assert tiles * groups * -(-mg // tn) >= 128     # about a block an SM
+
+
+def test_bf16_tile_refuses_a_window_larger_than_either_tile():
+    with pytest.raises(ValueError):
+        bf16_tile(1, 20, 20, 8, 1, "max", 12, 1, 132)
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
