@@ -11,7 +11,13 @@ Phases (any failure exits non-zero):
    matmul_pipe is held against its plain PyTorch version on the inputs
    AlexNet's batch-8 forward gives it (seeded weights, random biases; the
    fold over the plain versions), and timed beside the plain version, one
-   library call and the card's bound.
+   library call and the card's bound. Each row of a redesigned kernel
+   (conv_pipe fp32 here; see 8) also prints its tile or split, its
+   TFLOP/s or TB/s and its share of the bound, as timed and in a CUDA
+   graph (``graph_ms``: the host's pace taken out, the library call's
+   too), and the replaced kernel's time for that layer (``OLD_MS``);
+   each model's sum of its launches is printed beside the library's
+   (cuDNN, cuBLAS) and the replaced sum.
 3. Full forward: ``compile_cnn(alexnet, batch 8).forward(x)`` at full
    width with the same weights must launch conv_pipe 5x, lrn_pwl 2x
    and matmul_pipe 3x (all fp32), and its logits must match the same
@@ -54,10 +60,10 @@ Phases (any failure exits non-zero):
    as in 5. The CNN phases above must launch no attention kernel.
 7. VGG-16 at full width (batch 8, 224x224x3, seeded weights, random
    biases), fp32 and int8: each fp32 and int8 kernel against its plain
-   version on the inputs the forward gives it, timed as in 2 and 2b (the
-   2x2/2 pooled tiles at 224x224x64 included); the fp32 forward must
-   launch conv_pipe 13x and matmul_pipe 3x and come within 1e-3 x
-   max|logit| of the fold over the plain versions; the int8 forward,
+   version on the inputs the forward gives it, timed and printed as in 2
+   and 2b (the 2x2/2 pooled tiles at 224x224x64 included); the fp32
+   forward must launch conv_pipe 13x and matmul_pipe 3x and come within
+   1e-3 x max|logit| of the fold over the plain versions; the int8 forward,
    calibrated on the card on the default batch, must launch the int8
    modes 13x and 3x and equal its plain fold bit for bit.
 8. bf16 kernels vs plain: ``compile_cnn(..., Precision(dtype="bfloat16"))``
@@ -67,11 +73,9 @@ Phases (any failure exits non-zero):
    operands, rounded once; the worst error also printed in bf16 ulps),
    timed beside the plain version, one bf16 library call and the bound
    (operations at the bf16 tensor-core rate, bytes at 2 B an element).
-   conv_pipe's bf16 mode runs on the tensor cores (``mma.sync``); each
-   of its rows also prints the tile it got, its TFLOP/s, its share of the
-   bound and the earlier FFMA kernel's time for that layer
-   (``FFMA_CONV_BF16_MS``), and each model's sum of those launches is
-   printed beside cuDNN's (the library rows) and the earlier sum.
+   conv_pipe's and matmul_pipe's bf16 modes run on the tensor cores
+   (``mma.sync``; matmul_pipe's split over K in a thread-block cluster);
+   their rows and sums print as the redesigned rows of 2.
 9. bf16 forwards: AlexNet must launch the bf16 modes 5/2/3x, VGG-16
    13/0/3x, and nothing else; logits within 2e-2 x max|logit| of the
    fold of 8 over the plain versions; the top-1 agreement with the fp32
@@ -144,19 +148,38 @@ PREFILL_S = 4096               # prefill_32k cut: S 32768 -> 4096, batch 32 -> 1
 DECODE_B, DECODE_S = 8, 32768  # decode_32k cut: batch 128 -> 8
 DECODE_POS = (0, 16383, 32767)
 INT_MM_ROWS = 32               # torch._int_mm needs more than 16 rows
-# conv_pipe_bf16 a launch (ms) with the earlier FFMA kernel (bf16 widened
-# on the CUDA cores, before the tensor-core kernel), at batch 8 on the
-# inputs of phase 8, by model and layer, measured by this script on the
-# card named (PERF.md section 5)
-FFMA_CONV_BF16_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
-FFMA_CONV_BF16_MS = {
-    "alexnet": {"conv(0,)": 0.1373, "conv(3,)": 0.1942, "conv(6,)": 0.1627,
-                "conv(7,)": 0.1206, "conv(8, 9)": 0.1162},
-    "vgg16": {"conv(0,)": 0.1386, "conv(1, 2)": 1.3486, "conv(3,)": 0.6829,
-              "conv(4, 5)": 1.3358, "conv(6,)": 0.6804, "conv(7,)": 1.3492,
-              "conv(8, 9)": 1.3504, "conv(10,)": 0.6946, "conv(11,)": 1.3949,
-              "conv(12, 13)": 1.5956, "conv(14,)": 0.5347,
-              "conv(15,)": 0.5346, "conv(16, 17)": 0.5279}}
+# a launch (ms) with the kernel each redesign replaced, at batch 8 on the
+# inputs of phases 2, 7 and 8, by kernel, model and layer, measured by this
+# script on the card named (PERF.md section 5): conv_pipe_bf16's FFMA
+# kernel (bf16 widened on the CUDA cores), conv_pipe's 64x64
+# single-buffered FFMA kernel and matmul_pipe_bf16's FFMA weight stream
+OLD_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+OLD_MS = {
+    "conv_pipe_bf16": {
+        "alexnet": {"conv(0,)": 0.1373, "conv(3,)": 0.1942,
+                    "conv(6,)": 0.1627, "conv(7,)": 0.1206,
+                    "conv(8, 9)": 0.1162},
+        "vgg16": {"conv(0,)": 0.1386, "conv(1, 2)": 1.3486,
+                  "conv(3,)": 0.6829, "conv(4, 5)": 1.3358,
+                  "conv(6,)": 0.6804, "conv(7,)": 1.3492,
+                  "conv(8, 9)": 1.3504, "conv(10,)": 0.6946,
+                  "conv(11,)": 1.3949, "conv(12, 13)": 1.5956,
+                  "conv(14,)": 0.5347, "conv(15,)": 0.5346,
+                  "conv(16, 17)": 0.5279}},
+    "conv_pipe": {
+        "alexnet": {"conv(0,)": 0.1237, "conv(3,)": 0.2228,
+                    "conv(6,)": 0.3216, "conv(7,)": 0.2415,
+                    "conv(8, 9)": 0.2314},
+        "vgg16": {"conv(0,)": 0.1223, "conv(1, 2)": 1.3554,
+                  "conv(3,)": 0.7038, "conv(4, 5)": 1.3661,
+                  "conv(6,)": 0.7183, "conv(7,)": 1.4361,
+                  "conv(8, 9)": 1.4035, "conv(10,)": 0.7425,
+                  "conv(11,)": 1.4869, "conv(12, 13)": 1.8161,
+                  "conv(14,)": 0.7401, "conv(15,)": 0.7466,
+                  "conv(16, 17)": 0.7505}},
+    "matmul_pipe_bf16": {
+        "alexnet": {"fc(10,)": 0.0908, "fc(11,)": 0.0345, "fc(12,)": 0.0381},
+        "vgg16": {"fc(18,)": 0.2423, "fc(19,)": 0.0321, "fc(20,)": 0.0378}}}
 # published HBM rates (NVIDIA data sheets), by the name nvidia-smi reports
 MEM_BW = {"H100 80GB HBM3": 3.35e12, "H100 PCIe": 2.0e12,
           "H100 NVL": 3.9e12, "H200": 4.8e12}
@@ -195,6 +218,35 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, runs: int = 3,
         s.record()
         for _ in range(iters):
             fn()
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) / iters for s, e in pairs)
+
+
+def graph_ms(fn, iters: int = 20, runs: int = 3) -> float:
+    """Device time of one call with the host's pace taken out: ``iters``
+    calls captured in one CUDA graph and replayed between a pair of CUDA
+    events; the median over ``runs`` replays. A call whose wrapper takes
+    longer on the host than its kernel on the card (the small FC layers)
+    shows its kernel's time here and the host's in :func:`time_ms`."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                        # first calls (builds, attributes) first
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    pairs = []
+    for _ in range(runs):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
         e.record()
         pairs.append((s, e))
     torch.cuda.synchronize()
@@ -253,14 +305,15 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels import ops as kernel_ops
-    from repro_torch.kernels.conv_pipe import (bf16_tile, conv_pipe,
-                                               conv_pipe_plain)
+    from repro_torch.kernels.conv_pipe import (conv_pipe, conv_pipe_plain,
+                                               conv_tile)
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_plain)
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     from repro_torch.kernels.lrn_pwl import lrn_pwl, lrn_pwl_plain
-    from repro_torch.kernels.matmul_pipe import matmul_pipe, matmul_pipe_plain
+    from repro_torch.kernels.matmul_pipe import (fc_split, matmul_pipe,
+                                                 matmul_pipe_plain)
     from repro_torch.kernels.ref import lrn_ref, pool_ref
     from repro_torch.launch.serve_cnn import (default_request_count,
                                               synthetic_requests)
@@ -463,29 +516,73 @@ def main() -> int:
                               f"error {row['ulps']:.2f} bf16 ulps (of "
                               f"max(|plain|, max|plain|/128)), "
                               f"{row['n_differ']} of {got.numel()} differ")
+                    fns = row["run"], row["library"]
                     measure(row, fp32_rate if mode == "fp32" else bf16_rate)
-                    if row["kernel"] == "conv_pipe_bf16":
-                        bf16_conv_line(cfg, row, h, l, kw)
+                    if row["kernel"] in OLD_MS:
+                        redesign_line(cfg, row, h, l,
+                                      kw if l.kind == "conv" else None, *fns)
                     rows.append(row)
                 h = want
         return rows, h
 
-    def bf16_conv_line(cfg, row, h, l, kw):
-        """Print a bf16 conv row's tile, rate, share of the bound and the
-        earlier FFMA kernel's time for the layer."""
-        oh = (h.shape[1] + 2 * l.pad - l.kernel) // l.stride + 1
-        ow = (h.shape[2] + 2 * l.pad - l.kernel) // l.stride + 1
-        row["tile"] = bf16_tile(h.shape[0], oh, ow, l.out_ch // l.groups,
-                                l.groups, kw["pool"], kw["pool_k"],
-                                kw["pool_s"], props.multi_processor_count)
-        row["tflops"] = row["ops"] / row["ms"] / 1e9
+    def redesign_line(cfg, row, h, l, kw, run, library):
+        """Print a redesigned kernel's row: its tile (a conv, ``kw`` its
+        keywords) or split (FC), its TFLOP/s (conv) or weight TB/s (FC)
+        and share of the bound, both as timed and in a CUDA graph (the
+        host's pace taken out; the library call too), and the replaced
+        kernel's time for the layer."""
+        sms = props.multi_processor_count
+        row["graph_ms"] = graph_ms(run)
+        row["library_graph_ms"] = graph_ms(library)
+        if kw is not None:
+            oh = (h.shape[1] + 2 * l.pad - l.kernel) // l.stride + 1
+            ow = (h.shape[2] + 2 * l.pad - l.kernel) // l.stride + 1
+            row["tile"] = conv_tile(h.dtype, h.shape[0], oh, ow,
+                                    l.out_ch // l.groups, l.groups,
+                                    kw["pool"], kw["pool_k"], kw["pool_s"],
+                                    sms)
+            what = f"tile {row['tile'][0]}x{row['tile'][1]}"
+            row["tflops"] = row["ops"] / row["ms"] / 1e9
+
+            def rate(ms):
+                return f"{row['ops'] / ms / 1e9:.1f} TFLOP/s"
+        else:
+            M, K, N = row["shape"]
+            row["split"] = fc_split(M, K, N, sms)
+            what = (f"split {row['split'][0]} features x {row['split'][1]} "
+                    f"ranks")
+            row["tbps"] = row["bytes"] / row["ms"] / 1e9
+
+            def rate(ms):
+                return f"{row['bytes'] / ms / 1e9:.2f} TB/s"
         row["pct_of_bound"] = 100 * row["bound_ms"] / row["ms"]
-        row["ffma_ms"] = FFMA_CONV_BF16_MS[cfg.name][row["layer"]]
-        print(f"[bf16 conv] {cfg.name} {row['layer']}: tile "
-              f"{row['tile'][0]}x{row['tile'][1]}, {row['ms']:.4f} ms, "
-              f"{row['tflops']:.1f} TFLOP/s, {row['pct_of_bound']:.1f} % of "
-              f"the bound; FFMA kernel {row['ffma_ms']:.4f} ms "
-              f"({FFMA_CONV_BF16_CARD}), {row['ffma_ms'] / row['ms']:.1f}x")
+        row["old_ms"] = OLD_MS[row["kernel"]][cfg.name][row["layer"]]
+        print(f"[redesign] {cfg.name} {row['layer']} {row['kernel']}: "
+              f"{what}, {row['ms']:.4f} ms, {rate(row['ms'])}, "
+              f"{row['pct_of_bound']:.1f} % of the bound; in a CUDA graph "
+              f"{row['graph_ms']:.4f} ms, {rate(row['graph_ms'])}, "
+              f"{100 * row['bound_ms'] / row['graph_ms']:.1f} % (library "
+              f"{row['library_graph_ms']:.4f} ms); replaced kernel "
+              f"{row['old_ms']:.4f} ms ({OLD_CARD}), "
+              f"{row['old_ms'] / row['ms']:.2f}x")
+
+    def model_sum(cfg, rows, kname, library):
+        """Print one model's sum of a redesigned kernel's launches beside
+        the library's (``library`` names it) and the replaced kernel's,
+        as timed and in CUDA graphs."""
+        rs = [r for r in rows if r["kernel"] == kname]
+        out = {k: sum(r[k] for r in rs) for k in (
+            "ms", "library_ms", "old_ms", "bound_ms", "graph_ms",
+            "library_graph_ms")}
+        print(f"[redesign] {cfg.name} {kname}: {len(rs)} launches "
+              f"{out['ms']:.4f} ms (bound {out['bound_ms']:.4f} ms, "
+              f"{100 * out['bound_ms'] / out['ms']:.1f} %); {library} "
+              f"{out['library_ms']:.4f} ms ({out['library_ms'] / out['ms']:.2f}"
+              f"x the kernel's time); in CUDA graphs {out['graph_ms']:.4f} "
+              f"ms against {out['library_graph_ms']:.4f} ms; replaced kernel "
+              f"{out['old_ms']:.4f} ms ({OLD_CARD}); layers slower than it: "
+              f"{[r['layer'] for r in rs if r['ms'] > r['old_ms']]}")
+        return out
 
     def int8_rows(cfg, qp, x):
         """Each int8 kernel of one int8 forward held bit for bit against
@@ -590,6 +687,8 @@ def main() -> int:
 
     # -- 2. each kernel vs its plain version at AlexNet's shapes ------------
     rows, _ = float_rows(cfg, params, x, "fp32")
+    sums = {("alexnet", "conv_pipe"): model_sum(
+        cfg, rows, "conv_pipe", "cuDNN fp32 conv+ReLU+pool (TF32 off)")}
     phases.done("2")
 
 
@@ -937,6 +1036,8 @@ def main() -> int:
                         generator=vgen, device="cuda")
     vcompiled = compile_cnn(vcfg, spec, vparams, device="cuda")
     vrows, v_plain = float_rows(vcfg, vparams, x_vgg, "fp32")
+    sums["vgg16", "conv_pipe"] = model_sum(
+        vcfg, vrows, "conv_pipe", "cuDNN fp32 conv+ReLU+pool (TF32 off)")
     vlogits, vlaunches = forward_launches(vcompiled, x_vgg, EXPECTED_VGG,
                                           "vgg16 forward")
     v_err = (vlogits - v_plain).abs().max().item()
@@ -979,15 +1080,10 @@ def main() -> int:
         brows, b_plain = float_rows(bcfg, bc.params, xb16, "bf16")
         bf16[bcfg.name] = dict(compiled=bc, x=xb16, rows=brows,
                                plain=b_plain, fp32_logits=l32)
-        crows = [r for r in brows if r["kernel"] == "conv_pipe_bf16"]
-        conv_ms = sum(r["ms"] for r in crows)
-        print(f"[bf16 conv] {bcfg.name}: {len(crows)} launches "
-              f"{conv_ms:.4f} ms (bound "
-              f"{sum(r['bound_ms'] for r in crows):.4f} ms); cuDNN bf16 conv"
-              f"+ReLU+pool {sum(r['library_ms'] for r in crows):.4f} ms; FFMA "
-              f"kernel {sum(r['ffma_ms'] for r in crows):.4f} ms "
-              f"({FFMA_CONV_BF16_CARD}); layers slower than it: "
-              f"{[r['layer'] for r in crows if r['ms'] > r['ffma_ms']]}")
+        sums[bcfg.name, "conv_pipe_bf16"] = model_sum(
+            bcfg, brows, "conv_pipe_bf16", "cuDNN bf16 conv+ReLU+pool")
+        sums[bcfg.name, "matmul_pipe_bf16"] = model_sum(
+            bcfg, brows, "matmul_pipe_bf16", "cuBLAS bf16 addmm+ReLU")
     phases.done("8")
 
     # -- 9. the bf16 forwards through the entry point -----------------------
@@ -1105,6 +1201,8 @@ def main() -> int:
                                              "fp32_logits")}
                             for a, b in bf16.items()},
                    "bf16_serve": {"report": brep.to_dict(), "latency": blat},
+                   "redesign_sums": {f"{a} {k}": v
+                                     for (a, k), v in sums.items()},
                    "phase_seconds": phases.seconds},
                   f, indent=1, sort_keys=True)
     print(json.dumps({"kernels": line}))

@@ -7,35 +7,56 @@
 // w HWIO (KH, KW, C/G, M), b (M,), out NHWC.
 //
 // Bound on an H100: operations. fp32 runs FFMA on the CUDA cores (no TF32:
-// the reference holds fp32 to 1e-4 at K in the thousands); AlexNet's convs
-// do 10.65 GFLOP at batch 8 against tens of MB of traffic, far above the
-// card's fp32 ridge point. The int8 mode runs __dp4a (four int8 products and
-// an int32 add per instruction) on the CUDA cores, not the tensor cores.
-// The bf16 mode runs on the tensor cores (conv_bf16_mma_kernel below): its
-// bound is its operations at the dense bf16 tensor-core rate, 1070.5 TFLOP/s
-// at 132 SMs x 1980 MHz (VGG-16's 13 convs at batch 8: 0.244 ms).
+// the reference holds fp32 to 1e-4 at K in the thousands), 66.9 TFLOP/s at
+// 132 SMs x 1980 MHz (VGG-16's 13 convs at batch 8: 3.68 ms). The int8
+// mode runs __dp4a (four int8 products and an int32 add per instruction)
+// on the CUDA cores, not the tensor cores. The bf16 mode runs on the
+// tensor cores (conv_bf16_mma_kernel below): its bound is its operations
+// at the dense bf16 tensor-core rate, 1070.5 TFLOP/s (VGG-16: 0.244 ms).
 //
-// fp32 and int8 design: an implicit GEMM. A block owns a tile of TP conv
-// output positions (GEMM rows) x TM output channels of one group (GEMM
-// cols) and loops over the reduction K = KH*KW*C/G in chunks of TK words
-// inside the block: the TPU's sequential C-tile grid axis and its VMEM
-// accumulator become this loop and registers (4x4 outputs a thread). A word
-// is one fp32 value or four int8 values of consecutive k packed for __dp4a,
-// so the int8 mode keeps the fp32 tile geometry and shared-memory layout and
-// reduces 64 k per chunk. k past the end of the reduction is zero in both
-// operands, element by element, so a word may straddle the end (C/G = 3 at
-// conv1 gives an odd K). The
-// im2col gather bounds-checks every input read, so zero padding costs no
-// copy (exact in int8: the scheme is symmetric, zero point 0). The group is
-// picked by blockIdx.y, which selects the group's input-channel slab and
-// weight columns: no per-group launch, no concatenate. The epilogue applies
-// the requantize multiplier (int8 mode), the bias and ReLU and stages the
-// conv tile in shared memory as fp32, and the pool reads its windows from
-// there: the unpooled activation never reaches device memory (the paper's
-// Conv->Pool channel). With a pool the tile is a 2-D patch of conv rows/cols
-// of one image that covers whole pool windows; conv outputs shared by
-// windows of neighbouring tiles are recomputed. Without a pool the tile is
-// TP consecutive positions of the flattened (B, OH, OW).
+// Every mode is an implicit GEMM: a block owns a tile of conv output
+// positions (GEMM rows) x output channels of one group (GEMM cols) and
+// loops over the reduction K = KH*KW*C/G in chunks inside the block: the
+// TPU's sequential C-tile grid axis and its VMEM accumulator become this
+// loop and registers. k past the end of the reduction is zero in both
+// operands. The im2col gather bounds-checks every input read, so zero
+// padding costs no copy (exact in int8: the scheme is symmetric, zero
+// point 0). The group is picked by blockIdx.y, which selects the group's
+// input-channel slab and weight columns: no per-group launch, no
+// concatenate. The epilogue applies the requantize multiplier (int8 mode),
+// the bias and ReLU and stages the conv tile in shared memory as fp32, and
+// the pool reads its windows from there: the unpooled activation never
+// reaches device memory (the paper's Conv->Pool channel). With a pool the
+// tile is a 2-D patch of conv rows/cols of one image that covers whole
+// pool windows; conv outputs shared by windows of neighbouring tiles are
+// recomputed. Without a pool the tile is consecutive positions of the
+// flattened (B, OH, OW).
+//
+// fp32 design (conv_f32_kernel<TPB, TN>): the classic SIMT SGEMM. 256
+// threads own a TPB x TN tile (128 or 64 positions x 128 or 64 channels,
+// chosen by the wrapper per layer so that small layers still give every SM
+// a block), each thread a TPB/16 x TN/16 micro-tile (8x8 at 128x128: per k,
+// two 16-byte shared loads of A and two of B feed 64 FFMA), its rows and
+// columns in groups of 4 spaced 64 apart so a quarter-warp's B loads hit
+// 128 contiguous bytes. K moves in chunks of BKF = 16 with one
+// __syncthreads a chunk. B, the group's [k][m] weight slab, is already the
+// layout the outer product reads: it streams through a 3-stage cp.async
+// ring (16-byte vectors of 4 channels; Mg % 4 != 0 element by element). A
+// is the im2col gather, a 16-byte vector being 4 channels of one pixel
+// (C/G % 4 == 0: every conv but the first of each model) with its (kh, kw,
+// c) advanced without a division; the first convs (C/G = 3) gather element
+// by element. The next chunk's A is loaded into registers while the
+// current chunk's FFMAs run, then stored transposed ([k][position]) into
+// the other of two shared buffers. Products and sums are fp32 FFMA, one
+// chain a output in k order. Epilogue: + b (__fadd_rn), ReLU, the tile
+// staged as fp32, the pool read from there (max; or avg summed in
+// row-major order, then __fdiv_rn), 16-byte stores.
+//
+// int8 design (conv_pipe_kernel<int8_t, TO>): a block of TP x TM, 4x4
+// outputs a thread, TK words a chunk, single-buffered. A word is four int8
+// values of consecutive k packed for __dp4a, so the kernel reduces 64 k per
+// chunk; a word may straddle the end of the reduction (C/G = 3 at conv1
+// gives an odd K) and is zeroed element by element there.
 //
 // int8 epilogue, as the JAX kernel rounds it (conv_pipe.py:165-195): y =
 // float(acc) * scale[m], then + b[m] (two roundings, never one FMA), ReLU,
@@ -62,16 +83,22 @@
 // staged as fp32 in the ring's memory, the pool read from there, one
 // __float2bfloat16_rn on store (8 channels a 16-byte store), as the JAX
 // kernel rounds it (conv_pipe.py:162-195, out in x's dtype :311).
+//
+// Each tile kernel's dynamic shared memory limit is raised once, at its
+// first launch (cudaFuncSetAttribute); a refusal is returned as the error.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
+constexpr int NT = 256;      // threads per block, every mode
+// the int8 kernel's tile
 constexpr int TP = 64;       // conv positions per tile (GEMM rows)
 constexpr int TM = 64;       // output channels per tile (GEMM cols)
 constexpr int TK = 16;       // reduction chunk, in words
-constexpr int NT = 256;      // threads per block
 constexpr int LD = TP + 4;   // padded row stride of the staged tiles
 
 struct Geo {
@@ -83,20 +110,9 @@ struct Geo {
   float out_scale;                  // int8 output step (int8 out only)
 };
 
-// What differs between the modes: the element, the packed word of KP
-// elements, the accumulator and its multiply-add, and the bias element.
+// The int8 kernel's element, its packed word of KP elements, the
+// accumulator and its multiply-add, and the bias element.
 template <typename T> struct Mode;
-template <> struct Mode<float> {
-  using Word = float;
-  using Vec = float4;
-  using Acc = float;
-  using Bias = float;
-  static constexpr int KP = 1;
-  __device__ static float zero() { return 0.f; }
-  __device__ static Word pack(const float (&v)[1]) { return v[0]; }
-  __device__ static Acc mac(Word a, Word b, Acc c) { return fmaf(a, b, c); }
-  __device__ static float requant(Acc acc, float) { return acc; }
-};
 template <> struct Mode<int8_t> {
   using Word = int;
   using Vec = int4;
@@ -344,46 +360,6 @@ template <int TPB, int TN> struct BfTile {
                 "every thread moves the same number of 16-byte vectors");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronous; zero-filled when !valid (the
-// source is then not read).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
-}
-
-// d += a (16x16, row) * b (16x8, col): bf16 products, fp32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // avec: x's 16-byte vectors hold 8 channels of one pixel (C/G % 8 == 0, x
 // 16-byte aligned); bvec: w's hold 8 output channels of one group (Mg % 8
 // == 0, w 16-byte aligned); ovec: out takes 16-byte stores (Mg % 8 == 0).
@@ -624,6 +600,277 @@ conv_bf16_mma_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// ---- fp32 mode: register-blocked implicit GEMM on the CUDA cores ---------
+
+constexpr int BKF = 16;         // reduction chunk, in fp32
+constexpr int STAGES_F = 3;     // cp.async ring depth of the weight slab
+
+// The geometry of one fp32 tile: TPB positions x TN channels, a 16 x 16
+// grid of threads, each an RM x RN micro-tile whose rows (columns) are
+// groups of 4 spaced 64 apart. Rows padded by 16 bytes.
+template <int TPB, int TN> struct F32Tile {
+  static constexpr int RM = TPB / 16, RN = TN / 16;
+  static constexpr int LDA = TPB + 4;           // A, [k][position]
+  static constexpr int LDB = TN + 4;            // B, [k][channel]
+  static constexpr int LDC = TN + 4;            // the staged fp32 tile
+  static constexpr int A_BUF = BKF * LDA;       // floats, one of two buffers
+  static constexpr int B_STAGE = BKF * LDB;     // floats, one ring stage
+  static constexpr int RING = (2 * A_BUF + STAGES_F * B_STAGE) * 4;  // bytes
+  static constexpr int CTILE = TPB * LDC * 4;                        // bytes
+  static constexpr int SMEM = RING > CTILE ? RING : CTILE;
+  static constexpr int KV = BKF / 4;            // A vectors along k a chunk
+  static constexpr int AV = TPB * KV / NT;      // A vectors a thread
+  static constexpr int AE = TPB * BKF / NT;     // A elements a thread
+  static constexpr int BV = BKF * TN / 4 / NT;  // B vectors a thread
+  static_assert(RM % 4 == 0 && RN % 4 == 0 && AV >= 1 && BV >= 1 &&
+                    AE == 4 * AV,
+                "whole groups of 4; every thread moves the same vectors");
+};
+
+// avec: x's 16-byte vectors hold 4 channels of one pixel (C/G % 4 == 0, x
+// 16-byte aligned); bvec: w's hold 4 output channels of one group (Mg % 4
+// == 0, w 16-byte aligned); ovec: out takes 16-byte stores (Mg % 4 == 0).
+template <int TPB, int TN>
+__global__ void __launch_bounds__(NT, 2)
+conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                const float* __restrict__ bias, float* __restrict__ out,
+                Geo g, int avec, int bvec, int ovec) {
+  using Tl = F32Tile<TPB, TN>;
+  constexpr int RM = Tl::RM, RN = Tl::RN, KV = Tl::KV;
+  constexpr int LDA = Tl::LDA, LDB = Tl::LDB, LDC = Tl::LDC;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* const As = reinterpret_cast<float*>(smem);     // 2 x [BKF][LDA]
+  float* const Bs = As + 2 * Tl::A_BUF;                 // ring, [BKF][LDB]
+  __shared__ int s_img[TPB], s_ih[TPB], s_iw[TPB], s_pix[TPB];
+
+  const int tid = threadIdx.x;
+  const int grp = blockIdx.y / g.m_tiles;
+  const int m0 = (blockIdx.y % g.m_tiles) * TN;
+  const int cbase = grp * g.Cg;                 // this group's input slab
+  const int obase = grp * g.Mg + m0;            // first output channel
+  int img, th, tw;
+  decode_rows(g, TPB, tid, s_img, s_ih, s_iw, s_pix, img, th, tw);
+  __syncthreads();
+
+  // A, vector path: vector v = tid + NT*i is row v/KV, k offset (v%KV)*4
+  // of the chunk; this thread's rows are fixed, its k moves BKF a chunk,
+  // and its (kh, kw, c) follow k without a division.
+  const int akv = tid % KV;
+  int a_b[Tl::AV], a_ih[Tl::AV], a_iw[Tl::AV];
+#pragma unroll
+  for (int i = 0; i < Tl::AV; ++i) {
+    const int p = tid / KV + NT / KV * i;
+    a_b[i] = s_img[p];
+    a_ih[i] = s_ih[p];
+    a_iw[i] = s_iw[p];
+  }
+  int ak = akv * 4, ac = ak % g.Cg, akw = ak / g.Cg % g.KW,
+      akh = ak / (g.Cg * g.KW);
+
+  // The next A chunk, into registers (chunks are loaded in order, once).
+  float areg[Tl::AE];
+  auto load_a = [&](int k0) {
+    if (avec) {
+      const bool kin = ak < g.ktot;
+#pragma unroll
+      for (int i = 0; i < Tl::AV; ++i) {
+        const int ih = a_ih[i] + akh, iw = a_iw[i] + akw;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (kin && a_b[i] >= 0 && ih >= 0 && ih < g.H && iw >= 0 && iw < g.W)
+          v = __ldg(reinterpret_cast<const float4*>(
+              x + ((size_t)(a_b[i] * g.H + ih) * g.W + iw) * g.C + cbase +
+              ac));
+        areg[4 * i] = v.x;
+        areg[4 * i + 1] = v.y;
+        areg[4 * i + 2] = v.z;
+        areg[4 * i + 3] = v.w;
+      }
+      ak += BKF;
+      ac += BKF;
+      while (ac >= g.Cg) {
+        ac -= g.Cg;
+        if (++akw == g.KW) {
+          akw = 0;
+          ++akh;
+        }
+      }
+    } else {
+      // element by element (C/G = 3): thread column kk, rows tid/BKF + 16i
+      const int kk = tid % BKF, k = k0 + kk;
+      const bool kin = k < g.ktot;
+      const int c = k % g.Cg, kw = k / g.Cg % g.KW, kh = k / (g.Cg * g.KW);
+#pragma unroll
+      for (int i = 0; i < Tl::AE; ++i) {
+        const int p = tid / BKF + NT / BKF * i;
+        const int b = s_img[p], ih = s_ih[p] + kh, iw = s_iw[p] + kw;
+        areg[i] = kin && b >= 0 && ih >= 0 && ih < g.H && iw >= 0 && iw < g.W
+                      ? __ldg(&x[((size_t)(b * g.H + ih) * g.W + iw) * g.C +
+                                 cbase + c])
+                      : 0.f;
+      }
+    }
+  };
+  // ... and from registers into buffer Ab, transposed to [k][position]
+  auto store_a = [&](float* Ab) {
+    if (avec) {
+#pragma unroll
+      for (int i = 0; i < Tl::AV; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          Ab[(akv * 4 + e) * LDA + tid / KV + NT / KV * i] = areg[4 * i + e];
+    } else {
+#pragma unroll
+      for (int i = 0; i < Tl::AE; ++i)
+        Ab[tid % BKF * LDA + tid / BKF + NT / BKF * i] = areg[i];
+    }
+  };
+  // Fill ring stage `st` with the weight chunk at k0.
+  auto load_b = [&](int st, int k0) {
+    float* const Bb = Bs + st * Tl::B_STAGE;
+    if (bvec) {
+#pragma unroll
+      for (int i = 0; i < Tl::BV; ++i) {
+        const int v = tid + NT * i, kr = v / (TN / 4), n = v % (TN / 4) * 4;
+        const bool ok = k0 + kr < g.ktot && m0 + n < g.Mg;
+        const float* src = ok ? w + (size_t)(k0 + kr) * g.M + obase + n : w;
+        cp_async16(smem_u32(Bb + kr * LDB + n), src, ok);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BKF * TN / NT; ++i) {
+        const int n = tid % TN, kr = tid / TN + NT / TN * i;
+        Bb[kr * LDB + n] = k0 + kr < g.ktot && m0 + n < g.Mg
+                               ? w[(size_t)(k0 + kr) * g.M + obase + n]
+                               : 0.f;
+      }
+    }
+  };
+
+  float acc[RM][RN];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
+
+  const int nk = (g.ktot + BKF - 1) / BKF;
+#pragma unroll
+  for (int s = 0; s < STAGES_F - 1; ++s) {
+    if (s < nk) load_b(s, s * BKF);
+    cp_async_commit();
+  }
+  load_a(0);
+  store_a(As);
+  const int tx = tid % 16, ty = tid / 16;       // channel and position group
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk) load_a((kt + 1) * BKF);    // in flight during the FFMAs
+    cp_async_wait<STAGES_F - 2>();  // weight chunk kt has landed (this
+    __syncthreads();                // thread's), everyone's, and A chunk
+                                    // kt; chunk kt-1's buffers are free
+    const int nxt = kt + STAGES_F - 1;
+    if (nxt < nk) load_b(nxt % STAGES_F, nxt * BKF);
+    cp_async_commit();
+    const float* Ab = As + kt % 2 * Tl::A_BUF;
+    const float* Bb = Bs + kt % STAGES_F * Tl::B_STAGE;
+#pragma unroll
+    for (int kk = 0; kk < BKF; ++kk) {
+      float a[RM], b[RN];
+#pragma unroll
+      for (int q = 0; q < RM / 4; ++q) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(&Ab[kk * LDA + q * 64 + ty * 4]);
+        a[4 * q] = v.x; a[4 * q + 1] = v.y; a[4 * q + 2] = v.z;
+        a[4 * q + 3] = v.w;
+      }
+#pragma unroll
+      for (int q = 0; q < RN / 4; ++q) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(&Bb[kk * LDB + q * 64 + tx * 4]);
+        b[4 * q] = v.x; b[4 * q + 1] = v.y; b[4 * q + 2] = v.z;
+        b[4 * q + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (kt + 1 < nk) store_a(As + (kt + 1) % 2 * Tl::A_BUF);
+  }
+  cp_async_wait<0>();
+  __syncthreads();                  // the buffers are free for the tile
+
+  // epilogue 1: + bias, ReLU, the conv tile to shared memory as fp32
+  float* const Cs = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int q = 0; q < RN / 4; ++q) {
+    const int col = q * 64 + tx * 4;
+    float bj[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      bj[e] = m0 + col + e < g.Mg ? bias[obase + col + e] : 0.f;
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[e] = __fadd_rn(acc[i][4 * q + e], bj[e]);
+        if (g.relu) v[e] = fmaxf(v[e], 0.f);
+      }
+      const int row = i / 4 * 64 + ty * 4 + i % 4;
+      *reinterpret_cast<float4*>(&Cs[row * LDC + col]) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+  __syncthreads();
+
+  // epilogue 2: pool windows out of the staged tile (or copy it out), 4
+  // channels at a time
+  const int nq = g.pool ? g.tph * g.tpw : TPB;
+  const int mvalid = min(TN, g.Mg - m0);
+  for (int idx = tid; idx < nq * (TN / 4); idx += NT) {
+    const int m = idx % (TN / 4) * 4, q = idx / (TN / 4);
+    if (m >= mvalid) continue;
+    float4 v;
+    size_t o;
+    if (g.pool) {
+      const int qh = q / g.tpw, qw = q % g.tpw;
+      const int ph = th * g.tph + qh, pw = tw * g.tpw + qw;
+      if (ph >= g.PH || pw >= g.PW) continue;
+      const int r0 = qh * g.ps, c0 = qw * g.ps;
+      v = *reinterpret_cast<const float4*>(&Cs[(r0 * g.cw + c0) * LDC + m]);
+      for (int i = 0; i < g.pk; ++i)
+        for (int j = 0; j < g.pk; ++j) {
+          if (i == 0 && j == 0) continue;
+          const float4 u = *reinterpret_cast<const float4*>(
+              &Cs[((r0 + i) * g.cw + c0 + j) * LDC + m]);
+          if (g.pool == 1) {
+            v.x = fmaxf(v.x, u.x); v.y = fmaxf(v.y, u.y);
+            v.z = fmaxf(v.z, u.z); v.w = fmaxf(v.w, u.w);
+          } else {
+            v.x = __fadd_rn(v.x, u.x); v.y = __fadd_rn(v.y, u.y);
+            v.z = __fadd_rn(v.z, u.z); v.w = __fadd_rn(v.w, u.w);
+          }
+        }
+      if (g.pool == 2) {
+        const float n = (float)(g.pk * g.pk);
+        v.x = __fdiv_rn(v.x, n); v.y = __fdiv_rn(v.y, n);
+        v.z = __fdiv_rn(v.z, n); v.w = __fdiv_rn(v.w, n);
+      }
+      o = ((size_t)(img * g.PH + ph) * g.PW + pw) * g.M + obase + m;
+    } else {
+      const int pix = s_pix[q];
+      if (pix < 0) continue;
+      v = *reinterpret_cast<const float4*>(&Cs[q * LDC + m]);
+      o = (size_t)pix * g.M + obase + m;
+    }
+    if (ovec && m + 4 <= mvalid) {
+      *reinterpret_cast<float4*>(out + o) = v;
+    } else {
+      const float e[4] = {v.x, v.y, v.z, v.w};
+      for (int j = 0; j < 4 && m + j < mvalid; ++j) out[o + j] = e[j];
+    }
+  }
+}
+
 Geo make_geo(int B, int H, int W, int C, int KH, int KW, int M, int groups,
              int stride, int pad, int relu, int pool, int pk, int ps,
              int tph, int tpw, int kp) {
@@ -660,30 +907,50 @@ int launch(const T* x, const T* w, const typename Mode<T>::Bias* b,
   return (int)cudaGetLastError();
 }
 
-// One bf16 launch at tile TPB x TN: dynamic shared memory above 48 KB is
-// allowed first; a refusal of either surfaces as the returned error.
+bool al16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// The grid of a tp x tn tile: its position tiles (pooled patches, or tp
+// consecutive positions) x the groups' channel tiles (g.m_tiles, set here).
+dim3 tile_grid(Geo& g, int tp, int tn, int groups) {
+  g.m_tiles = (g.Mg + tn - 1) / tn;
+  const long long n_tiles =
+      g.pool ? (long long)g.B * g.tiles_h * g.tiles_w
+             : ((long long)g.B * g.OH * g.OW + tp - 1) / tp;
+  return dim3((unsigned)n_tiles, groups * g.m_tiles);
+}
+
+// One bf16 launch at tile TPB x TN. Dynamic shared memory above 48 KB is
+// allowed once, at the tile's first launch; a refusal of either surfaces as
+// the returned error.
 template <int TPB, int TN>
 int launch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
                 const __nv_bfloat16* b, __nv_bfloat16* out, Geo g,
                 int groups, void* stream) {
   constexpr int smem = BfTile<TPB, TN>::SMEM;
-  const cudaError_t e = cudaFuncSetAttribute(
+  static const cudaError_t attr = cudaFuncSetAttribute(
       conv_bf16_mma_kernel<TPB, TN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  g.m_tiles = (g.Mg + TN - 1) / TN;
-  const long long n_tiles =
-      g.pool ? (long long)g.B * g.tiles_h * g.tiles_w
-             : ((long long)g.B * g.OH * g.OW + TPB - 1) / TPB;
-  const auto al16 = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  const int avec = g.Cg % 8 == 0 && al16(x);
-  const int bvec = g.Mg % 8 == 0 && al16(w);
-  const int ovec = g.Mg % 8 == 0 && al16(out);
-  dim3 grid((unsigned)n_tiles, groups * g.m_tiles);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid = tile_grid(g, TPB, TN, groups);
   conv_bf16_mma_kernel<TPB, TN><<<grid, NT, smem, (cudaStream_t)stream>>>(
-      x, w, b, out, g, avec, bvec, ovec);
+      x, w, b, out, g, g.Cg % 8 == 0 && al16(x), g.Mg % 8 == 0 && al16(w),
+      g.Mg % 8 == 0 && al16(out));
+  return (int)cudaGetLastError();
+}
+
+// One fp32 launch at tile TPB x TN, as launch_bf16.
+template <int TPB, int TN>
+int launch_f32(const float* x, const float* w, const float* b, float* out,
+               Geo g, int groups, void* stream) {
+  constexpr int smem = F32Tile<TPB, TN>::SMEM;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      conv_f32_kernel<TPB, TN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid = tile_grid(g, TPB, TN, groups);
+  conv_f32_kernel<TPB, TN><<<grid, NT, smem, (cudaStream_t)stream>>>(
+      x, w, b, out, g, g.Cg % 4 == 0 && al16(x), g.Mg % 4 == 0 && al16(w),
+      g.Mg % 4 == 0 && al16(out));
   return (int)cudaGetLastError();
 }
 
@@ -691,21 +958,31 @@ int launch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
 
 // Plain C entry points. pool: 0 none, 1 max, 2 avg; (tph, tpw) the pooled
 // outputs per tile, chosen by the Python wrapper so the conv patch
-// ((tph-1)*ps+pk) x ((tpw-1)*ps+pk) fits the TP rows. Each returns
+// ((tph-1)*ps+pk) x ((tpw-1)*ps+pk) fits the tile's rows. Each returns
 // cudaGetLastError().
+
+// fp32 x, w, b and out, FFMA on the CUDA cores. (tp, tn): the tile, 128 or
+// 64 positions x 128 or 64 channels, (tph, tpw) fitting tp rows.
 extern "C" int conv_pipe_f32(const float* x, const float* w, const float* b,
                              float* out, int B, int H, int W, int C, int KH,
                              int KW, int M, int groups, int stride, int pad,
                              int relu, int pool, int pk, int ps, int tph,
-                             int tpw, void* stream) {
+                             int tpw, int tp, int tn, void* stream) {
   const Geo g = make_geo(B, H, W, C, KH, KW, M, groups, stride, pad, relu,
                          pool, pk, ps, tph, tpw, 1);
-  return launch<float, float>(x, w, b, nullptr, out, g, groups, stream);
+  if (tp == 128 && tn == 128)
+    return launch_f32<128, 128>(x, w, b, out, g, groups, stream);
+  if (tp == 128 && tn == 64)
+    return launch_f32<128, 64>(x, w, b, out, g, groups, stream);
+  if (tp == 64 && tn == 128)
+    return launch_f32<64, 128>(x, w, b, out, g, groups, stream);
+  if (tp == 64 && tn == 64)
+    return launch_f32<64, 64>(x, w, b, out, g, groups, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // bf16 x, w, b and out, on the tensor cores; fp32 accumulation and
-// epilogue, one rounding. (tp, tn): the tile, 128 or 64 positions x 128 or
-// 64 channels, (tph, tpw) fitting tp rows.
+// epilogue, one rounding. (tp, tn) and (tph, tpw) as in conv_pipe_f32.
 extern "C" int conv_pipe_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
                               const __nv_bfloat16* b, __nv_bfloat16* out,
                               int B, int H, int W, int C, int KH, int KW,

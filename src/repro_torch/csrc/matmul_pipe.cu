@@ -10,9 +10,10 @@
 // micro-batch (8), so each weight element takes 2*M operations: AlexNet fc6
 // reads 151 MB of fp32 weights (75 MB in bf16, 38 MB in int8) for 0.6 GOP.
 //
-// Design: the paper's batched-FC reuse. A block owns a slab of NCOL columns
-// and MT rows of x (all of them at M <= MT), so every weight element is read
-// from device memory once per call and applied to every image in registers.
+// fp32 and int8 design: the paper's batched-FC reuse. A block owns a slab
+// of NCOL columns and MT rows of x (all of them at M <= MT), so every
+// weight element is read from device memory once per call and applied to
+// every image in registers.
 // The TPU's sequential K-tile grid axis and its VMEM accumulator become a
 // loop inside the block: KL lanes of threads split K, each keeps MT x 4
 // partial sums, and the lanes are summed in shared memory in a fixed order
@@ -34,16 +35,38 @@
 // float(acc) * scale[n], then + b[n] (two roundings, never one FMA), ReLU,
 // then clip(rint(y / out_scale), -127, 127) to int8, or y itself as fp32.
 //
-// bf16 mode: a weight row of the thread's 4 columns is 8 bytes, so to keep
-// the fp32 mode's 128 bytes in flight a thread issues 16 such loads a chunk
-// (twice the fp32 mode's K per chunk). Each bf16 is widened to fp32 exactly
-// (its bits moved to the top of the word) and multiplied into fp32 sums by
-// FFMA; x is staged in shared memory as bf16. Epilogue, as the JAX kernel
-// rounds it (matmul_pipe.py:52-63, out in x's dtype): the fp32 sum + b
-// (widened), ReLU, then one rounding to bf16.
+// bf16 mode (matmul_bf16_kernel<TNF>): a split-K weight stream on the
+// tensor cores. At batch 8 each weight is used for 16 operations, so only
+// the bytes of w count: 205 MB at VGG-16 fc6, 61 us at 3.35 TB/s. The
+// product is taken transposed, y^T = w^T x^T, with mma.sync.m16n8k16: A is
+// a 16-feature x 16-k slab of w, read from w's [k][n] layout by
+// ldmatrix.trans; B is x^T, whose column-major layout is x's row-major
+// one, read by plain ldmatrix; the 8 images of a micro-batch fill the
+// mma's n = 8 exactly (more rows of x take more grid rows, 8 at a time,
+// zero-filled past M). A block of 4 warps owns TNF (64 or 32) output
+// features; the `ranks` blocks of a thread-block cluster (at most 8, the
+// portable size) share those features and split the reduction into ranges
+// of BKW-wide chunks, chosen by the wrapper (kernels/matmul_pipe.py:
+// fc_split) so that fc6 and fc7 give at least two blocks an SM and fc8
+// every SM a block. w and x chunks stream through a 4-stage cp.async ring
+// (16-byte vectors of 8 features or 8 k; N % 8 != 0 or K % 8 != 0 take an
+// element path into the same layout, and the last feature tile is masked),
+// one __syncthreads a chunk; each warp multiplies its 16-k slice of the
+// chunk. At the end each block stages its warps' fp32 partial tiles in its
+// shared memory, and after a cluster barrier block r sums a share of the
+// outputs over every block's and warp's partial through distributed shared
+// memory, in rank order and then warp order: the sum is deterministic, with
+// no scratch tensor and no atomics. Epilogue, as the JAX kernel rounds it
+// (matmul_pipe.py:52-63, out in x's dtype): the fp32 sum + b (widened,
+// __fadd_rn), ReLU, then one rounding to bf16. The kernel's dynamic
+// shared memory limit is raised once, at its first launch; a refused
+// cluster launch is returned as the error.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cooperative_groups.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -240,91 +263,185 @@ matmul_pipe_s8_kernel(const int8_t* __restrict__ x,
 
 // ---- bf16 mode ------------------------------------------------------------
 
-constexpr int U16 = 16;            // 8-byte weight loads in flight a thread
-constexpr int KC16 = KL * U16;     // K columns of x staged per chunk
+constexpr int NTW = 128;          // threads per block: 4 warps
+constexpr int BKW = 64;           // reduction chunk: a 16-k slice a warp
+constexpr int STAGES_W = 4;       // cp.async ring depth
+constexpr int LDX = BKW + 8;      // x row stride in bf16: 144 B, so the 8
+                                  // rows of an ldmatrix hit distinct banks
 
-__device__ __forceinline__ float lo(uint32_t v) {
-  return __uint_as_float(v << 16);
-}
-__device__ __forceinline__ float hi(uint32_t v) {
-  return __uint_as_float(v & 0xffff0000u);
-}
+// The geometry of one block: TNF features, 4 warps.
+template <int TNF> struct FcTile {
+  static constexpr int MI = TNF / 16;           // mma row tiles a warp
+  static constexpr int LDW = TNF + 8;           // w row stride in bf16
+  static constexpr int W_STAGE = BKW * LDW;     // bf16 elements
+  static constexpr int STAGE = W_STAGE + 8 * LDX;
+  static constexpr int SMEM = STAGES_W * STAGE * 2;          // bytes
+  static constexpr int PART = NTW / 32 * 8 * TNF;            // fp32 partials
+  static_assert(MI >= 1 && BKW == NTW / 32 * 16, "a 16-k slice a warp");
+  static_assert(PART * 4 <= SMEM, "the partials fit the ring's memory");
+  static_assert(BKW * TNF / 8 % NTW == 0 && 8 * BKW / 8 <= NTW,
+                "whole 16-byte vectors a thread");
+};
 
-// columns n..n+3 of weight row k as raw bf16 bits (uint2.x: n, n+1)
-__device__ __forceinline__ uint2 load_w_bf16(
-    const unsigned short* __restrict__ w, int k, int n, int K, int N,
-    bool vec) {
-  if (k >= K) return make_uint2(0u, 0u);
-  const unsigned short* row = w + (size_t)k * N;
-  if (vec && n + 3 < N) return __ldg(reinterpret_cast<const uint2*>(row + n));
-  uint32_t v[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) v[j] = n + j < N ? __ldg(row + n + j) : 0u;
-  return make_uint2(v[0] | v[1] << 16, v[2] | v[3] << 16);
-}
+// wvec: w's 16-byte vectors hold 8 features (N % 8 == 0); xvec: x's hold 8
+// k (K % 8 == 0); both need 16-byte aligned bases (the wrapper checks).
+template <int TNF>
+__global__ void __launch_bounds__(NTW)
+matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                   const __nv_bfloat16* __restrict__ w,
+                   const __nv_bfloat16* __restrict__ b,
+                   __nv_bfloat16* __restrict__ y, int M, int K, int N,
+                   int relu, int wvec, int xvec) {
+  using Tl = FcTile<TNF>;
+  constexpr int LDW = Tl::LDW;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ranks = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* const ring = reinterpret_cast<__nv_bfloat16*>(smem);
 
-__global__ void __launch_bounds__(NT)
-matmul_pipe_bf16_kernel(const unsigned short* __restrict__ x,
-                        const unsigned short* __restrict__ w,
-                        const __nv_bfloat16* __restrict__ b,
-                        __nv_bfloat16* __restrict__ y, int M, int K, int N,
-                        int relu) {
-  __shared__ unsigned short xs[MT][KC16];
-  __shared__ float red[KL][MT][NCOL];
-  const int tx = threadIdx.x % (NCOL / 4), ty = threadIdx.x / (NCOL / 4);
-  const int n = blockIdx.x * NCOL + tx * 4;
-  const int m0 = blockIdx.y * MT;
-  const bool vec = (N % 4) == 0;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int n0 = blockIdx.x / ranks * TNF;      // the cluster's features
+  const int m0 = blockIdx.z * 8;                // its 8 rows of x
+  const int nk = (K + BKW - 1) / BKW;           // this rank's chunks:
+  const int c0 = rank * nk / ranks, c1 = (rank + 1) * nk / ranks;
 
-  float acc[MT][4];
+  // Fill ring stage `st` with chunk c: w rows [k0, k0+BKW) x the block's
+  // features, and x rows m0..m0+7 x the same k.
+  auto load_stage = [&](int st, int c) {
+    __nv_bfloat16* const Ws = ring + st * Tl::STAGE;
+    __nv_bfloat16* const Xs = Ws + Tl::W_STAGE;
+    const int k0 = c * BKW;
+    if (wvec) {
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += KC16) {
-    for (int i = threadIdx.x; i < MT * KC16; i += NT) {
-      const int m = i / KC16, kk = i % KC16;
-      xs[m][kk] = (m0 + m < M && k0 + kk < K)
-                      ? x[(size_t)(m0 + m) * K + k0 + kk] : (unsigned short)0;
-    }
-    __syncthreads();
-    uint2 wv[U16];
-#pragma unroll
-    for (int u = 0; u < U16; ++u)
-      wv[u] = load_w_bf16(w, k0 + ty + u * KL, n, K, N, vec);
-#pragma unroll
-    for (int u = 0; u < U16; ++u) {
-      const int kk = ty + u * KL;
-      const float w0 = lo(wv[u].x), w1 = hi(wv[u].x);
-      const float w2 = lo(wv[u].y), w3 = hi(wv[u].y);
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const float xv = __uint_as_float((uint32_t)xs[m][kk] << 16);
-        acc[m][0] = fmaf(xv, w0, acc[m][0]);
-        acc[m][1] = fmaf(xv, w1, acc[m][1]);
-        acc[m][2] = fmaf(xv, w2, acc[m][2]);
-        acc[m][3] = fmaf(xv, w3, acc[m][3]);
+      for (int i = 0; i < BKW * TNF / 8 / NTW; ++i) {
+        const int v = tid + NTW * i, kr = v / (TNF / 8), n = v % (TNF / 8) * 8;
+        const bool ok = k0 + kr < K && n0 + n < N;
+        const __nv_bfloat16* src = ok ? w + (size_t)(k0 + kr) * N + n0 + n : w;
+        cp_async16(smem_u32(Ws + kr * LDW + n), src, ok);
+      }
+    } else {
+#pragma unroll 4
+      for (int i = 0; i < BKW * TNF / NTW; ++i) {
+        const int n = tid % TNF, kr = tid / TNF + NTW / TNF * i;
+        Ws[kr * LDW + n] = k0 + kr < K && n0 + n < N
+                               ? w[(size_t)(k0 + kr) * N + n0 + n]
+                               : __ushort_as_bfloat16((unsigned short)0);
       }
     }
-    __syncthreads();
-  }
+    if (xvec) {
+      if (tid < 8 * BKW / 8) {
+        const int r = tid / (BKW / 8), kk = tid % (BKW / 8) * 8;
+        const bool ok = m0 + r < M && k0 + kk < K;
+        const __nv_bfloat16* src = ok ? x + (size_t)(m0 + r) * K + k0 + kk : x;
+        cp_async16(smem_u32(Xs + r * LDX + kk), src, ok);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8 * BKW / NTW; ++i) {
+        const int kk = tid % BKW, r = tid / BKW + NTW / BKW * i;
+        Xs[r * LDX + kk] = m0 + r < M && k0 + kk < K
+                               ? x[(size_t)(m0 + r) * K + k0 + kk]
+                               : __ushort_as_bfloat16((unsigned short)0);
+      }
+    }
+  };
 
+  float acc[Tl::MI][4];
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+  for (int i = 0; i < Tl::MI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) red[ty][m][tx * 4 + j] = acc[m][j];
-  __syncthreads();
-  for (int i = threadIdx.x; i < MT * NCOL; i += NT) {
-    const int m = i / NCOL, c = i % NCOL;
-    const int row = m0 + m, col = blockIdx.x * NCOL + c;
-    if (row >= M || col >= N) continue;
-    float s = 0.f;
-    for (int l = 0; l < KL; ++l) s += red[l][m][c];
-    s = __fadd_rn(s, __bfloat162float(b[col]));
-    if (relu) s = fmaxf(s, 0.f);
-    y[(size_t)row * N + col] = __float2bfloat16_rn(s);
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  const int n_own = c1 - c0;
+#pragma unroll
+  for (int s = 0; s < STAGES_W - 1; ++s) {
+    if (s < n_own) load_stage(s, c0 + s);
+    cp_async_commit();
   }
+  // this lane's ldmatrix rows: A (w, .trans) k rows lane%8 (+8 for lanes
+  // 16-31) at features +8 for lanes 8-15 and 24-31; B (x) rows lane%8 at k
+  // +8 for lanes 8-15
+  const int ks = warp * 16;
+  const int a_off = (ks + lane % 8 + lane / 16 * 8) * LDW + lane / 8 % 2 * 8;
+  const int b_off = lane % 8 * LDX + ks + lane / 8 % 2 * 8;
+  for (int t = 0; t < n_own; ++t) {
+    cp_async_wait<STAGES_W - 2>();  // chunk t has landed (this thread's)
+    __syncthreads();                // ... everyone's; stage t-1 is free
+    const int nxt = t + STAGES_W - 1;
+    if (nxt < n_own) load_stage(nxt % STAGES_W, c0 + nxt);
+    cp_async_commit();
+    const __nv_bfloat16* Ws = ring + t % STAGES_W * Tl::STAGE;
+    const __nv_bfloat16* Xs = Ws + Tl::W_STAGE;
+    uint32_t bx[2];
+    ldmatrix_x2(bx, smem_u32(Xs + b_off));
+#pragma unroll
+    for (int i = 0; i < Tl::MI; ++i) {
+      uint32_t a[4];
+      ldmatrix_x4_trans(a, smem_u32(Ws + a_off + i * 16));
+      mma_bf16(acc[i], a, bx[0], bx[1]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                  // the ring is free for the partials
+
+  // this warp's partial tile, part[warp][row of x][feature] (a lane holds
+  // features lane/4 and +8, rows 2*(lane%4) and +1 of each mma tile)
+  float* const part = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int i = 0; i < Tl::MI; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int f = i * 16 + lane / 4 + e / 2 * 8, r = lane % 4 * 2 + e % 2;
+      part[(warp * 8 + r) * TNF + f] = acc[i][e];
+    }
+  cluster.sync();                   // every block's partials are visible
+
+  // block `rank` finishes outputs rank, rank + ranks, ... of the 8 x TNF
+  // tile: the partials summed over ranks, then warps, in that order
+  for (int o = rank * NTW + tid; o < 8 * TNF; o += ranks * NTW) {
+    const int r = o / TNF, f = o % TNF;
+    if (m0 + r >= M || n0 + f >= N) continue;
+    float s = 0.f;
+    for (int q = 0; q < ranks; ++q) {
+      const float* p = cluster.map_shared_rank(part, q);
+#pragma unroll
+      for (int wp = 0; wp < NTW / 32; ++wp) s += p[(wp * 8 + r) * TNF + f];
+    }
+    s = __fadd_rn(s, __bfloat162float(b[n0 + f]));
+    if (relu) s = fmaxf(s, 0.f);
+    y[(size_t)(m0 + r) * N + n0 + f] = __float2bfloat16_rn(s);
+  }
+  cluster.sync();                   // no block leaves while read
+}
+
+// One bf16 launch: TNF features a cluster of `ranks` blocks.
+template <int TNF>
+int launch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                const __nv_bfloat16* b, __nv_bfloat16* y, int M, int K, int N,
+                int relu, int ranks, void* stream) {
+  constexpr int smem = FcTile<TNF>::SMEM;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      matmul_bf16_kernel<TNF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (attr != cudaSuccess) return (int)attr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + TNF - 1) / TNF * ranks, 1, (M + 7) / 8);
+  cfg.blockDim = dim3(NTW);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = ranks;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, matmul_bf16_kernel<TNF>, x, w, b, y, M, K, N, relu,
+      (int)(N % 8 == 0), (int)(K % 8 == 0));
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -355,14 +472,17 @@ extern "C" int matmul_pipe_s8(const int8_t* x, const int8_t* w, const float* b,
   return (int)cudaGetLastError();
 }
 
-// bf16 x, w, b and y; fp32 accumulation, one rounding. Returns
-// cudaGetLastError().
+// bf16 x, w, b and y on the tensor cores; fp32 accumulation, one rounding.
+// (tnf, ranks): the features a cluster (64 or 32) and its blocks (1 to 8),
+// which split K. Returns the launch's error, else cudaGetLastError().
 extern "C" int matmul_pipe_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
                                 const __nv_bfloat16* b, __nv_bfloat16* y,
-                                int M, int K, int N, int relu, void* stream) {
-  dim3 grid((N + NCOL - 1) / NCOL, (M + MT - 1) / MT);
-  matmul_pipe_bf16_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      reinterpret_cast<const unsigned short*>(x),
-      reinterpret_cast<const unsigned short*>(w), b, y, M, K, N, relu);
-  return (int)cudaGetLastError();
+                                int M, int K, int N, int relu, int tnf,
+                                int ranks, void* stream) {
+  if (ranks < 1 || ranks > 8) return (int)cudaErrorInvalidValue;
+  if (tnf == 64)
+    return launch_bf16<64>(x, w, b, y, M, K, N, relu, ranks, stream);
+  if (tnf == 32)
+    return launch_bf16<32>(x, w, b, y, M, K, N, relu, ranks, stream);
+  return (int)cudaErrorInvalidValue;
 }

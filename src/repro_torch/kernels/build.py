@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles, on its
 own ``nvcc`` process, into ``build/repro_torch/lib<name>-<hash>.so`` at
-the repository root; the hash covers the source and the flags, so a
-library is rebuilt only when its source changes. All stale libraries
+the repository root; the hash covers the source, the ``csrc/`` headers it
+includes (``#include "..."``, recursively) and the flags, so a library is
+rebuilt when any of them changes, and only then. All stale libraries
 build at once, in parallel, at the first kernel launch (or through
 :func:`build_all`). Nothing here runs at import time: the CPU tests
 import every module on machines without ``nvcc``.
@@ -11,13 +12,15 @@ import every module on machines without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 KERNELS = ("conv_pipe", "decode_attention", "flash_attention", "lrn_pwl",
            "matmul_pipe")
@@ -44,10 +47,34 @@ def nvcc() -> str:
         "toolkit or set CUDA_HOME, or run on CPU tensors (plain versions)")
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: List[Path]) -> List[Path]:
+    """``path`` and every header it includes with quotes, found beside it,
+    depth first, each once."""
+    if path not in seen:
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            _sources(path.parent / inc.decode(), seen)
+    return seen
+
+
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where kernel ``name``'s library lives: keyed by a hash of its
+    source, the headers it includes, and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(csrc / f"{name}.cu", []):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The card's SM count, which the tile and split rules read on every
+    launch; queried once a device."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def build_all() -> Dict[str, dict]:

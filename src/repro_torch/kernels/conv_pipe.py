@@ -6,14 +6,16 @@ epilogue, bf16 out), or in int8 (``scale=`` given: int8 x and w, an int32
 accumulator, and the requantize -> bias -> ReLU -> pool -> round
 epilogue). Kernel: ``csrc/conv_pipe.cu``, which replaces the TPU kernel
 ``src/repro/kernels/conv_pipe.py:conv_pipe`` (line 198; all three modes).
-Every mode is bound by operations. fp32 (FFMA) and int8 (``__dp4a``) run
-on the CUDA cores; bf16 runs on the tensor cores (``mma.sync`` m16n8k16,
+Every mode is bound by operations. fp32 (FFMA, register-blocked, its
+weights fed by a 3-stage ``cp.async`` ring) and int8 (``__dp4a``) run on
+the CUDA cores; bf16 runs on the tensor cores (``mma.sync`` m16n8k16,
 bf16 products summed in fp32, as the TPU's MXU computes the mode), bound
 at the dense bf16 tensor-core rate, with its operands fed by a 4-stage
 ``cp.async`` ring. Each computes an implicit GEMM with the epilogue on a
 tile staged in shared memory, so the unpooled activation never reaches
-device memory. See the source for the design. The plain version,
-:func:`conv_pipe_plain`, computes each mode as the kernel rounds it.
+device memory; :func:`conv_tile` picks each layer's tile. See the source
+for the design. The plain version, :func:`conv_pipe_plain`, computes each
+mode as the kernel rounds it.
 """
 from __future__ import annotations
 
@@ -26,12 +28,21 @@ import torch
 from repro_torch.kernels.ref import conv_pipe_ref, float_dtypes
 from repro_torch.quant.ref import conv_int8_ref
 
-__all__ = ["bf16_tile", "conv_pipe", "conv_pipe_plain", "pool_tile"]
+from repro_torch.kernels.build import sm_count
 
-TILE_POSITIONS = 64          # conv positions a block computes, fp32 and int8
-                             # (csrc TP)
-BF16_POSITIONS = (128, 64)   # the bf16 kernel's tile rows (csrc TPB) ...
-BF16_CHANNELS = (128, 64)    # ... and columns (csrc TN)
+__all__ = ["conv_pipe", "conv_pipe_plain", "conv_tile", "pool_tile"]
+
+TILE_POSITIONS = 64          # the int8 kernel's one tile: 64 conv positions
+TILE_CHANNELS = 64           # x 64 channels (csrc TP, TM)
+POSITIONS = (128, 64)        # the fp32 and bf16 kernels' tile rows (csrc
+CHANNELS = (128, 64)         # TPB) and columns (csrc TN)
+# The fp32 kernel's time for one block of each tile, relative to a
+# 128x128 block, with two blocks an SM: the median over AlexNet's and
+# VGG-16's batch-8 layers measured by tile_sweep.py on an H100 (PERF.md
+# section 6). Half tiles cost 0.55-0.61, the quarter tile 0.33-0.40: a
+# 4x4 micro-tile does 8 FFMA a shared load against the 8x8's 16.
+FP32_BLOCK_COST = {(128, 128): 1.0, (128, 64): 0.56, (64, 128): 0.56,
+                   (64, 64): 0.35}
 _POOL_CODES = {None: 0, "max": 1, "avg": 2}
 
 
@@ -58,34 +69,55 @@ def pool_tile(ph: int, pw: int, pool_k: int, pool_s: int,
     return best[2], best[3]
 
 
+def _position_tiles(B: int, OH: int, OW: int, pool: Optional[str],
+                    pool_k: int, pool_s: int, tp: int):
+    """``((tph, tpw), blocks along positions)`` of a tp-row tile, or None
+    where a pool window does not fit tp rows."""
+    if pool is None:
+        return (1, 1), -(-B * OH * OW // tp)
+    if pool_k * pool_k > tp:
+        return None
+    ph, pw = (OH - pool_k) // pool_s + 1, (OW - pool_k) // pool_s + 1
+    t = pool_tile(ph, pw, pool_k, pool_s, tp)
+    return t, B * -(-ph // t[0]) * -(-pw // t[1])
+
+
 @functools.lru_cache(maxsize=None)
-def bf16_tile(B: int, OH: int, OW: int, mg: int, groups: int,
-              pool: Optional[str], pool_k: int, pool_s: int,
+def conv_tile(dtype: torch.dtype, B: int, OH: int, OW: int, mg: int,
+              groups: int, pool: Optional[str], pool_k: int, pool_s: int,
               sms: int) -> Tuple[int, int, int, int]:
-    """The bf16 kernel's tile for one layer, ``(tp, tn, tph, tpw)``: tn 64
-    where a group has at most 64 output channels (VGG-16's conv1_x), else
-    128; the 128-position tile unless its grid gives fewer blocks than the
-    card's ``sms``, then the 64-position one, then tn 64 (the 13x13 and
-    14x14 layers). A pool window that fits neither tile raises."""
-    ph, pw = (OH, OW) if pool is None else (
-        (OH - pool_k) // pool_s + 1, (OW - pool_k) // pool_s + 1)
-    tn = BF16_CHANNELS[1] if mg <= BF16_CHANNELS[1] else BF16_CHANNELS[0]
-    big, small = BF16_POSITIONS
-    best = None
-    for tp, tn in ((big, tn), (small, tn), (small, BF16_CHANNELS[1])):
-        if pool is None:
-            t, tiles = (1, 1), -(-B * OH * OW // tp)
-        elif pool_k * pool_k <= tp:
-            t = pool_tile(ph, pw, pool_k, pool_s, tp)
-            tiles = B * -(-ph // t[0]) * -(-pw // t[1])
-        else:
-            continue
-        best = (tp, tn, *t)
-        if tiles * groups * -(-mg // tn) >= sms:
-            break
-    if best is None:
-        pool_tile(ph, pw, pool_k, pool_s, big)      # raises: too large
-    return best
+    """The tile of one layer's launch in mode ``dtype`` (x's dtype),
+    ``(tp, tn, tph, tpw)``, from the card's ``sms``.
+
+    fp32: the tile whose blocks finish first: the fewest rounds of blocks
+    an SM (``ceil(blocks / sms)``) times :data:`FP32_BLOCK_COST`, ties to
+    the larger tn (fewer channel tiles re-gather the im2col rows less).
+    bf16: tn 64 where a group has at most 64 output channels (VGG-16's
+    conv1_x), else 128; the 128-position tile unless its grid gives fewer
+    blocks than ``sms``, then the 64-position one, then tn 64 (the 13x13
+    and 14x14 layers). int8: its kernel's one 64 x 64 tile. With a pool,
+    :func:`pool_tile` sizes the patch; a window that fits no tile raises.
+    Memoised."""
+    if dtype == torch.int8:
+        tiles = ((TILE_POSITIONS, TILE_CHANNELS),)
+    elif dtype == torch.float32:
+        tiles = sorted(FP32_BLOCK_COST, key=lambda t: (-t[1], -t[0]))
+    else:
+        tn = CHANNELS[1] if mg <= CHANNELS[1] else CHANNELS[0]
+        tiles = ((POSITIONS[0], tn), (POSITIONS[1], tn),
+                 (POSITIONS[1], CHANNELS[1]))
+    fits = []                   # ((tp, tn, tph, tpw), blocks)
+    for tp, tn in tiles:
+        fit = _position_tiles(B, OH, OW, pool, pool_k, pool_s, tp)
+        if fit is not None:
+            fits.append(((tp, tn, *fit[0]), fit[1] * groups * -(-mg // tn)))
+    if not fits:
+        raise ValueError(f"conv_pipe: a {pool_k}x{pool_k} pool window fits "
+                         f"no {dtype} conv tile")
+    if dtype == torch.float32:
+        return min(fits, key=lambda f: -(-f[1] // sms)
+                   * FP32_BLOCK_COST[f[0][:2]])[0]
+    return next((t for t, blocks in fits if blocks >= sms), fits[-1][0])
 
 
 def conv_pipe_plain(x, w, b, *, scale=None, out_scale=None, **kw):
@@ -114,9 +146,9 @@ def _entry(name: str):
     if name == "conv_pipe_s8":
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_float] \
             + [ctypes.c_int] * 16 + [ctypes.c_void_p]
-    else:                       # bf16 adds the tile (tp, tn)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (
-            18 if name == "conv_pipe_bf16" else 16) + [ctypes.c_void_p]
+    else:                       # the geometry and the tile (tp, tn)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 18 + [
+            ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -174,14 +206,8 @@ def conv_pipe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                          f"kernel {KH}x{KW}, stride {stride}, pad {pad}, "
                          f"pool {pool}")
     bf16 = x.dtype == torch.bfloat16
-    tile = ()                   # the bf16 kernel's (tp, tn)
-    if bf16:
-        *tile, tph, tpw = bf16_tile(
-            B, OH, OW, M // groups, groups, pool, pool_k, pool_s,
-            torch.cuda.get_device_properties(x.device).multi_processor_count)
-    else:
-        tph, tpw = (1, 1) if pool is None else pool_tile(
-            ph, pw, pool_k, pool_s, TILE_POSITIONS)
+    *tile, tph, tpw = conv_tile(x.dtype, B, OH, OW, M // groups, groups, pool,
+                                pool_k, pool_s, sm_count(x.device))
     pk, ps = (1, 1) if pool is None else (pool_k, pool_s)
     out_s8 = int8 and out_scale is not None
     out = torch.empty((B, ph, pw, M), device=x.device,
@@ -190,17 +216,17 @@ def conv_pipe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     if out.numel() == 0:
         return out
     geo = (B, H, W, C, KH, KW, M, groups, stride, pad, int(relu),
-           _POOL_CODES[pool], pk, ps, tph, tpw, *tile,
-           torch.cuda.current_stream(x.device).cuda_stream)
+           _POOL_CODES[pool], pk, ps, tph, tpw)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     if int8:
         err = _entry("conv_pipe_s8")(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
             out.data_ptr(), int(out_s8), float(out_scale) if out_s8 else 1.0,
-            *geo)
+            *geo, stream)
     else:
         err = _entry(_FLOAT_ENTRY[x.dtype])(x.data_ptr(), w.data_ptr(),
                                             b.data_ptr(), out.data_ptr(),
-                                            *geo)
+                                            *geo, *tile, stream)
     if err:
         raise RuntimeError(f"conv_pipe kernel launch failed: CUDA error {err}")
     if int8:

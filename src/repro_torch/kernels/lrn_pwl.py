@@ -22,6 +22,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.build import sm_count
+
 # AlexNet LRN constants
 LRN_N = 5
 LRN_K = 2.0
@@ -135,8 +137,7 @@ def lrn_pwl(x: torch.Tensor, *, n: int = LRN_N, k: float = LRN_K,
     total = x.numel()
     if total == 0:
         return y
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    n_blocks = min(-(-total // 256), sms * 16)
+    n_blocks = min(-(-total // 256), sm_count(x.device) * 16)
     err = _entry(x.dtype)(x.data_ptr(), y.data_ptr(), slope.data_ptr(),
                           icpt.data_ptr(), len(slope), total, x.shape[3], n,
                           k, alpha / n, shift, base, n_blocks,

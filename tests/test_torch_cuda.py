@@ -30,15 +30,15 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
-from repro_torch.kernels.conv_pipe import (BF16_CHANNELS, BF16_POSITIONS,
-                                           conv_pipe, conv_pipe_plain,
-                                           pool_tile)
+from repro_torch.kernels.conv_pipe import (CHANNELS, POSITIONS, conv_pipe,
+                                           conv_pipe_plain, pool_tile)
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.lrn_pwl import lrn_pwl, lrn_pwl_plain
-from repro_torch.kernels.matmul_pipe import matmul_pipe, matmul_pipe_plain
+from repro_torch.kernels.matmul_pipe import (FC_FEATURES, matmul_pipe,
+                                             matmul_pipe_plain)
 from repro_torch.models.cnn import init_cnn_params
 from repro_torch.pipeline import ExecutionSpec, Precision, compile_cnn
 from repro_torch.quant import calibrate_cnn, quantize
@@ -79,6 +79,28 @@ CONV_GEOMETRIES = [
 ]
 MATMUL_SHAPES = [(64, 128, 32), (100, 300, 70), (1, 256, 1000),
                  (64, 9216, 128), (8, 9216, 4096), (8, 300, 1001)]
+# bf16 geometries that reach the tensor-core kernel's 16-byte cp.async
+# gather (C/G % 8 == 0) and its edges: K not a multiple of the 32-wide
+# chunk, Mg not a multiple of the 64- or 128-channel tile, several row and
+# channel tiles, the 4-stage ring wrapping many times, groups, pools over
+# the larger tiles ragged at the pooled edge, batch 1 and 3; and the
+# element-by-element gather of the first convs (C/G = 3).
+BF16_CONV_GEOMETRIES = [
+    (2, 27, 96, 5, 256, 1, 2, None, 2, 2, 2),   # AlexNet conv2: C/G 48, K 1200
+    (1, 10, 8, 3, 16, 1, 1, None, 2, 2, 1),     # C/G 8, K 72: 2 chunks + tail
+    (3, 20, 48, 3, 96, 1, 1, None, 2, 2, 1),    # K 432 (13.5 chunks), Mg 96
+    (1, 30, 64, 3, 200, 1, 1, None, 2, 2, 1),   # K 576 (18 chunks), Mg 200
+    (3, 56, 64, 3, 200, 1, 1, None, 2, 2, 1),   # 74 row tiles of 128, 2 col
+    (1, 14, 512, 3, 512, 1, 1, None, 2, 2, 1),  # VGG-16 conv5: K 4608
+    (1, 30, 64, 3, 96, 1, 1, "max", 2, 2, 1),   # 2x2/2 pool, PH 15: ragged
+    (3, 27, 48, 3, 200, 1, 1, "max", 3, 2, 1),  # 3x3/2 pool, PH 13: ragged
+    (3, 29, 16, 3, 64, 1, 0, "avg", 3, 2, 2),   # G 2, C/G 8, avg pool
+    (2, 28, 64, 3, 64, 1, 1, "max", 2, 2, 1),   # VGG-16 conv1_2 + pool, cut
+    (3, 16, 3, 3, 64, 1, 1, None, 2, 2, 1),     # C/G 3, K 27: element gather
+    (1, 63, 3, 11, 96, 4, 0, None, 2, 2, 1),    # AlexNet conv1, cut: K 363
+]
+# the fp32 and bf16 conv kernels' tiles (tp, tn)
+TILES = [(tp, tn) for tp in POSITIONS for tn in CHANNELS]
 
 
 @pytest.mark.parametrize(
@@ -94,6 +116,58 @@ def test_conv_pipe_kernel_matches_plain(cuda, B, H, C, K, M, stride, pad,
     n0 = conv_pipe.launches
     _close(conv_pipe(x, w, b, **kw), conv_pipe_plain(x, w, b, **kw))
     assert conv_pipe.launches == n0 + 1
+
+
+def _force_tile(monkeypatch, tile):
+    """Make the conv wrapper launch ``tile`` (tp, tn) on every layer,
+    whichever tile :func:`conv_tile` would choose there."""
+    def forced(dtype, B, OH, OW, mg, groups, pool, pool_k, pool_s, sms):
+        if pool is None:
+            return (*tile, 1, 1)
+        return (*tile, *pool_tile((OH - pool_k) // pool_s + 1,
+                                  (OW - pool_k) // pool_s + 1, pool_k,
+                                  pool_s, tile[0]))
+    monkeypatch.setattr(importlib.import_module(
+        "repro_torch.kernels.conv_pipe"), "conv_tile", forced)
+
+
+@pytest.mark.parametrize("tile", TILES, ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("B,H,C,K,M,stride,pad,pool,pool_k,pool_s,groups",
+                         CONV_GEOMETRIES + BF16_CONV_GEOMETRIES)
+def test_conv_pipe_fp32_every_tile_matches_plain(cuda, monkeypatch, tile, B,
+                                                 H, C, K, M, stride, pad,
+                                                 pool, pool_k, pool_s,
+                                                 groups):
+    """Each of the fp32 kernel's four tiles on every geometry: the
+    element gathers (C/G 3, 5, 6; Mg 70) and the 16-byte ones (C/G % 4 ==
+    0) with K tails, ragged channel tiles, groups and pools."""
+    _force_tile(monkeypatch, tile)
+    rng = np.random.default_rng(3)
+    x = _t(rng.standard_normal((B, H, H, C)), cuda)
+    w = _t(rng.standard_normal((K, K, C // groups, M)) * 0.2, cuda)
+    b = _t(rng.standard_normal(M), cuda)
+    kw = dict(stride=stride, pad=pad, pool=pool, pool_k=pool_k,
+              pool_s=pool_s, groups=groups)
+    _close(conv_pipe(x, w, b, **kw), conv_pipe_plain(x, w, b, **kw))
+
+
+def test_conv_pipe_fp32_unaligned_operands(cuda):
+    """x, w and out at 4-byte but not 16-byte aligned addresses take the
+    element paths and give the same result."""
+    rng = np.random.default_rng(4)
+    x = _t(rng.standard_normal((2, 20, 20, 64)), cuda)
+    w = _t(rng.standard_normal((3, 3, 64, 96)) * 0.2, cuda)
+    b = _t(rng.standard_normal(96), cuda)
+    kw = dict(pad=1, pool="max")
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        u = buf[1:].view(t.shape)
+        u.copy_(t)
+        return u
+    xu, wu = shifted(x), shifted(w)
+    assert xu.data_ptr() % 16 and wu.data_ptr() % 16
+    _close(conv_pipe(xu, wu, b, **kw), conv_pipe_plain(x, w, b, **kw))
 
 
 @pytest.mark.parametrize("M,K,N", MATMUL_SHAPES)
@@ -297,27 +371,6 @@ def _counts(fn):
     return fn.launches, fn.launches_bf16, getattr(fn, "launches_s8", 0)
 
 
-# bf16 geometries that reach the tensor-core kernel's 16-byte cp.async
-# gather (C/G % 8 == 0) and its edges: K not a multiple of the 32-wide
-# chunk, Mg not a multiple of the 64- or 128-channel tile, several row and
-# channel tiles, the 4-stage ring wrapping many times, groups, pools over
-# the larger tiles ragged at the pooled edge, batch 1 and 3; and the
-# element-by-element gather of the first convs (C/G = 3).
-BF16_CONV_GEOMETRIES = [
-    (2, 27, 96, 5, 256, 1, 2, None, 2, 2, 2),   # AlexNet conv2: C/G 48, K 1200
-    (1, 10, 8, 3, 16, 1, 1, None, 2, 2, 1),     # C/G 8, K 72: 2 chunks + tail
-    (3, 20, 48, 3, 96, 1, 1, None, 2, 2, 1),    # K 432 (13.5 chunks), Mg 96
-    (1, 30, 64, 3, 200, 1, 1, None, 2, 2, 1),   # K 576 (18 chunks), Mg 200
-    (3, 56, 64, 3, 200, 1, 1, None, 2, 2, 1),   # 74 row tiles of 128, 2 col
-    (1, 14, 512, 3, 512, 1, 1, None, 2, 2, 1),  # VGG-16 conv5: K 4608
-    (1, 30, 64, 3, 96, 1, 1, "max", 2, 2, 1),   # 2x2/2 pool, PH 15: ragged
-    (3, 27, 48, 3, 200, 1, 1, "max", 3, 2, 1),  # 3x3/2 pool, PH 13: ragged
-    (3, 29, 16, 3, 64, 1, 0, "avg", 3, 2, 2),   # G 2, C/G 8, avg pool
-    (2, 28, 64, 3, 64, 1, 1, "max", 2, 2, 1),   # VGG-16 conv1_2 + pool, cut
-    (3, 16, 3, 3, 64, 1, 1, None, 2, 2, 1),     # C/G 3, K 27: element gather
-    (1, 63, 3, 11, 96, 4, 0, None, 2, 2, 1),    # AlexNet conv1, cut: K 363
-]
-BF16_TILES = [(tp, tn) for tp in BF16_POSITIONS for tn in BF16_CHANNELS]
 
 
 def _bf16_conv_case(seed, B, H, C, K, M, stride, pad, pool, pool_k, pool_s,
@@ -342,7 +395,7 @@ def test_conv_pipe_bf16_kernel_matches_plain(cuda, B, H, C, K, M, stride,
     assert _counts(conv_pipe) == (n0, h0 + 1, s0)
 
 
-@pytest.mark.parametrize("tile", BF16_TILES, ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("tile", TILES, ids=lambda t: f"{t[0]}x{t[1]}")
 @pytest.mark.parametrize("B,H,C,K,M,stride,pad,pool,pool_k,pool_s,groups",
                          BF16_CONV_GEOMETRIES)
 def test_conv_pipe_bf16_every_tile_matches_plain(cuda, monkeypatch, tile, B,
@@ -351,14 +404,7 @@ def test_conv_pipe_bf16_every_tile_matches_plain(cuda, monkeypatch, tile, B,
                                                  groups):
     """Each of the kernel's four tiles on every geometry, whichever tile
     the wrapper would choose there."""
-    def forced(B, OH, OW, mg, groups, pool, pool_k, pool_s, sms):
-        if pool is None:
-            return (*tile, 1, 1)
-        return (*tile, *pool_tile((OH - pool_k) // pool_s + 1,
-                                  (OW - pool_k) // pool_s + 1, pool_k,
-                                  pool_s, tile[0]))
-    monkeypatch.setattr(importlib.import_module(
-        "repro_torch.kernels.conv_pipe"), "bf16_tile", forced)
+    _force_tile(monkeypatch, tile)
     x, w, b, kw = _bf16_conv_case(23, B, H, C, K, M, stride, pad, pool,
                                   pool_k, pool_s, groups, cuda)
     _close_bf16(conv_pipe(x, w, b, **kw), conv_pipe_plain(x, w, b, **kw))
@@ -380,43 +426,94 @@ def test_conv_pipe_bf16_unaligned_operands(cuda):
     _close_bf16(conv_pipe(xu, wu, b, **kw), conv_pipe_plain(x, w, b, **kw))
 
 
-def test_bf16_conv_runs_on_the_tensor_cores(cuda):
-    """cuobjdump's SASS of the built conv_pipe library: every bf16 kernel
-    holds HMMA (tensor-core) instructions, the fp32 kernel none (TF32
-    would break the reference's 1e-4)."""
+def _sass(name):
+    """{function: its SASS} of kernel library ``name``, by cuobjdump."""
     from repro_torch.kernels import build
-    build.load("conv_pipe")
+    build.load(name)
     tool = shutil.which("cuobjdump") or str(
         Path(build.nvcc()).with_name("cuobjdump"))
-    sass = subprocess.run([tool, "-sass",
-                           str(build.library_path("conv_pipe"))],
+    sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
                           check=True, capture_output=True, text=True).stdout
-    funcs, name = {}, None
+    funcs, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            name = line.split("Function :")[1].strip()
-            funcs[name] = ""
-        elif name is not None:
-            funcs[name] += line + "\n"
+            fn = line.split("Function :")[1].strip()
+            funcs[fn] = ""
+        elif fn is not None:
+            funcs[fn] += line + "\n"
+    return funcs
+
+
+def test_bf16_conv_runs_on_the_tensor_cores(cuda):
+    """cuobjdump's SASS of the built libraries: every bf16 conv kernel and
+    every bf16 matmul kernel hold HMMA (tensor-core) instructions; every
+    fp32 conv kernel (conv_f32_kernel<TPB, TN>) FFMA and no HMMA (TF32
+    would break the reference's 1e-4)."""
+    funcs = _sass("conv_pipe")
     bf16 = [f for f in funcs if "conv_bf16_mma_kernel" in f]
-    fp32 = [f for f in funcs if "conv_pipe_kernelIffE" in f]
-    assert len(bf16) == len(BF16_TILES) and len(fp32) == 1, sorted(funcs)
+    fp32 = [f for f in funcs if "conv_f32_kernel" in f]
+    assert len(bf16) == len(TILES) and len(fp32) == len(TILES), sorted(funcs)
     for f in bf16:
         assert "HMMA" in funcs[f], f
-    assert "HMMA" not in funcs[fp32[0]] and "FFMA" in funcs[fp32[0]]
+    for f in fp32:
+        assert "HMMA" not in funcs[f] and "FFMA" in funcs[f], f
+    funcs = _sass("matmul_pipe")
+    mm = [f for f in funcs if "matmul_bf16_kernel" in f]
+    assert len(mm) == len(FC_FEATURES), sorted(funcs)
+    for f in mm:
+        assert "HMMA" in funcs[f], f
 
 
-@pytest.mark.parametrize("M,K,N", MATMUL_SHAPES)
+# bf16 FC shapes that exercise the split-K cluster kernel: VGG-16 fc6, K
+# not a multiple of the 64-wide chunk nor of the ranks' share, M > 8 with
+# M % 8 != 0 (several grid rows, the last ragged), N % 8 != 0 (the element
+# path) and N ragged against the 64- and 32-feature tiles
+BF16_MATMUL_SHAPES = [(8, 25088, 4096), (8, 4096, 1000), (13, 1000, 200),
+                      (20, 4104, 72), (3, 200, 1001), (8, 72, 8)]
+
+
+def _bf16_fc_case(seed, M, K, N, dev):
+    rng = np.random.default_rng(seed)
+    return (_bf(rng.standard_normal((M, K)) * 0.3, dev),
+            _bf(rng.standard_normal((K, N)) * 0.05, dev),
+            _bf(rng.standard_normal(N), dev))
+
+
+@pytest.mark.parametrize("M,K,N", MATMUL_SHAPES + BF16_MATMUL_SHAPES)
 @pytest.mark.parametrize("relu", [True, False])
 def test_matmul_pipe_bf16_kernel_matches_plain(cuda, M, K, N, relu):
-    rng = np.random.default_rng(21)
-    x = _bf(rng.standard_normal((M, K)) * 0.3, cuda)
-    w = _bf(rng.standard_normal((K, N)) * 0.05, cuda)
-    b = _bf(rng.standard_normal(N), cuda)
+    x, w, b = _bf16_fc_case(21, M, K, N, cuda)
     n0, h0, s0 = _counts(matmul_pipe)
     _close_bf16(matmul_pipe(x, w, b, relu=relu),
                 matmul_pipe_plain(x, w, b, relu=relu))
     assert _counts(matmul_pipe) == (n0, h0 + 1, s0)
+
+
+@pytest.mark.parametrize("split", [(tnf, r) for tnf in FC_FEATURES
+                                   for r in (1, 2, 3, 5, 8)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("M,K,N", [(8, 4096, 1000), (13, 1000, 200),
+                                   (3, 200, 1001)])
+def test_matmul_pipe_bf16_every_split_matches_plain(cuda, monkeypatch, split,
+                                                    M, K, N):
+    """Each feature tile at 1 to 8 ranks a cluster, whichever split
+    fc_split would choose."""
+    monkeypatch.setattr(importlib.import_module(
+        "repro_torch.kernels.matmul_pipe"), "fc_split",
+        lambda M, K, N, sms: split)
+    x, w, b = _bf16_fc_case(25, M, K, N, cuda)
+    _close_bf16(matmul_pipe(x, w, b, relu=True),
+                matmul_pipe_plain(x, w, b, relu=True))
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 25088, 4096), (13, 1000, 200)])
+def test_matmul_pipe_bf16_is_deterministic(cuda, M, K, N):
+    """The split-K partial sums meet in a fixed order: two calls give the
+    same bits."""
+    x, w, b = _bf16_fc_case(26, M, K, N, cuda)
+    y1, y2 = matmul_pipe(x, w, b), matmul_pipe(x, w, b)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
 
 
 @pytest.mark.parametrize("shape", [(2, 6, 6, 8), (2, 6, 6, 96),

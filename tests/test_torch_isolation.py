@@ -1,5 +1,6 @@
 """The port stands alone: no JAX and nothing of the JAX package in
-``src/repro_torch`` or ``chip_smoke.py``, and no silent CPU fallback."""
+``src/repro_torch``, ``chip_smoke.py`` or ``tile_sweep.py``, and no
+silent CPU fallback."""
 import ast
 import os
 import shutil
@@ -15,7 +16,7 @@ from repro_torch.pipeline import ExecutionSpec, Precision, compile_cnn
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "tile_sweep.py"]
 
 
 def _imported_modules(path):

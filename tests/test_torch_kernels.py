@@ -8,6 +8,7 @@ i.e. ``conv_pipe_ref``; ``matmul_pipe`` and ``lrn_pwl`` are held against
 the Pallas kernels in interpret mode.
 """
 import math
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,10 +21,12 @@ from repro.kernels.lrn_pwl import build_pwl_lut as jax_build_pwl_lut
 from repro.kernels.lrn_pwl import lrn_pwl as jax_lrn_pwl
 from repro.kernels.matmul_pipe import matmul_pipe as jax_matmul_pipe
 from repro_torch.kernels import ref
-from repro_torch.kernels.conv_pipe import (BF16_POSITIONS, TILE_POSITIONS,
-                                           bf16_tile, conv_pipe, pool_tile)
+from repro_torch.kernels import build
+from repro_torch.kernels.conv_pipe import (FP32_BLOCK_COST, POSITIONS,
+                                           TILE_POSITIONS, conv_pipe,
+                                           conv_tile, pool_tile)
 from repro_torch.kernels.lrn_pwl import build_pwl_lut, lrn_pwl
-from repro_torch.kernels.matmul_pipe import matmul_pipe
+from repro_torch.kernels.matmul_pipe import fc_split, matmul_pipe
 
 FP32 = dict(rtol=1e-4, atol=1e-4)        # tests/test_kernels.py fp32 tolerance
 
@@ -138,11 +141,11 @@ def test_pool_ref_max_on_int8_codes_matches_jax():
         got.numpy(), np.asarray(jref.pool_ref(jnp.asarray(codes), "max", 3, 2)))
 
 
-# the fp32/int8 kernel's tile rows and the bf16 kernel's larger tile
-POSITIONS = sorted({TILE_POSITIONS, *BF16_POSITIONS})
+# the int8 kernel's tile rows and the fp32 and bf16 kernels' larger tile
+TILE_ROWS = sorted({TILE_POSITIONS, *POSITIONS})
 
 
-@pytest.mark.parametrize("positions", POSITIONS)
+@pytest.mark.parametrize("positions", TILE_ROWS)
 @pytest.mark.parametrize("ph,pw,k,s", [(6, 6, 3, 2), (13, 13, 3, 2),
                                        (112, 112, 2, 2), (1, 1, 8, 1)])
 def test_pool_tile_fits_and_is_minimal(ph, pw, k, s, positions):
@@ -155,7 +158,7 @@ def test_pool_tile_fits_and_is_minimal(ph, pw, k, s, positions):
                if ((a - 1) * s + k) * ((b - 1) * s + k) <= positions)
 
 
-@pytest.mark.parametrize("positions", POSITIONS)
+@pytest.mark.parametrize("positions", TILE_ROWS)
 def test_pool_tile_refuses_a_window_larger_than_the_tile(positions):
     k = math.isqrt(positions) + 1               # k*k > positions
     with pytest.raises(ValueError):
@@ -181,22 +184,131 @@ BF16_LAYER_TILES = [
 ]
 
 
-@pytest.mark.parametrize("layer,want", BF16_LAYER_TILES)
-def test_bf16_tile_fills_the_card_with_the_largest_tile(layer, want):
+def _patch_fits(layer, tile):
+    """The pooled patch of ``tile`` = (tp, tn, tph, tpw) is pool_tile's
+    for tp rows; returns the tile's block count."""
     B, OH, mg, groups, pool, k, s = layer
-    tp, tn, tph, tpw = got = bf16_tile(B, OH, OH, mg, groups, pool, k, s, 132)
-    assert got == want
+    tp, tn, tph, tpw = tile
     ph = OH if pool is None else (OH - k) // s + 1
-    if pool is not None:                # the pooled patch fits tp rows
+    if pool is not None:
         assert (tph, tpw) == pool_tile(ph, ph, k, s, tp)
     tiles = -(-B * OH * OH // tp) if pool is None else \
         B * -(-ph // tph) * -(-ph // tpw)
-    assert tiles * groups * -(-mg // tn) >= 128     # about a block an SM
+    return tiles * groups * -(-mg // tn)
+
+
+@pytest.mark.parametrize("layer,want", BF16_LAYER_TILES)
+def test_bf16_tile_fills_the_card_with_the_largest_tile(layer, want):
+    got = conv_tile(torch.bfloat16, layer[0], layer[1], layer[1], *layer[2:],
+                    132)
+    assert got == want
+    assert _patch_fits(layer, got) >= 128           # about a block an SM
+
+
+# the fp32 tile of the same layers (and conv3_3 + pool, conv4_1/4_2): the
+# fewest rounds of blocks an SM times FP32_BLOCK_COST, ties to tn 128
+FP32_LAYER_TILES = [
+    ((8, 55, 96, 1, None, 2, 2), (64, 128, 1, 1)),       # AlexNet conv1
+    ((8, 27, 128, 2, None, 2, 2), (128, 128, 1, 1)),     # conv2
+    ((8, 13, 384, 1, None, 2, 2), (64, 64, 1, 1)),       # conv3
+    ((8, 13, 192, 2, None, 2, 2), (64, 64, 1, 1)),       # conv4
+    ((8, 13, 128, 2, "max", 3, 2), (64, 64, 3, 3)),      # conv5 + pool
+    ((8, 224, 64, 1, None, 2, 2), (128, 64, 1, 1)),      # VGG-16 conv1_1
+    ((8, 224, 64, 1, "max", 2, 2), (128, 64, 2, 16)),    # conv1_2 + pool
+    ((8, 112, 128, 1, "max", 2, 2), (128, 128, 4, 8)),   # conv2_2 + pool
+    ((8, 56, 256, 1, None, 2, 2), (128, 128, 1, 1)),     # conv3_1/3_2
+    ((8, 56, 256, 1, "max", 2, 2), (64, 128, 4, 4)),     # conv3_3 + pool
+    ((8, 28, 512, 1, None, 2, 2), (64, 128, 1, 1)),      # conv4_1/4_2
+    ((8, 28, 512, 1, "max", 2, 2), (128, 128, 2, 14)),   # conv4_3 + pool
+    ((8, 14, 512, 1, None, 2, 2), (64, 128, 1, 1)),      # conv5_x
+    ((8, 14, 512, 1, "max", 2, 2), (64, 128, 2, 7)),     # conv5_3 + pool
+]
+
+
+@pytest.mark.parametrize("layer,want", FP32_LAYER_TILES)
+def test_fp32_conv_tile_takes_the_cheapest_rounds_of_blocks(layer, want):
+    """The fp32 tile: no other tile that fits gives a smaller ceil(blocks
+    / 132) x FP32_BLOCK_COST; the half tiles run where the 128x128 grid
+    leaves SMs a round short (28x28, 14x14)."""
+    got = conv_tile(torch.float32, layer[0], layer[1], layer[1], *layer[2:],
+                    132)
+    assert got == want
+
+    def cost(tile):
+        return -(-_patch_fits(layer, tile) // 132) * FP32_BLOCK_COST[tile[:2]]
+    B, OH, mg, groups, pool, k, s = layer
+    ph = OH if pool is None else (OH - k) // s + 1
+    for tp, tn in FP32_BLOCK_COST:
+        if pool is None or k * k <= tp:
+            t = (1, 1) if pool is None else pool_tile(ph, ph, k, s, tp)
+            assert cost((tp, tn, *t)) >= cost(got)
+
+
+@pytest.mark.parametrize("layer", [l for l, _ in BF16_LAYER_TILES])
+def test_int8_conv_tile_is_its_kernels_one_tile(layer):
+    tile = conv_tile(torch.int8, layer[0], layer[1], layer[1], *layer[2:],
+                     132)
+    assert tile[:2] == (TILE_POSITIONS, 64)
+    _patch_fits(layer, tile)
 
 
 def test_bf16_tile_refuses_a_window_larger_than_either_tile():
     with pytest.raises(ValueError):
-        bf16_tile(1, 20, 20, 8, 1, "max", 12, 1, 132)
+        conv_tile(torch.bfloat16, 1, 20, 20, 8, 1, "max", 12, 1, 132)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+def test_conv_tile_refuses_a_window_larger_than_every_tile(dtype):
+    k = math.isqrt(max(TILE_ROWS)) + 1 if dtype == torch.float32 else 9
+    with pytest.raises(ValueError):
+        conv_tile(dtype, 1, 20, 20, 8, 1, "max", k, 1, 132)
+
+
+# (M, K, N) of AlexNet's and VGG-16's FC layers at batch 8, and the bf16
+# split a 132-SM H100 gets: 64 features a cluster of 5 blocks (320 blocks)
+# at fc6 and fc7; fc8's 1000 features in 32-feature tiles of 8 blocks
+FC_LAYER_SPLITS = [
+    ((8, 9216, 4096), (64, 5)),          # AlexNet fc6
+    ((8, 25088, 4096), (64, 5)),         # VGG-16 fc6
+    ((8, 4096, 4096), (64, 5)),          # fc7, both
+    ((8, 4096, 1000), (32, 8)),          # fc8, both
+]
+
+
+@pytest.mark.parametrize("shape,want", FC_LAYER_SPLITS)
+def test_fc_split_fills_the_card(shape, want):
+    M, K, N = shape
+    tnf, ranks = got = fc_split(M, K, N, 132)
+    assert got == want
+    blocks = -(-N // tnf) * ranks * -(-M // 8)
+    assert blocks >= (2 * 132 if N >= 4096 else 132)
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 16, 8), (8, 100, 1001), (64, 128, 32),
+                                   (100, 300, 70), (8, 25088, 4096),
+                                   (200, 4096, 4096)])
+def test_fc_split_stays_within_the_kernel(M, K, N):
+    """1 to 8 ranks, never more than K has chunks; a tile the kernel
+    has."""
+    tnf, ranks = fc_split(M, K, N, 132)
+    assert tnf in (64, 32)
+    assert 1 <= ranks <= min(8, -(-K // 64))
+
+
+def test_library_path_hashes_the_headers_a_source_includes(tmp_path):
+    """Editing csrc/hopper.cuh in a copy of csrc/ moves the library of
+    every source that includes it, and of no other."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    names = ("conv_pipe", "matmul_pipe", "lrn_pwl")
+    before = {n: build.library_path(n, csrc) for n in names}
+    assert before == {n: build.library_path(n) for n in names}
+    with open(csrc / "hopper.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: build.library_path(n, csrc) for n in names}
+    assert after["conv_pipe"] != before["conv_pipe"]
+    assert after["matmul_pipe"] != before["matmul_pipe"]
+    assert after["lrn_pwl"] == before["lrn_pwl"]
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

@@ -1,0 +1,199 @@
+#!/usr/bin/env python3
+"""Time every tile of the fp32 conv kernel and every split of the bf16 FC
+kernel at AlexNet's and VGG-16's batch-8 layers, on one CUDA card.
+
+    python3 tile_sweep.py
+
+For each conv of the fp32 forwards (seeded weights; each layer's input
+the kernel fold's output of the layer before) it times conv_pipe at each
+of the four tiles, and prints the tile ``conv_tile`` picks, the fastest,
+and each tile's time for one round of blocks an SM relative to the
+128x128 tile's on the same layer: the medians over the layers are what
+``kernels/conv_pipe.py:FP32_BLOCK_COST`` holds. For each FC layer it
+times matmul_pipe's bf16 mode at 32 and 64 features x 1 to 8 ranks a
+cluster beside cuBLAS, and prints ``fc_split``'s pick. Then the host
+time of one wrapper call (enqueue only). Kernel times are CUDA-graph
+replays (``chip_smoke.graph_ms``), so the host's pace is out of them.
+Needs the repository around it; exits non-zero without a CUDA device.
+"""
+from __future__ import annotations
+
+import os
+import statistics
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)
+
+TILES = ((128, 128), (128, 64), (64, 128), (64, 64))
+SPLITS = [(tnf, r) for tnf in (64, 32) for r in range(1, 9)]
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("tile_sweep: no CUDA device", file=sys.stderr)
+        return 2
+    from chip_smoke import graph_ms, smi
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import conv_pipe as cpm
+    from repro_torch.kernels import matmul_pipe as mpm
+    from repro_torch.kernels.build import sm_count
+    from repro_torch.kernels.conv_pipe import conv_pipe, conv_tile, pool_tile
+    from repro_torch.kernels.lrn_pwl import lrn_pwl
+    from repro_torch.kernels.matmul_pipe import fc_split, matmul_pipe
+    from repro_torch.kernels.ref import pool_ref
+    from repro_torch.models.cnn import fuse_plan
+    from repro_torch.pipeline import ExecutionSpec, compile_cnn
+
+    print(smi("name,power.limit"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sms = sm_count(torch.device("cuda", 0))
+
+    def forced(tile):
+        def pick(dtype, B, OH, OW, mg, groups, pool, pool_k, pool_s, n):
+            if pool is None:
+                return (*tile, 1, 1)
+            return (*tile, *pool_tile((OH - pool_k) // pool_s + 1,
+                                      (OW - pool_k) // pool_s + 1, pool_k,
+                                      pool_s, tile[0]))
+        return pick
+
+    def blocks(tile, tph, tpw, B, OH, OW, mg, groups, pool, pool_k, pool_s):
+        tp, tn = tile
+        if pool is None:
+            n = -(-B * OH * OW // tp)
+        else:
+            ph, pw = (OH - pool_k) // pool_s + 1, (OW - pool_k) // pool_s + 1
+            n = B * -(-ph // tph) * -(-pw // tpw)
+        return n * groups * -(-mg // tn)
+
+    rel = {t: [] for t in TILES}
+    picked = best = 0.0
+    fcs = []
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.inference_mode():
+        for arch in ("alexnet", "vgg16"):
+            cfg = get_config(arch)
+            params = compile_cnn(cfg, ExecutionSpec(), generator=gen,
+                                 device="cuda").params
+            h = torch.randn((8, cfg.input_hw, cfg.input_hw, cfg.input_ch),
+                            generator=gen, device="cuda")
+            for group in fuse_plan(cfg):
+                l = cfg.layers[group[0]]
+                if l.kind == "fc":
+                    fcs.append((arch, group, h.shape[0],
+                                *params[group[0]]["w"].shape))
+                    continue
+                if l.kind == "lrn":
+                    h = lrn_pwl(h)
+                    continue
+                if l.kind == "pool":
+                    h = pool_ref(h, l.pool, l.kernel, l.stride)
+                    continue
+                pool = cfg.layers[group[1]] if len(group) == 2 else None
+                kw = dict(stride=l.stride, pad=l.pad, relu=l.relu,
+                          pool=pool.pool if pool else None,
+                          pool_k=pool.kernel if pool else 2,
+                          pool_s=pool.stride if pool else 2, groups=l.groups)
+                w, b = params[group[0]]["w"], params[group[0]]["b"]
+                oh = (h.shape[1] + 2 * l.pad - l.kernel) // l.stride + 1
+                ow = (h.shape[2] + 2 * l.pad - l.kernel) // l.stride + 1
+                geo = (h.shape[0], oh, ow, l.out_ch // l.groups, l.groups,
+                       kw["pool"], kw["pool_k"], kw["pool_s"])
+                pick = conv_tile(torch.float32, *geo, sms)
+                ms, rounds = {}, {}
+                for tile in TILES:
+                    if pool is not None and pool.kernel ** 2 > tile[0]:
+                        continue
+                    t = forced(tile)(torch.float32, *geo, sms)
+                    rounds[tile] = -(-blocks(tile, *t[2:], *geo) // sms)
+                    cpm.conv_tile = forced(tile)
+                    try:
+                        ms[tile] = graph_ms(lambda: conv_pipe(h, w, b, **kw))
+                    finally:
+                        cpm.conv_tile = conv_tile
+                fast = min(ms, key=ms.get)
+                base = ms[128, 128] / rounds[128, 128] if (128, 128) in ms \
+                    else None
+                for tile in ms:
+                    if base is not None:
+                        rel[tile].append(ms[tile] / rounds[tile] / base)
+                picked += ms[pick[:2]]
+                best += ms[fast]
+                print(f"[conv] {arch} {group}: " + "  ".join(
+                    f"{a}x{b} {t:.4f} ms ({rounds[a, b]} rounds)"
+                    for (a, b), t in ms.items())
+                    + f"; conv_tile {pick[0]}x{pick[1]}, fastest "
+                      f"{fast[0]}x{fast[1]}", flush=True)
+                h = conv_pipe(h, w, b, **kw)
+    print(f"[conv] sum of conv_tile's tiles {picked:.4f} ms, of the fastest "
+          f"{best:.4f} ms")
+    for tile, r in rel.items():
+        print(f"[conv] {tile[0]}x{tile[1]}: a round of blocks costs "
+              f"{statistics.median(r):.3f} of a 128x128 round (median of "
+              f"{len(r)} layers; {min(r):.3f}-{max(r):.3f}); FP32_BLOCK_COST "
+              f"{cpm.FP32_BLOCK_COST[tile]}")
+
+    seen = set()
+    for arch, group, M, K, N in fcs:
+        if (M, K, N) in seen:
+            continue
+        seen.add((M, K, N))
+        x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+        w = (torch.randn((K, N), generator=gen, device="cuda")
+             * 0.02).bfloat16()
+        b = torch.randn((N,), generator=gen, device="cuda").bfloat16()
+        ms = {}
+        for split in SPLITS:
+            if split[1] > -(-K // mpm.FC_CHUNK):
+                continue
+            mpm.fc_split = lambda M, K, N, n, s=split: s
+            try:
+                ms[split] = graph_ms(lambda: matmul_pipe(x, w, b, relu=True))
+            finally:
+                mpm.fc_split = fc_split
+        lib = graph_ms(lambda: torch.addmm(b, x, w).relu_())
+        pick = fc_split(M, K, N, sms)
+        fast = min(ms, key=ms.get)
+        print(f"[fc] {arch} {group} {M}x{K}x{N}: " + "  ".join(
+            f"{a}x{r} {t:.4f}" for (a, r), t in ms.items())
+            + f" ms; cuBLAS {lib:.4f} ms; fc_split {pick[0]}x{pick[1]} "
+              f"{ms[pick]:.4f} ms, fastest {fast[0]}x{fast[1]} "
+              f"{ms[fast]:.4f} ms", flush=True)
+
+    def host_us(fn, n=200):
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / n * 1e6
+
+    x8 = torch.randn((8, 4096), device="cuda").bfloat16()
+    w8 = torch.randn((4096, 1000), device="cuda").bfloat16()
+    b8 = torch.randn((1000,), device="cuda").bfloat16()
+    xc = torch.randn((8, 13, 13, 384), device="cuda")
+    wc = torch.randn((3, 3, 384, 256), device="cuda")
+    bc = torch.randn((256,), device="cuda")
+    for name, fn in (
+            ("matmul_pipe bf16 8x4096x1000",
+             lambda: matmul_pipe(x8, w8, b8, relu=True)),
+            ("torch.addmm+relu_ bf16 8x4096x1000",
+             lambda: torch.addmm(b8, x8, w8).relu_()),
+            ("conv_pipe fp32 8x13x13x384 3x3x384x256",
+             lambda: conv_pipe(xc, wc, bc, pad=1))):
+        runs = [host_us(fn) for _ in range(3)]
+        print(f"[host] {name}: {statistics.median(runs):.1f} us a call on "
+              f"the host (enqueue; median of 3 runs of 200)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
