@@ -12,12 +12,11 @@ Phases (any failure exits non-zero):
    AlexNet's batch-8 forward gives it (seeded weights, random biases; the
    fold over the plain versions), and timed beside the plain version, one
    library call and the card's bound. Each row of a redesigned kernel
-   (conv_pipe fp32 here; see 8) also prints its tile or split, its
-   TFLOP/s or TB/s and its share of the bound, as timed and in a CUDA
-   graph (``graph_ms``: the host's pace taken out, the library call's
-   too), and the replaced kernel's time for that layer (``OLD_MS``);
-   each model's sum of its launches is printed beside the library's
-   (cuDNN, cuBLAS) and the replaced sum.
+   (conv_pipe and matmul_pipe fp32 here; see 2b and 8) also prints its
+   tile or split, its TFLOP/s (TOP/s) or TB/s and its share of the
+   bound, as timed and in a CUDA graph (``graph_ms``: the host's pace
+   taken out, the library call's too), and the replaced kernel's time
+   for that layer (``OLD_MS``).
 3. Full forward: ``compile_cnn(alexnet, batch 8).forward(x)`` at full
    width with the same weights must launch conv_pipe 5x, lrn_pwl 2x
    and matmul_pipe 3x (all fp32), and its logits must match the same
@@ -30,7 +29,11 @@ Phases (any failure exits non-zero):
    int8 modes of conv_pipe and matmul_pipe must equal their plain
    versions (the exact-int oracles) bit for bit on the int8 codes the
    calibrated forward gives each layer, timed beside the plain version,
-   one library call where one exists and the card's bound.
+   one library call where one exists and the card's bound; conv_pipe's
+   int8 rows (the int8 tensor cores) print as the redesigned rows of 2.
+   Then each model's sum of each redesigned fp32 and int8 kernel's
+   launches beside the library's (cuDNN, cuBLAS; none for the int8 conv)
+   and the replaced sum.
 3b. int8 forward: ``.forward(x)`` must launch the int8 conv mode 5x,
    lrn_pwl 2x and the int8 matmul mode 3x (and no fp32 conv or matmul),
    and its logits must equal bit for bit the fold of 2b over the kernels'
@@ -61,7 +64,7 @@ Phases (any failure exits non-zero):
 7. VGG-16 at full width (batch 8, 224x224x3, seeded weights, random
    biases), fp32 and int8: each fp32 and int8 kernel against its plain
    version on the inputs the forward gives it, timed and printed as in 2
-   and 2b (the 2x2/2 pooled tiles at 224x224x64 included); the fp32
+   and 2b, sums included (the 2x2/2 pooled tiles at 224x224x64); the fp32
    forward must launch conv_pipe 13x and matmul_pipe 3x and come within
    1e-3 x max|logit| of the fold over the plain versions; the int8 forward,
    calibrated on the card on the default batch, must launch the int8
@@ -83,11 +86,11 @@ Phases (any failure exits non-zero):
 10. bf16 serve: the 19 requests through VGG-16 in bf16, each one ``ok``
    completion whose prediction matches the forward.
 11. One JSON line ``{"kernels": [...]}`` (each kernel and mode; launches
-   from phases 3, 3b, 6 and 9; the CNN entries sum the times of one
-   AlexNet forward's launches, the bf16 entries those of one AlexNet and
-   one VGG-16 forward, with each model's share under ``models``; the
-   attention entries give phase 6's one launch at its shape), then the
-   last line ``{"ok": true, "device": {...}}``.
+   from phases 3, 3b, 6, 7 and 9; each CNN entry sums the times of one
+   AlexNet and one VGG-16 forward's launches in its mode, with each
+   model's share under ``models``; the attention entries give phase 6's
+   one launch at its shape), then the last line ``{"ok": true, "device":
+   {...}}``.
 
 Every phase prints its seconds.
 
@@ -149,10 +152,12 @@ DECODE_B, DECODE_S = 8, 32768  # decode_32k cut: batch 128 -> 8
 DECODE_POS = (0, 16383, 32767)
 INT_MM_ROWS = 32               # torch._int_mm needs more than 16 rows
 # a launch (ms) with the kernel each redesign replaced, at batch 8 on the
-# inputs of phases 2, 7 and 8, by kernel, model and layer, measured by this
-# script on the card named (PERF.md section 5): conv_pipe_bf16's FFMA
+# inputs of phases 2, 2b, 7 and 8, by kernel, model and layer, measured by
+# this script on the card named (PERF.md section 5): conv_pipe_bf16's FFMA
 # kernel (bf16 widened on the CUDA cores), conv_pipe's 64x64
-# single-buffered FFMA kernel and matmul_pipe_bf16's FFMA weight stream
+# single-buffered FFMA kernel, matmul_pipe_bf16's FFMA weight stream,
+# conv_pipe_s8's __dp4a kernel and matmul_pipe's one-block-a-slab FFMA
+# kernel
 OLD_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 OLD_MS = {
     "conv_pipe_bf16": {
@@ -179,7 +184,21 @@ OLD_MS = {
                   "conv(16, 17)": 0.7505}},
     "matmul_pipe_bf16": {
         "alexnet": {"fc(10,)": 0.0908, "fc(11,)": 0.0345, "fc(12,)": 0.0381},
-        "vgg16": {"fc(18,)": 0.2423, "fc(19,)": 0.0321, "fc(20,)": 0.0378}}}
+        "vgg16": {"fc(18,)": 0.2423, "fc(19,)": 0.0321, "fc(20,)": 0.0378}},
+    "conv_pipe_s8": {
+        "alexnet": {"conv(0,)": 0.0847, "conv(3,)": 0.0942,
+                    "conv(6,)": 0.0788, "conv(7,)": 0.0606,
+                    "conv(8, 9)": 0.0571},
+        "vgg16": {"conv(0,)": 0.1840, "conv(1, 2)": 0.6191,
+                  "conv(3,)": 0.3325, "conv(4, 5)": 0.5940,
+                  "conv(6,)": 0.3157, "conv(7,)": 0.6098,
+                  "conv(8, 9)": 0.5963, "conv(10,)": 0.3153,
+                  "conv(11,)": 0.6214, "conv(12, 13)": 0.6985,
+                  "conv(14,)": 0.2433, "conv(15,)": 0.2437,
+                  "conv(16, 17)": 0.2372}},
+    "matmul_pipe": {
+        "alexnet": {"fc(10,)": 0.1231, "fc(11,)": 0.0569, "fc(12,)": 0.0362},
+        "vgg16": {"fc(18,)": 0.3298, "fc(19,)": 0.0571, "fc(20,)": 0.0359}}}
 # published HBM rates (NVIDIA data sheets), by the name nvidia-smi reports
 MEM_BW = {"H100 80GB HBM3": 3.35e12, "H100 PCIe": 2.0e12,
           "H100 NVL": 3.9e12, "H200": 4.8e12}
@@ -533,22 +552,24 @@ def main() -> int:
         kernel's time for the layer."""
         sms = props.multi_processor_count
         row["graph_ms"] = graph_ms(run)
-        row["library_graph_ms"] = graph_ms(library)
+        row["library_graph_ms"] = (None if library is None
+                                   else graph_ms(library))
+        unit = "TOP/s" if row["mode"] == "int8" else "TFLOP/s"
         if kw is not None:
             oh = (h.shape[1] + 2 * l.pad - l.kernel) // l.stride + 1
             ow = (h.shape[2] + 2 * l.pad - l.kernel) // l.stride + 1
             row["tile"] = conv_tile(h.dtype, h.shape[0], oh, ow,
                                     l.out_ch // l.groups, l.groups,
                                     kw["pool"], kw["pool_k"], kw["pool_s"],
-                                    sms)
+                                    sms, h.shape[3] // l.groups)
             what = f"tile {row['tile'][0]}x{row['tile'][1]}"
             row["tflops"] = row["ops"] / row["ms"] / 1e9
 
             def rate(ms):
-                return f"{row['ops'] / ms / 1e9:.1f} TFLOP/s"
+                return f"{row['ops'] / ms / 1e9:.1f} {unit}"
         else:
             M, K, N = row["shape"]
-            row["split"] = fc_split(M, K, N, sms)
+            row["split"] = fc_split(h.dtype, M, K, N, sms)
             what = (f"split {row['split'][0]} features x {row['split'][1]} "
                     f"ranks")
             row["tbps"] = row["bytes"] / row["ms"] / 1e9
@@ -557,32 +578,45 @@ def main() -> int:
                 return f"{row['bytes'] / ms / 1e9:.2f} TB/s"
         row["pct_of_bound"] = 100 * row["bound_ms"] / row["ms"]
         row["old_ms"] = OLD_MS[row["kernel"]][cfg.name][row["layer"]]
+        lib = ("none" if row["library_graph_ms"] is None
+               else f"{row['library_graph_ms']:.4f} ms")
         print(f"[redesign] {cfg.name} {row['layer']} {row['kernel']}: "
               f"{what}, {row['ms']:.4f} ms, {rate(row['ms'])}, "
               f"{row['pct_of_bound']:.1f} % of the bound; in a CUDA graph "
               f"{row['graph_ms']:.4f} ms, {rate(row['graph_ms'])}, "
               f"{100 * row['bound_ms'] / row['graph_ms']:.1f} % (library "
-              f"{row['library_graph_ms']:.4f} ms); replaced kernel "
+              f"{lib}); replaced kernel "
               f"{row['old_ms']:.4f} ms ({OLD_CARD}), "
               f"{row['old_ms'] / row['ms']:.2f}x")
 
     def model_sum(cfg, rows, kname, library):
         """Print one model's sum of a redesigned kernel's launches beside
-        the library's (``library`` names it) and the replaced kernel's,
-        as timed and in CUDA graphs."""
+        the library's (``library`` names it, None where there is none) and
+        the replaced kernel's, as timed and in CUDA graphs."""
         rs = [r for r in rows if r["kernel"] == kname]
         out = {k: sum(r[k] for r in rs) for k in (
-            "ms", "library_ms", "old_ms", "bound_ms", "graph_ms",
-            "library_graph_ms")}
+            "ms", "old_ms", "bound_ms", "graph_ms")}
+        for k in ("library_ms", "library_graph_ms"):
+            out[k] = None if library is None else sum(r[k] for r in rs)
+        lib = ("no library call" if library is None else
+               f"{library} {out['library_ms']:.4f} ms "
+               f"({out['library_ms'] / out['ms']:.2f}x the kernel's time)")
+        graph_lib = ("" if library is None else
+                     f" against {out['library_graph_ms']:.4f} ms")
         print(f"[redesign] {cfg.name} {kname}: {len(rs)} launches "
               f"{out['ms']:.4f} ms (bound {out['bound_ms']:.4f} ms, "
-              f"{100 * out['bound_ms'] / out['ms']:.1f} %); {library} "
-              f"{out['library_ms']:.4f} ms ({out['library_ms'] / out['ms']:.2f}"
-              f"x the kernel's time); in CUDA graphs {out['graph_ms']:.4f} "
-              f"ms against {out['library_graph_ms']:.4f} ms; replaced kernel "
+              f"{100 * out['bound_ms'] / out['ms']:.1f} %); {lib}; in CUDA "
+              f"graphs {out['graph_ms']:.4f} ms{graph_lib}; replaced kernel "
               f"{out['old_ms']:.4f} ms ({OLD_CARD}); layers slower than it: "
               f"{[r['layer'] for r in rs if r['ms'] > r['old_ms']]}")
         return out
+
+    def cnn_sums(cfg, rows, qrows):
+        """model_sum of each redesigned fp32 and int8 kernel of a model."""
+        return {(cfg.name, k): model_sum(cfg, rs, k, lib) for k, rs, lib in (
+            ("conv_pipe", rows, "cuDNN fp32 conv+ReLU+pool (TF32 off)"),
+            ("matmul_pipe", rows, "cuBLAS fp32 addmm+ReLU (TF32 off)"),
+            ("conv_pipe_s8", qrows, None))}
 
     def int8_rows(cfg, qp, x):
         """Each int8 kernel of one int8 forward held bit for bit against
@@ -658,11 +692,15 @@ def main() -> int:
                     row["tol"] = 0.0
                     row["mode"] = "int8"
                     row["model"] = cfg.name
+                    fns = row["run"], row["library"]
                     measure(row, int8_rate)
                     check(torch.equal(got, want),
                           f"{cfg.name} {row['layer']} {row['kernel']}: "
                           f"{row['n_differ']} outputs differ from the plain "
                           f"version")
+                    if row["kernel"] in OLD_MS:
+                        redesign_line(cfg, row, h, l,
+                                      kw if l.kind == "conv" else None, *fns)
                     rows.append(row)
                 h = want
         return rows, h
@@ -687,8 +725,6 @@ def main() -> int:
 
     # -- 2. each kernel vs its plain version at AlexNet's shapes ------------
     rows, _ = float_rows(cfg, params, x, "fp32")
-    sums = {("alexnet", "conv_pipe"): model_sum(
-        cfg, rows, "conv_pipe", "cuDNN fp32 conv+ReLU+pool (TF32 off)")}
     phases.done("2")
 
 
@@ -763,6 +799,7 @@ def main() -> int:
           f"images, on the card) in {time.perf_counter() - t0:.2f} s; input "
           f"scale {qp.in_scale:.6g}")
     qrows, plain_qlogits = int8_rows(cfg, qp, x)
+    sums = cnn_sums(cfg, rows, qrows)
     phases.done("2b")
 
     # -- 3b. the int8 forward through the entry point --------------------------
@@ -1036,8 +1073,6 @@ def main() -> int:
                         generator=vgen, device="cuda")
     vcompiled = compile_cnn(vcfg, spec, vparams, device="cuda")
     vrows, v_plain = float_rows(vcfg, vparams, x_vgg, "fp32")
-    sums["vgg16", "conv_pipe"] = model_sum(
-        vcfg, vrows, "conv_pipe", "cuDNN fp32 conv+ReLU+pool (TF32 off)")
     vlogits, vlaunches = forward_launches(vcompiled, x_vgg, EXPECTED_VGG,
                                           "vgg16 forward")
     v_err = (vlogits - v_plain).abs().max().item()
@@ -1054,6 +1089,7 @@ def main() -> int:
           f"({qspec.precision.calib} images, on the card) in "
           f"{time.perf_counter() - t0:.2f} s")
     vqrows, vq_plain = int8_rows(vcfg, vqcompiled.params, x_vgg)
+    sums.update(cnn_sums(vcfg, vrows, vqrows))
     vqlogits, vqlaunches = forward_launches(vqcompiled, x_vgg,
                                             EXPECTED_VGG_INT8,
                                             "vgg16 int8 forward")
@@ -1115,10 +1151,10 @@ def main() -> int:
     phases.done("10")
 
     # -- 11. the kernels line -------------------------------------------------
-    # CNN entries sum over one forward's launches (phases 2, 2b; the bf16
-    # entries over one AlexNet and one VGG-16 forward, phase 8, with each
-    # model's share under "models"); attention entries are the one launch
-    # of phase 6's main path, at its shape
+    # CNN entries sum one AlexNet and one VGG-16 forward's launches in their
+    # mode (fp32 phases 2, 3 and 7; int8 2b, 3b and 7; bf16 8 and 9), with
+    # each model's share under "models"; attention entries are the one
+    # launch of phase 6's main path, at its shape
     def entry(kname, rs, rate, count):
         rs = [r for r in rs if r["kernel"] == kname]
         t_ops = sum(r["ops"] for r in rs) / rate
@@ -1132,41 +1168,39 @@ def main() -> int:
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "library_ms": None if None in libs else sum(libs)}
 
+    cnn = {"fp32": {"alexnet": (rows, launches), "vgg16": (vrows, vlaunches)},
+           "int8": {"alexnet": (qrows, qlaunches),
+                    "vgg16": (vqrows, vqlaunches)},
+           "bf16": {a: (b["rows"], b["launches"]) for a, b in bf16.items()}}
     line = []
-    for kname, mode, rs, rate, count in (
-            ("conv_pipe", "fp32", rows, fp32_rate, launches),
-            ("conv_pipe_s8", "int8", qrows, int8_rate, qlaunches),
-            ("conv_pipe_bf16", "bf16", None, bf16_rate, None),
-            ("matmul_pipe", "fp32", rows, fp32_rate, launches),
-            ("matmul_pipe_s8", "int8", qrows, int8_rate, qlaunches),
-            ("matmul_pipe_bf16", "bf16", None, bf16_rate, None),
-            ("lrn_pwl", "fp32", rows, fp32_rate, launches),
-            ("lrn_pwl_bf16", "bf16", None, bf16_rate, None),
-            ("flash_attention", "fp32", mrows, fp32_rate,
-             layer["fp32"]["launches"]),
-            ("flash_attention_bf16", "bf16", mrows, bf16_rate,
-             layer["bf16"]["launches"]),
-            ("decode_attention", "fp32", mrows, fp32_rate,
-             layer["fp32"]["launches"]),
-            ("decode_attention_bf16", "bf16", mrows, bf16_rate,
-             layer["bf16"]["launches"])):
+    for kname, mode, rate in (
+            ("conv_pipe", "fp32", fp32_rate),
+            ("conv_pipe_s8", "int8", int8_rate),
+            ("conv_pipe_bf16", "bf16", bf16_rate),
+            ("matmul_pipe", "fp32", fp32_rate),
+            ("matmul_pipe_s8", "int8", int8_rate),
+            ("matmul_pipe_bf16", "bf16", bf16_rate),
+            ("lrn_pwl", "fp32", fp32_rate),
+            ("lrn_pwl_bf16", "bf16", bf16_rate),
+            ("flash_attention", "fp32", fp32_rate),
+            ("flash_attention_bf16", "bf16", bf16_rate),
+            ("decode_attention", "fp32", fp32_rate),
+            ("decode_attention_bf16", "bf16", bf16_rate)):
         base = kname.removesuffix("_s8").removesuffix("_bf16")
         e = {"name": kname, "mode": mode, "route": "cuda",
              "source": f"src/repro_torch/csrc/{base}.cu",
              "replaces": REPLACES[base]}
-        if rs is None:              # a bf16 CNN mode: both models' forwards
-            models = {a: entry(kname, b["rows"], rate, b["launches"])
-                      for a, b in bf16.items() if b["launches"][kname]}
-            e.update(entry(kname, [r for b in bf16.values()
-                                   for r in b["rows"]], rate,
-                           {kname: sum(m["launches"]
-                                       for m in models.values())}))
+        if base in ("flash_attention", "decode_attention"):
+            e.update(entry(kname, mrows, rate, layer[mode]["launches"]))
+            e["shape"] = [r for r in mrows if r["kernel"] == kname][0][
+                "shape"]
+        else:                       # both models' forwards in this mode
+            models = {a: entry(kname, rs, rate, count)
+                      for a, (rs, count) in cnn[mode].items() if count[kname]}
+            e.update(entry(kname, [r for a in models for r in cnn[mode][a][0]],
+                           rate, {kname: sum(m["launches"]
+                                             for m in models.values())}))
             e["models"] = models
-        else:
-            e.update(entry(kname, rs, rate, count))
-            if rs is mrows:
-                e["shape"] = [r for r in rs if r["kernel"] == kname][0][
-                    "shape"]
         line.append(e)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

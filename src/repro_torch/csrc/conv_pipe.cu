@@ -8,11 +8,11 @@
 //
 // Bound on an H100: operations. fp32 runs FFMA on the CUDA cores (no TF32:
 // the reference holds fp32 to 1e-4 at K in the thousands), 66.9 TFLOP/s at
-// 132 SMs x 1980 MHz (VGG-16's 13 convs at batch 8: 3.68 ms). The int8
-// mode runs __dp4a (four int8 products and an int32 add per instruction)
-// on the CUDA cores, not the tensor cores. The bf16 mode runs on the
-// tensor cores (conv_bf16_mma_kernel below): its bound is its operations
-// at the dense bf16 tensor-core rate, 1070.5 TFLOP/s (VGG-16: 0.244 ms).
+// 132 SMs x 1980 MHz (VGG-16's 13 convs at batch 8: 3.68 ms). The bf16
+// and int8 modes run on the tensor cores (conv_bf16_mma_kernel and
+// conv_s8_mma_kernel below): their bound is their operations at the dense
+// bf16 rate, 1070.5 TFLOP/s (VGG-16: 0.244 ms), and at the dense int8
+// rate, 2141 TOP/s (VGG-16: 0.122 ms).
 //
 // Every mode is an implicit GEMM: a block owns a tile of conv output
 // positions (GEMM rows) x output channels of one group (GEMM cols) and
@@ -52,17 +52,6 @@
 // staged as fp32, the pool read from there (max; or avg summed in
 // row-major order, then __fdiv_rn), 16-byte stores.
 //
-// int8 design (conv_pipe_kernel<int8_t, TO>): a block of TP x TM, 4x4
-// outputs a thread, TK words a chunk, single-buffered. A word is four int8
-// values of consecutive k packed for __dp4a, so the kernel reduces 64 k per
-// chunk; a word may straddle the end of the reduction (C/G = 3 at conv1
-// gives an odd K) and is zeroed element by element there.
-//
-// int8 epilogue, as the JAX kernel rounds it (conv_pipe.py:165-195): y =
-// float(acc) * scale[m], then + b[m] (two roundings, never one FMA), ReLU,
-// pool (avg: the window summed in row-major order, then divided), then
-// clip(rint(y / out_scale), -127, 127) to int8, or y itself as fp32.
-//
 // bf16 design: the same implicit GEMM on mma.sync.m16n8k16 (bf16 operands,
 // exact products, fp32 sums: what the TPU's MXU computes for this mode). A
 // block of 8 warps owns TPB x TN (128 or 64 positions x 128 or 64 channels,
@@ -84,6 +73,33 @@
 // __float2bfloat16_rn on store (8 channels a 16-byte store), as the JAX
 // kernel rounds it (conv_pipe.py:162-195, out in x's dtype :311).
 //
+// int8 design (conv_s8_mma_kernel<TPB, TN, TO>): the bf16 skeleton on
+// mma.sync.m16n8k32.s32.s8.s8.s32 (int8 products, exact int32 sums: |acc|
+// <= 4608 * 127^2 < 2^31, so no saturation), the same tiles and warp
+// layout, K in chunks of BK = 128 k (64 for the element gather of the first
+// convs, where it wastes less of the last chunk). The int8 mma takes only
+// .row.col, so both operands must be k-contiguous in shared memory, and
+// ldmatrix.trans moves 16-bit elements, not bytes. A, the im2col gather,
+// is k-contiguous already: 16-byte vectors of 16 channels of one pixel
+// (C/G % 16 == 0: every conv but the first of each model) through the
+// 4-stage cp.async ring, zero-filled by src-size 0; the first convs (C/G =
+// 3) and C/G not a multiple of 16 gather element by element into the same
+// layout. B, the group's HWIO [k][m] weight slab, is transposed while it
+// is staged: each thread loads 4 k rows x 4, 8 or 16 channels (one 4-,
+// 8- or 16-byte load a row) into registers one chunk ahead, so the loads
+// fly during a chunk's mma, then swaps the bytes with __byte_perm into one
+// word of 4 k a channel and stores [channel][k] rows that plain ldmatrix
+// reads, into the other of two buffers. No transposed copy of the
+// weights exists anywhere. Epilogue on the fragments, step for step as
+// the JAX kernel rounds it (conv_pipe.py:165-195): y = float(acc) *
+// scale[m], then + b[m] (two roundings, never one FMA), ReLU, the tile
+// staged as fp32 in the ring's memory, the pool read from there (max; or
+// avg summed in row-major order, then divided), then clip(rint(y /
+// out_scale), -127, 127) to int8 (16 channels a 16-byte store, gathered
+// from 4 lanes by shuffles; the division taken only where a cheaper
+// product could round to another code, quant_code) or y itself as fp32 (4
+// a store).
+//
 // Each tile kernel's dynamic shared memory limit is raised once, at its
 // first launch (cudaFuncSetAttribute); a refusal is returned as the error.
 #include <cstdint>
@@ -95,48 +111,13 @@
 namespace {
 
 constexpr int NT = 256;      // threads per block, every mode
-// the int8 kernel's tile
-constexpr int TP = 64;       // conv positions per tile (GEMM rows)
-constexpr int TM = 64;       // output channels per tile (GEMM cols)
-constexpr int TK = 16;       // reduction chunk, in words
-constexpr int LD = TP + 4;   // padded row stride of the staged tiles
 
 struct Geo {
   int B, H, W, C, KH, KW, Cg, M, Mg, stride, pad, OH, OW;
   int relu, pool, pk, ps, PH, PW;   // pool: 0 none, 1 max, 2 avg
   int tph, tpw, cw, tiles_h, tiles_w, ktot, m_tiles;
-  int cvec;                         // the KP consecutive k of a word share
-                                    // (kh, kw): one aligned word load
   float out_scale;                  // int8 output step (int8 out only)
 };
-
-// The int8 kernel's element, its packed word of KP elements, the
-// accumulator and its multiply-add, and the bias element.
-template <typename T> struct Mode;
-template <> struct Mode<int8_t> {
-  using Word = int;
-  using Vec = int4;
-  using Acc = int;
-  using Bias = float;
-  static constexpr int KP = 4;
-  __device__ static int8_t zero() { return 0; }
-  __device__ static Word pack(const int8_t (&v)[4]) {
-    return (int)((uint32_t)(uint8_t)v[0] | (uint32_t)(uint8_t)v[1] << 8 |
-                 (uint32_t)(uint8_t)v[2] << 16 | (uint32_t)(uint8_t)v[3] << 24);
-  }
-  __device__ static Acc mac(Word a, Word b, Acc c) { return __dp4a(a, b, c); }
-  __device__ static float requant(Acc acc, float s) {
-    return __fmul_rn(__int2float_rn(acc), s);
-  }
-};
-__device__ __forceinline__ void store(float* out, size_t o, float v, float) {
-  out[o] = v;
-}
-__device__ __forceinline__ void store(int8_t* out, size_t o, float v,
-                                      float out_scale) {
-  const float q = rintf(__fdiv_rn(v, out_scale));
-  out[o] = (int8_t)fminf(fmaxf(q, -127.f), 127.f);
-}
 
 // Tile decode: which image and conv position each row p < tp of this
 // block's tile computes (s_img[p] = -1 past the valid rows; s_ih/s_iw the
@@ -177,160 +158,6 @@ __device__ __forceinline__ void decode_rows(const Geo& g, int tp, int tid,
     s_ih[tid] = oh * g.stride - g.pad;
     s_iw[tid] = ow * g.stride - g.pad;
     s_pix[tid] = b < 0 ? -1 : (b * g.OH + oh) * g.OW + ow;
-  }
-}
-
-template <typename T, typename TO>
-__global__ void __launch_bounds__(NT)
-conv_pipe_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                 const typename Mode<T>::Bias* __restrict__ bias,
-                 const float* __restrict__ scale, TO* __restrict__ out,
-                 Geo g) {
-  using Md = Mode<T>;
-  using Word = typename Md::Word;
-  using Vec = typename Md::Vec;
-  using Acc = typename Md::Acc;
-  constexpr int KP = Md::KP;
-  __shared__ __align__(16) Word As[TK][LD];    // im2col chunk: [k][position]
-  __shared__ __align__(16) Word Bs[TK][LD];    // weight chunk: [k][channel]
-  __shared__ __align__(16) float Cs[TP][LD];   // conv tile after bias+ReLU
-  __shared__ int s_img[TP], s_ih[TP], s_iw[TP], s_pix[TP];
-
-  const int tid = threadIdx.x;
-  const int grp = blockIdx.y / g.m_tiles;
-  const int m0 = (blockIdx.y % g.m_tiles) * TM;
-  const int cbase = grp * g.Cg;                 // this group's input slab
-  const int obase = grp * g.Mg + m0;            // first output channel
-
-  int img, th, tw;
-  decode_rows(g, TP, tid, s_img, s_ih, s_iw, s_pix, img, th, tw);
-  __syncthreads();
-
-  const int tx = tid % 16, ty = tid / 16;       // 4 channels x 4 positions
-  Acc acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-
-  const int a_k = tid % TK, a_p = tid / TK;     // A loader: 4 positions
-  const int b_m = tid % TM, b_k = tid / TM;     // B loader: 4 k rows
-  for (int k0 = 0; k0 < g.ktot; k0 += TK * KP) {
-    // the KP consecutive k of this thread's A word
-    int kh[KP], kw[KP], c[KP];
-    bool kin[KP];
-#pragma unroll
-    for (int e = 0; e < KP; ++e) {
-      const int k = k0 + a_k * KP + e;
-      kin[e] = k < g.ktot;
-      c[e] = k % g.Cg;
-      kw[e] = (k / g.Cg) % g.KW;
-      kh[e] = k / (g.Cg * g.KW);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = a_p + 16 * i;
-      const int b = s_img[p];
-      Word v;
-      if (KP > 1 && g.cvec && kin[KP - 1]) {
-        // KP channels of one pixel: one aligned 4-byte word load
-        const int ih = s_ih[p] + kh[0], iw = s_iw[p] + kw[0];
-        v = Word(0);
-        if (b >= 0 && ih >= 0 && ih < g.H && iw >= 0 && iw < g.W)
-          v = *reinterpret_cast<const Word*>(
-              &x[((size_t)(b * g.H + ih) * g.W + iw) * g.C + cbase + c[0]]);
-      } else {
-        T e_v[KP];
-#pragma unroll
-        for (int e = 0; e < KP; ++e) {
-          const int ih = s_ih[p] + kh[e], iw = s_iw[p] + kw[e];
-          e_v[e] = Md::zero();
-          if (kin[e] && b >= 0 && ih >= 0 && ih < g.H && iw >= 0 && iw < g.W)
-            e_v[e] = x[((size_t)(b * g.H + ih) * g.W + iw) * g.C + cbase +
-                       c[e]];
-        }
-        v = Md::pack(e_v);
-      }
-      As[a_k][p] = v;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kk = b_k + 4 * i;
-      T e_v[KP];
-#pragma unroll
-      for (int e = 0; e < KP; ++e) {
-        const int k = k0 + kk * KP + e;
-        e_v[e] = Md::zero();
-        if (k < g.ktot && m0 + b_m < g.Mg)
-          e_v[e] = w[(size_t)k * g.M + obase + b_m];
-      }
-      Bs[kk][b_m] = Md::pack(e_v);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TK; ++kk) {
-      const Vec a = *reinterpret_cast<const Vec*>(&As[kk][ty * 4]);
-      const Vec bv = *reinterpret_cast<const Vec*>(&Bs[kk][tx * 4]);
-      const Word av[4] = {a.x, a.y, a.z, a.w};
-      const Word bw[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = Md::mac(av[i], bw[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue 1: requantize (int8), bias + ReLU, conv tile to shared memory
-  float bj[4], sj[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int m = m0 + tx * 4 + j;
-    bj[j] = m < g.Mg ? bias[grp * g.Mg + m] : 0.f;
-    sj[j] = scale != nullptr && m < g.Mg ? scale[grp * g.Mg + m] : 0.f;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float v[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      v[j] = __fadd_rn(Md::requant(acc[i][j], sj[j]), bj[j]);
-      if (g.relu) v[j] = fmaxf(v[j], 0.f);
-    }
-    *reinterpret_cast<float4*>(&Cs[ty * 4 + i][tx * 4]) =
-        make_float4(v[0], v[1], v[2], v[3]);
-  }
-  __syncthreads();
-
-  // epilogue 2: pool windows out of the staged tile (or copy it out)
-  const int nq = g.pool ? g.tph * g.tpw : TP;
-  const int mvalid = min(TM, g.Mg - m0);
-  for (int idx = tid; idx < nq * TM; idx += NT) {
-    const int m = idx % TM, q = idx / TM;
-    if (m >= mvalid) continue;
-    size_t o;
-    float v;
-    if (g.pool) {
-      const int qh = q / g.tpw, qw = q % g.tpw;
-      const int ph = th * g.tph + qh, pw = tw * g.tpw + qw;
-      if (ph >= g.PH || pw >= g.PW) continue;
-      const int r0 = qh * g.ps, c0 = qw * g.ps;
-      v = Cs[r0 * g.cw + c0][m];
-      for (int i = 0; i < g.pk; ++i)
-        for (int j = 0; j < g.pk; ++j) {
-          if (i == 0 && j == 0) continue;
-          const float u = Cs[(r0 + i) * g.cw + c0 + j][m];
-          v = g.pool == 1 ? fmaxf(v, u) : __fadd_rn(v, u);
-        }
-      if (g.pool == 2) v = __fdiv_rn(v, (float)(g.pk * g.pk));
-      o = ((size_t)(img * g.PH + ph) * g.PW + pw) * g.M + obase + m;
-    } else {
-      const int pix = s_pix[q];
-      if (pix < 0) continue;
-      v = Cs[q][m];
-      o = (size_t)pix * g.M + obase + m;
-    }
-    store(out, o, v, g.out_scale);
   }
 }
 
@@ -871,9 +698,373 @@ conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// ---- int8 mode: implicit GEMM on the int8 tensor cores ------------------
+
+// The geometry of one int8 tile: TPB positions x TN channels, 8 warps laid
+// out as in the bf16 tile, BK k a chunk. A (the gather, [position][k]) runs
+// through the STAGES-deep ring; B ([channel][k], transposed from the
+// weights' [k][m]) through two buffers, a thread 4 k x CB channels of it.
+template <int TPB, int TN, int BK> struct S8Tile {
+  static constexpr int WARPS_M = TPB >= 2 * TN ? 4 : 2;
+  static constexpr int WARPS_N = NT / 32 / WARPS_M;
+  static constexpr int WTM = TPB / WARPS_M, WTN = TN / WARPS_N;
+  static constexpr int MI = WTM / 16, NI = WTN / 8;
+  static constexpr int LDC = TN + 8;            // staged fp32 tile stride
+  static constexpr int LDS = BK + 16;           // A and B row stride in
+                                                // bytes: the 8 rows of an
+                                                // ldmatrix hit distinct banks
+  static constexpr int A_STAGE = TPB * LDS;     // bytes
+  static constexpr int B_BUF = TN * LDS;        // bytes
+  static constexpr int RING = STAGES * A_STAGE + 2 * B_BUF;
+  static constexpr int CTILE = TPB * LDC * 4;                // bytes
+  static constexpr int SMEM = RING > CTILE ? RING : CTILE;
+  static constexpr int KV = BK / 16;            // A vectors along k a chunk
+  static constexpr int AV = TPB * KV / NT;      // A vectors a thread
+  static constexpr int CB = TN * BK / 4 / NT;   // B channels a thread
+  static_assert(MI >= 1 && NI % 2 == 0, "a warp takes whole x4 B loads");
+  static_assert(AV >= 1 && TPB * KV % NT == 0 && TPB * BK % NT == 0,
+                "every thread moves the same A vectors");
+  static_assert(BK % 32 == 0 && BK / 4 * (TN / CB) == NT && CB % 4 == 0,
+                "the threads cover B's 4-k x CB-channel pieces once");
+};
+
+// The int8 code of v, clip(rint(v / out_scale), -127, 127), with the
+// quotient rounded as __fdiv_rn rounds it, but without the division where it
+// cannot matter: t = v * inv (inv = 1 / out_scale, rounded) lies within 1.5
+// * 2^-23 * |t| of the rounded quotient q, so where t is more than |t| *
+// 2^-20 from the half-integer between its two nearest integers, t and q lie
+// on the same side of it and rint(t) == rint(q); nearer (or |t| >= 2^21),
+// the division decides.
+__device__ __forceinline__ float quant_code(float v, float out_scale,
+                                            float inv) {
+  const float t = __fmul_rn(v, inv);
+  const float h = floorf(t) + 0.5f;
+  const float q =
+      fabsf(t - h) > fabsf(t) * 0x1p-20f ? t : __fdiv_rn(v, out_scale);
+  return fminf(fmaxf(rintf(q), -127.f), 127.f);
+}
+
+// avec: x's 16-byte vectors hold 16 channels of one pixel (C/G % 16 == 0, x
+// 16-byte aligned); bvec: w's rows hold CB channels of one group in one
+// aligned load (Mg % CB == 0, w CB-byte aligned); ovec: out takes 16-byte
+// stores (Mg % 16 == 0 for int8 out, Mg % 4 == 0 for fp32 out).
+template <int TPB, int TN, int BK, typename TO>
+__global__ void __launch_bounds__(NT, 2)
+conv_s8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                   const float* __restrict__ bias,
+                   const float* __restrict__ scale, TO* __restrict__ out,
+                   Geo g, int avec, int bvec, int ovec) {
+  using Tl = S8Tile<TPB, TN, BK>;
+  constexpr int LDC = Tl::LDC, KV = Tl::KV, AV = Tl::AV, CB = Tl::CB;
+  constexpr int BK8 = BK, LDS8 = Tl::LDS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* const ring = reinterpret_cast<int8_t*>(smem);     // A stages
+  int8_t* const bbuf = ring + STAGES * Tl::A_STAGE;         // 2 B buffers
+  __shared__ int s_img[TPB], s_ih[TPB], s_iw[TPB], s_pix[TPB];
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int grp = blockIdx.y / g.m_tiles;
+  const int m0 = (blockIdx.y % g.m_tiles) * TN;
+  const int cbase = grp * g.Cg;                 // this group's input slab
+  const int obase = grp * g.Mg + m0;            // first output channel
+  int img, th, tw;
+  decode_rows(g, TPB, tid, s_img, s_ih, s_iw, s_pix, img, th, tw);
+  __syncthreads();
+
+  // A, vector path: vector v = tid + NT*i is row v/KV, k offset (v%KV)*16
+  // of the chunk; this thread's rows are fixed, its k moves BK8 a chunk,
+  // and its (kh, kw, c) follow k without a division.
+  const int akv = tid % KV;
+  int a_b[AV], a_ih[AV], a_iw[AV];
+#pragma unroll
+  for (int i = 0; i < AV; ++i) {
+    const int p = tid / KV + NT / KV * i;
+    a_b[i] = s_img[p];
+    a_ih[i] = s_ih[p];
+    a_iw[i] = s_iw[p];
+  }
+  int ak = akv * 16, ac = ak % g.Cg, akw = ak / g.Cg % g.KW,
+      akh = ak / (g.Cg * g.KW);
+
+  // Fill ring stage `st` with A's chunk k0 (chunks are loaded in order).
+  auto load_a = [&](int st, int k0) {
+    int8_t* const As = ring + st * Tl::A_STAGE;
+    if (avec) {
+      const bool kin = ak < g.ktot;
+#pragma unroll
+      for (int i = 0; i < AV; ++i) {
+        const int ih = a_ih[i] + akh, iw = a_iw[i] + akw;
+        const bool ok = kin && a_b[i] >= 0 && ih >= 0 && ih < g.H &&
+                        iw >= 0 && iw < g.W;
+        const int8_t* src =
+            ok ? x + ((size_t)(a_b[i] * g.H + ih) * g.W + iw) * g.C + cbase +
+                     ac
+               : x;
+        cp_async16(smem_u32(As + (tid / KV + NT / KV * i) * LDS8 + akv * 16),
+                   src, ok);
+      }
+      ak += BK8;
+      ac += BK8;
+      while (ac >= g.Cg) {
+        ac -= g.Cg;
+        if (++akw == g.KW) {
+          akw = 0;
+          ++akh;
+        }
+      }
+    } else {
+      // element by element: thread column kk, rows tid/BK8 + i*NT/BK8
+      const int kk = tid % BK8, k = k0 + kk;
+      const bool kin = k < g.ktot;
+      const int c = k % g.Cg, kw = k / g.Cg % g.KW, kh = k / (g.Cg * g.KW);
+#pragma unroll
+      for (int i = 0; i < TPB * BK8 / NT; ++i) {
+        const int p = tid / BK8 + NT / BK8 * i;
+        const int b = s_img[p], ih = s_ih[p] + kh, iw = s_iw[p] + kw;
+        int8_t v = 0;
+        if (kin && b >= 0 && ih >= 0 && ih < g.H && iw >= 0 && iw < g.W)
+          v = x[((size_t)(b * g.H + ih) * g.W + iw) * g.C + cbase + c];
+        As[p * LDS8 + kk] = v;
+      }
+    }
+  };
+
+  // B: this thread's 4 k rows (bkq*4 ..) x CB channels (bcg*CB ..) of a
+  // chunk, loaded into registers (4 channels a word, byte j channel j) one
+  // chunk ahead of its use, so the loads fly during a chunk's mma ...
+  const int bkq = tid % (BK8 / 4), bcg = tid / (BK8 / 4);
+  uint32_t r[4][CB / 4];
+  auto load_b = [&](int k0) {
+    const int n = bcg * CB;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = k0 + bkq * 4 + e;
+      const bool kin = k < g.ktot;
+      const int8_t* row = w + (size_t)(kin ? k : 0) * g.M + obase + n;
+      if (bvec) {
+        const bool ok = kin && m0 + n < g.Mg;
+        if constexpr (CB == 16) {
+          const uint4 v = ok ? __ldg(reinterpret_cast<const uint4*>(row))
+                             : make_uint4(0u, 0u, 0u, 0u);
+          r[e][0] = v.x;
+          r[e][1] = v.y;
+          r[e][2] = v.z;
+          r[e][3] = v.w;
+        } else if constexpr (CB == 8) {
+          const uint2 v = ok ? __ldg(reinterpret_cast<const uint2*>(row))
+                             : make_uint2(0u, 0u);
+          r[e][0] = v.x;
+          r[e][1] = v.y;
+        } else {
+          r[e][0] = ok ? __ldg(reinterpret_cast<const unsigned int*>(row))
+                       : 0u;
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < CB / 4; ++q) {
+          uint32_t v = 0;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (kin && m0 + n + 4 * q + j < g.Mg)
+              v |= (uint32_t)(uint8_t)row[4 * q + j] << (8 * j);
+          r[e][q] = v;
+        }
+      }
+    }
+  };
+  // ... and from there into buffer Bb as [channel][k]: each 4 k x 4
+  // channels transposed by __byte_perm into one word of 4 k a channel
+  auto store_b = [&](int8_t* Bb) {
+#pragma unroll
+    for (int q = 0; q < CB / 4; ++q) {
+      const uint32_t t0 = __byte_perm(r[0][q], r[1][q], 0x5140);
+      const uint32_t t1 = __byte_perm(r[0][q], r[1][q], 0x7362);
+      const uint32_t t2 = __byte_perm(r[2][q], r[3][q], 0x5140);
+      const uint32_t t3 = __byte_perm(r[2][q], r[3][q], 0x7362);
+      const uint32_t c[4] = {__byte_perm(t0, t2, 0x5410),
+                             __byte_perm(t0, t2, 0x7632),
+                             __byte_perm(t1, t3, 0x5410),
+                             __byte_perm(t1, t3, 0x7632)};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<uint32_t*>(
+            Bb + (bcg * CB + 4 * q + j) * LDS8 + bkq * 4) = c[j];
+    }
+  };
+
+  int acc[Tl::MI][Tl::NI][4];
+#pragma unroll
+  for (int i = 0; i < Tl::MI; ++i)
+#pragma unroll
+    for (int j = 0; j < Tl::NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+  // B's first chunk before A's, so its loads fly during A's first gathers
+  const int nk = (g.ktot + BK8 - 1) / BK8;
+  load_b(0);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load_a(s, s * BK8);
+    cp_async_commit();
+  }
+  store_b(bbuf);
+  const int wm = warp / Tl::WARPS_N, wn = warp % Tl::WARPS_N;
+  // this lane's ldmatrix rows: A rows lane%16 at k half lane/16; B channel
+  // rows lane%8 (+8 for lanes 16-31) at k half lane/8%2
+  const int a_off = (wm * Tl::WTM + lane % 16) * LDS8 + lane / 16 * 16;
+  const int b_off =
+      (wn * Tl::WTN + lane % 8 + lane / 16 * 8) * LDS8 + lane / 8 % 2 * 16;
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk) load_b((kt + 1) * BK8);    // in flight during the mma
+    cp_async_wait<STAGES - 2>();    // A chunk kt has landed (this thread's)
+    __syncthreads();                // ... everyone's, and B chunk kt; chunk
+                                    // kt-1's stage and buffer are free
+    const int nxt = kt + STAGES - 1;
+    if (nxt < nk) load_a(nxt % STAGES, nxt * BK8);
+    cp_async_commit();
+    const int8_t* As = ring + kt % STAGES * Tl::A_STAGE;
+    const int8_t* Bb = bbuf + kt % 2 * Tl::B_BUF;
+#pragma unroll
+    for (int ks = 0; ks < BK8; ks += 32) {
+      uint32_t a[Tl::MI][4], b[Tl::NI][2];
+#pragma unroll
+      for (int i = 0; i < Tl::MI; ++i)
+        ldmatrix_x4(a[i], smem_u32(As + a_off + i * 16 * LDS8 + ks));
+#pragma unroll
+      for (int j = 0; j < Tl::NI; j += 2) {
+        uint32_t f[4];
+        ldmatrix_x4(f, smem_u32(Bb + b_off + j * 8 * LDS8 + ks));
+        b[j][0] = f[0];
+        b[j][1] = f[1];
+        b[j + 1][0] = f[2];
+        b[j + 1][1] = f[3];
+      }
+#pragma unroll
+      for (int i = 0; i < Tl::MI; ++i)
+#pragma unroll
+        for (int j = 0; j < Tl::NI; ++j)
+          mma_s8(acc[i][j], a[i], b[j][0], b[j][1]);
+    }
+    if (kt + 1 < nk) store_b(bbuf + (kt + 1) % 2 * Tl::B_BUF);
+  }
+  cp_async_wait<0>();
+  __syncthreads();                  // the ring is free for the staged tile
+
+  // epilogue 1: requantize, + bias (two roundings), ReLU on the fragments,
+  // staged as fp32 (a lane holds rows lane/4 and +8, columns 2*(lane%4)
+  // and +1 of each mma tile)
+  float* const Cs = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int j = 0; j < Tl::NI; ++j) {
+    const int col = wn * Tl::WTN + j * 8 + lane % 4 * 2;
+    const int m = m0 + col;
+    const float b0 = m < g.Mg ? bias[grp * g.Mg + m] : 0.f;
+    const float b1 = m + 1 < g.Mg ? bias[grp * g.Mg + m + 1] : 0.f;
+    const float s0 = m < g.Mg ? scale[grp * g.Mg + m] : 0.f;
+    const float s1 = m + 1 < g.Mg ? scale[grp * g.Mg + m + 1] : 0.f;
+#pragma unroll
+    for (int i = 0; i < Tl::MI; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v0 = __fadd_rn(__fmul_rn(__int2float_rn(acc[i][j][2 * h]), s0),
+                             b0);
+        float v1 = __fadd_rn(
+            __fmul_rn(__int2float_rn(acc[i][j][2 * h + 1]), s1), b1);
+        if (g.relu) {
+          v0 = fmaxf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f);
+        }
+        const int row = wm * Tl::WTM + i * 16 + lane / 4 + 8 * h;
+        *reinterpret_cast<float2*>(&Cs[row * LDC + col]) =
+            make_float2(v0, v1);
+      }
+  }
+  __syncthreads();
+
+  // epilogue 2: pool windows out of the staged tile (or copy it out). A
+  // lane takes 4 channels, consecutive lanes consecutive channels (16-byte
+  // shared loads without bank conflicts); with int8 out the 4 lanes of 16
+  // channels meet by shuffles in one 16-byte store, with fp32 out each
+  // lane stores its 4. The loop runs whole warps for the shuffles.
+  const int nq = g.pool ? g.tph * g.tpw : TPB;
+  const int mvalid = min(TN, g.Mg - m0);
+  const int n_items = (nq * (TN / 4) + 31) / 32 * 32;
+  const float inv = __frcp_rn(g.out_scale);
+  for (int idx = tid; idx < n_items; idx += NT) {
+    const int m = idx % (TN / 4) * 4, q = idx / (TN / 4);
+    bool ok = q < nq && m < mvalid;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    size_t o = 0;
+    if (ok && g.pool) {
+      const int qh = q / g.tpw, qw = q % g.tpw;
+      const int ph = th * g.tph + qh, pw = tw * g.tpw + qw;
+      ok = ph < g.PH && pw < g.PW;
+      if (ok) {
+        const int r0 = qh * g.ps, c0 = qw * g.ps;
+        v = *reinterpret_cast<const float4*>(&Cs[(r0 * g.cw + c0) * LDC + m]);
+        for (int i = 0; i < g.pk; ++i)
+          for (int j = 0; j < g.pk; ++j) {
+            if (i == 0 && j == 0) continue;
+            const float4 u = *reinterpret_cast<const float4*>(
+                &Cs[((r0 + i) * g.cw + c0 + j) * LDC + m]);
+            if (g.pool == 1) {
+              v.x = fmaxf(v.x, u.x); v.y = fmaxf(v.y, u.y);
+              v.z = fmaxf(v.z, u.z); v.w = fmaxf(v.w, u.w);
+            } else {
+              v.x = __fadd_rn(v.x, u.x); v.y = __fadd_rn(v.y, u.y);
+              v.z = __fadd_rn(v.z, u.z); v.w = __fadd_rn(v.w, u.w);
+            }
+          }
+        if (g.pool == 2) {
+          const float n = (float)(g.pk * g.pk);
+          v.x = __fdiv_rn(v.x, n); v.y = __fdiv_rn(v.y, n);
+          v.z = __fdiv_rn(v.z, n); v.w = __fdiv_rn(v.w, n);
+        }
+        o = ((size_t)(img * g.PH + ph) * g.PW + pw) * g.M + obase + m;
+      }
+    } else if (ok) {
+      const int pix = s_pix[q];
+      ok = pix >= 0;
+      if (ok) {
+        v = *reinterpret_cast<const float4*>(&Cs[q * LDC + m]);
+        o = (size_t)pix * g.M + obase + m;
+      }
+    }
+    const float e[4] = {v.x, v.y, v.z, v.w};
+    if constexpr (sizeof(TO) == 1) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        word |= (uint32_t)(uint8_t)(int8_t)quant_code(e[j], g.out_scale, inv)
+                << (8 * j);
+      // the words of channels m+4, m+8, m+12 (lanes +1, +2, +3)
+      const uint32_t w1 = __shfl_down_sync(0xffffffffu, word, 1);
+      const uint32_t w2 = __shfl_down_sync(0xffffffffu, word, 2);
+      const uint32_t w3 = __shfl_down_sync(0xffffffffu, word, 3);
+      const int m16 = m - lane % 4 * 4;         // the piece's first channel
+      if (!ok) continue;
+      if (ovec && m16 + 16 <= mvalid) {
+        if (lane % 4 == 0)
+          *reinterpret_cast<uint4*>(out + o) = make_uint4(word, w1, w2, w3);
+      } else {
+        for (int j = 0; j < 4 && m + j < mvalid; ++j)
+          out[o + j] = (int8_t)(word >> (8 * j));
+      }
+    } else {
+      if (!ok) continue;
+      if (ovec && m + 4 <= mvalid) {
+        *reinterpret_cast<float4*>(out + o) = v;
+      } else {
+        for (int j = 0; j < 4 && m + j < mvalid; ++j) out[o + j] = e[j];
+      }
+    }
+  }
+}
+
 Geo make_geo(int B, int H, int W, int C, int KH, int KW, int M, int groups,
              int stride, int pad, int relu, int pool, int pk, int ps,
-             int tph, int tpw, int kp) {
+             int tph, int tpw) {
   Geo g;
   g.B = B; g.H = H; g.W = W; g.C = C; g.KH = KH; g.KW = KW;
   g.Cg = C / groups; g.M = M; g.Mg = M / groups;
@@ -888,23 +1079,9 @@ Geo make_geo(int B, int H, int W, int C, int KH, int KW, int M, int groups,
   g.tiles_h = (g.PH + tph - 1) / tph;
   g.tiles_w = (g.PW + tpw - 1) / tpw;
   g.ktot = KH * KW * g.Cg;
-  g.m_tiles = (g.Mg + TM - 1) / TM;
-  g.cvec = kp > 1 && g.Cg % kp == 0 && C % kp == 0;
+  g.m_tiles = 0;                    // set by tile_grid
   g.out_scale = 1.f;
   return g;
-}
-
-template <typename T, typename TO>
-int launch(const T* x, const T* w, const typename Mode<T>::Bias* b,
-           const float* scale,
-           TO* out, const Geo& g, int groups, void* stream) {
-  const long long n_tiles =
-      g.pool ? (long long)g.B * g.tiles_h * g.tiles_w
-             : ((long long)g.B * g.OH * g.OW + TP - 1) / TP;
-  dim3 grid((unsigned)n_tiles, groups * g.m_tiles);
-  conv_pipe_kernel<T, TO><<<grid, NT, 0, (cudaStream_t)stream>>>(
-      x, w, b, scale, out, g);
-  return (int)cudaGetLastError();
 }
 
 bool al16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -954,6 +1131,56 @@ int launch_f32(const float* x, const float* w, const float* b, float* out,
   return (int)cudaGetLastError();
 }
 
+// One int8 launch at tile TPB x TN and chunk BK, as launch_bf16.
+template <int TPB, int TN, int BK, typename TO>
+int launch_s8(const int8_t* x, const int8_t* w, const float* b,
+              const float* scale, TO* out, Geo g, int groups, bool avec,
+              void* stream) {
+  using Tl = S8Tile<TPB, TN, BK>;
+  constexpr int smem = Tl::SMEM;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      conv_s8_mma_kernel<TPB, TN, BK, TO>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid = tile_grid(g, TPB, TN, groups);
+  const int out_vec = sizeof(TO) == 1 ? 16 : 4;
+  conv_s8_mma_kernel<TPB, TN, BK, TO>
+      <<<grid, NT, smem, (cudaStream_t)stream>>>(
+          x, w, b, scale, out, g, avec,
+          g.Mg % Tl::CB == 0 && reinterpret_cast<uintptr_t>(w) % Tl::CB == 0,
+          g.Mg % out_vec == 0 && al16(out));
+  return (int)cudaGetLastError();
+}
+
+// The vector gather streams 128 k a chunk; the element gather (the first
+// convs, C/G = 3: K 27 and 363) 64, which wastes less of the last chunk.
+template <int TPB, int TN, typename TO>
+int launch_s8_chunk(const int8_t* x, const int8_t* w, const float* b,
+                    const float* scale, TO* out, const Geo& g, int groups,
+                    void* stream) {
+  const bool avec = g.Cg % 16 == 0 && al16(x);
+  if (avec)
+    return launch_s8<TPB, TN, 128>(x, w, b, scale, out, g, groups, true,
+                                   stream);
+  return launch_s8<TPB, TN, 64>(x, w, b, scale, out, g, groups, false,
+                                stream);
+}
+
+template <typename TO>
+int launch_s8_tile(const int8_t* x, const int8_t* w, const float* b,
+                   const float* scale, TO* out, const Geo& g, int groups,
+                   int tp, int tn, void* stream) {
+  if (tp == 128 && tn == 128)
+    return launch_s8_chunk<128, 128>(x, w, b, scale, out, g, groups, stream);
+  if (tp == 128 && tn == 64)
+    return launch_s8_chunk<128, 64>(x, w, b, scale, out, g, groups, stream);
+  if (tp == 64 && tn == 128)
+    return launch_s8_chunk<64, 128>(x, w, b, scale, out, g, groups, stream);
+  if (tp == 64 && tn == 64)
+    return launch_s8_chunk<64, 64>(x, w, b, scale, out, g, groups, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // Plain C entry points. pool: 0 none, 1 max, 2 avg; (tph, tpw) the pooled
@@ -969,7 +1196,7 @@ extern "C" int conv_pipe_f32(const float* x, const float* w, const float* b,
                              int relu, int pool, int pk, int ps, int tph,
                              int tpw, int tp, int tn, void* stream) {
   const Geo g = make_geo(B, H, W, C, KH, KW, M, groups, stride, pad, relu,
-                         pool, pk, ps, tph, tpw, 1);
+                         pool, pk, ps, tph, tpw);
   if (tp == 128 && tn == 128)
     return launch_f32<128, 128>(x, w, b, out, g, groups, stream);
   if (tp == 128 && tn == 64)
@@ -990,7 +1217,7 @@ extern "C" int conv_pipe_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
                               int relu, int pool, int pk, int ps, int tph,
                               int tpw, int tp, int tn, void* stream) {
   const Geo g = make_geo(B, H, W, C, KH, KW, M, groups, stride, pad, relu,
-                         pool, pk, ps, tph, tpw, 1);
+                         pool, pk, ps, tph, tpw);
   if (tp == 128 && tn == 128)
     return launch_bf16<128, 128>(x, w, b, out, g, groups, stream);
   if (tp == 128 && tn == 64)
@@ -1002,20 +1229,21 @@ extern "C" int conv_pipe_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
   return (int)cudaErrorInvalidValue;
 }
 
-// int8 x and w, fp32 b and scale (M,) = s_x * s_w[m]. out_s8: the output is
-// int8 quantized by out_scale, else fp32.
+// int8 x and w, fp32 b and scale (M,) = s_x * s_w[m], on the tensor cores.
+// out_s8: the output is int8 quantized by out_scale, else fp32. (tp, tn) and
+// (tph, tpw) as in conv_pipe_f32.
 extern "C" int conv_pipe_s8(const int8_t* x, const int8_t* w, const float* b,
                             const float* scale, void* out, int out_s8,
                             float out_scale, int B, int H, int W, int C,
                             int KH, int KW, int M, int groups, int stride,
                             int pad, int relu, int pool, int pk, int ps,
-                            int tph, int tpw, void* stream) {
+                            int tph, int tpw, int tp, int tn, void* stream) {
   Geo g = make_geo(B, H, W, C, KH, KW, M, groups, stride, pad, relu, pool,
-                   pk, ps, tph, tpw, 4);
+                   pk, ps, tph, tpw);
   g.out_scale = out_scale;
   if (out_s8)
-    return launch<int8_t, int8_t>(x, w, b, scale, (int8_t*)out, g, groups,
-                                  stream);
-  return launch<int8_t, float>(x, w, b, scale, (float*)out, g, groups,
-                               stream);
+    return launch_s8_tile(x, w, b, scale, (int8_t*)out, g, groups, tp, tn,
+                          stream);
+  return launch_s8_tile(x, w, b, scale, (float*)out, g, groups, tp, tn,
+                        stream);
 }

@@ -1,11 +1,13 @@
 // Hopper building blocks shared by the kernels of this directory: shared-
 // memory addresses, cp.async copies into a ring of stages, ldmatrix
-// fragment loads and the bf16 mma.sync tensor-core product. Every source
+// fragment loads, the bf16 and int8 mma.sync tensor-core products, and the
+// deterministic split-K sum of a thread-block cluster. Every source
 // that includes this header is rebuilt when it changes
 // (kernels/build.py:library_path hashes the headers a source includes).
 #pragma once
 
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -54,4 +56,48 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16x32, row) * b (32x8, col): int8 products, exact int32 sums. A
+// register holds 4 consecutive k of one row (a) or column (b), so both
+// operands are k-contiguous in shared memory and come in through plain
+// ldmatrix (an 8x8 b16 matrix is 8 rows x 16 int8). No .satfinite: the
+// callers' sums cannot overflow.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The split-K tail of a thread-block cluster. Every block holds PARTS fp32
+// partial tiles part[q][row][feature] (8 rows x TNF features) in its
+// shared memory at the same offset. After a cluster barrier block `rank`
+// finishes outputs rank*NT + tid, + ranks*NT, ... of the tile, each summed
+// over the blocks in rank order and then over the parts in order, through
+// distributed shared memory: the sum is deterministic, with no atomics and
+// no scratch tensor. out(row, feature, sum) stores the outputs with row <
+// rows and feature < feats. The closing barrier keeps every block's shared
+// memory alive until it has been read.
+template <int NT, int PARTS, int TNF, typename Out>
+__device__ __forceinline__ void cluster_sum(
+    cooperative_groups::cluster_group& cluster, float* part, int rows,
+    int feats, Out out) {
+  cluster.sync();
+  const int ranks = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  for (int o = rank * NT + (int)threadIdx.x; o < 8 * TNF; o += ranks * NT) {
+    const int r = o / TNF, f = o % TNF;
+    if (r >= rows || f >= feats) continue;
+    float s = 0.f;
+    for (int q = 0; q < ranks; ++q) {
+      const float* p = cluster.map_shared_rank(part, q);
+#pragma unroll
+      for (int wp = 0; wp < PARTS; ++wp) s += p[(wp * 8 + r) * TNF + f];
+    }
+    out(r, f, s);
+  }
+  cluster.sync();
 }

@@ -10,57 +10,55 @@
 // micro-batch (8), so each weight element takes 2*M operations: AlexNet fc6
 // reads 151 MB of fp32 weights (75 MB in bf16, 38 MB in int8) for 0.6 GOP.
 //
-// fp32 and int8 design: the paper's batched-FC reuse. A block owns a slab
-// of NCOL columns and MT rows of x (all of them at M <= MT), so every
-// weight element is read from device memory once per call and applied to
-// every image in registers.
-// The TPU's sequential K-tile grid axis and its VMEM accumulator become a
-// loop inside the block: KL lanes of threads split K, each keeps MT x 4
-// partial sums, and the lanes are summed in shared memory in a fixed order
-// (deterministic, no atomics). Each thread issues all its weight loads of a
-// chunk before using any of them, to keep enough bytes in flight to stream
-// HBM. x is staged a chunk at a time in shared memory. Ragged M, N and K
-// edges are masked.
-//
-// fp32 mode: each thread issues KC/KL 16-byte loads (4 columns of one row)
-// a chunk; the float4 path needs N % 4 == 0, else loads are scalar.
-//
-// int8 mode: a weight row of the thread's 4 columns is one 4-byte word, so
-// to keep the fp32 mode's 128 bytes in flight a thread issues 32 word loads
-// a chunk: U groups of 4 consecutive rows. Each group of 4 rows x 4 columns
-// is transposed in registers with __byte_perm into 4 words of 4 k each, and
-// __dp4a multiplies each with the packed x word of the same 4 k (staged
-// packed in shared memory) into the int32 sums: 4 products an instruction.
-// Epilogue, as the JAX kernel rounds it (matmul_pipe.py:52-63): y =
-// float(acc) * scale[n], then + b[n] (two roundings, never one FMA), ReLU,
-// then clip(rint(y / out_scale), -127, 127) to int8, or y itself as fp32.
-//
-// bf16 mode (matmul_bf16_kernel<TNF>): a split-K weight stream on the
-// tensor cores. At batch 8 each weight is used for 16 operations, so only
-// the bytes of w count: 205 MB at VGG-16 fc6, 61 us at 3.35 TB/s. The
-// product is taken transposed, y^T = w^T x^T, with mma.sync.m16n8k16: A is
-// a 16-feature x 16-k slab of w, read from w's [k][n] layout by
-// ldmatrix.trans; B is x^T, whose column-major layout is x's row-major
-// one, read by plain ldmatrix; the 8 images of a micro-batch fill the
-// mma's n = 8 exactly (more rows of x take more grid rows, 8 at a time,
-// zero-filled past M). A block of 4 warps owns TNF (64 or 32) output
-// features; the `ranks` blocks of a thread-block cluster (at most 8, the
-// portable size) share those features and split the reduction into ranges
-// of BKW-wide chunks, chosen by the wrapper (kernels/matmul_pipe.py:
-// fc_split) so that fc6 and fc7 give at least two blocks an SM and fc8
-// every SM a block. w and x chunks stream through a 4-stage cp.async ring
-// (16-byte vectors of 8 features or 8 k; N % 8 != 0 or K % 8 != 0 take an
-// element path into the same layout, and the last feature tile is masked),
-// one __syncthreads a chunk; each warp multiplies its 16-k slice of the
-// chunk. At the end each block stages its warps' fp32 partial tiles in its
-// shared memory, and after a cluster barrier block r sums a share of the
-// outputs over every block's and warp's partial through distributed shared
-// memory, in rank order and then warp order: the sum is deterministic, with
-// no scratch tensor and no atomics. Epilogue, as the JAX kernel rounds it
-// (matmul_pipe.py:52-63, out in x's dtype): the fp32 sum + b (widened,
-// __fadd_rn), ReLU, then one rounding to bf16. The kernel's dynamic
-// shared memory limit is raised once, at its first launch; a refused
+// fp32 and bf16 design: a split-K weight stream over a thread-block
+// cluster, the paper's batched-FC reuse. A block of 4 warps owns TNF output
+// features and 8 rows of x, so every weight element is read from device
+// memory once per call and applied to all 8 images (more rows of x take
+// more grid rows, 8 at a time, zero-filled past M). The `ranks` blocks of a
+// cluster (at most 8, the portable size) share those features and split
+// the reduction into ranges of chunks, chosen by the wrapper (kernels/
+// matmul_pipe.py:fc_split, one rule a mode) so that every SM holds enough
+// blocks to keep megabytes of w in flight. w and x chunks stream through a
+// 4-stage cp.async ring (16-byte vectors; N or K not a multiple of the
+// vector take an element path into the same layout, and the last feature
+// tile is masked), one __syncthreads a chunk. At the end each block stages
+// its warps' fp32 partial tiles in its shared memory, and the cluster sums
+// them through distributed shared memory in rank order and then warp order
+// (hopper.cuh:cluster_sum): deterministic, with no scratch tensor and no
+// atomics. Epilogue, as the JAX kernel rounds it (matmul_pipe.py:52-63): the
+// fp32 sum + b (__fadd_rn), ReLU, out in x's dtype. The kernels' dynamic
+// shared memory limit is raised once, at their first launch; a refused
 // cluster launch is returned as the error.
+//
+// fp32 (matmul_f32_kernel<TNF>, TNF 128, 64 or 32): FFMA on the CUDA cores
+// (TF32 would break the reference's 1e-4). A thread owns 4 features x 4 k of
+// every chunk: TNF/4 feature groups x 128/(TNF/4) k lanes, so a chunk is
+// 2048/TNF k deep and 8 KB of w whatever TNF. Per chunk it reads its 4 w
+// rows (one 16-byte shared load each) and its 4 k of all 8 x rows (8 more)
+// and does 128 FFMA into 8 rows x 4 features of fp32 sums: each weight is
+// read once and used 8 times. The k lanes of a warp are folded by shuffles
+// (a + b is b + a, so the fold is deterministic) before the cluster sum.
+//
+// bf16 (matmul_bf16_kernel<TNF>, TNF 64 or 32): the tensor cores. At batch
+// 8 each weight is used for 16 operations, so only the bytes of w count:
+// 205 MB at VGG-16 fc6, 61 us at 3.35 TB/s. The product is taken
+// transposed, y^T = w^T x^T, with mma.sync.m16n8k16: A is a 16-feature x
+// 16-k slab of w, read from w's [k][n] layout by ldmatrix.trans; B is x^T,
+// whose column-major layout is x's row-major one, read by plain ldmatrix;
+// the 8 images of a micro-batch fill the mma's n = 8 exactly. Chunks are 64
+// k, 16 a warp; the epilogue rounds once to bf16.
+//
+// int8 (matmul_pipe_s8_kernel): a block owns a slab of NCOL columns and MT
+// rows of x; KL lanes of threads split K, each keeps MT x 4 int32 sums,
+// summed over the lanes in shared memory in a fixed order. A weight row of
+// the thread's 4 columns is one 4-byte word, so to keep bytes in flight a
+// thread issues 32 word loads a chunk: U8 groups of 4 consecutive rows. Each
+// group of 4 rows x 4 columns is transposed in registers with __byte_perm
+// into 4 words of 4 k each, and __dp4a multiplies each with the packed x
+// word of the same 4 k (staged packed in shared memory): 4 products an
+// instruction. Epilogue, as the JAX kernel rounds it (matmul_pipe.py:52-63):
+// y = float(acc) * scale[n], then + b[n] (two roundings, never one FMA),
+// ReLU, then clip(rint(y / out_scale), -127, 127) to int8, or y as fp32.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,82 +68,13 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
+// the int8 kernel's block
 constexpr int MT = 8;            // rows of x per block
-constexpr int NCOL = 32;         // columns per block: 8 threads x float4
+constexpr int NCOL = 32;         // columns per block: 8 threads x 4
 constexpr int KL = 32;           // K lanes
 constexpr int NT = (NCOL / 4) * KL;
-constexpr int KC = 256;          // K columns of x staged per chunk
-constexpr int U = KC / KL;       // weight loads in flight per thread
-
-__device__ __forceinline__ float4 load_w(const float* __restrict__ w, int k,
-                                         int n, int K, int N, bool vec) {
-  if (k >= K) return make_float4(0.f, 0.f, 0.f, 0.f);
-  const float* row = w + (size_t)k * N;
-  if (vec && n + 3 < N) return __ldg(reinterpret_cast<const float4*>(row + n));
-  float v[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) v[j] = n + j < N ? __ldg(row + n + j) : 0.f;
-  return make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__global__ void __launch_bounds__(NT)
-matmul_pipe_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ b, float* __restrict__ y, int M,
-                   int K, int N, int relu) {
-  __shared__ float xs[MT][KC];
-  __shared__ float red[KL][MT][NCOL];
-  const int tx = threadIdx.x % (NCOL / 4), ty = threadIdx.x / (NCOL / 4);
-  const int n = blockIdx.x * NCOL + tx * 4;
-  const int m0 = blockIdx.y * MT;
-  const bool vec = (N % 4) == 0;
-
-  float acc[MT][4];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    for (int i = threadIdx.x; i < MT * KC; i += NT) {
-      const int m = i / KC, kk = i % KC;
-      xs[m][kk] = (m0 + m < M && k0 + kk < K)
-                      ? x[(size_t)(m0 + m) * K + k0 + kk] : 0.f;
-    }
-    __syncthreads();
-    float4 wv[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) wv[u] = load_w(w, k0 + ty + u * KL, n, K, N, vec);
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int kk = ty + u * KL;
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const float xv = xs[m][kk];
-        acc[m][0] = fmaf(xv, wv[u].x, acc[m][0]);
-        acc[m][1] = fmaf(xv, wv[u].y, acc[m][1]);
-        acc[m][2] = fmaf(xv, wv[u].z, acc[m][2]);
-        acc[m][3] = fmaf(xv, wv[u].w, acc[m][3]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) red[ty][m][tx * 4 + j] = acc[m][j];
-  __syncthreads();
-  for (int i = threadIdx.x; i < MT * NCOL; i += NT) {
-    const int m = i / NCOL, c = i % NCOL;
-    const int row = m0 + m, col = blockIdx.x * NCOL + c;
-    if (row >= M || col >= N) continue;
-    float s = 0.f;
-    for (int l = 0; l < KL; ++l) s += red[l][m][c];
-    s += b[col];
-    if (relu) s = fmaxf(s, 0.f);
-    y[(size_t)row * N + col] = s;
-  }
-}
 
 // ---- int8 mode ------------------------------------------------------------
 
@@ -261,15 +190,16 @@ matmul_pipe_s8_kernel(const int8_t* __restrict__ x,
   }
 }
 
-// ---- bf16 mode ------------------------------------------------------------
+// ---- fp32 and bf16 modes: split-K streams over a cluster ------------------
 
 constexpr int NTW = 128;          // threads per block: 4 warps
-constexpr int BKW = 64;           // reduction chunk: a 16-k slice a warp
 constexpr int STAGES_W = 4;       // cp.async ring depth
+// bf16
+constexpr int BKW = 64;           // reduction chunk: a 16-k slice a warp
 constexpr int LDX = BKW + 8;      // x row stride in bf16: 144 B, so the 8
                                   // rows of an ldmatrix hit distinct banks
 
-// The geometry of one block: TNF features, 4 warps.
+// The geometry of one bf16 block: TNF features, 4 warps.
 template <int TNF> struct FcTile {
   static constexpr int MI = TNF / 16;           // mma row tiles a warp
   static constexpr int LDW = TNF + 8;           // w row stride in bf16
@@ -294,7 +224,6 @@ matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                    int relu, int wvec, int xvec) {
   using Tl = FcTile<TNF>;
   constexpr int LDW = Tl::LDW;
-  namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int ranks = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -396,38 +325,171 @@ matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x,
       const int f = i * 16 + lane / 4 + e / 2 * 8, r = lane % 4 * 2 + e % 2;
       part[(warp * 8 + r) * TNF + f] = acc[i][e];
     }
-  cluster.sync();                   // every block's partials are visible
-
-  // block `rank` finishes outputs rank, rank + ranks, ... of the 8 x TNF
-  // tile: the partials summed over ranks, then warps, in that order
-  for (int o = rank * NTW + tid; o < 8 * TNF; o += ranks * NTW) {
-    const int r = o / TNF, f = o % TNF;
-    if (m0 + r >= M || n0 + f >= N) continue;
-    float s = 0.f;
-    for (int q = 0; q < ranks; ++q) {
-      const float* p = cluster.map_shared_rank(part, q);
-#pragma unroll
-      for (int wp = 0; wp < NTW / 32; ++wp) s += p[(wp * 8 + r) * TNF + f];
-    }
-    s = __fadd_rn(s, __bfloat162float(b[n0 + f]));
-    if (relu) s = fmaxf(s, 0.f);
-    y[(size_t)(m0 + r) * N + n0 + f] = __float2bfloat16_rn(s);
-  }
-  cluster.sync();                   // no block leaves while read
+  cluster_sum<NTW, NTW / 32, TNF>(
+      cluster, part, M - m0, N - n0, [&](int r, int f, float s) {
+        s = __fadd_rn(s, __bfloat162float(b[n0 + f]));
+        if (relu) s = fmaxf(s, 0.f);
+        y[(size_t)(m0 + r) * N + n0 + f] = __float2bfloat16_rn(s);
+      });
 }
 
-// One bf16 launch: TNF features a cluster of `ranks` blocks.
+// fp32: the same stream on FFMA
+
+// The geometry of one fp32 block: TNF features, 4 warps, a thread 4
+// features x 4 k of each chunk.
+template <int TNF> struct FcF32Tile {
+  static constexpr int FG = TNF / 4;            // feature groups
+  static constexpr int KLF = NTW / FG;          // k lanes
+  static constexpr int BK = KLF * 4;            // chunk depth: 8 KB of w
+  static constexpr int LDW = TNF + 4;           // w row stride in floats
+  static constexpr int LDX = BK + 4;            // x row stride in floats
+  static constexpr int W_STAGE = BK * LDW;      // floats
+  static constexpr int STAGE = W_STAGE + 8 * LDX;
+  static constexpr int SMEM = STAGES_W * STAGE * 4;          // bytes
+  static constexpr int PART = NTW / 32 * 8 * TNF;            // fp32 partials
+  static_assert(32 % FG == 0 && BK <= NTW, "whole k lanes a warp");
+  static_assert(PART * 4 <= SMEM, "the partials fit the ring's memory");
+  static_assert(BK * TNF / 4 % NTW == 0 && 8 * BK / 4 <= NTW &&
+                    8 * BK % NTW == 0,
+                "whole 16-byte vectors a thread");
+};
+
+// wvec: w's 16-byte vectors hold 4 features (N % 4 == 0); xvec: x's hold 4
+// k (K % 4 == 0); both need 16-byte aligned bases (the wrapper checks).
 template <int TNF>
-int launch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
-                const __nv_bfloat16* b, __nv_bfloat16* y, int M, int K, int N,
-                int relu, int ranks, void* stream) {
-  constexpr int smem = FcTile<TNF>::SMEM;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      matmul_bf16_kernel<TNF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+__global__ void __launch_bounds__(NTW)
+matmul_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                  const float* __restrict__ b, float* __restrict__ y, int M,
+                  int K, int N, int relu, int wvec, int xvec) {
+  using Tl = FcF32Tile<TNF>;
+  constexpr int BK = Tl::BK, LDW = Tl::LDW, LDX = Tl::LDX, FG = Tl::FG;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ranks = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* const ring = reinterpret_cast<float*>(smem);
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int n0 = blockIdx.x / ranks * TNF;      // the cluster's features
+  const int m0 = blockIdx.z * 8;                // its 8 rows of x
+  const int nk = (K + BK - 1) / BK;             // this rank's chunks:
+  const int c0 = rank * nk / ranks, c1 = (rank + 1) * nk / ranks;
+
+  // Fill ring stage `st` with chunk c: w rows [k0, k0+BK) x the block's
+  // features, and x rows m0..m0+7 x the same k.
+  auto load_stage = [&](int st, int c) {
+    float* const Ws = ring + st * Tl::STAGE;
+    float* const Xs = Ws + Tl::W_STAGE;
+    const int k0 = c * BK;
+    if (wvec) {
+#pragma unroll
+      for (int i = 0; i < BK * TNF / 4 / NTW; ++i) {
+        const int v = tid + NTW * i, kr = v / FG, n = v % FG * 4;
+        const bool ok = k0 + kr < K && n0 + n < N;
+        const float* src = ok ? w + (size_t)(k0 + kr) * N + n0 + n : w;
+        cp_async16(smem_u32(Ws + kr * LDW + n), src, ok);
+      }
+    } else {
+#pragma unroll 4
+      for (int i = 0; i < BK * TNF / NTW; ++i) {
+        const int n = tid % TNF, kr = tid / TNF + NTW / TNF * i;
+        Ws[kr * LDW + n] = k0 + kr < K && n0 + n < N
+                               ? w[(size_t)(k0 + kr) * N + n0 + n] : 0.f;
+      }
+    }
+    if (xvec) {
+      if (tid < 8 * BK / 4) {
+        const int r = tid / (BK / 4), kk = tid % (BK / 4) * 4;
+        const bool ok = m0 + r < M && k0 + kk < K;
+        const float* src = ok ? x + (size_t)(m0 + r) * K + k0 + kk : x;
+        cp_async16(smem_u32(Xs + r * LDX + kk), src, ok);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8 * BK / NTW; ++i) {
+        const int kk = tid % BK, r = tid / BK + NTW / BK * i;
+        Xs[r * LDX + kk] = m0 + r < M && k0 + kk < K
+                               ? x[(size_t)(m0 + r) * K + k0 + kk] : 0.f;
+      }
+    }
+  };
+
+  float acc[8][4];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
+
+  const int n_own = c1 - c0;
+#pragma unroll
+  for (int s = 0; s < STAGES_W - 1; ++s) {
+    if (s < n_own) load_stage(s, c0 + s);
+    cp_async_commit();
+  }
+  const int fg = tid % FG, kl = tid / FG;       // 4 features x 4 k
+  for (int t = 0; t < n_own; ++t) {
+    cp_async_wait<STAGES_W - 2>();  // chunk t has landed (this thread's)
+    __syncthreads();                // ... everyone's; stage t-1 is free
+    const int nxt = t + STAGES_W - 1;
+    if (nxt < n_own) load_stage(nxt % STAGES_W, c0 + nxt);
+    cp_async_commit();
+    const float* Ws = ring + t % STAGES_W * Tl::STAGE;
+    const float* Xs = Ws + Tl::W_STAGE;
+    float4 wv[4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wv[kk] = *reinterpret_cast<const float4*>(
+          &Ws[(kl * 4 + kk) * LDW + fg * 4]);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const float4 xv =
+          *reinterpret_cast<const float4*>(&Xs[r * LDX + kl * 4]);
+      const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        acc[r][0] = fmaf(xr[kk], wv[kk].x, acc[r][0]);
+        acc[r][1] = fmaf(xr[kk], wv[kk].y, acc[r][1]);
+        acc[r][2] = fmaf(xr[kk], wv[kk].z, acc[r][2]);
+        acc[r][3] = fmaf(xr[kk], wv[kk].w, acc[r][3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                  // the ring is free for the partials
+
+  // fold the k lanes of a warp (lanes fg, fg + FG, ...), then the first
+  // lane of each feature group stages part[warp][row of x][feature]
+  float* const part = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float v = acc[r][j];
+#pragma unroll
+      for (int off = FG; off < 32; off *= 2)
+        v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (lane < FG) part[(warp * 8 + r) * TNF + fg * 4 + j] = v;
+    }
+  cluster_sum<NTW, NTW / 32, TNF>(
+      cluster, part, M - m0, N - n0, [&](int r, int f, float s) {
+        s = __fadd_rn(s, b[n0 + f]);
+        if (relu) s = fmaxf(s, 0.f);
+        y[(size_t)(m0 + r) * N + n0 + f] = s;
+      });
+}
+
+// One launch of a split-K kernel: `tnf` features a cluster of `ranks`
+// blocks, `smem` bytes of dynamic shared memory, its limit raised at the
+// kernel's first launch (`attr`).
+template <typename T>
+int launch_cluster(void (*kernel)(const T*, const T*, const T*, T*, int, int,
+                                  int, int, int, int),
+                   cudaError_t attr, int smem, int tnf, const T* x,
+                   const T* w, const T* b, T* y, int M, int K, int N,
+                   int relu, int ranks, int vec, void* stream) {
   if (attr != cudaSuccess) return (int)attr;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + TNF - 1) / TNF * ranks, 1, (M + 7) / 8);
+  cfg.gridDim = dim3((N + tnf - 1) / tnf * ranks, 1, (M + 7) / 8);
   cfg.blockDim = dim3(NTW);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
@@ -438,22 +500,51 @@ int launch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
   cluster[0].val.clusterDim.z = 1;
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, matmul_bf16_kernel<TNF>, x, w, b, y, M, K, N, relu,
-      (int)(N % 8 == 0), (int)(K % 8 == 0));
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, x, w, b, y, M, K, N,
+                                           relu, (int)(N % vec == 0),
+                                           (int)(K % vec == 0));
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+template <int TNF>
+int launch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                const __nv_bfloat16* b, __nv_bfloat16* y, int M, int K, int N,
+                int relu, int ranks, void* stream) {
+  constexpr int smem = FcTile<TNF>::SMEM;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      matmul_bf16_kernel<TNF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  return launch_cluster(matmul_bf16_kernel<TNF>, attr, smem, TNF, x, w, b, y,
+                        M, K, N, relu, ranks, 8, stream);
+}
+
+template <int TNF>
+int launch_f32(const float* x, const float* w, const float* b, float* y,
+               int M, int K, int N, int relu, int ranks, void* stream) {
+  constexpr int smem = FcF32Tile<TNF>::SMEM;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      matmul_f32_kernel<TNF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  return launch_cluster(matmul_f32_kernel<TNF>, attr, smem, TNF, x, w, b, y,
+                        M, K, N, relu, ranks, 4, stream);
 }
 
 }  // namespace
 
-// Plain C entry point; returns cudaGetLastError().
+// fp32 x, w, b and y, FFMA on the CUDA cores. (tnf, ranks): the features a
+// cluster (128, 64 or 32) and its blocks (1 to 8), which split K. Returns
+// the launch's error, else cudaGetLastError().
 extern "C" int matmul_pipe_f32(const float* x, const float* w, const float* b,
                                float* y, int M, int K, int N, int relu,
-                               void* stream) {
-  dim3 grid((N + NCOL - 1) / NCOL, (M + MT - 1) / MT);
-  matmul_pipe_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(x, w, b, y, M, K,
-                                                            N, relu);
-  return (int)cudaGetLastError();
+                               int tnf, int ranks, void* stream) {
+  if (ranks < 1 || ranks > 8) return (int)cudaErrorInvalidValue;
+  if (tnf == 128)
+    return launch_f32<128>(x, w, b, y, M, K, N, relu, ranks, stream);
+  if (tnf == 64)
+    return launch_f32<64>(x, w, b, y, M, K, N, relu, ranks, stream);
+  if (tnf == 32)
+    return launch_f32<32>(x, w, b, y, M, K, N, relu, ranks, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // int8 x and w, fp32 b and scale (N,) = s_x * s_w[n]. out_s8: the output is

@@ -7,14 +7,15 @@ accumulator, and the requantize -> bias -> ReLU -> pool -> round
 epilogue). Kernel: ``csrc/conv_pipe.cu``, which replaces the TPU kernel
 ``src/repro/kernels/conv_pipe.py:conv_pipe`` (line 198; all three modes).
 Every mode is bound by operations. fp32 (FFMA, register-blocked, its
-weights fed by a 3-stage ``cp.async`` ring) and int8 (``__dp4a``) run on
-the CUDA cores; bf16 runs on the tensor cores (``mma.sync`` m16n8k16,
-bf16 products summed in fp32, as the TPU's MXU computes the mode), bound
-at the dense bf16 tensor-core rate, with its operands fed by a 4-stage
-``cp.async`` ring. Each computes an implicit GEMM with the epilogue on a
-tile staged in shared memory, so the unpooled activation never reaches
-device memory; :func:`conv_tile` picks each layer's tile. See the source
-for the design. The plain version, :func:`conv_pipe_plain`, computes each
+weights fed by a 3-stage ``cp.async`` ring) runs on the CUDA cores; bf16
+(``mma.sync`` m16n8k16, bf16 products summed in fp32, as the TPU's MXU
+computes the mode) and int8 (``mma.sync`` m16n8k32, int8 products summed
+exactly in int32, the weights transposed to k-contiguous rows as they are
+staged) run on the tensor cores, bound at their dense rates, with their
+gathers fed by a 4-stage ``cp.async`` ring. Each computes an implicit GEMM
+with the epilogue on a tile staged in shared memory, so the unpooled
+activation never reaches device memory; :func:`conv_tile` picks each
+layer's tile. See the source for the design. The plain version, :func:`conv_pipe_plain`, computes each
 mode as the kernel rounds it.
 """
 from __future__ import annotations
@@ -32,10 +33,8 @@ from repro_torch.kernels.build import sm_count
 
 __all__ = ["conv_pipe", "conv_pipe_plain", "conv_tile", "pool_tile"]
 
-TILE_POSITIONS = 64          # the int8 kernel's one tile: 64 conv positions
-TILE_CHANNELS = 64           # x 64 channels (csrc TP, TM)
-POSITIONS = (128, 64)        # the fp32 and bf16 kernels' tile rows (csrc
-CHANNELS = (128, 64)         # TPB) and columns (csrc TN)
+POSITIONS = (128, 64)        # every mode's tile rows (csrc TPB) and
+CHANNELS = (128, 64)         # columns (csrc TN)
 # The fp32 kernel's time for one block of each tile, relative to a
 # 128x128 block, with two blocks an SM: the median over AlexNet's and
 # VGG-16's batch-8 layers measured by tile_sweep.py on an H100 (PERF.md
@@ -43,6 +42,10 @@ CHANNELS = (128, 64)         # TPB) and columns (csrc TN)
 # 4x4 micro-tile does 8 FFMA a shared load against the 8x8's 16.
 FP32_BLOCK_COST = {(128, 128): 1.0, (128, 64): 0.56, (64, 128): 0.56,
                    (64, 64): 0.35}
+# The int8 kernel's tile must give at least this share of the SMs a block
+# before conv_tile falls back to a smaller one: at VGG-16's 14x14 layers
+# 104 blocks of 128x64 beat 200 of 64x64 (tile_sweep.py, PERF.md section 6)
+INT8_FILL = 0.75
 _POOL_CODES = {None: 0, "max": 1, "avg": 2}
 
 
@@ -85,9 +88,10 @@ def _position_tiles(B: int, OH: int, OW: int, pool: Optional[str],
 @functools.lru_cache(maxsize=None)
 def conv_tile(dtype: torch.dtype, B: int, OH: int, OW: int, mg: int,
               groups: int, pool: Optional[str], pool_k: int, pool_s: int,
-              sms: int) -> Tuple[int, int, int, int]:
+              sms: int, cg: int) -> Tuple[int, int, int, int]:
     """The tile of one layer's launch in mode ``dtype`` (x's dtype),
-    ``(tp, tn, tph, tpw)``, from the card's ``sms``.
+    ``(tp, tn, tph, tpw)``, from the card's ``sms``; ``cg`` is a group's
+    input channels, ``mg`` its output channels.
 
     fp32: the tile whose blocks finish first: the fewest rounds of blocks
     an SM (``ceil(blocks / sms)``) times :data:`FP32_BLOCK_COST`, ties to
@@ -95,13 +99,20 @@ def conv_tile(dtype: torch.dtype, B: int, OH: int, OW: int, mg: int,
     bf16: tn 64 where a group has at most 64 output channels (VGG-16's
     conv1_x), else 128; the 128-position tile unless its grid gives fewer
     blocks than ``sms``, then the 64-position one, then tn 64 (the 13x13
-    and 14x14 layers). int8: its kernel's one 64 x 64 tile. With a pool,
+    and 14x14 layers). int8 (measured by ``tile_sweep.py``): tn 128 only
+    where the gather is dear and more than 64 channels share it (a pool's
+    overlapping patch, or ``cg`` not a multiple of 16: the element
+    gather), else 64; then 128 positions before 64, falling back only
+    below :data:`INT8_FILL` of ``sms`` in blocks. With a pool,
     :func:`pool_tile` sizes the patch; a window that fits no tile raises.
     Memoised."""
-    if dtype == torch.int8:
-        tiles = ((TILE_POSITIONS, TILE_CHANNELS),)
-    elif dtype == torch.float32:
+    if dtype == torch.float32:
         tiles = sorted(FP32_BLOCK_COST, key=lambda t: (-t[1], -t[0]))
+    elif dtype == torch.int8:
+        tn = CHANNELS[0] if mg > CHANNELS[1] and (
+            pool is not None or cg % 16) else CHANNELS[1]
+        tiles = ((POSITIONS[0], tn), (POSITIONS[0], CHANNELS[1]),
+                 (POSITIONS[1], CHANNELS[1]))
     else:
         tn = CHANNELS[1] if mg <= CHANNELS[1] else CHANNELS[0]
         tiles = ((POSITIONS[0], tn), (POSITIONS[1], tn),
@@ -117,7 +128,8 @@ def conv_tile(dtype: torch.dtype, B: int, OH: int, OW: int, mg: int,
     if dtype == torch.float32:
         return min(fits, key=lambda f: -(-f[1] // sms)
                    * FP32_BLOCK_COST[f[0][:2]])[0]
-    return next((t for t, blocks in fits if blocks >= sms), fits[-1][0])
+    need = INT8_FILL * sms if dtype == torch.int8 else sms
+    return next((t for t, blocks in fits if blocks >= need), fits[-1][0])
 
 
 def conv_pipe_plain(x, w, b, *, scale=None, out_scale=None, **kw):
@@ -143,10 +155,12 @@ _FLOAT_ENTRY = {torch.float32: "conv_pipe_f32",
 def _entry(name: str):
     from repro_torch.kernels import build
     fn = getattr(build.load("conv_pipe"), name)
+    # the pointers (int8: then out_s8, out_scale), the geometry and the
+    # tile (tp, tn), the stream
     if name == "conv_pipe_s8":
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_float] \
-            + [ctypes.c_int] * 16 + [ctypes.c_void_p]
-    else:                       # the geometry and the tile (tp, tn)
+            + [ctypes.c_int] * 18 + [ctypes.c_void_p]
+    else:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 18 + [
             ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -207,7 +221,7 @@ def conv_pipe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                          f"pool {pool}")
     bf16 = x.dtype == torch.bfloat16
     *tile, tph, tpw = conv_tile(x.dtype, B, OH, OW, M // groups, groups, pool,
-                                pool_k, pool_s, sm_count(x.device))
+                                pool_k, pool_s, sm_count(x.device), cg)
     pk, ps = (1, 1) if pool is None else (pool_k, pool_s)
     out_s8 = int8 and out_scale is not None
     out = torch.empty((B, ph, pw, M), device=x.device,
@@ -222,7 +236,7 @@ def conv_pipe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
         err = _entry("conv_pipe_s8")(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
             out.data_ptr(), int(out_s8), float(out_scale) if out_s8 else 1.0,
-            *geo, stream)
+            *geo, *tile, stream)
     else:
         err = _entry(_FLOAT_ENTRY[x.dtype])(x.data_ptr(), w.data_ptr(),
                                             b.data_ptr(), out.data_ptr(),

@@ -7,9 +7,10 @@ Kernel: ``csrc/matmul_pipe.cu``, which replaces the TPU kernel
 ``src/repro/kernels/matmul_pipe.py:matmul_pipe`` (all three modes). At
 the serving shape (M = the micro-batch) it is bound by the device-memory
 bytes of ``w``; a block holds every batch row against its weight slab so
-each weight is read once (the paper's batched-FC reuse). The bf16 mode
-streams ``w`` through the tensor cores with the reduction split over the
-blocks of a thread-block cluster (:func:`fc_split` picks the split).
+each weight is read once (the paper's batched-FC reuse). The fp32 and
+bf16 modes stream ``w`` through a ``cp.async`` ring, fp32 into FFMA and
+bf16 into the tensor cores, with the reduction split over the blocks of a
+thread-block cluster (:func:`fc_split` picks the split, one rule a mode).
 See the source for the design. The plain version,
 :func:`matmul_pipe_plain`, computes each mode as the kernel rounds it.
 """
@@ -25,27 +26,39 @@ from repro_torch.kernels.build import sm_count
 from repro_torch.kernels.ref import float_dtypes, matmul_pipe_ref
 from repro_torch.quant.ref import fc_int8_ref
 
-__all__ = ["fc_split", "matmul_pipe", "matmul_pipe_plain"]
+__all__ = ["fc_chunk", "fc_split", "matmul_pipe", "matmul_pipe_plain"]
 
-FC_FEATURES = (64, 32)   # the bf16 kernel's features a cluster (csrc TNF)
-FC_CHUNK = 64            # its reduction chunk (csrc BKW)
+# each split-K kernel's features a cluster (csrc TNF), largest first
+FC_FEATURES = {torch.bfloat16: (64, 32), torch.float32: (128, 64, 32)}
 FC_RANKS = 8             # the most blocks a cluster: the portable size
+# fc_split's rule a mode: the feature tiles it tries, in order, and the
+# blocks it wants on each SM (tile_sweep.py measured both on an H100)
+FC_RULE = {torch.bfloat16: ((64, 32), 2), torch.float32: ((64, 32), 1)}
+
+
+def fc_chunk(dtype: torch.dtype, tnf: int) -> int:
+    """The reduction chunk of the ``dtype`` kernel at ``tnf`` features:
+    64 k in bf16 (csrc BKW); 2048 / tnf k in fp32 (8 KB of w a chunk)."""
+    return 64 if dtype == torch.bfloat16 else 2048 // tnf
 
 
 @functools.lru_cache(maxsize=None)
-def fc_split(M: int, K: int, N: int, sms: int) -> Tuple[int, int]:
-    """The bf16 kernel's split of one launch, ``(tnf, ranks)``: each
+def fc_split(dtype: torch.dtype, M: int, K: int, N: int,
+             sms: int) -> Tuple[int, int]:
+    """The split of one fp32 or bf16 launch, ``(tnf, ranks)``: each
     cluster of ``ranks`` blocks owns ``tnf`` output features and 8 rows of
-    x, and its blocks split K. tnf 64 unless the 64-feature tiles give
-    fewer than two blocks an SM even at 8 ranks (fc8), then 32; ranks the
-    fewest that give two blocks an SM, at most 8 and at most one a chunk
-    of K. Memoised."""
+    x, and its blocks split K. From :data:`FC_RULE`'s tiles for the mode,
+    the first that gives ``per_sm`` blocks an SM at 8 ranks, else the last
+    (fc8); ranks the fewest that give ``per_sm`` blocks an SM, at most 8
+    and at most one a chunk of K. Memoised."""
+    features, per_sm = FC_RULE[dtype]
     rows = -(-M // 8)
-    tnf = FC_FEATURES[0]
-    if -(-N // tnf) * rows * FC_RANKS < 2 * sms:
-        tnf = FC_FEATURES[1]
+    tnf = next((f for f in features
+                if -(-N // f) * rows * FC_RANKS >= per_sm * sms),
+               features[-1])
     tiles = -(-N // tnf) * rows
-    ranks = max(1, min(FC_RANKS, -(-K // FC_CHUNK), -(-2 * sms // tiles)))
+    ranks = max(1, min(FC_RANKS, -(-K // fc_chunk(dtype, tnf)),
+                       -(-per_sm * sms // tiles)))
     return tnf, ranks
 
 
@@ -70,9 +83,9 @@ def _entry(name: str):
     if name == "matmul_pipe_s8":
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_float] \
             + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    else:                       # bf16 adds the split (tnf, ranks)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (
-            6 if name == "matmul_pipe_bf16" else 4) + [ctypes.c_void_p]
+    else:                       # (M, K, N, relu) and the split (tnf, ranks)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -127,8 +140,7 @@ def matmul_pipe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
             y.data_ptr(), int(out_s8), float(out_scale) if out_s8 else 1.0,
             M, K, N, int(relu), stream)
     else:
-        split = (fc_split(M, K, N, sm_count(x.device))
-                 if x.dtype == torch.bfloat16 else ())
+        split = fc_split(x.dtype, M, K, N, sm_count(x.device))
         err = _entry(_FLOAT_ENTRY[x.dtype])(x.data_ptr(), w.data_ptr(),
                                             b.data_ptr(), y.data_ptr(), M, K,
                                             N, int(relu), *split, stream)

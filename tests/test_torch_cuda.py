@@ -7,10 +7,12 @@ conftest:
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances: conv/matmul ``|kernel - plain| <= 1e-4 * max(1, max|plain|)``
-(fp32 sums in another order, TF32 off on the plain side); LRN
+(fp32 sums in another order, TF32 off on the plain side; the split-K FC
+kernel also gives the same bits on two calls); LRN
 ``rtol=1e-5, atol=1e-6`` (same operations, same rounding). The int8
 modes are held bit for bit (``torch.equal``): the int32 accumulator is
-exact on both sides and the epilogue rounds the same steps. Attention
+exact on both sides (the conv's on the int8 tensor cores) and the
+epilogue rounds the same steps. Attention
 (flash and decode): ``1e-4 * max(1, max|plain|)`` in fp32 (online vs
 full softmax, fp32 sums in another order) and ``2e-2`` in bf16 (the
 reference's bf16 tolerance, ``tests/test_kernels.py:17-19``); the decode
@@ -99,7 +101,30 @@ BF16_CONV_GEOMETRIES = [
     (3, 16, 3, 3, 64, 1, 1, None, 2, 2, 1),     # C/G 3, K 27: element gather
     (1, 63, 3, 11, 96, 4, 0, None, 2, 2, 1),    # AlexNet conv1, cut: K 363
 ]
-# the fp32 and bf16 conv kernels' tiles (tp, tn)
+# int8 geometries that reach the tensor-core kernel's 16-byte gather (C/G
+# % 16 == 0: 16, 32, 48, 64, 512) and ones that leave it (C/G 3, 8, 24),
+# with K not a multiple of the 64-wide chunk, Mg ragged against the 64- and
+# 128-channel tiles (and not a multiple of 16, 8 or 4: the element paths
+# of the weight loads and the stores), several row and channel tiles, the
+# ring wrapping many times (K 4608: 72 chunks), groups, and max and avg
+# pools ragged at the pooled edge
+INT8_CONV_GEOMETRIES = [
+    (2, 27, 96, 5, 256, 1, 2, None, 2, 2, 2),   # AlexNet conv2: C/G 48, K 1200
+    (1, 10, 16, 3, 16, 1, 1, None, 2, 2, 1),    # C/G 16, K 144: 2 chunks + tail
+    (3, 20, 48, 3, 96, 1, 1, None, 2, 2, 1),    # K 432 (6.75 chunks), Mg 96
+    (3, 56, 64, 3, 200, 1, 1, None, 2, 2, 1),   # 74 row tiles of 128, Mg 200
+    (1, 14, 512, 3, 512, 1, 1, None, 2, 2, 1),  # VGG-16 conv5: K 4608
+    (1, 30, 64, 3, 96, 1, 1, "max", 2, 2, 1),   # 2x2/2 pool, PH 15: ragged
+    (3, 27, 48, 3, 200, 1, 1, "max", 3, 2, 1),  # 3x3/2 pool, PH 13: ragged
+    (3, 29, 32, 3, 64, 1, 0, "avg", 3, 2, 2),   # G 2, C/G 16, avg pool
+    (2, 28, 64, 3, 64, 1, 1, "max", 2, 2, 1),   # VGG-16 conv1_2 + pool, cut
+    (3, 16, 3, 3, 64, 1, 1, None, 2, 2, 1),     # C/G 3, K 27: element gather
+    (1, 63, 3, 11, 96, 4, 0, None, 2, 2, 1),    # AlexNet conv1, cut: K 363
+    (2, 12, 8, 3, 40, 1, 1, None, 2, 2, 1),     # C/G 8: element gather, Mg 40
+    (2, 13, 48, 3, 36, 1, 1, "max", 3, 2, 2),   # G 2: C/G 24, Mg 18
+    (1, 9, 24, 1, 6, 1, 0, "avg", 2, 2, 1),     # C/G 24, 1x1, Mg 6
+]
+# every conv kernel's tiles (tp, tn)
 TILES = [(tp, tn) for tp in POSITIONS for tn in CHANNELS]
 
 
@@ -121,7 +146,7 @@ def test_conv_pipe_kernel_matches_plain(cuda, B, H, C, K, M, stride, pad,
 def _force_tile(monkeypatch, tile):
     """Make the conv wrapper launch ``tile`` (tp, tn) on every layer,
     whichever tile :func:`conv_tile` would choose there."""
-    def forced(dtype, B, OH, OW, mg, groups, pool, pool_k, pool_s, sms):
+    def forced(dtype, B, OH, OW, mg, groups, pool, pool_k, pool_s, sms, cg):
         if pool is None:
             return (*tile, 1, 1)
         return (*tile, *pool_tile((OH - pool_k) // pool_s + 1,
@@ -251,6 +276,74 @@ def test_conv_pipe_int8_kernel_equals_plain(cuda, B, H, C, K, M, stride,
     n0, s0 = conv_pipe.launches, conv_pipe.launches_s8
     _equal(conv_pipe(x, w, b, **kw), conv_pipe_plain(x, w, b, **kw))
     assert (conv_pipe.launches, conv_pipe.launches_s8) == (n0, s0 + 1)
+
+
+def _int8_conv_case(seed, B, H, C, K, M, stride, pad, pool, pool_k, pool_s,
+                    groups, quant_out, dev):
+    rng = np.random.default_rng(seed)
+    x = _codes(rng, (B, H, H, C)).to(dev)
+    w = _codes(rng, (K, K, C // groups, M)).to(dev)
+    scale, b = _requant(rng, M, K * K * C // groups, dev)
+    return x, w, b, dict(stride=stride, pad=pad, pool=pool, pool_k=pool_k,
+                         pool_s=pool_s, groups=groups, scale=scale,
+                         out_scale=OUT_SCALE if quant_out else None)
+
+
+@pytest.mark.parametrize("quant_out", [True, False], ids=["s8out", "f32out"])
+@pytest.mark.parametrize("tile", TILES, ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("B,H,C,K,M,stride,pad,pool,pool_k,pool_s,groups",
+                         INT8_CONV_GEOMETRIES)
+def test_conv_pipe_int8_every_tile_equals_plain(cuda, monkeypatch, tile, B,
+                                                H, C, K, M, stride, pad,
+                                                pool, pool_k, pool_s, groups,
+                                                quant_out):
+    """Each of the int8 tensor-core kernel's four tiles, with int8 and fp32
+    output, on every geometry, whichever tile the wrapper would choose."""
+    _force_tile(monkeypatch, tile)
+    x, w, b, kw = _int8_conv_case(14, B, H, C, K, M, stride, pad, pool,
+                                  pool_k, pool_s, groups, quant_out, cuda)
+    _equal(conv_pipe(x, w, b, **kw), conv_pipe_plain(x, w, b, **kw))
+
+
+@pytest.mark.parametrize("out_scale", [2.0, 2.0 * (1 + 2 ** -23),
+                                       2.0 * (1 - 2 ** -24), 0.5, 10 / 7,
+                                       2.0 ** -20])
+@pytest.mark.parametrize("C", [16, 8], ids=["vector", "element"])
+def test_conv_pipe_int8_rounds_ties_as_the_plain_version(cuda, C, out_scale):
+    """The requantize's ties and near-ties: a 1x1 conv that copies integer
+    codes (scale 1, bias 0 or 0.25) and out_scale 2 (odd codes / 2 are
+    exact halves, rounded to even), 2 (1 +- an ulp) (quotients an ulp off
+    a half), 0.5, 10/7 and 2^-20 (most codes clip): the kernel's cheap
+    product must give way to the division wherever the codes could
+    differ."""
+    rng = np.random.default_rng(16)
+    M = 48
+    x = _codes(rng, (2, 9, 9, C)).to(cuda)
+    w = np.zeros((1, 1, C, M), np.int8)
+    w[0, 0, np.arange(M) % C, np.arange(M)] = 1
+    w = torch.from_numpy(w).to(cuda)
+    for bias in (0.0, 0.25):
+        b = torch.full((M,), bias, device=cuda)
+        kw = dict(relu=False, scale=torch.ones(M, device=cuda),
+                  out_scale=out_scale)
+        _equal(conv_pipe(x, w, b, **kw), conv_pipe_plain(x, w, b, **kw))
+
+
+@pytest.mark.parametrize("quant_out", [True, False], ids=["s8out", "f32out"])
+def test_conv_pipe_int8_unaligned_operands(cuda, quant_out):
+    """x and w at 4-byte but not 16- or 8-byte aligned addresses take the
+    element gather and the element weight loads and give the same bits."""
+    x, w, b, kw = _int8_conv_case(15, 2, 20, 64, 3, 128, 1, 1, "max", 2, 2,
+                                  1, quant_out, cuda)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+        u = buf[4:].view(t.shape)
+        u.copy_(t)
+        return u
+    xu, wu = shifted(x), shifted(w)
+    assert xu.data_ptr() % 16 and wu.data_ptr() % 8
+    _equal(conv_pipe(xu, wu, b, **kw), conv_pipe_plain(x, w, b, **kw))
 
 
 @pytest.mark.parametrize("quant_out", [True, False], ids=["s8out", "f32out"])
@@ -446,22 +539,36 @@ def _sass(name):
 
 def test_bf16_conv_runs_on_the_tensor_cores(cuda):
     """cuobjdump's SASS of the built libraries: every bf16 conv kernel and
-    every bf16 matmul kernel hold HMMA (tensor-core) instructions; every
-    fp32 conv kernel (conv_f32_kernel<TPB, TN>) FFMA and no HMMA (TF32
-    would break the reference's 1e-4)."""
+    every bf16 matmul kernel hold HMMA (tensor-core) instructions, every
+    int8 conv kernel (conv_s8_mma_kernel<TPB, TN, BK, TO>: each tile at
+    chunks of 128 and 64 k, int8 and fp32 out) IMMA; every fp32 conv
+    kernel (conv_f32_kernel<TPB, TN>) and fp32 matmul kernel
+    (matmul_f32_kernel<TNF>) FFMA and no tensor-core
+    instruction (TF32 would break the reference's 1e-4). No other conv
+    kernel is left (the __dp4a one is gone)."""
     funcs = _sass("conv_pipe")
     bf16 = [f for f in funcs if "conv_bf16_mma_kernel" in f]
     fp32 = [f for f in funcs if "conv_f32_kernel" in f]
+    int8 = [f for f in funcs if "conv_s8_mma_kernel" in f]
     assert len(bf16) == len(TILES) and len(fp32) == len(TILES), sorted(funcs)
+    assert len(int8) == 4 * len(TILES), sorted(funcs)
+    assert len(funcs) == 6 * len(TILES), sorted(funcs)
     for f in bf16:
         assert "HMMA" in funcs[f], f
+    for f in int8:
+        assert "IMMA" in funcs[f] and "HMMA" not in funcs[f], f
     for f in fp32:
         assert "HMMA" not in funcs[f] and "FFMA" in funcs[f], f
     funcs = _sass("matmul_pipe")
     mm = [f for f in funcs if "matmul_bf16_kernel" in f]
-    assert len(mm) == len(FC_FEATURES), sorted(funcs)
+    assert len(mm) == len(FC_FEATURES[torch.bfloat16]), sorted(funcs)
     for f in mm:
         assert "HMMA" in funcs[f], f
+    mm = [f for f in funcs if "matmul_f32_kernel" in f]
+    assert len(mm) == len(FC_FEATURES[torch.float32]), sorted(funcs)
+    for f in mm:
+        assert ("FFMA" in funcs[f] and "HMMA" not in funcs[f]
+                and "IMMA" not in funcs[f]), f
 
 
 # bf16 FC shapes that exercise the split-K cluster kernel: VGG-16 fc6, K
@@ -489,18 +596,27 @@ def test_matmul_pipe_bf16_kernel_matches_plain(cuda, M, K, N, relu):
     assert _counts(matmul_pipe) == (n0, h0 + 1, s0)
 
 
-@pytest.mark.parametrize("split", [(tnf, r) for tnf in FC_FEATURES
+def _force_split(monkeypatch, split):
+    """Make the FC wrapper launch ``split`` (tnf, ranks) in every mode,
+    whichever split :func:`fc_split` would choose."""
+    monkeypatch.setattr(importlib.import_module(
+        "repro_torch.kernels.matmul_pipe"), "fc_split",
+        lambda dtype, M, K, N, sms: split)
+
+
+SPLIT_SHAPES = [(8, 4096, 1000), (13, 1000, 200), (3, 200, 1001)]
+
+
+@pytest.mark.parametrize("split", [(tnf, r)
+                                   for tnf in FC_FEATURES[torch.bfloat16]
                                    for r in (1, 2, 3, 5, 8)],
                          ids=lambda s: f"{s[0]}x{s[1]}")
-@pytest.mark.parametrize("M,K,N", [(8, 4096, 1000), (13, 1000, 200),
-                                   (3, 200, 1001)])
+@pytest.mark.parametrize("M,K,N", SPLIT_SHAPES)
 def test_matmul_pipe_bf16_every_split_matches_plain(cuda, monkeypatch, split,
                                                     M, K, N):
     """Each feature tile at 1 to 8 ranks a cluster, whichever split
     fc_split would choose."""
-    monkeypatch.setattr(importlib.import_module(
-        "repro_torch.kernels.matmul_pipe"), "fc_split",
-        lambda M, K, N, sms: split)
+    _force_split(monkeypatch, split)
     x, w, b = _bf16_fc_case(25, M, K, N, cuda)
     _close_bf16(matmul_pipe(x, w, b, relu=True),
                 matmul_pipe_plain(x, w, b, relu=True))
@@ -511,6 +627,41 @@ def test_matmul_pipe_bf16_is_deterministic(cuda, M, K, N):
     """The split-K partial sums meet in a fixed order: two calls give the
     same bits."""
     x, w, b = _bf16_fc_case(26, M, K, N, cuda)
+    y1, y2 = matmul_pipe(x, w, b), matmul_pipe(x, w, b)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+
+
+@pytest.mark.parametrize("split", [(tnf, r)
+                                   for tnf in FC_FEATURES[torch.float32]
+                                   for r in (1, 2, 3, 5, 8)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("M,K,N", SPLIT_SHAPES + MATMUL_SHAPES
+                         + [(5, 4098, 70)])
+def test_matmul_pipe_fp32_every_split_matches_plain(cuda, monkeypatch, split,
+                                                    M, K, N):
+    """Each fp32 feature tile at 1 to 8 ranks a cluster (more ranks than K
+    has chunks at K 200 and 256: some blocks sum nothing), whichever split
+    fc_split would choose: M > 8 and ragged, N % 4 != 0 (w's element
+    path), K % 4 != 0 (x's element path), N ragged against every tile."""
+    _force_split(monkeypatch, split)
+    rng = np.random.default_rng(27)
+    x = _t(rng.standard_normal((M, K)) * 0.3, cuda)
+    w = _t(rng.standard_normal((K, N)) * 0.05, cuda)
+    b = _t(rng.standard_normal(N), cuda)
+    _close(matmul_pipe(x, w, b, relu=True),
+           matmul_pipe_plain(x, w, b, relu=True))
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 25088, 4096), (13, 1000, 200),
+                                   (8, 4098, 1001)])
+def test_matmul_pipe_fp32_is_deterministic(cuda, M, K, N):
+    """The fp32 split-K partial sums meet in a fixed order (shuffle fold,
+    then ranks, then warps): two calls give the same bits."""
+    rng = np.random.default_rng(28)
+    x = _t(rng.standard_normal((M, K)) * 0.3, cuda)
+    w = _t(rng.standard_normal((K, N)) * 0.05, cuda)
+    b = _t(rng.standard_normal(N), cuda)
     y1, y2 = matmul_pipe(x, w, b), matmul_pipe(x, w, b)
     torch.cuda.synchronize()
     assert torch.equal(y1, y2)

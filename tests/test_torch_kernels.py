@@ -22,11 +22,12 @@ from repro.kernels.lrn_pwl import lrn_pwl as jax_lrn_pwl
 from repro.kernels.matmul_pipe import matmul_pipe as jax_matmul_pipe
 from repro_torch.kernels import ref
 from repro_torch.kernels import build
-from repro_torch.kernels.conv_pipe import (FP32_BLOCK_COST, POSITIONS,
-                                           TILE_POSITIONS, conv_pipe,
+from repro_torch.kernels.conv_pipe import (FP32_BLOCK_COST, INT8_FILL,
+                                           POSITIONS, conv_pipe,
                                            conv_tile, pool_tile)
 from repro_torch.kernels.lrn_pwl import build_pwl_lut, lrn_pwl
-from repro_torch.kernels.matmul_pipe import fc_split, matmul_pipe
+from repro_torch.kernels.matmul_pipe import (FC_FEATURES, fc_chunk,
+                                             fc_split, matmul_pipe)
 
 FP32 = dict(rtol=1e-4, atol=1e-4)        # tests/test_kernels.py fp32 tolerance
 
@@ -141,8 +142,9 @@ def test_pool_ref_max_on_int8_codes_matches_jax():
         got.numpy(), np.asarray(jref.pool_ref(jnp.asarray(codes), "max", 3, 2)))
 
 
-# the int8 kernel's tile rows and the fp32 and bf16 kernels' larger tile
-TILE_ROWS = sorted({TILE_POSITIONS, *POSITIONS})
+# every conv kernel's tile rows
+TILE_ROWS = sorted(set(POSITIONS))
+ANY_CG = 16             # a group's input channels: read by the int8 rule only
 
 
 @pytest.mark.parametrize("positions", TILE_ROWS)
@@ -200,7 +202,7 @@ def _patch_fits(layer, tile):
 @pytest.mark.parametrize("layer,want", BF16_LAYER_TILES)
 def test_bf16_tile_fills_the_card_with_the_largest_tile(layer, want):
     got = conv_tile(torch.bfloat16, layer[0], layer[1], layer[1], *layer[2:],
-                    132)
+                    132, ANY_CG)
     assert got == want
     assert _patch_fits(layer, got) >= 128           # about a block an SM
 
@@ -231,7 +233,7 @@ def test_fp32_conv_tile_takes_the_cheapest_rounds_of_blocks(layer, want):
     / 132) x FP32_BLOCK_COST; the half tiles run where the 128x128 grid
     leaves SMs a round short (28x28, 14x14)."""
     got = conv_tile(torch.float32, layer[0], layer[1], layer[1], *layer[2:],
-                    132)
+                    132, ANY_CG)
     assert got == want
 
     def cost(tile):
@@ -244,24 +246,55 @@ def test_fp32_conv_tile_takes_the_cheapest_rounds_of_blocks(layer, want):
             assert cost((tp, tn, *t)) >= cost(got)
 
 
-@pytest.mark.parametrize("layer", [l for l, _ in BF16_LAYER_TILES])
-def test_int8_conv_tile_is_its_kernels_one_tile(layer):
-    tile = conv_tile(torch.int8, layer[0], layer[1], layer[1], *layer[2:],
-                     132)
-    assert tile[:2] == (TILE_POSITIONS, 64)
-    _patch_fits(layer, tile)
+# the int8 tile of the same layers (with each group's input channels, cg),
+# the fastest of the four at every layer but conv2_1 in tile_sweep.py's
+# times on an H100: tn 128 only where more than 64 channels share a dear
+# gather (a pool's patch, or the element gather at cg 3), the 128-position
+# tile unless it gives fewer than 3/4 of the SMs a block
+INT8_LAYER_TILES = [
+    ((8, 55, 96, 1, None, 2, 2), 3, (128, 128, 1, 1)),       # AlexNet conv1
+    ((8, 27, 128, 2, None, 2, 2), 48, (128, 64, 1, 1)),      # conv2
+    ((8, 13, 384, 1, None, 2, 2), 256, (64, 64, 1, 1)),      # conv3
+    ((8, 13, 192, 2, None, 2, 2), 192, (64, 64, 1, 1)),      # conv4
+    ((8, 13, 128, 2, "max", 3, 2), 192, (64, 64, 3, 3)),     # conv5 + pool
+    ((8, 224, 64, 1, None, 2, 2), 3, (128, 64, 1, 1)),       # VGG-16 conv1_1
+    ((8, 224, 64, 1, "max", 2, 2), 64, (128, 64, 2, 16)),    # conv1_2 + pool
+    ((8, 112, 128, 1, None, 2, 2), 64, (128, 64, 1, 1)),     # conv2_1
+    ((8, 112, 128, 1, "max", 2, 2), 128, (128, 128, 4, 8)),  # conv2_2 + pool
+    ((8, 56, 256, 1, None, 2, 2), 128, (128, 64, 1, 1)),     # conv3_1/3_2
+    ((8, 56, 256, 1, "max", 2, 2), 256, (128, 128, 1, 28)),  # conv3_3 + pool
+    ((8, 28, 512, 1, None, 2, 2), 256, (128, 64, 1, 1)),     # conv4_1/4_2
+    ((8, 28, 512, 1, "max", 2, 2), 512, (128, 128, 2, 14)),  # conv4_3 + pool
+    ((8, 14, 512, 1, None, 2, 2), 512, (128, 64, 1, 1)),     # conv5_1/5_2
+    ((8, 14, 512, 1, "max", 2, 2), 512, (128, 64, 4, 7)),    # conv5_3 + pool
+]
+
+
+@pytest.mark.parametrize("layer,cg,want", INT8_LAYER_TILES)
+def test_int8_conv_tile_takes_the_measured_rule(layer, cg, want):
+    """The pick, and that it is the rule's: its pool patch is pool_tile's,
+    it gives at least INT8_FILL of the SMs a block unless no tile does,
+    and tn is 128 only where more than 64 channels share a dear gather."""
+    got = conv_tile(torch.int8, layer[0], layer[1], layer[1], *layer[2:],
+                    132, cg)
+    assert got == want
+    blocks = _patch_fits(layer, got)
+    assert blocks >= INT8_FILL * 132 or got[:2] == (64, 64)
+    B, OH, mg, groups, pool, k, s = layer
+    if got[1] == 128:
+        assert mg > 64 and (pool is not None or cg % 16 > 0)
 
 
 def test_bf16_tile_refuses_a_window_larger_than_either_tile():
     with pytest.raises(ValueError):
-        conv_tile(torch.bfloat16, 1, 20, 20, 8, 1, "max", 12, 1, 132)
+        conv_tile(torch.bfloat16, 1, 20, 20, 8, 1, "max", 12, 1, 132, ANY_CG)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
 def test_conv_tile_refuses_a_window_larger_than_every_tile(dtype):
-    k = math.isqrt(max(TILE_ROWS)) + 1 if dtype == torch.float32 else 9
+    k = math.isqrt(max(TILE_ROWS)) + 1          # k*k > every tile's rows
     with pytest.raises(ValueError):
-        conv_tile(dtype, 1, 20, 20, 8, 1, "max", k, 1, 132)
+        conv_tile(dtype, 1, 20, 20, 8, 1, "max", k, 1, 132, ANY_CG)
 
 
 # (M, K, N) of AlexNet's and VGG-16's FC layers at batch 8, and the bf16
@@ -278,10 +311,31 @@ FC_LAYER_SPLITS = [
 @pytest.mark.parametrize("shape,want", FC_LAYER_SPLITS)
 def test_fc_split_fills_the_card(shape, want):
     M, K, N = shape
-    tnf, ranks = got = fc_split(M, K, N, 132)
+    tnf, ranks = got = fc_split(torch.bfloat16, M, K, N, 132)
     assert got == want
     blocks = -(-N // tnf) * ranks * -(-M // 8)
     assert blocks >= (2 * 132 if N >= 4096 else 132)
+
+
+# the fp32 split of the same layers on a 132-SM H100: one block an SM is
+# enough for the FFMA stream (64 features x 3 ranks, 192 blocks, was the
+# fastest of 24 splits at both fc6 and fc7 in tile_sweep.py's times; fc8's
+# 32 x 5 was 13 % off its fastest, 32 x 7)
+FP32_FC_LAYER_SPLITS = [
+    ((8, 9216, 4096), (64, 3)),          # AlexNet fc6
+    ((8, 25088, 4096), (64, 3)),         # VGG-16 fc6
+    ((8, 4096, 4096), (64, 3)),          # fc7, both
+    ((8, 4096, 1000), (32, 5)),          # fc8, both
+]
+
+
+@pytest.mark.parametrize("shape,want", FP32_FC_LAYER_SPLITS)
+def test_fp32_fc_split_fills_the_card(shape, want):
+    M, K, N = shape
+    tnf, ranks = got = fc_split(torch.float32, M, K, N, 132)
+    assert got == want
+    assert tnf in FC_FEATURES[torch.float32]
+    assert -(-N // tnf) * ranks * -(-M // 8) >= 132
 
 
 @pytest.mark.parametrize("M,K,N", [(1, 16, 8), (8, 100, 1001), (64, 128, 32),
@@ -290,9 +344,21 @@ def test_fc_split_fills_the_card(shape, want):
 def test_fc_split_stays_within_the_kernel(M, K, N):
     """1 to 8 ranks, never more than K has chunks; a tile the kernel
     has."""
-    tnf, ranks = fc_split(M, K, N, 132)
+    tnf, ranks = fc_split(torch.bfloat16, M, K, N, 132)
     assert tnf in (64, 32)
     assert 1 <= ranks <= min(8, -(-K // 64))
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 16, 8), (8, 100, 1001), (64, 128, 32),
+                                   (100, 300, 70), (8, 25088, 4096),
+                                   (200, 4096, 4096)])
+def test_fp32_fc_split_stays_within_the_kernel(M, K, N):
+    """The fp32 kernel's chunk is 2048 / tnf k (8 KB of w whatever the
+    tile): 1 to 8 ranks, never more than K has chunks of that depth."""
+    tnf, ranks = fc_split(torch.float32, M, K, N, 132)
+    assert tnf in FC_FEATURES[torch.float32]
+    assert fc_chunk(torch.float32, tnf) * tnf == 2048
+    assert 1 <= ranks <= min(8, -(-K // fc_chunk(torch.float32, tnf)))
 
 
 def test_library_path_hashes_the_headers_a_source_includes(tmp_path):

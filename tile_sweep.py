@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time every tile of the fp32 conv kernel and every split of the bf16 FC
-kernel at AlexNet's and VGG-16's batch-8 layers, on one CUDA card.
+"""Time every tile of the fp32 and int8 conv kernels and every split of
+the fp32 and bf16 FC kernels at AlexNet's and VGG-16's batch-8 layers,
+on one CUDA card.
 
     python3 tile_sweep.py
 
@@ -9,10 +10,12 @@ the kernel fold's output of the layer before) it times conv_pipe at each
 of the four tiles, and prints the tile ``conv_tile`` picks, the fastest,
 and each tile's time for one round of blocks an SM relative to the
 128x128 tile's on the same layer: the medians over the layers are what
-``kernels/conv_pipe.py:FP32_BLOCK_COST`` holds. For each FC layer it
-times matmul_pipe's bf16 mode at 32 and 64 features x 1 to 8 ranks a
-cluster beside cuBLAS, and prints ``fc_split``'s pick. Then the host
-time of one wrapper call (enqueue only). Kernel times are CUDA-graph
+``kernels/conv_pipe.py:FP32_BLOCK_COST`` holds. It times the int8 mode
+at each tile on random int8 codes of the same shapes (int8 out) and
+prints the int8 pick and the fastest. For each FC layer it times
+matmul_pipe's fp32 mode (128, 64 and 32 features) and bf16 mode (64 and
+32) at 1 to 8 ranks a cluster beside cuBLAS, and prints ``fc_split``'s
+pick. Then the host time of one wrapper call (enqueue only). Kernel times are CUDA-graph
 replays (``chip_smoke.graph_ms``), so the host's pace is out of them.
 Needs the repository around it; exits non-zero without a CUDA device.
 """
@@ -28,7 +31,6 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
 TILES = ((128, 128), (128, 64), (64, 128), (64, 64))
-SPLITS = [(tnf, r) for tnf in (64, 32) for r in range(1, 9)]
 
 
 def main() -> int:
@@ -54,7 +56,7 @@ def main() -> int:
     sms = sm_count(torch.device("cuda", 0))
 
     def forced(tile):
-        def pick(dtype, B, OH, OW, mg, groups, pool, pool_k, pool_s, n):
+        def pick(dtype, B, OH, OW, mg, groups, pool, pool_k, pool_s, n, cg):
             if pool is None:
                 return (*tile, 1, 1)
             return (*tile, *pool_tile((OH - pool_k) // pool_s + 1,
@@ -72,7 +74,7 @@ def main() -> int:
         return n * groups * -(-mg // tn)
 
     rel = {t: [] for t in TILES}
-    picked = best = 0.0
+    picked = best = picked8 = best8 = 0.0
     fcs = []
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
@@ -104,12 +106,13 @@ def main() -> int:
                 ow = (h.shape[2] + 2 * l.pad - l.kernel) // l.stride + 1
                 geo = (h.shape[0], oh, ow, l.out_ch // l.groups, l.groups,
                        kw["pool"], kw["pool_k"], kw["pool_s"])
-                pick = conv_tile(torch.float32, *geo, sms)
+                cg = h.shape[3] // l.groups
+                pick = conv_tile(torch.float32, *geo, sms, cg)
                 ms, rounds = {}, {}
                 for tile in TILES:
                     if pool is not None and pool.kernel ** 2 > tile[0]:
                         continue
-                    t = forced(tile)(torch.float32, *geo, sms)
+                    t = forced(tile)(torch.float32, *geo, sms, cg)
                     rounds[tile] = -(-blocks(tile, *t[2:], *geo) // sms)
                     cpm.conv_tile = forced(tile)
                     try:
@@ -129,9 +132,37 @@ def main() -> int:
                     for (a, b), t in ms.items())
                     + f"; conv_tile {pick[0]}x{pick[1]}, fastest "
                       f"{fast[0]}x{fast[1]}", flush=True)
+                # the int8 mode on codes of the same shapes
+                h8 = torch.randint(-127, 128, h.shape, generator=gen,
+                                   device="cuda", dtype=torch.int8)
+                w8 = torch.randint(-127, 128, w.shape, generator=gen,
+                                   device="cuda", dtype=torch.int8)
+                kw8 = dict(kw, scale=torch.full((w.shape[3],), 1e-4,
+                                                device="cuda"),
+                           out_scale=3.0 / 127)
+                pick8 = conv_tile(torch.int8, *geo, sms, cg)
+                ms8 = {}
+                for tile in TILES:
+                    if pool is not None and pool.kernel ** 2 > tile[0]:
+                        continue
+                    cpm.conv_tile = forced(tile)
+                    try:
+                        ms8[tile] = graph_ms(
+                            lambda: conv_pipe(h8, w8, b, **kw8))
+                    finally:
+                        cpm.conv_tile = conv_tile
+                fast8 = min(ms8, key=ms8.get)
+                picked8 += ms8[pick8[:2]]
+                best8 += ms8[fast8]
+                print(f"[conv int8] {arch} {group}: " + "  ".join(
+                    f"{a}x{b} {t:.4f} ms" for (a, b), t in ms8.items())
+                    + f"; conv_tile {pick8[0]}x{pick8[1]}, fastest "
+                      f"{fast8[0]}x{fast8[1]}", flush=True)
                 h = conv_pipe(h, w, b, **kw)
     print(f"[conv] sum of conv_tile's tiles {picked:.4f} ms, of the fastest "
           f"{best:.4f} ms")
+    print(f"[conv int8] sum of conv_tile's tiles {picked8:.4f} ms, of the "
+          f"fastest {best8:.4f} ms")
     for tile, r in rel.items():
         print(f"[conv] {tile[0]}x{tile[1]}: a round of blocks costs "
               f"{statistics.median(r):.3f} of a 128x128 round (median of "
@@ -139,31 +170,34 @@ def main() -> int:
               f"{cpm.FP32_BLOCK_COST[tile]}")
 
     seen = set()
-    for arch, group, M, K, N in fcs:
-        if (M, K, N) in seen:
-            continue
-        seen.add((M, K, N))
-        x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
-        w = (torch.randn((K, N), generator=gen, device="cuda")
-             * 0.02).bfloat16()
-        b = torch.randn((N,), generator=gen, device="cuda").bfloat16()
-        ms = {}
-        for split in SPLITS:
-            if split[1] > -(-K // mpm.FC_CHUNK):
+    for dtype, tag in ((torch.float32, "fc fp32"), (torch.bfloat16, "fc")):
+        for arch, group, M, K, N in fcs:
+            if (dtype, M, K, N) in seen:
                 continue
-            mpm.fc_split = lambda M, K, N, n, s=split: s
-            try:
-                ms[split] = graph_ms(lambda: matmul_pipe(x, w, b, relu=True))
-            finally:
-                mpm.fc_split = fc_split
-        lib = graph_ms(lambda: torch.addmm(b, x, w).relu_())
-        pick = fc_split(M, K, N, sms)
-        fast = min(ms, key=ms.get)
-        print(f"[fc] {arch} {group} {M}x{K}x{N}: " + "  ".join(
-            f"{a}x{r} {t:.4f}" for (a, r), t in ms.items())
-            + f" ms; cuBLAS {lib:.4f} ms; fc_split {pick[0]}x{pick[1]} "
-              f"{ms[pick]:.4f} ms, fastest {fast[0]}x{fast[1]} "
-              f"{ms[fast]:.4f} ms", flush=True)
+            seen.add((dtype, M, K, N))
+            x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
+            w = (torch.randn((K, N), generator=gen, device="cuda")
+                 * 0.02).to(dtype)
+            b = torch.randn((N,), generator=gen, device="cuda").to(dtype)
+            ms = {}
+            for tnf in mpm.FC_FEATURES[dtype]:
+                for r in range(1, mpm.FC_RANKS + 1):
+                    if r > -(-K // mpm.fc_chunk(dtype, tnf)):
+                        continue
+                    mpm.fc_split = lambda *a, s=(tnf, r): s
+                    try:
+                        ms[tnf, r] = graph_ms(
+                            lambda: matmul_pipe(x, w, b, relu=True))
+                    finally:
+                        mpm.fc_split = fc_split
+            lib = graph_ms(lambda: torch.addmm(b, x, w).relu_())
+            pick = fc_split(dtype, M, K, N, sms)
+            fast = min(ms, key=ms.get)
+            print(f"[{tag}] {arch} {group} {M}x{K}x{N}: " + "  ".join(
+                f"{a}x{r} {t:.4f}" for (a, r), t in ms.items())
+                + f" ms; cuBLAS {lib:.4f} ms; fc_split {pick[0]}x{pick[1]} "
+                  f"{ms[pick]:.4f} ms, fastest {fast[0]}x{fast[1]} "
+                  f"{ms[fast]:.4f} ms", flush=True)
 
     def host_us(fn, n=200):
         for _ in range(10):
