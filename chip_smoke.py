@@ -30,10 +30,11 @@ Phases (any failure exits non-zero):
    versions (the exact-int oracles) bit for bit on the int8 codes the
    calibrated forward gives each layer, timed beside the plain version,
    one library call where one exists and the card's bound; conv_pipe's
-   int8 rows (the int8 tensor cores) print as the redesigned rows of 2.
+   int8 rows (the int8 tensor cores) and matmul_pipe's (a split-K
+   IMMA stream over a cluster) print as the redesigned rows of 2.
    Then each model's sum of each redesigned fp32 and int8 kernel's
-   launches beside the library's (cuDNN, cuBLAS; none for the int8 conv)
-   and the replaced sum.
+   launches beside the library's (cuDNN, cuBLAS, ``torch._int_mm`` +
+   epilogue; none for the int8 conv) and the replaced sum.
 3b. int8 forward: ``.forward(x)`` must launch the int8 conv mode 5x,
    lrn_pwl 2x and the int8 matmul mode 3x (and no fp32 conv or matmul),
    and its logits must equal bit for bit the fold of 2b over the kernels'
@@ -51,7 +52,10 @@ Phases (any failure exits non-zero):
    rtol x (|plain| + the RMS of its row), rtol 1e-4 (fp32) or 2e-2
    (bf16), caches bit-equal to the plain version's after the write; each
    row timed beside the plain version, one library call (SDPA) and the
-   card's bound.
+   card's bound. The bf16 prefill (flash_attention on the tensor cores)
+   prints as a redesigned row: its TFLOP/s and share
+   of the bound as timed and in a CUDA graph (SDPA too), its worst error
+   against the allowance, and the replaced kernel's time.
 6. The attention layer at full width, the slice's main path: Qwen3-8B
    (d_model 4096), B 1, S 4096, seeded weights, fp32 and bf16.
    ``models.attention.attn_forward`` (plain, chunked) against the same
@@ -60,7 +64,8 @@ Phases (any failure exits non-zero):
    ``wo``, held as in 5 (the row is a token); each mode must launch
    exactly its two attention kernels once. Then each kernel is held
    against its plain version on the inputs this path gave it and timed
-   as in 5. The CNN phases above must launch no attention kernel.
+   as in 5 (the bf16 prefill as a redesigned row). The CNN phases above
+   must launch no attention kernel.
 7. VGG-16 at full width (batch 8, 224x224x3, seeded weights, random
    biases), fp32 and int8: each fp32 and int8 kernel against its plain
    version on the inputs the forward gives it, timed and printed as in 2
@@ -156,8 +161,10 @@ INT_MM_ROWS = 32               # torch._int_mm needs more than 16 rows
 # this script on the card named (PERF.md section 5): conv_pipe_bf16's FFMA
 # kernel (bf16 widened on the CUDA cores), conv_pipe's 64x64
 # single-buffered FFMA kernel, matmul_pipe_bf16's FFMA weight stream,
-# conv_pipe_s8's __dp4a kernel and matmul_pipe's one-block-a-slab FFMA
-# kernel
+# conv_pipe_s8's __dp4a kernel, matmul_pipe's one-block-a-slab FFMA
+# kernel and matmul_pipe_s8's one-block-a-slab __dp4a kernel; and
+# flash_attention_bf16's FFMA kernel (bf16 widened on the CUDA cores) on
+# the prefill of phases 5 and 6
 OLD_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 OLD_MS = {
     "conv_pipe_bf16": {
@@ -198,7 +205,12 @@ OLD_MS = {
                   "conv(16, 17)": 0.2372}},
     "matmul_pipe": {
         "alexnet": {"fc(10,)": 0.1231, "fc(11,)": 0.0569, "fc(12,)": 0.0362},
-        "vgg16": {"fc(18,)": 0.3298, "fc(19,)": 0.0571, "fc(20,)": 0.0359}}}
+        "vgg16": {"fc(18,)": 0.3298, "fc(19,)": 0.0571, "fc(20,)": 0.0359}},
+    "matmul_pipe_s8": {
+        "alexnet": {"fc(10,)": 0.0597, "fc(11,)": 0.0322, "fc(12,)": 0.0287},
+        "vgg16": {"fc(18,)": 0.1591, "fc(19,)": 0.0218, "fc(20,)": 0.0283}},
+    "flash_attention_bf16": {
+        ATTN_ARCH: {"prefill bf16": 4.1035, "layer prefill bf16": 4.1035}}}
 # published HBM rates (NVIDIA data sheets), by the name nvidia-smi reports
 MEM_BW = {"H100 80GB HBM3": 3.35e12, "H100 PCIe": 2.0e12,
           "H100 NVL": 3.9e12, "H200": 4.8e12}
@@ -616,7 +628,8 @@ def main() -> int:
         return {(cfg.name, k): model_sum(cfg, rs, k, lib) for k, rs, lib in (
             ("conv_pipe", rows, "cuDNN fp32 conv+ReLU+pool (TF32 off)"),
             ("matmul_pipe", rows, "cuBLAS fp32 addmm+ReLU (TF32 off)"),
-            ("conv_pipe_s8", qrows, None))}
+            ("conv_pipe_s8", qrows, None),
+            ("matmul_pipe_s8", qrows, "torch._int_mm + epilogue"))}
 
     def int8_rows(cfg, qp, x):
         """Each int8 kernel of one int8 forward held bit for bit against
@@ -855,8 +868,30 @@ def main() -> int:
         row["max_abs_err"] = (got.float() - want.float()).abs().max().item()
         row["err_ratio"] = attn_ratio(got, want, rtol)
         row["mode"] = mode
+        fns = row["run"], row["library"]
         measure(row, fp32_rate if mode == "fp32" else bf16_rate)
+        old = OLD_MS.get(row["kernel"], {}).get(ATTN_ARCH, {})
+        if row["layer"] in old:
+            attn_redesign_line(row, old[row["layer"]], *fns)
         rows.append(row)
+
+    def attn_redesign_line(row, old_ms, run, library):
+        """Print a redesigned attention kernel's row: TFLOP/s and share of
+        the bound as timed and in a CUDA graph (SDPA too), its worst error
+        against the allowance, and the replaced kernel's time."""
+        row["graph_ms"] = graph_ms(run)
+        row["library_graph_ms"] = graph_ms(library)
+        row["old_ms"] = old_ms
+        row["pct_of_bound"] = 100 * row["bound_ms"] / row["ms"]
+        row["tflops"] = row["ops"] / row["ms"] / 1e9
+        print(f"[redesign] {ATTN_ARCH} {row['layer']} {row['kernel']}: "
+              f"{row['ms']:.4f} ms, {row['tflops']:.1f} TFLOP/s, "
+              f"{row['pct_of_bound']:.1f} % of the bound; in a CUDA graph "
+              f"{row['graph_ms']:.4f} ms, "
+              f"{100 * row['bound_ms'] / row['graph_ms']:.1f} % (SDPA "
+              f"{row['library_graph_ms']:.4f} ms); worst error "
+              f"{row['err_ratio']:.3f} of the allowance; replaced kernel "
+              f"{old_ms:.4f} ms ({OLD_CARD}), {old_ms / row['ms']:.2f}x")
 
     with torch.inference_mode():
         for mode, dt in dtypes.items():

@@ -1,5 +1,5 @@
-// flash_attention: causal attention with an online softmax, fp32 arithmetic,
-// fp32 or bf16 elements, GQA read in place.
+// flash_attention: causal attention with an online softmax, GQA read in
+// place; fp32 elements on the CUDA cores, or bf16 on the tensor cores.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:flash_attention
 // (body _flash_kernel), and the head repeat that src/repro/kernels/ops.py:
@@ -8,30 +8,65 @@
 // the order jnp.repeat(k, g, axis=1) gives.
 //
 // Bound on an H100: operations. The causal product takes 4*D operations for
-// each of the Sq(Sq+1)/2 (query, key) pairs below the diagonal, against 2
-// bytes (bf16) of q, k, v and o per element; at Qwen3-8B prefill (S 4096,
-// D 128) that is 34 operations a byte in bf16. This kernel runs them as fp32
-// FFMA on the CUDA cores, as the TPU kernel computes in fp32; tensor cores
-// (mma/wgmma on bf16 tiles) are the lever left for later.
+// each of the Sq(Sq+1)/2 (query, key) pairs below the diagonal; at Qwen3-8B
+// prefill (S 4096, D 128, 32 query and 8 KV heads) that is 137 GOP against
+// 84 MB of bf16 q, k, v and o, some 1600 operations a byte.
 //
-// Design. One block of 256 threads per (batch*head, 64-row query tile); the
-// TPU's sequential KV-tile grid axis becomes a loop inside the block, and its
-// VMEM scratch (running max m, normaliser l, accumulator acc) becomes
-// registers. Per 64-key tile: K is staged in shared memory as fp32, each
-// thread computes a 4x4 block of scores (rows ty+16i, keys tx+16j) with
-// 16-byte shared loads, masks k_pos > q_pos with -1e30 as the TPU kernel
-// does, and takes the row max and sum with shuffles across the 16 threads
-// of a row. P goes to shared memory, V replaces K in the same buffer (85 KB
-// at D 128, so two blocks fit an SM), and each thread adds P*V into its 4
-// rows x D/16 columns. The loop stops at the causal edge: a tile entirely
-// above the diagonal has every score at -1e30, so the TPU kernel's update
-// with it is exact identity and skipping it gives the same output. Blocks of
-// the last (longest) query tiles are scheduled first. Ragged Sq and Sk are
-// masked (zero rows in shared memory, no stores). Epilogue: acc /
-// max(l, 1e-30), rounded to bf16 with __float2bfloat16_rn where the output
-// is bf16. expf, never __expf: the build uses no fast math.
+// fp32 (flash_f32_kernel<D>): FFMA on the CUDA cores, as the TPU kernel
+// computes in fp32 (TF32 would break the reference's 1e-4). One block of
+// 256 threads per (batch*head, 64-row query tile); the TPU's sequential
+// KV-tile grid axis becomes a loop inside the block, and its VMEM scratch
+// (running max m, normaliser l, accumulator acc) becomes registers. Per
+// 64-key tile: K is staged in shared memory as fp32, each thread computes
+// a 4x4 block of scores (rows ty+16i, keys tx+16j) with 16-byte shared
+// loads, masks k_pos > q_pos with -1e30 as the TPU kernel does, and takes
+// the row max and sum with shuffles across the 16 threads of a row. P goes
+// to shared memory, V replaces K in the same buffer (85 KB at D 128, so two
+// blocks fit an SM), and each thread adds P*V into its 4 rows x D/16
+// columns. q is scaled by 1/sqrt(D) as it is staged, as the TPU kernel
+// scales it.
+//
+// bf16 (flash_bf16_mma_kernel<D>): the tensor cores, in the shape of
+// FlashAttention-2 on mma.sync.m16n8k16 (bf16 products, fp32 sums). Each
+// warp owns 16 query rows, a block of 4 warps 64, and two blocks fit an SM
+// (226 registers a thread at D 128; a 128-row block of 8 warps, one an
+// SM, was slower at Qwen3-8B's prefill in a first card run). The Q tile and
+// double-buffered 64-key K and V tiles stream in through cp.async (K and V
+// in separate groups, so S = Q K^T starts while V lands), at a row stride
+// of D + 8 bf16, which puts the 8 rows of every ldmatrix on distinct banks.
+// Q comes into registers once (ldmatrix) as the A operand; K, stored
+// [key][d], is already the column-major B operand (plain ldmatrix). The
+// scores stay in their fp32 accumulator fragments: scaled by 1/sqrt(D)
+// there (the TPU kernel scales q instead), masked k_pos > q_pos with
+// -1e30, their row max and the running m from shuffles across the quad of
+// lanes that shares a row. P = exp(S - m) is rounded once to bf16 and
+// reused in registers as the A operand of O += P V, with V read by
+// ldmatrix.trans; l sums the rounded P, so the weights that multiply V
+// are the ones that normalise. Against the reference (fp32 throughout)
+// the products round once more each: P to bf16 (at most 2^-9 relative)
+// and the scores in another order; chip_smoke.py prints the worst error
+// beside the 2e-2 allowance. A warp whose 16 rows all lie above a tile
+// skips it. mma.sync, not wgmma: the A operand of wgmma from registers
+// needs a warpgroup's 64 rows, and this kernel keeps the FA2 shape for a
+// first tensor-core version. What holds it back is latency more than
+// issue work: at 226 registers a thread two blocks fit an SM, two warps a
+// scheduler, each tile's two products and softmax a dependent chain
+// between two barriers (folding the scale into the exponent's fmaf and
+// skipping O's rescale where no max moved cut the softmax's instructions
+// and left the time as it was).
+//
+// Both: the loop stops at the causal edge: a tile entirely above the
+// diagonal has every score at -1e30, so the TPU kernel's update with it is
+// exact identity and skipping it gives the same output. Blocks of the last
+// (longest) query tiles are scheduled first. Ragged S is masked (zero rows
+// in shared memory, no stores). Epilogue: acc / max(l, 1e-30), rounded once
+// to bf16 (__float2bfloat16_rn) where the output is bf16. expf, never
+// __expf: the build uses no fast math.
+#include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -47,26 +82,10 @@ __device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&f)[8]) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
 // rows [row0, row0 + 64) of a (rows, D) matrix into shared memory as fp32
 // (row stride D + 4), times mul; rows past n_rows are zero
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(const T* __restrict__ g, int row0,
+template <int D>
+__device__ __forceinline__ void load_tile(const float* __restrict__ g, int row0,
                                           int n_rows, float mul, float* s) {
   constexpr int CH = D / 8;      // 8-element chunks a row
   for (int i = threadIdx.x; i < BQ * CH; i += NT) {
@@ -101,11 +120,11 @@ __device__ __forceinline__ void lds<4>(const float* p, float (&v)[4]) {
   v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT, 2)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int Hq, int Hkv,
-             int Sq, int Sk, float scale) {
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int Hq,
+                 int Hkv, int Sq, int Sk, float scale) {
   constexpr int DS = D + 4;                  // shared row stride (floats)
   constexpr int PS = BK + 4;
   constexpr int VEC = D / 16 >= 4 ? 4 : D / 16;
@@ -120,11 +139,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bh / Hq, h = bh % Hq;
   const int kvh = b * Hkv + h / (Hq / Hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-  const T* qg = q + (size_t)bh * Sq * D;
-  const T* kg = k + (size_t)kvh * Sk * D;
-  const T* vg = v + (size_t)kvh * Sk * D;
+  const float* qg = q + (size_t)bh * Sq * D;
+  const float* kg = k + (size_t)kvh * Sk * D;
+  const float* vg = v + (size_t)kvh * Sk * D;
 
-  load_tile<T, D>(qg, q0, Sq, scale, qs);
+  load_tile<D>(qg, q0, Sq, scale, qs);
 
   float m[4], l[4], acc[4][NJ * VEC];
 #pragma unroll
@@ -137,7 +156,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int k_last = min(min(q0 + BQ, Sq), Sk) - 1;   // causal edge
   for (int k0 = 0; k0 <= k_last; k0 += BK) {
-    load_tile<T, D>(kg, k0, Sk, 1.f, kv);
+    load_tile<D>(kg, k0, Sk, 1.f, kv);
     __syncthreads();
 
     float s[4][4];
@@ -165,7 +184,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
     }
     __syncthreads();                         // K read by every thread
-    load_tile<T, D>(vg, k0, Sk, 1.f, kv);
+    load_tile<D>(vg, k0, Sk, 1.f, kv);
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -226,7 +245,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();                         // V and P read by every thread
   }
 
-  T* og = o + (size_t)bh * Sq * D;
+  float* og = o + (size_t)bh * Sq * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + ty + 16 * i;
@@ -236,55 +255,272 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < VEC; ++e)
-        store(og + (size_t)qp * D + j * 16 * VEC + tx * VEC + e,
-              acc[i][j * VEC + e] / den);
+        og[(size_t)qp * D + j * 16 * VEC + tx * VEC + e] =
+            acc[i][j * VEC + e] / den;
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int Sq, int Sk, float scale, cudaStream_t st) {
+template <int D>
+int launch_f32(const float* q, const float* k, const float* v, float* o,
+               int B, int Hq, int Hkv, int Sq, int Sk, float scale,
+               cudaStream_t st) {
   const size_t smem = sizeof(float) * ((BQ + BK) * (D + 4) + BQ * (BK + 4));
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B * Hq, (Sq + BQ - 1) / BQ);
-  flash_kernel<T, D><<<grid, NT, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, Hq, Hkv, Sq, Sk, scale);
+  flash_f32_kernel<D><<<grid, NT, smem, st>>>(q, k, v, o, Hq, Hkv, Sq, Sk,
+                                              scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int Hq, int Hkv, int Sq, int Sk, int D, float scale,
-             void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, st);
-    case 32: return launch<T, 32>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, st);
-    case 64: return launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, st);
-    case 128: return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, st);
-    default: return (int)cudaErrorInvalidValue;
+// ---- bf16: the tensor cores ----------------------------------------------
+
+// The geometry of one bf16 block: 4 warps of 16 query rows each (BQ).
+template <int D> struct FlashTile {
+  static constexpr int NT = 128;
+  static constexpr int LD = D + 8;              // shared row stride (bf16):
+                                                // 8 ldmatrix rows, 8 banks
+  static constexpr int Q_ELEMS = BQ * LD;
+  static constexpr int KV_ELEMS = BK * LD;
+  static constexpr int SMEM = (Q_ELEMS + 4 * KV_ELEMS) * 2;   // bytes
+};
+
+// Rows [r0, r0 + ROWS) of a row-major (S, D) bf16 matrix into shared memory
+// (row stride LD) in 16-byte cp.async vectors; rows past S zero-filled.
+template <int ROWS, int D, int LD, int NTH>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* s,
+                                           const __nv_bfloat16* g, int r0,
+                                           int S) {
+  constexpr int VR = D / 8;                     // vectors a row
+  static_assert(ROWS * VR % NTH == 0, "whole vectors a thread");
+#pragma unroll
+  for (int j = 0; j < ROWS * VR / NTH; ++j) {
+    const int i = threadIdx.x + j * NTH, r = i / VR, c = i % VR * 8;
+    const bool ok = r0 + r < S;
+    cp_async16(smem_u32(s + r * LD + c), ok ? g + (size_t)(r0 + r) * D + c : g,
+               ok);
   }
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int D>
+__global__ void __launch_bounds__(128, 2)
+flash_bf16_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int S,
+                      float scale) {
+  using Tl = FlashTile<D>;
+  constexpr int NTH = Tl::NT, LD = Tl::LD;
+  constexpr int DK = D / 16;                    // k steps of S = Q K^T
+  constexpr int DN = D / 8;                     // n tiles of O
+  constexpr int NN = BK / 8;                    // n tiles of S
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* const Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* const Ks = Qs + Tl::Q_ELEMS;   // [2][BK][LD]
+  __nv_bfloat16* const Vs = Ks + 2 * Tl::KV_ELEMS;   // [2][BK][LD]
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t4 = lane % 4;        // the mma fragment's row, pair
+  const int bh = blockIdx.x;
+  const int b = bh / Hq, h = bh % Hq;
+  const int kvh = b * Hkv + h / (Hq / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;      // longest first
+  const int r0 = q0 + warp * 16;                // this warp's first row
+  const __nv_bfloat16* qg = q + (size_t)bh * S * D;
+  const __nv_bfloat16* kg = k + (size_t)kvh * S * D;
+  const __nv_bfloat16* vg = v + (size_t)kvh * S * D;
+
+  const int n_tiles = (min(q0 + BQ, S) - 1) / BK + 1;    // the causal edge
+  stage_rows<BQ, D, LD, NTH>(Qs, qg, q0, S);
+  stage_rows<BK, D, LD, NTH>(Ks, kg, 0, S);
+  cp_async_commit();                            // group: Q, K_0
+  stage_rows<BK, D, LD, NTH>(Vs, vg, 0, S);
+  cp_async_commit();                            // group: V_0
+
+  uint32_t qf[DK][4];                           // Q, the A operand
+  float oacc[DN][4];                            // O, rows g and g + 8
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < DN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BK, cur = t % 2;
+    cp_async_wait<1>();             // K_t (and Q) landed: this thread's
+    __syncthreads();                // ... everyone's; tile t-1 is read
+    if (t + 1 < n_tiles)
+      stage_rows<BK, D, LD, NTH>(Ks + (1 - cur) * Tl::KV_ELEMS, kg, k0 + BK,
+                                 S);
+    cp_async_commit();
+    if (t + 1 < n_tiles)
+      stage_rows<BK, D, LD, NTH>(Vs + (1 - cur) * Tl::KV_ELEMS, vg, k0 + BK,
+                                 S);
+    cp_async_commit();
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk)
+        ldmatrix_x4(qf[kk], smem_u32(Qs + (warp * 16 + lane % 16) * LD +
+                                     kk * 16 + lane / 16 * 8));
+    }
+    // a warp whose rows all lie above the tile (or past S) skips it: every
+    // score would be masked, and the update would leave m, l and O as they
+    // are
+    const bool live = r0 < S && k0 <= r0 + 15;
+    uint32_t pa[BK / 16][4];                    // P, the A operand of P V
+    float coef[2];
+    if (live) {
+      const __nv_bfloat16* Kt = Ks + cur * Tl::KV_ELEMS;
+      float sc[NN][4];
+#pragma unroll
+      for (int n = 0; n < NN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk)
+#pragma unroll
+        for (int np = 0; np < NN / 2; ++np) {
+          uint32_t kb[4];                       // keys np*16 .. +15
+          ldmatrix_x4(kb, smem_u32(Kt + (np * 16 + lane / 16 * 8 + lane % 8) *
+                                            LD + kk * 16 + lane / 8 % 2 * 8));
+          mma_bf16(sc[2 * np], qf[kk], kb[0], kb[1]);
+          mma_bf16(sc[2 * np + 1], qf[kk], kb[2], kb[3]);
+        }
+      // scale and mask in fp32 (k_pos > q_pos: -1e30, as the TPU kernel
+      // masks; keys past S are above every row that is stored), then the
+      // row max over the quad that shares a row
+      const bool edge = k0 + BK - 1 > r0;
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int n = 0; n < NN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float s = sc[n][e] * scale;
+          if (edge && k0 + n * 8 + 2 * t4 + e % 2 > r0 + g + e / 2 * 8)
+            s = NEG_INF;
+          sc[n][e] = s;
+          mx[e / 2] = fmaxf(mx[e / 2], s);
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        coef[i] = expf(m[i] - m_new);
+        m[i] = m_new;
+      }
+      // P = exp(S - m), rounded once to bf16; l sums the rounded P, the
+      // weights the second product applies
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < NN; ++n) {
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(
+            expf(sc[n][0] - m[0]), expf(sc[n][1] - m[0]));
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(
+            expf(sc[n][2] - m[1]), expf(sc[n][3] - m[1]));
+        rs[0] += __low2float(lo) + __high2float(lo);
+        rs[1] += __low2float(hi) + __high2float(hi);
+        pa[n / 2][n % 2 * 2] = bf16x2_bits(lo);
+        pa[n / 2][n % 2 * 2 + 1] = bf16x2_bits(hi);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * coef[i] + rs[i];
+    }
+    cp_async_wait<2>();             // V_t landed: this thread's
+    __syncthreads();                // ... everyone's
+    if (live) {
+      const __nv_bfloat16* Vt = Vs + cur * Tl::KV_ELEMS;
+#pragma unroll
+      for (int n = 0; n < DN; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) oacc[n][e] *= coef[e / 2];
+#pragma unroll
+      for (int ks = 0; ks < BK / 16; ++ks)
+#pragma unroll
+        for (int dp = 0; dp < DN / 2; ++dp) {
+          uint32_t vb[4];                       // d dp*16 .. +15
+          ldmatrix_x4_trans(vb, smem_u32(Vt + (ks * 16 + lane / 8 % 2 * 8 +
+                                               lane % 8) * LD + dp * 16 +
+                                         lane / 16 * 8));
+          mma_bf16(oacc[2 * dp], pa[ks], vb[0], vb[1]);
+          mma_bf16(oacc[2 * dp + 1], pa[ks], vb[2], vb[3]);
+        }
+    }
+  }
+
+  __nv_bfloat16* og = o + (size_t)bh * S * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int qp = r0 + g + 8 * i;
+    if (qp >= S) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < DN; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(og + (size_t)qp * D + n * 8 +
+                                         2 * t4) =
+          __floats2bfloat162_rn(oacc[n][2 * i] / den,
+                                oacc[n][2 * i + 1] / den);
+  }
+}
+
+template <int D>
+int launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                const __nv_bfloat16* v, __nv_bfloat16* o, int B, int Hq,
+                int Hkv, int S, float scale, cudaStream_t st) {
+  using Tl = FlashTile<D>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bf16_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Tl::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid(B * Hq, (S + BQ - 1) / BQ);
+  flash_bf16_mma_kernel<D><<<grid, Tl::NT, Tl::SMEM, st>>>(q, k, v, o, Hq,
+                                                           Hkv, S, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry points; D in {16, 32, 64, 128}, Hq a multiple of Hkv, every
-// pointer 16-byte aligned. scale = 1/sqrt(D) in fp32, multiplied into q as
-// the TPU kernel does. Return cudaGetLastError() (or the attribute error).
-extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* o, int B, int Hq,
+// pointer 16-byte aligned. scale = 1/sqrt(D) in fp32 (the fp32 kernel
+// multiplies it into q, as the TPU kernel does; the bf16 kernel into the
+// fp32 scores). Return cudaGetLastError() (or the attribute error).
+extern "C" int flash_attention_f32(const float* q, const float* k,
+                                   const float* v, float* o, int B, int Hq,
                                    int Hkv, int Sq, int Sk, int D,
                                    float scale, void* stream) {
-  return dispatch<float>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, scale, stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (D) {
+    case 16: return launch_f32<16>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, st);
+    case 32: return launch_f32<32>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, st);
+    case 64: return launch_f32<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, st);
+    case 128:
+      return launch_f32<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o, int B, int Hq,
-                                    int Hkv, int Sq, int Sk, int D,
-                                    float scale, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, scale,
-                                 stream);
+// bf16 q, k, v and o on the tensor cores; queries as long as keys.
+extern "C" int flash_attention_bf16(const __nv_bfloat16* q,
+                                    const __nv_bfloat16* k,
+                                    const __nv_bfloat16* v, __nv_bfloat16* o,
+                                    int B, int Hq, int Hkv, int Sq, int Sk,
+                                    int D, float scale, void* stream) {
+  if (Sq != Sk) return (int)cudaErrorInvalidValue;
+  const int S = Sq;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (D) {
+    case 16: return launch_bf16<16>(q, k, v, o, B, Hq, Hkv, S, scale, st);
+    case 32: return launch_bf16<32>(q, k, v, o, B, Hq, Hkv, S, scale, st);
+    case 64: return launch_bf16<64>(q, k, v, o, B, Hq, Hkv, S, scale, st);
+    case 128: return launch_bf16<128>(q, k, v, o, B, Hq, Hkv, S, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

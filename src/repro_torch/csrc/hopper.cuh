@@ -1,9 +1,10 @@
 // Hopper building blocks shared by the kernels of this directory: shared-
 // memory addresses, cp.async copies into a ring of stages, ldmatrix
 // fragment loads, the bf16 and int8 mma.sync tensor-core products, and the
-// deterministic split-K sum of a thread-block cluster. Every source
-// that includes this header is rebuilt when it changes
-// (kernels/build.py:library_path hashes the headers a source includes).
+// deterministic split-K sum of a thread-block cluster (fp32 or int32
+// partials). Every source that includes this header is rebuilt when it
+// changes (kernels/build.py:library_path hashes the headers a source
+// includes).
 #pragma once
 
 #include <cstdint>
@@ -23,6 +24,14 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// B = 4 or 8 bytes global -> shared, asynchronous, through L1 (.ca: .cg
+// takes 16 bytes only); zero-filled when !valid.
+template <int B>
+__device__ __forceinline__ void cp_async_ca(uint32_t dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+               ::"r"(dst), "l"(src), "n"(B), "r"(valid ? B : 0) : "memory");
 }
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
@@ -72,18 +81,19 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The split-K tail of a thread-block cluster. Every block holds PARTS fp32
-// partial tiles part[q][row][feature] (8 rows x TNF features) in its
-// shared memory at the same offset. After a cluster barrier block `rank`
-// finishes outputs rank*NT + tid, + ranks*NT, ... of the tile, each summed
-// over the blocks in rank order and then over the parts in order, through
-// distributed shared memory: the sum is deterministic, with no atomics and
-// no scratch tensor. out(row, feature, sum) stores the outputs with row <
-// rows and feature < feats. The closing barrier keeps every block's shared
-// memory alive until it has been read.
-template <int NT, int PARTS, int TNF, typename Out>
+// The split-K tail of a thread-block cluster. Every block holds PARTS
+// partial tiles part[q][row][feature] (8 rows x TNF features) of T (fp32,
+// or int32: exact in any order) in its shared memory at the same offset.
+// After a cluster barrier block `rank` finishes outputs rank*NT + tid,
+// + ranks*NT, ... of the tile, each summed over the blocks in rank order
+// and then over the parts in order, through distributed shared memory: the
+// sum is deterministic, with no atomics and no scratch tensor. out(row,
+// feature, sum) stores the outputs with row < rows and feature < feats.
+// The closing barrier keeps every block's shared memory alive until it
+// has been read.
+template <int NT, int PARTS, int TNF, typename T, typename Out>
 __device__ __forceinline__ void cluster_sum(
-    cooperative_groups::cluster_group& cluster, float* part, int rows,
+    cooperative_groups::cluster_group& cluster, T* part, int rows,
     int feats, Out out) {
   cluster.sync();
   const int ranks = (int)cluster.num_blocks();
@@ -91,9 +101,9 @@ __device__ __forceinline__ void cluster_sum(
   for (int o = rank * NT + (int)threadIdx.x; o < 8 * TNF; o += ranks * NT) {
     const int r = o / TNF, f = o % TNF;
     if (r >= rows || f >= feats) continue;
-    float s = 0.f;
+    T s = 0;
     for (int q = 0; q < ranks; ++q) {
-      const float* p = cluster.map_shared_rank(part, q);
+      const T* p = cluster.map_shared_rank(part, q);
 #pragma unroll
       for (int wp = 0; wp < PARTS; ++wp) s += p[(wp * 8 + r) * TNF + f];
     }

@@ -6,9 +6,11 @@ device memory. Kernel: ``csrc/flash_attention.cu``, which replaces the TPU
 kernel ``src/repro/kernels/flash_attention.py:flash_attention`` together
 with the head repeat ``repro.kernels.ops.attention`` puts in front of it:
 query head ``h`` reads KV head ``h // (Hq // Hkv)`` in place. It is bound by
-operations (fp32 FFMA on the CUDA cores here, as the TPU kernel computes in
-fp32); see the source for the design. :func:`flash_attention` launches it
-on a CUDA tensor and runs :func:`flash_attention_plain` on a CPU tensor.
+operations: fp32 runs on FFMA on the CUDA cores, as the TPU kernel computes
+in fp32; bf16 on the tensor cores (``mma.sync``, fp32 sums, P rounded once
+to bf16 for the second product). See the source for the design.
+:func:`flash_attention` launches it on a CUDA tensor and runs
+:func:`flash_attention_plain` on a CPU tensor.
 """
 from __future__ import annotations
 

@@ -7,17 +7,18 @@ Kernel: ``csrc/matmul_pipe.cu``, which replaces the TPU kernel
 ``src/repro/kernels/matmul_pipe.py:matmul_pipe`` (all three modes). At
 the serving shape (M = the micro-batch) it is bound by the device-memory
 bytes of ``w``; a block holds every batch row against its weight slab so
-each weight is read once (the paper's batched-FC reuse). The fp32 and
-bf16 modes stream ``w`` through a ``cp.async`` ring, fp32 into FFMA and
-bf16 into the tensor cores, with the reduction split over the blocks of a
-thread-block cluster (:func:`fc_split` picks the split, one rule a mode).
-See the source for the design. The plain version,
+each weight is read once (the paper's batched-FC reuse). Every mode
+streams ``w`` through a ``cp.async`` ring, fp32 into FFMA, bf16 and int8
+into the tensor cores (``mma.sync``), with the reduction split over the
+blocks of a thread-block cluster (:func:`fc_split` picks the split, one
+rule a mode). See the source for the design. The plain version,
 :func:`matmul_pipe_plain`, computes each mode as the kernel rounds it.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -29,36 +30,42 @@ from repro_torch.quant.ref import fc_int8_ref
 __all__ = ["fc_chunk", "fc_split", "matmul_pipe", "matmul_pipe_plain"]
 
 # each split-K kernel's features a cluster (csrc TNF), largest first
-FC_FEATURES = {torch.bfloat16: (64, 32), torch.float32: (128, 64, 32)}
+FC_FEATURES = {torch.bfloat16: (64, 32), torch.float32: (128, 64, 32),
+               torch.int8: (128, 32)}
 FC_RANKS = 8             # the most blocks a cluster: the portable size
 # fc_split's rule a mode: the feature tiles it tries, in order, and the
-# blocks it wants on each SM (tile_sweep.py measured both on an H100)
-FC_RULE = {torch.bfloat16: ((64, 32), 2), torch.float32: ((64, 32), 1)}
+# blocks it wants on each SM (tile_sweep.py measured both on an H100; int8
+# wants about 1.4: 192 blocks, 128 features x 6 ranks, were the fastest of
+# its splits at VGG-16 fc6)
+FC_RULE = {torch.bfloat16: ((64, 32), 2), torch.float32: ((64, 32), 1),
+           torch.int8: ((128, 32), 1.4)}
 
 
 def fc_chunk(dtype: torch.dtype, tnf: int) -> int:
     """The reduction chunk of the ``dtype`` kernel at ``tnf`` features:
-    64 k in bf16 (csrc BKW); 2048 / tnf k in fp32 (8 KB of w a chunk)."""
-    return 64 if dtype == torch.bfloat16 else 2048 // tnf
+    64 k in bf16 (csrc BKW); 8 KB of w in fp32 (2048 / tnf k) and int8
+    (8192 / tnf k)."""
+    return 64 if dtype == torch.bfloat16 else 8192 // (tnf * dtype.itemsize)
 
 
 @functools.lru_cache(maxsize=None)
 def fc_split(dtype: torch.dtype, M: int, K: int, N: int,
              sms: int) -> Tuple[int, int]:
-    """The split of one fp32 or bf16 launch, ``(tnf, ranks)``: each
-    cluster of ``ranks`` blocks owns ``tnf`` output features and 8 rows of
-    x, and its blocks split K. From :data:`FC_RULE`'s tiles for the mode,
-    the first that gives ``per_sm`` blocks an SM at 8 ranks, else the last
-    (fc8); ranks the fewest that give ``per_sm`` blocks an SM, at most 8
-    and at most one a chunk of K. Memoised."""
+    """The split of one launch in mode ``dtype`` (w's dtype: fp32, bf16
+    or int8), ``(tnf, ranks)``: each cluster of ``ranks`` blocks owns
+    ``tnf`` output features and 8 rows of x, and its blocks split K. From
+    :data:`FC_RULE`'s tiles for the mode, the first that gives ``per_sm``
+    blocks an SM at 8 ranks, else the last (fc8); ranks the fewest that
+    give ``per_sm`` blocks an SM, at most 8 and at most one a chunk of K.
+    Memoised."""
     features, per_sm = FC_RULE[dtype]
+    want = math.ceil(per_sm * sms)          # blocks
     rows = -(-M // 8)
     tnf = next((f for f in features
-                if -(-N // f) * rows * FC_RANKS >= per_sm * sms),
-               features[-1])
+                if -(-N // f) * rows * FC_RANKS >= want), features[-1])
     tiles = -(-N // tnf) * rows
     ranks = max(1, min(FC_RANKS, -(-K // fc_chunk(dtype, tnf)),
-                       -(-per_sm * sms // tiles)))
+                       -(-want // tiles)))
     return tnf, ranks
 
 
@@ -80,9 +87,9 @@ _FLOAT_ENTRY = {torch.float32: "matmul_pipe_f32",
 def _entry(name: str):
     from repro_torch.kernels import build
     fn = getattr(build.load("matmul_pipe"), name)
-    if name == "matmul_pipe_s8":
+    if name == "matmul_pipe_s8":    # out_s8, out_scale, (M, K, N, relu), split
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_float] \
-            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     else:                       # (M, K, N, relu) and the split (tnf, ranks)
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
@@ -134,13 +141,13 @@ def matmul_pipe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     if y.numel() == 0:
         return y
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    split = fc_split(w.dtype, M, K, N, sm_count(x.device))
     if int8:
         err = _entry("matmul_pipe_s8")(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
             y.data_ptr(), int(out_s8), float(out_scale) if out_s8 else 1.0,
-            M, K, N, int(relu), stream)
+            M, K, N, int(relu), *split, stream)
     else:
-        split = fc_split(x.dtype, M, K, N, sm_count(x.device))
         err = _entry(_FLOAT_ENTRY[x.dtype])(x.data_ptr(), w.data_ptr(),
                                             b.data_ptr(), y.data_ptr(), M, K,
                                             N, int(relu), *split, stream)

@@ -8,18 +8,20 @@ conftest:
 
 Tolerances: conv/matmul ``|kernel - plain| <= 1e-4 * max(1, max|plain|)``
 (fp32 sums in another order, TF32 off on the plain side; the split-K FC
-kernel also gives the same bits on two calls); LRN
-``rtol=1e-5, atol=1e-6`` (same operations, same rounding). The int8
-modes are held bit for bit (``torch.equal``): the int32 accumulator is
-exact on both sides (the conv's on the int8 tensor cores) and the
-epilogue rounds the same steps. Attention
-(flash and decode): ``1e-4 * max(1, max|plain|)`` in fp32 (online vs
-full softmax, fp32 sums in another order) and ``2e-2`` in bf16 (the
-reference's bf16 tolerance, ``tests/test_kernels.py:17-19``); the decode
-caches bit for bit (one slot copied, nothing computed). The bf16 modes of
-conv_pipe, matmul_pipe and lrn_pwl: ``rtol = atol = 2e-2`` against plain
-versions that compute in fp32 and round once to bf16, as the kernels do
-(conv_pipe's on the tensor cores: bf16 products, fp32 sums).
+kernel also gives the same bits on two calls); LRN ``rtol=1e-5,
+atol=1e-6`` (same operations, same rounding). The int8 modes are held
+bit for bit (``torch.equal``): the int32 accumulator is exact on both
+sides (the conv's and the FC's on the int8 tensor cores, the FC's in any
+split-K order) and the epilogue rounds the same steps. Attention (flash
+and decode): ``1e-4 * max(1, max|plain|)`` in fp32 (online vs full
+softmax, fp32 sums in another order) and ``2e-2`` in bf16 (the
+reference's bf16 tolerance, ``tests/test_kernels.py:17-19``; flash's
+bf16 kernel also rounds P to bf16 for its second tensor-core product);
+the decode caches bit for bit (one slot copied, nothing computed). The
+bf16 modes of conv_pipe, matmul_pipe and lrn_pwl: ``rtol = atol = 2e-2``
+against plain versions that compute in fp32 and round once to bf16, as
+the kernels do (conv_pipe's on the tensor cores: bf16 products, fp32
+sums).
 """
 import importlib
 import shutil
@@ -36,7 +38,7 @@ from repro_torch.kernels.conv_pipe import (CHANNELS, POSITIONS, conv_pipe,
                                            conv_pipe_plain, pool_tile)
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.lrn_pwl import lrn_pwl, lrn_pwl_plain
 from repro_torch.kernels.matmul_pipe import (FC_FEATURES, matmul_pipe,
@@ -378,6 +380,63 @@ def test_int8_sums_past_2_to_the_24_round_alike(cuda, quant_out):
     _equal(conv_pipe(xc, wc, b, **kw), conv_pipe_plain(xc, wc, b, **kw))
 
 
+def _int8_fc_case(seed, M, K, N, quant_out, dev):
+    rng = np.random.default_rng(seed)
+    x, w = _codes(rng, (M, K)).to(dev), _codes(rng, (K, N)).to(dev)
+    scale, b = _requant(rng, N, K, dev)
+    return x, w, b, dict(scale=scale,
+                         out_scale=OUT_SCALE if quant_out else None)
+
+
+# int8 FC shapes for every split: M past 8 and ragged (several grid rows),
+# K under a chunk or not a multiple of it nor of the ranks' share, and the
+# cp.async vector of w's rows (N) and x's rows (K) at each width: 16, 8, 4
+# bytes and byte by byte
+SPLIT_SHAPES = [(8, 4096, 1000), (13, 1000, 200), (3, 200, 1001)]
+INT8_SPLIT_SHAPES = SPLIT_SHAPES + [(5, 4098, 70), (9, 4100, 36),
+                                    (20, 2048, 256)]
+
+
+@pytest.mark.parametrize("quant_out", [True, False], ids=["s8out", "f32out"])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("split", [(tnf, r)
+                                   for tnf in FC_FEATURES[torch.int8]
+                                   for r in (1, 2, 3, 5, 8)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("M,K,N", INT8_SPLIT_SHAPES)
+def test_matmul_pipe_int8_every_split_equals_plain(cuda, monkeypatch, split,
+                                                   M, K, N, relu, quant_out):
+    """Each int8 feature tile at 1 to 8 ranks a cluster (more ranks than K
+    has chunks at K 200: some blocks sum nothing), whichever split fc_split
+    would choose, bit for bit: integer sums are exact in any split."""
+    _force_split(monkeypatch, split)
+    x, w, b, kw = _int8_fc_case(29, M, K, N, quant_out, cuda)
+    _equal(matmul_pipe(x, w, b, relu=relu, **kw),
+           matmul_pipe_plain(x, w, b, relu=relu, **kw))
+
+
+@pytest.mark.parametrize("quant_out", [True, False], ids=["s8out", "f32out"])
+@pytest.mark.parametrize("K", [1024, 1000, 1004, 1001])
+@pytest.mark.parametrize("N", [256, 200, 36, 37])
+def test_matmul_pipe_int8_unaligned_rows_equal_plain(cuda, K, N, quant_out):
+    """Rows of x (K) and w (N) that start 16-, 8-, 4- or 1-byte aligned
+    take the cp.async vector of that width (bytes at 1) into the same
+    shared layout, and give the same bits."""
+    x, w, b, kw = _int8_fc_case(30, 8, K, N, quant_out, cuda)
+    _equal(matmul_pipe(x, w, b, relu=True, **kw),
+           matmul_pipe_plain(x, w, b, relu=True, **kw))
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 25088, 4096), (13, 1000, 200),
+                                   (8, 4098, 1001)])
+def test_matmul_pipe_int8_is_deterministic(cuda, M, K, N):
+    """Two calls of the split-K int8 kernel give the same bits."""
+    x, w, b, kw = _int8_fc_case(31, M, K, N, False, cuda)
+    y1, y2 = matmul_pipe(x, w, b, **kw), matmul_pipe(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+
+
 def test_quantize_on_the_card_equals_the_cpu(cuda):
     """1M values, a quarter of them exact ties (k + 0.5) * s: a division
     by the reciprocal would flip codes at the ties."""
@@ -538,14 +597,18 @@ def _sass(name):
 
 
 def test_bf16_conv_runs_on_the_tensor_cores(cuda):
-    """cuobjdump's SASS of the built libraries: every bf16 conv kernel and
-    every bf16 matmul kernel hold HMMA (tensor-core) instructions, every
-    int8 conv kernel (conv_s8_mma_kernel<TPB, TN, BK, TO>: each tile at
-    chunks of 128 and 64 k, int8 and fp32 out) IMMA; every fp32 conv
-    kernel (conv_f32_kernel<TPB, TN>) and fp32 matmul kernel
-    (matmul_f32_kernel<TNF>) FFMA and no tensor-core
-    instruction (TF32 would break the reference's 1e-4). No other conv
-    kernel is left (the __dp4a one is gone)."""
+    """cuobjdump's SASS of the built libraries: every bf16 conv, matmul
+    and flash attention kernel (flash_bf16_mma_kernel<D>) holds
+    HMMA (tensor-core) instructions, every int8 conv kernel
+    (conv_s8_mma_kernel<TPB, TN, BK, TO>: each tile at chunks of 128 and
+    64 k, int8 and fp32 out) and every int8 matmul kernel
+    (matmul_s8_kernel<TNF, TO>, each tile, int8 and fp32 out) IMMA; every
+    fp32 conv kernel (conv_f32_kernel<TPB, TN>), fp32 matmul kernel
+    (matmul_f32_kernel<TNF>) and fp32 flash attention kernel
+    (flash_f32_kernel<D>) FFMA and no tensor-core instruction (TF32 would
+    break the reference's 1e-4). No other conv, matmul or flash kernel is
+    left (the __dp4a conv and the one-block-a-slab int8 matmul are
+    gone)."""
     funcs = _sass("conv_pipe")
     bf16 = [f for f in funcs if "conv_bf16_mma_kernel" in f]
     fp32 = [f for f in funcs if "conv_f32_kernel" in f]
@@ -567,6 +630,24 @@ def test_bf16_conv_runs_on_the_tensor_cores(cuda):
     mm = [f for f in funcs if "matmul_f32_kernel" in f]
     assert len(mm) == len(FC_FEATURES[torch.float32]), sorted(funcs)
     for f in mm:
+        assert ("FFMA" in funcs[f] and "HMMA" not in funcs[f]
+                and "IMMA" not in funcs[f]), f
+    mm = [f for f in funcs if "matmul_s8_kernel" in f]
+    assert len(mm) == 2 * len(FC_FEATURES[torch.int8]), sorted(funcs)
+    for f in mm:
+        assert "IMMA" in funcs[f] and "HMMA" not in funcs[f], f
+    assert len(funcs) == sum(len(FC_FEATURES[t]) for t in (
+        torch.bfloat16, torch.float32)) + 2 * len(FC_FEATURES[torch.int8]), \
+        sorted(funcs)
+    funcs = _sass("flash_attention")
+    bf16 = [f for f in funcs if "flash_bf16_mma_kernel" in f]
+    fp32 = [f for f in funcs if "flash_f32_kernel" in f]
+    assert len(bf16) == len(HEAD_DIMS), sorted(funcs)
+    assert len(fp32) == len(HEAD_DIMS), sorted(funcs)
+    assert len(funcs) == len(bf16) + len(fp32), sorted(funcs)
+    for f in bf16:
+        assert "HMMA" in funcs[f], f
+    for f in fp32:
         assert ("FFMA" in funcs[f] and "HMMA" not in funcs[f]
                 and "IMMA" not in funcs[f]), f
 
@@ -602,9 +683,6 @@ def _force_split(monkeypatch, split):
     monkeypatch.setattr(importlib.import_module(
         "repro_torch.kernels.matmul_pipe"), "fc_split",
         lambda dtype, M, K, N, sms: split)
-
-
-SPLIT_SHAPES = [(8, 4096, 1000), (13, 1000, 200), (3, 200, 1001)]
 
 
 @pytest.mark.parametrize("split", [(tnf, r)
@@ -744,6 +822,10 @@ def _close_attn(got, want):
     (1, 4, 2, 100, 100, 128),      # GQA, S not a multiple of the 64 tile
     (2, 8, 2, 200, 200, 64),       # GQA g=4, ragged
     (1, 2, 1, 130, 130, 32),       # g=2, one query tile and a ragged one
+    (1, 8, 2, 1000, 1000, 128),    # long, ragged, causal, g=4
+    (1, 2, 2, 16, 16, 16),         # one ragged tile: warps past S
+    (2, 4, 1, 300, 300, 16),       # g=4, ragged
+    (2, 8, 2, 1000, 1000, 128),    # two batches of the long case
 ])
 def test_flash_attention_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Sk, D,
                                               dtype):

@@ -338,27 +338,43 @@ def test_fp32_fc_split_fills_the_card(shape, want):
     assert -(-N // tnf) * ranks * -(-M // 8) >= 132
 
 
+# the int8 split of the same layers on a 132-SM H100: about 1.4 blocks an
+# SM (128 features x 6 ranks, 192 blocks, was the fastest of 16 splits at
+# VGG-16 fc6 in tile_sweep.py's times; fc8's 32 x 6 within 2 % of its
+# fastest, 32 x 7)
+INT8_FC_LAYER_SPLITS = [
+    ((8, 9216, 4096), (128, 6)),         # AlexNet fc6
+    ((8, 25088, 4096), (128, 6)),        # VGG-16 fc6
+    ((8, 4096, 4096), (128, 6)),         # fc7, both
+    ((8, 4096, 1000), (32, 6)),          # fc8, both
+]
+
+
+@pytest.mark.parametrize("shape,want", INT8_FC_LAYER_SPLITS)
+def test_int8_fc_split_fills_the_card(shape, want):
+    M, K, N = shape
+    tnf, ranks = got = fc_split(torch.int8, M, K, N, 132)
+    assert got == want
+    assert tnf in FC_FEATURES[torch.int8]
+    assert -(-N // tnf) * ranks * -(-M // 8) >= 132
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8],
+                         ids=["bf16", "fp32", "int8"])
 @pytest.mark.parametrize("M,K,N", [(1, 16, 8), (8, 100, 1001), (64, 128, 32),
                                    (100, 300, 70), (8, 25088, 4096),
                                    (200, 4096, 4096)])
-def test_fc_split_stays_within_the_kernel(M, K, N):
-    """1 to 8 ranks, never more than K has chunks; a tile the kernel
-    has."""
-    tnf, ranks = fc_split(torch.bfloat16, M, K, N, 132)
-    assert tnf in (64, 32)
-    assert 1 <= ranks <= min(8, -(-K // 64))
-
-
-@pytest.mark.parametrize("M,K,N", [(1, 16, 8), (8, 100, 1001), (64, 128, 32),
-                                   (100, 300, 70), (8, 25088, 4096),
-                                   (200, 4096, 4096)])
-def test_fp32_fc_split_stays_within_the_kernel(M, K, N):
-    """The fp32 kernel's chunk is 2048 / tnf k (8 KB of w whatever the
-    tile): 1 to 8 ranks, never more than K has chunks of that depth."""
-    tnf, ranks = fc_split(torch.float32, M, K, N, 132)
-    assert tnf in FC_FEATURES[torch.float32]
-    assert fc_chunk(torch.float32, tnf) * tnf == 2048
-    assert 1 <= ranks <= min(8, -(-K // fc_chunk(torch.float32, tnf)))
+def test_fc_split_stays_within_the_kernel(dtype, M, K, N):
+    """A feature tile the mode's kernel has, 1 to 8 ranks, never more than
+    K has chunks: 64 k in bf16, 8 KB of w in fp32 (2048 / tnf k) and int8
+    (8192 / tnf k). Ragged M (past 8), K (under one chunk) and N (not a
+    multiple of 4 or 16)."""
+    tnf, ranks = fc_split(dtype, M, K, N, 132)
+    assert tnf in FC_FEATURES[dtype]
+    chunk = fc_chunk(dtype, tnf)
+    assert chunk == 64 if dtype == torch.bfloat16 \
+        else chunk * tnf * dtype.itemsize == 8192
+    assert 1 <= ranks <= min(8, -(-K // chunk))
 
 
 def test_library_path_hashes_the_headers_a_source_includes(tmp_path):

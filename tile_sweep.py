@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time every tile of the fp32 and int8 conv kernels and every split of
-the fp32 and bf16 FC kernels at AlexNet's and VGG-16's batch-8 layers,
-on one CUDA card.
+the fp32, bf16 and int8 FC kernels at AlexNet's and VGG-16's batch-8
+layers, on one CUDA card.
 
     python3 tile_sweep.py
 
@@ -13,9 +13,11 @@ and each tile's time for one round of blocks an SM relative to the
 ``kernels/conv_pipe.py:FP32_BLOCK_COST`` holds. It times the int8 mode
 at each tile on random int8 codes of the same shapes (int8 out) and
 prints the int8 pick and the fastest. For each FC layer it times
-matmul_pipe's fp32 mode (128, 64 and 32 features) and bf16 mode (64 and
-32) at 1 to 8 ranks a cluster beside cuBLAS, and prints ``fc_split``'s
-pick. Then the host time of one wrapper call (enqueue only). Kernel times are CUDA-graph
+matmul_pipe's fp32 mode (128, 64 and 32 features), bf16 mode (64 and 32)
+and int8 mode (128, 64 and 32; random codes, int8 out at fc6 and fc7,
+fp32 at fc8) at 1 to 8 ranks a cluster beside cuBLAS (``torch._int_mm``
++ epilogue for int8), and prints ``fc_split``'s pick. Then the host time
+of one wrapper call (enqueue only). Kernel times are CUDA-graph
 replays (``chip_smoke.graph_ms``), so the host's pace is out of them.
 Needs the repository around it; exits non-zero without a CUDA device.
 """
@@ -170,15 +172,42 @@ def main() -> int:
               f"{cpm.FP32_BLOCK_COST[tile]}")
 
     seen = set()
-    for dtype, tag in ((torch.float32, "fc fp32"), (torch.bfloat16, "fc")):
+    for dtype, tag in ((torch.float32, "fc fp32"), (torch.bfloat16, "fc"),
+                       (torch.int8, "fc int8")):
         for arch, group, M, K, N in fcs:
             if (dtype, M, K, N) in seen:
                 continue
             seen.add((dtype, M, K, N))
-            x = torch.randn((M, K), generator=gen, device="cuda").to(dtype)
-            w = (torch.randn((K, N), generator=gen, device="cuda")
-                 * 0.02).to(dtype)
-            b = torch.randn((N,), generator=gen, device="cuda").to(dtype)
+            if dtype == torch.int8:
+                # random codes; int8 out (fc6, fc7) or fp32 out (fc8)
+                x, w = (torch.randint(-127, 128, shape, generator=gen,
+                                      device="cuda", dtype=torch.int8)
+                        for shape in ((M, K), (K, N)))
+                b = torch.randn((N,), generator=gen, device="cuda")
+                kw = dict(relu=True, scale=torch.full(
+                    (N,), 1e-4, device="cuda"),
+                    out_scale=3.0 / 127 if N >= 4096 else None)
+                xpad = torch.zeros((32, K), dtype=torch.int8, device="cuda")
+                xpad[:M] = x
+
+                def library():
+                    y = (torch._int_mm(xpad, w)[:M].float() * kw["scale"]
+                         + b).relu_()
+                    return y if kw["out_scale"] is None else torch.clamp(
+                        torch.round(y / kw["out_scale"]), -127, 127).to(
+                        torch.int8)
+                libname = "torch._int_mm + epilogue"
+            else:
+                x = torch.randn((M, K), generator=gen,
+                                device="cuda").to(dtype)
+                w = (torch.randn((K, N), generator=gen, device="cuda")
+                     * 0.02).to(dtype)
+                b = torch.randn((N,), generator=gen, device="cuda").to(dtype)
+                kw = dict(relu=True)
+
+                def library():
+                    return torch.addmm(b, x, w).relu_()
+                libname = "cuBLAS"
             ms = {}
             for tnf in mpm.FC_FEATURES[dtype]:
                 for r in range(1, mpm.FC_RANKS + 1):
@@ -187,17 +216,18 @@ def main() -> int:
                     mpm.fc_split = lambda *a, s=(tnf, r): s
                     try:
                         ms[tnf, r] = graph_ms(
-                            lambda: matmul_pipe(x, w, b, relu=True))
+                            lambda: matmul_pipe(x, w, b, **kw))
                     finally:
                         mpm.fc_split = fc_split
-            lib = graph_ms(lambda: torch.addmm(b, x, w).relu_())
+            lib = graph_ms(library)
             pick = fc_split(dtype, M, K, N, sms)
             fast = min(ms, key=ms.get)
             print(f"[{tag}] {arch} {group} {M}x{K}x{N}: " + "  ".join(
                 f"{a}x{r} {t:.4f}" for (a, r), t in ms.items())
-                + f" ms; cuBLAS {lib:.4f} ms; fc_split {pick[0]}x{pick[1]} "
-                  f"{ms[pick]:.4f} ms, fastest {fast[0]}x{fast[1]} "
+                + f" ms; {libname} {lib:.4f} ms; fc_split {pick[0]}x"
+                  f"{pick[1]} {ms[pick]:.4f} ms, fastest {fast[0]}x{fast[1]} "
                   f"{ms[fast]:.4f} ms", flush=True)
+
 
     def host_us(fn, n=200):
         for _ in range(10):
