@@ -55,7 +55,9 @@ Phases (any failure exits non-zero):
    card's bound. The bf16 prefill (flash_attention on the tensor cores)
    prints as a redesigned row: its TFLOP/s and share
    of the bound as timed and in a CUDA graph (SDPA too), its worst error
-   against the allowance, and the replaced kernel's time.
+   against the allowance, and the replaced kernel's time. So does every
+   decode row (decode_attention split over the slots, both modes), in
+   TB/s against the byte bound, beside the slot write + SDPA in a graph.
 6. The attention layer at full width, the slice's main path: Qwen3-8B
    (d_model 4096), B 1, S 4096, seeded weights, fp32 and bf16.
    ``models.attention.attn_forward`` (plain, chunked) against the same
@@ -64,7 +66,7 @@ Phases (any failure exits non-zero):
    ``wo``, held as in 5 (the row is a token); each mode must launch
    exactly its two attention kernels once. Then each kernel is held
    against its plain version on the inputs this path gave it and timed
-   as in 5 (the bf16 prefill as a redesigned row). The CNN phases above
+   as in 5 (the bf16 prefill and both decodes as redesigned rows). The CNN phases above
    must launch no attention kernel.
 7. VGG-16 at full width (batch 8, 224x224x3, seeded weights, random
    biases), fp32 and int8: each fp32 and int8 kernel against its plain
@@ -162,9 +164,12 @@ INT_MM_ROWS = 32               # torch._int_mm needs more than 16 rows
 # kernel (bf16 widened on the CUDA cores), conv_pipe's 64x64
 # single-buffered FFMA kernel, matmul_pipe_bf16's FFMA weight stream,
 # conv_pipe_s8's __dp4a kernel, matmul_pipe's one-block-a-slab FFMA
-# kernel and matmul_pipe_s8's one-block-a-slab __dp4a kernel; and
+# kernel and matmul_pipe_s8's one-block-a-slab __dp4a kernel;
 # flash_attention_bf16's FFMA kernel (bf16 widened on the CUDA cores) on
-# the prefill of phases 5 and 6
+# the prefill of phases 5 and 6; and decode_attention's one block a (batch,
+# KV head), both modes, at each decode row of phases 5 and 6 (as timed by
+# this script's previous version, before the split, on the card named;
+# PERF.md section 6)
 OLD_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 OLD_MS = {
     "conv_pipe_bf16": {
@@ -210,7 +215,17 @@ OLD_MS = {
         "alexnet": {"fc(10,)": 0.0597, "fc(11,)": 0.0322, "fc(12,)": 0.0287},
         "vgg16": {"fc(18,)": 0.1591, "fc(19,)": 0.0218, "fc(20,)": 0.0283}},
     "flash_attention_bf16": {
-        ATTN_ARCH: {"prefill bf16": 4.1035, "layer prefill bf16": 4.1035}}}
+        ATTN_ARCH: {"prefill bf16": 4.1035, "layer prefill bf16": 4.1035}},
+    "decode_attention": {
+        ATTN_ARCH: {"decode fp32 pos 0": 0.0353,
+                    "decode fp32 pos 16383": 1.0345,
+                    "decode fp32 pos 32767": 2.0633,
+                    "layer decode fp32": 0.2598}},
+    "decode_attention_bf16": {
+        ATTN_ARCH: {"decode bf16 pos 0": 0.0299,
+                    "decode bf16 pos 16383": 1.0008,
+                    "decode bf16 pos 32767": 1.9893,
+                    "layer decode bf16": 0.2557}}}
 # published HBM rates (NVIDIA data sheets), by the name nvidia-smi reports
 MEM_BW = {"H100 80GB HBM3": 3.35e12, "H100 PCIe": 2.0e12,
           "H100 NVL": 3.9e12, "H200": 4.8e12}
@@ -876,19 +891,32 @@ def main() -> int:
         rows.append(row)
 
     def attn_redesign_line(row, old_ms, run, library):
-        """Print a redesigned attention kernel's row: TFLOP/s and share of
-        the bound as timed and in a CUDA graph (SDPA too), its worst error
-        against the allowance, and the replaced kernel's time."""
+        """Print a redesigned attention kernel's row: TFLOP/s (prefill) or
+        TB/s (decode, bound by bytes) and share of the bound as timed and
+        in a CUDA graph (the library call too: SDPA, or the slot write +
+        SDPA), its worst error against the allowance, and the replaced
+        kernel's time."""
         row["graph_ms"] = graph_ms(run)
         row["library_graph_ms"] = graph_ms(library)
         row["old_ms"] = old_ms
         row["pct_of_bound"] = 100 * row["bound_ms"] / row["ms"]
-        row["tflops"] = row["ops"] / row["ms"] / 1e9
+        if row["bound_by"] == "bytes":
+            row["tbps"] = row["bytes"] / row["ms"] / 1e9
+
+            def rate(ms):
+                return f"{row['bytes'] / ms / 1e9:.2f} TB/s"
+            lib = "slot write + SDPA"
+        else:
+            row["tflops"] = row["ops"] / row["ms"] / 1e9
+
+            def rate(ms):
+                return f"{row['ops'] / ms / 1e9:.1f} TFLOP/s"
+            lib = "SDPA"
         print(f"[redesign] {ATTN_ARCH} {row['layer']} {row['kernel']}: "
-              f"{row['ms']:.4f} ms, {row['tflops']:.1f} TFLOP/s, "
+              f"{row['ms']:.4f} ms, {rate(row['ms'])}, "
               f"{row['pct_of_bound']:.1f} % of the bound; in a CUDA graph "
-              f"{row['graph_ms']:.4f} ms, "
-              f"{100 * row['bound_ms'] / row['graph_ms']:.1f} % (SDPA "
+              f"{row['graph_ms']:.4f} ms, {rate(row['graph_ms'])}, "
+              f"{100 * row['bound_ms'] / row['graph_ms']:.1f} % ({lib} "
               f"{row['library_graph_ms']:.4f} ms); worst error "
               f"{row['err_ratio']:.3f} of the allowance; replaced kernel "
               f"{old_ms:.4f} ms ({OLD_CARD}), {old_ms / row['ms']:.2f}x")

@@ -885,6 +885,7 @@ def _decode_inputs(rng, B, S, HKV, G, D, dtype, dev):
     (2, 300, 8, 4, 128, 299),      # S not a multiple of the 64-slot tile
     (1, 300, 2, 4, 128, 130),
     (1, 200, 2, 3, 64, 199),
+    (1, 4096, 8, 4, 128, 4095),    # Qwen3-8B at B 1: many splits a head
 ])
 @pytest.mark.parametrize("pos_on_device", [False, True], ids=["int", "dev"])
 def test_decode_attention_kernel_matches_plain(cuda, B, S, HKV, G, D, pos,
@@ -902,6 +903,90 @@ def test_decode_attention_kernel_matches_plain(cuda, B, S, HKV, G, D, pos,
     assert k_out is kc and v_out is vc                  # in place
     _close_attn(o, o_plain)
     assert torch.equal(kc, kp) and torch.equal(vc, vp)
+
+
+def _force_decode_split(monkeypatch, P):
+    """Make the decode wrapper launch P blocks a (batch, KV head), whichever
+    split :func:`decode_split` would choose."""
+    monkeypatch.setattr(importlib.import_module(
+        "repro_torch.kernels.decode_attention"), "decode_split",
+        lambda dtype, B, HKV, S, sms: P)
+
+
+@pytest.mark.parametrize("dtype", ATTN_DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("pos_on_device", [False, True], ids=["int", "dev"])
+@pytest.mark.parametrize("P", [1, 2, 3, 5, 8, 13])
+@pytest.mark.parametrize("B,S,HKV,G,D,pos", [
+    (2, 300, 2, 3, 64, 0),          # one slot: every split but one empty
+    (2, 300, 2, 3, 64, 127),        # a tile edge: two whole tiles
+    (2, 300, 2, 3, 64, 128),        # one slot into the third tile
+    (2, 300, 2, 3, 64, 299),        # the last slot of a ragged cache
+    (1, 200, 2, 8, 128, 0),         # G 8 (the 8-row kernel), ragged S
+    (1, 200, 2, 8, 128, 63),
+    (1, 200, 2, 8, 128, 64),
+    (1, 200, 2, 8, 128, 199),
+])
+def test_decode_attention_every_split_matches_plain(cuda, monkeypatch, P, B,
+                                                    S, HKV, G, D, pos, dtype,
+                                                    pos_on_device):
+    """Each split P, more shares than tiles (13, and 5 and 8 at small pos)
+    included: slot pos on a share's edge, at 0 and at S - 1, an int or a
+    device pos. The caches bit-equal to the plain version's after the
+    write; o within the attention allowance."""
+    _force_decode_split(monkeypatch, P)
+    rng = np.random.default_rng(7)
+    q, kc, vc, nk, nv = _decode_inputs(rng, B, S, HKV, G, D, dtype, cuda)
+    p = (torch.tensor(pos, dtype=torch.int32, device=cuda)
+         if pos_on_device else pos)
+    kp, vp = kc.clone(), vc.clone()
+    o_plain, kp, vp = decode_attention_plain(q, kp, vp, nk, nv, p)
+    o, _, _ = decode_attention(q, kc, vc, nk, nv, p)
+    _close_attn(o, o_plain)
+    assert torch.equal(kc, kp) and torch.equal(vc, vp)
+
+
+@pytest.mark.parametrize("dtype", ATTN_DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,pos", [(8, 4096, 4095), (1, 4096, 2000),
+                                     (2, 300, 299)])
+def test_decode_attention_is_deterministic(cuda, B, S, pos, dtype):
+    """The splits' partials meet in a fixed order (row groups, warps, then
+    splits): two calls on the same inputs give the same bits."""
+    rng = np.random.default_rng(8)
+    q, kc, vc, nk, nv = _decode_inputs(rng, B, S, 8, 4, 128, dtype, cuda)
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    o1, _, _ = decode_attention(q, kc, vc, nk, nv, p)
+    o2, _, _ = decode_attention(q, kc, vc, nk, nv, p)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2)
+
+
+@pytest.mark.parametrize("dtype", ATTN_DTYPES, ids=["f32", "bf16"])
+def test_decode_attention_in_a_cuda_graph(cuda, dtype):
+    """One capture with a device pos; between replays pos advances and new
+    q, new_k and new_v are copied into the captured inputs. Each replay
+    matches the plain version at its pos, the caches bit-equal: the split
+    never depends on pos, and the shares are worked out on the card."""
+    rng = np.random.default_rng(9)
+    B, S, HKV, G, D = 2, 1000, 2, 4, 64
+    q, kc, vc, nk, nv = _decode_inputs(rng, B, S, HKV, G, D, dtype, cuda)
+    pos = torch.zeros((), dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_attention(q, kc, vc, nk, nv, pos)     # builds; writes slot 0
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o, _, _ = decode_attention(q, kc, vc, nk, nv, pos)
+    kp, vp = kc.clone(), vc.clone()
+    for step in (0, 1, 63, 64, 65, 500, 999):
+        for t in (q, nk, nv):
+            t.copy_(_randn(rng, tuple(t.shape), dtype, cuda))
+        pos.fill_(step)
+        graph.replay()
+        want, kp, vp = decode_attention_plain(q, kp, vp, nk, nv, step)
+        _close_attn(o, want)
+        assert torch.equal(kc, kp) and torch.equal(vc, vp)
 
 
 @pytest.mark.parametrize("pos", [0, 127])

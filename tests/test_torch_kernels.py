@@ -7,6 +7,7 @@ conv is held against ``repro.kernels.ops.fused_conv(use_pallas=False)``,
 i.e. ``conv_pipe_ref``; ``matmul_pipe`` and ``lrn_pwl`` are held against
 the Pallas kernels in interpret mode.
 """
+import inspect
 import math
 import shutil
 
@@ -22,6 +23,7 @@ from repro.kernels.lrn_pwl import lrn_pwl as jax_lrn_pwl
 from repro.kernels.matmul_pipe import matmul_pipe as jax_matmul_pipe
 from repro_torch.kernels import ref
 from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import DECODE_TILE, decode_split
 from repro_torch.kernels.conv_pipe import (FP32_BLOCK_COST, INT8_FILL,
                                            POSITIONS, conv_pipe,
                                            conv_tile, pool_tile)
@@ -375,6 +377,38 @@ def test_fc_split_stays_within_the_kernel(dtype, M, K, N):
     assert chunk == 64 if dtype == torch.bfloat16 \
         else chunk * tnf * dtype.itemsize == 8192
     assert 1 <= ranks <= min(8, -(-K // chunk))
+
+
+# (B, HKV, S, G, D) of decode steps, and whether the shape is Qwen3-8B's
+# (8 KV heads, G 4, d_head 128), whose splits must fill a 132-SM H100
+DECODE_SHAPES = [
+    ((1, 8, 4096, 4, 128), True),        # phase 6: B 1, 4096 slots
+    ((8, 8, 32768, 4, 128), True),       # phase 5: decode_32k cut to B 8
+    ((1, 8, 40, 4, 128), False),         # S below one 64-slot tile
+    ((2, 2, 300, 1, 16), False),         # G 1, D 16, ragged S
+    ((2, 2, 300, 8, 128), False),        # G 8, D 128, ragged S
+    ((1, 4, 1000, 8, 16), False),        # G 8, D 16
+    ((3, 1, 200, 1, 128), False),        # G 1, D 128
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape,qwen", DECODE_SHAPES)
+def test_decode_split_stays_within_the_cache_and_fills_the_card(dtype, shape,
+                                                                qwen):
+    """1 <= P <= the cache's 64-slot tiles; Qwen3-8B's
+    shapes give at least one full wave of blocks on 132 SMs. The rule
+    reads host values only: its arguments are the mode, B, HKV, S and the
+    SM count (never pos, G or D), and plain ints give a plain int."""
+    B, HKV, S, G, D = shape
+    assert list(inspect.signature(decode_split).parameters) == [
+        "dtype", "B", "HKV", "S", "sms"]
+    P = decode_split(dtype, B, HKV, S, 132)
+    assert type(P) is int
+    assert 1 <= P <= -(-S // DECODE_TILE)
+    if qwen:
+        assert B * HKV * P >= 132
 
 
 def test_library_path_hashes_the_headers_a_source_includes(tmp_path):

@@ -16,9 +16,14 @@ prints the int8 pick and the fastest. For each FC layer it times
 matmul_pipe's fp32 mode (128, 64 and 32 features), bf16 mode (64 and 32)
 and int8 mode (128, 64 and 32; random codes, int8 out at fc6 and fc7,
 fp32 at fc8) at 1 to 8 ranks a cluster beside cuBLAS (``torch._int_mm``
-+ epilogue for int8), and prints ``fc_split``'s pick. Then the host time
-of one wrapper call (enqueue only). Kernel times are CUDA-graph
-replays (``chip_smoke.graph_ms``), so the host's pace is out of them.
++ epilogue for int8), and prints ``fc_split``'s pick. For
+decode_attention, fp32 and bf16, at the decode shapes of
+``chip_smoke.py`` (phase 5: caches 8 x 32768 slots; phase 6: 1 x 4096;
+Qwen3-8B's 8 KV heads, G 4, d_head 128; full and half caches) it times
+every split P beside the slot write + SDPA and prints ``decode_split``'s
+pick against the fastest. Then the host time of one wrapper call
+(enqueue only). Kernel times are CUDA-graph replays
+(``chip_smoke.graph_ms``), so the host's pace is out of them.
 Needs the repository around it; exits non-zero without a CUDA device.
 """
 from __future__ import annotations
@@ -33,6 +38,65 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
 TILES = ((128, 128), (128, 64), (64, 128), (64, 64))
+# the splits timed at each decode shape: (B, S) -> P
+DECODE_SPLITS = {(8, 32768): (1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 16, 24, 32),
+                 (1, 4096): (1, 2, 4, 8, 12, 16, 17, 24, 32, 33, 40, 48, 64)}
+
+
+def sweep_decode(sms: int) -> None:
+    """Time decode_attention at every split of :data:`DECODE_SPLITS`, fp32
+    and bf16, at pos S - 1 and S / 2 - 1, beside the slot write + SDPA
+    (CUDA graphs); print ``decode_split``'s pick and the fastest."""
+    import torch
+    import torch.nn.functional as F
+    from chip_smoke import ATTN_ARCH, graph_ms
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as dam
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_split)
+    acfg = get_config(ATTN_ARCH)
+    hkv, dh = acfg.n_kv_heads, acfg.d_head
+    G = acfg.n_heads // hkv
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        for (B, S), splits in DECODE_SPLITS.items():
+            kc, vc = (torch.randn((B, S, hkv, dh), generator=gen,
+                                  device="cuda").to(dtype) for _ in range(2))
+            q = torch.randn((B, hkv, G, dh), generator=gen,
+                            device="cuda").to(dtype)
+            nk, nv = (torch.randn((B, hkv, dh), generator=gen,
+                                  device="cuda").to(dtype) for _ in range(2))
+            pick = decode_split(dtype, B, hkv, S, sms)
+            for pos in (S - 1, S // 2 - 1):
+                p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+                ms = {}
+                for P in sorted(set(splits) | {pick}):
+                    dam.decode_split = lambda *a, P=P: P
+                    try:
+                        ms[P] = graph_ms(lambda: decode_attention(
+                            q, kc, vc, nk, nv, p))
+                    finally:
+                        dam.decode_split = decode_split
+
+                def library(pos=pos):
+                    kc[:, pos] = nk
+                    vc[:, pos] = nv
+                    return F.scaled_dot_product_attention(
+                        q.reshape(B, hkv * G, 1, dh),
+                        kc[:, :pos + 1].transpose(1, 2),
+                        vc[:, :pos + 1].transpose(1, 2), enable_gqa=True)
+                lib = graph_ms(library)
+                fast = min(ms, key=ms.get)
+                es = torch.finfo(dtype).bits // 8
+                gb = es * B * hkv * dh * 2 * (pos + 1) / 1e9
+                print(f"[decode {str(dtype)[6:]}] B {B} S {S} pos {pos} "
+                      f"({gb:.3f} GB of K and V): " + "  ".join(
+                          f"P{P} {t:.4f}" for P, t in ms.items())
+                      + f" ms; slot write + SDPA {lib:.4f} ms; decode_split "
+                        f"P{pick} {ms[pick]:.4f} ms "
+                        f"({gb / ms[pick]:.2f} TB/s), fastest P{fast} "
+                        f"{ms[fast]:.4f} ms", flush=True)
+            del kc, vc
 
 
 def main() -> int:
@@ -228,6 +292,7 @@ def main() -> int:
                   f"{pick[1]} {ms[pick]:.4f} ms, fastest {fast[0]}x{fast[1]} "
                   f"{ms[fast]:.4f} ms", flush=True)
 
+    sweep_decode(sms)
 
     def host_us(fn, n=200):
         for _ in range(10):
