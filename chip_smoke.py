@@ -11,12 +11,14 @@ Phases (any failure exits non-zero):
    matmul_pipe is held against its plain PyTorch version on the inputs
    AlexNet's batch-8 forward gives it (seeded weights, random biases; the
    fold over the plain versions), and timed beside the plain version, one
-   library call and the card's bound. Each row of a redesigned kernel
-   (conv_pipe and matmul_pipe fp32 here; see 2b and 8) also prints its
-   tile or split, its TFLOP/s (TOP/s) or TB/s and its share of the
-   bound, as timed and in a CUDA graph (``graph_ms``: the host's pace
-   taken out, the library call's too), and the replaced kernel's time
-   for that layer (``OLD_MS``).
+   library call and the card's bound; lrn_pwl must equal its plain
+   version bit for bit. Each row of a redesigned kernel (conv_pipe,
+   matmul_pipe and lrn_pwl fp32 here; see 2b and 8) also prints its tile
+   or split, its TFLOP/s (TOP/s) or TB/s and its share of the bound, as
+   timed and in a CUDA graph (``graph_ms``: the host's pace taken out,
+   the library call's too; an LRN's graph cycles through at least 64 MiB
+   of distinct input/output pairs, so its bytes come from device memory,
+   not L2), and the replaced kernel's time for that layer (``OLD_MS``).
 3. Full forward: ``compile_cnn(alexnet, batch 8).forward(x)`` at full
    width with the same weights must launch conv_pipe 5x, lrn_pwl 2x
    and matmul_pipe 3x (all fp32), and its logits must match the same
@@ -52,10 +54,11 @@ Phases (any failure exits non-zero):
    rtol x (|plain| + the RMS of its row), rtol 1e-4 (fp32) or 2e-2
    (bf16), caches bit-equal to the plain version's after the write; each
    row timed beside the plain version, one library call (SDPA) and the
-   card's bound. The bf16 prefill (flash_attention on the tensor cores)
-   prints as a redesigned row: its TFLOP/s and share
-   of the bound as timed and in a CUDA graph (SDPA too), its worst error
-   against the allowance, and the replaced kernel's time. So does every
+   card's bound. The prefill in both modes (flash_attention: FFMA in
+   fp32, the tensor cores in bf16) prints as a redesigned row: its
+   TFLOP/s and share of the bound as timed and in a CUDA graph (SDPA
+   too), its worst error against the allowance, and the replaced
+   kernel's time. So does every
    decode row (decode_attention split over the slots, both modes), in
    TB/s against the byte bound, beside the slot write + SDPA in a graph.
 6. The attention layer at full width, the slice's main path: Qwen3-8B
@@ -66,8 +69,8 @@ Phases (any failure exits non-zero):
    ``wo``, held as in 5 (the row is a token); each mode must launch
    exactly its two attention kernels once. Then each kernel is held
    against its plain version on the inputs this path gave it and timed
-   as in 5 (the bf16 prefill and both decodes as redesigned rows). The CNN phases above
-   must launch no attention kernel.
+   as in 5 (both prefills and both decodes as redesigned rows). The CNN
+   phases above must launch no attention kernel.
 7. VGG-16 at full width (batch 8, 224x224x3, seeded weights, random
    biases), fp32 and int8: each fp32 and int8 kernel against its plain
    version on the inputs the forward gives it, timed and printed as in 2
@@ -85,7 +88,8 @@ Phases (any failure exits non-zero):
    (operations at the bf16 tensor-core rate, bytes at 2 B an element).
    conv_pipe's and matmul_pipe's bf16 modes run on the tensor cores
    (``mma.sync``; matmul_pipe's split over K in a thread-block cluster);
-   their rows and sums print as the redesigned rows of 2.
+   their rows and sums print as the redesigned rows of 2, as do the LRN
+   rows (lrn_pwl's bf16 mode within one bf16 ulp of its plain version).
 9. bf16 forwards: AlexNet must launch the bf16 modes 5/2/3x, VGG-16
    13/0/3x, and nothing else; logits within 2e-2 x max|logit| of the
    fold of 8 over the plain versions; the top-1 agreement with the fp32
@@ -106,6 +110,7 @@ without the repository around it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import statistics
@@ -158,6 +163,9 @@ PREFILL_S = 4096               # prefill_32k cut: S 32768 -> 4096, batch 32 -> 1
 DECODE_B, DECODE_S = 8, 32768  # decode_32k cut: batch 128 -> 8
 DECODE_POS = (0, 16383, 32767)
 INT_MM_ROWS = 32               # torch._int_mm needs more than 16 rows
+# an LRN row's CUDA graph cycles through distinct input/output pairs of at
+# least this many bytes, so its activation cannot stay in the 50 MB L2
+ROTATION_BYTES = 64 << 20
 # a launch (ms) with the kernel each redesign replaced, at batch 8 on the
 # inputs of phases 2, 2b, 7 and 8, by kernel, model and layer, measured by
 # this script on the card named (PERF.md section 5): conv_pipe_bf16's FFMA
@@ -169,7 +177,12 @@ INT_MM_ROWS = 32               # torch._int_mm needs more than 16 rows
 # the prefill of phases 5 and 6; and decode_attention's one block a (batch,
 # KV head), both modes, at each decode row of phases 5 and 6 (as timed by
 # this script's previous version, before the split, on the card named;
-# PERF.md section 6)
+# PERF.md section 6); flash_attention's FFMA kernel of 64-row query tiles
+# (4 rows x 4 keys a thread, K and V through registers into one buffer) on
+# the fp32 prefill of phases 5 and 6, and lrn_pwl's element-a-thread kernel
+# on AlexNet's LRNs in fp32 and bf16 (as timed by the previous version of
+# this script on the card named, in one call with this version; PERF.md
+# section 6)
 OLD_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 OLD_MS = {
     "conv_pipe_bf16": {
@@ -216,6 +229,10 @@ OLD_MS = {
         "vgg16": {"fc(18,)": 0.1591, "fc(19,)": 0.0218, "fc(20,)": 0.0283}},
     "flash_attention_bf16": {
         ATTN_ARCH: {"prefill bf16": 4.1035, "layer prefill bf16": 4.1035}},
+    "flash_attention": {
+        ATTN_ARCH: {"prefill fp32": 4.2902, "layer prefill fp32": 4.2911}},
+    "lrn_pwl": {"alexnet": {"lrn(1,)": 0.0284, "lrn(4,)": 0.0215}},
+    "lrn_pwl_bf16": {"alexnet": {"lrn(1,)": 0.0277, "lrn(4,)": 0.0252}},
     "decode_attention": {
         ATTN_ARCH: {"decode fp32 pos 0": 0.0353,
                     "decode fp32 pos 16383": 1.0345,
@@ -320,6 +337,23 @@ def bf16_ulps(got, want) -> float:
     exp = torch.frexp(w.abs().clamp_min(floor)).exponent
     ulp = torch.ldexp(torch.ones_like(w), exp - 8)
     return ((got.float() - w).abs() / ulp).max().item()
+
+
+def rotated(fn, x, min_bytes: int = ROTATION_BYTES):
+    """``(call, n)``: each call runs ``fn`` on the next of ``n`` copies of
+    ``x`` in turn (``n`` the fewest whose inputs and outputs, as large as
+    the inputs, fill ``min_bytes``) and keeps its output until that copy's
+    turn comes round again, so back-to-back calls in a CUDA graph find
+    neither the input nor the output in L2."""
+    n = -(-min_bytes // (2 * x.numel() * x.element_size()))
+    xs = [x.clone() for _ in range(n)]
+    ys = [None] * n
+    turn = itertools.count()
+
+    def call():
+        i = next(turn) % n
+        ys[i] = fn(xs[i])
+    return call, n
 
 
 def check(ok: bool, what: str) -> None:
@@ -473,6 +507,7 @@ def main() -> int:
         es = x.element_size()
         rows = []
         h = x
+        before = None
         with torch.inference_mode():
             for group in fuse_plan(cfg):
                 l = cfg.layers[group[0]]
@@ -516,8 +551,8 @@ def main() -> int:
                                shape=list(h.shape), pwl_vs_exact=pwl_err,
                                run=lambda h=h: lrn_pwl(h),
                                plain=lambda h=h: lrn_pwl_plain(h),
-                               library=lambda xc=xc: F.local_response_norm(
-                                   xc, 5, alpha=1e-4, beta=0.75, k=2.0),
+                               library=lambda xc=xc: lrn_library(xc),
+                               library_input=xc,
                                ops=14 * h.numel(), bytes=2 * es * h.numel())
                 elif l.kind == "fc":
                     xf = h.reshape(h.shape[0], -1)
@@ -550,6 +585,11 @@ def main() -> int:
                     row["mode"] = mode
                     row["model"] = cfg.name
                     if mode == "fp32":
+                        if l.kind == "lrn":
+                            check(torch.equal(got, want),
+                                  f"{cfg.name} {row['layer']}: lrn_pwl "
+                                  f"differs from its plain version "
+                                  f"(bit-equal required)")
                         peak = want.abs().max().item()
                         row["tol"] = LRN_RTOL * peak if l.kind == "lrn" \
                             else KERNEL_RTOL * max(1.0, peak)
@@ -562,27 +602,65 @@ def main() -> int:
                               f"error {row['ulps']:.2f} bf16 ulps (of "
                               f"max(|plain|, max|plain|/128)), "
                               f"{row['n_differ']} of {got.numel()} differ")
+                        check(l.kind != "lrn" or row["ulps"] <= 1.0,
+                              f"{cfg.name} {row['layer']}: lrn_pwl_bf16 "
+                              f"{row['ulps']:.2f} bf16 ulps from its plain "
+                              f"version (1 allowed)")
                     fns = row["run"], row["library"]
+                    lib_in = row.pop("library_input", None)
                     measure(row, fp32_rate if mode == "fp32" else bf16_rate)
                     if row["kernel"] in OLD_MS:
                         redesign_line(cfg, row, h, l,
-                                      kw if l.kind == "conv" else None, *fns)
+                                      kw if l.kind == "conv" else None, *fns,
+                                      lib_in, before)
                     rows.append(row)
+                    before = fns[0]        # the kernel an LRN follows
                 h = want
         return rows, h
 
-    def redesign_line(cfg, row, h, l, kw, run, library):
+    def lrn_library(xc):
+        """F.local_response_norm with AlexNet's constants, on NCHW x."""
+        return F.local_response_norm(xc, 5, alpha=1e-4, beta=0.75, k=2.0)
+
+    def redesign_line(cfg, row, h, l, kw, run, library, lib_in=None,
+                      before=None):
         """Print a redesigned kernel's row: its tile (a conv, ``kw`` its
-        keywords) or split (FC), its TFLOP/s (conv) or weight TB/s (FC)
-        and share of the bound, both as timed and in a CUDA graph (the
+        keywords) or split (FC), its TFLOP/s (conv) or TB/s (FC weights,
+        LRN) and share of the bound, both as timed and in a CUDA graph (the
         host's pace taken out; the library call too), and the replaced
-        kernel's time for the layer."""
+        kernel's time for the layer. An LRN row's graph cycles through
+        :func:`rotated` copies of its input (the library's of
+        ``lib_in``), so that its bytes come from device memory. Back to
+        back, each LRN launch overlaps the one before (a programmatic
+        dependent); in the forward it follows ``before``, its conv, which
+        releases no dependent early. So the LRN is also timed there, as a
+        graph of conv and LRN pairs less one of the conv alone
+        (``behind_ms``)."""
         sms = props.multi_processor_count
+        if l.kind == "lrn":
+            run, n_pairs = rotated(lrn_pwl, h)
+            library, _ = rotated(lrn_library, lib_in)
         row["graph_ms"] = graph_ms(run)
         row["library_graph_ms"] = (None if library is None
                                    else graph_ms(library))
         unit = "TOP/s" if row["mode"] == "int8" else "TFLOP/s"
-        if kw is not None:
+        graph_note = ""
+        if l.kind == "lrn":
+            what = f"C {h.shape[3]}"
+            graph_note = (f" over {n_pairs} distinct input/output pairs "
+                          f"({n_pairs * row['bytes'] / 2 ** 20:.0f} MiB)")
+            row["rotation_pairs"] = n_pairs
+            row["tbps"] = row["bytes"] / row["ms"] / 1e9
+            row["behind_ms"] = (graph_ms(lambda: (before(), run()), runs=5)
+                                - graph_ms(before, runs=5))
+            graph_note = (f"{graph_note}, behind its conv "
+                          f"{row['behind_ms']:.4f} ms, "
+                          f"{100 * row['bound_ms'] / row['behind_ms']:.1f} "
+                          f"%; back to back")
+
+            def rate(ms):
+                return f"{row['bytes'] / ms / 1e9:.2f} TB/s"
+        elif kw is not None:
             oh = (h.shape[1] + 2 * l.pad - l.kernel) // l.stride + 1
             ow = (h.shape[2] + 2 * l.pad - l.kernel) // l.stride + 1
             row["tile"] = conv_tile(h.dtype, h.shape[0], oh, ow,
@@ -609,8 +687,9 @@ def main() -> int:
                else f"{row['library_graph_ms']:.4f} ms")
         print(f"[redesign] {cfg.name} {row['layer']} {row['kernel']}: "
               f"{what}, {row['ms']:.4f} ms, {rate(row['ms'])}, "
-              f"{row['pct_of_bound']:.1f} % of the bound; in a CUDA graph "
-              f"{row['graph_ms']:.4f} ms, {rate(row['graph_ms'])}, "
+              f"{row['pct_of_bound']:.1f} % of the bound; in a CUDA graph"
+              f"{graph_note} {row['graph_ms']:.4f} ms, "
+              f"{rate(row['graph_ms'])}, "
               f"{100 * row['bound_ms'] / row['graph_ms']:.1f} % (library "
               f"{lib}); replaced kernel "
               f"{row['old_ms']:.4f} ms ({OLD_CARD}), "

@@ -493,25 +493,6 @@ template <typename T> struct Args {
   int B, S, HKV, G, P; float scale; cudaStream_t st;
 };
 
-// A launch as a programmatic dependent of the stream's previous kernel
-// (programmatic stream serialization): it may start while that kernel
-// drains, and waits for it with griddepcontrol.wait before reading.
-template <typename... Params, typename... Args_>
-int launch_dependent(void (*kernel)(Params...), dim3 grid, int threads,
-                     int smem, cudaStream_t st, Args_... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
-}
-
 template <typename T, int D, int GM>
 int launch_split(const Args<T>& a) {
   using Gm = Geo<T, D, GM>;

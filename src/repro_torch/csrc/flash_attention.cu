@@ -14,17 +14,33 @@
 //
 // fp32 (flash_f32_kernel<D>): FFMA on the CUDA cores, as the TPU kernel
 // computes in fp32 (TF32 would break the reference's 1e-4). One block of
-// 256 threads per (batch*head, 64-row query tile); the TPU's sequential
-// KV-tile grid axis becomes a loop inside the block, and its VMEM scratch
-// (running max m, normaliser l, accumulator acc) becomes registers. Per
-// 64-key tile: K is staged in shared memory as fp32, each thread computes
-// a 4x4 block of scores (rows ty+16i, keys tx+16j) with 16-byte shared
-// loads, masks k_pos > q_pos with -1e30 as the TPU kernel does, and takes
-// the row max and sum with shuffles across the 16 threads of a row. P goes
-// to shared memory, V replaces K in the same buffer (85 KB at D 128, so two
-// blocks fit an SM), and each thread adds P*V into its 4 rows x D/16
-// columns. q is scaled by 1/sqrt(D) as it is staged, as the TPU kernel
-// scales it.
+// 8 warps per (batch*head, 128-row query tile), one block an SM (227 KB of
+// shared memory at D 128); the TPU's sequential KV-tile grid axis becomes
+// a loop inside the block, and its VMEM scratch (running max m, normaliser
+// l, accumulator acc) becomes registers. The FFMA pipe needs an issue slot
+// for every FFMA, so what bounds the kernel is the instructions and
+// shared-memory wavefronts that feed them. The first version (64-row
+// tiles, 4 rows x 4 keys a thread, K then V copied through registers into
+// one buffer, three barriers a tile) spent one 16-byte shared load on 8
+// FFMAs and waited on device memory at every tile: 4.29 ms at Qwen3-8B's
+// prefill (S 4096, 48 % of the 2.05 ms FFMA bound; NVIDIA H100 80GB HBM3,
+// 700 W; chip_smoke.py). Now:
+//  - a lane (h, tx) of warp w holds rows 16w + 2i + h (i < 8) and keys
+//    tx + 16j (j < 4) of S, and the same 8 rows x D/16 columns of O, so
+//    each 16-byte shared load of K, V or P feeds 32 FFMAs and of Q 16; a
+//    warp's two rows of a Q or P load fall on different banks (row h XORs
+//    its 16-byte chunk index with 4), K rows are D + 4 floats apart, and a
+//    warp reads one V row whole, so every load takes the fewest
+//    wavefronts its bytes need;
+//  - K and V stream into separate two-stage rings by 16-byte cp.async a
+//    tile ahead, so K_{t+1} and V_t are in flight while S_t is computed,
+//    and one barrier separates the two products (two a tile);
+//  - the softmax's row max is a 16-lane shuffle; each lane keeps its own
+//    share of l, summed once at the end.
+// A warp whose 16 rows all lie above a tile skips it. 3.37 ms at the same
+// shape (61 % of the bound; the same card, in one call with the first
+// version); an unroll of 4 or 2 chunks in either product (fewer registers
+// than the 254 this one takes) was slower.
 //
 // bf16 (flash_bf16_mma_kernel<D>): the tensor cores, in the shape of
 // FlashAttention-2 on mma.sync.m16n8k16 (bf16 products, fp32 sums). Each
@@ -70,36 +86,55 @@
 
 namespace {
 
-constexpr int BQ = 64;           // query rows per block
-constexpr int BK = 64;           // keys per tile
-constexpr int NT = 256;          // threads: 16 x 16
+constexpr int BQ = 64;           // bf16: query rows per block
+constexpr int BK = 64;           // keys per tile (both kernels)
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
+// ---- fp32: FFMA on the CUDA cores ------------------------------------------
 
-// rows [row0, row0 + 64) of a (rows, D) matrix into shared memory as fp32
-// (row stride D + 4), times mul; rows past n_rows are zero
-template <int D>
-__device__ __forceinline__ void load_tile(const float* __restrict__ g, int row0,
-                                          int n_rows, float mul, float* s) {
-  constexpr int CH = D / 8;      // 8-element chunks a row
-  for (int i = threadIdx.x; i < BQ * CH; i += NT) {
-    const int r = i / CH, c = (i % CH) * 8;
-    float f[8];
-    if (row0 + r < n_rows) {
-      load8(g + (size_t)(row0 + r) * D + c, f);
-    } else {
+// The geometry of one fp32 block: 8 warps of 16 query rows each. Lane
+// (h, tx) = (lane / 16, lane % 16) of warp w holds rows 16w + 2i + h
+// (i < RM) of the tile, keys tx + 16j (j < 4) of S and columns
+// tx*VEC + 16*VEC*n (n < NJ) of O.
+template <int D> struct F32Tile {
+  static constexpr int BQ = 128;
+  static constexpr int NT = 256;
+  static constexpr int RM = 8;                  // query rows a thread
+  static constexpr int CH = D / 4;              // 16-byte chunks a row
+  static constexpr int U = CH < 8 ? CH : 8;     // chunks an unrolled step
+  // A warp-wide load of Q or P meets rows 2i + h for h 0 and 1; row h = 1
+  // XORs its chunk index with 4, so the two fall on different banks (at
+  // D 16 two 64-byte rows already share a 128-byte line). P rows are BK
+  // wide, so P always swizzles.
+  static constexpr int SWZ = CH >= 8 ? 4 : 0;
+  static constexpr int KLD = D + 4;             // K row stride: the 16 rows
+                                                // of a load on 8 banks
+  static constexpr int VEC = D / 16 >= 4 ? 4 : D / 16;
+  static constexpr int NJ = D / (16 * VEC);     // O column groups a thread
+  static constexpr int Q_FLOATS = BQ * D;
+  static constexpr int K_FLOATS = BK * KLD;     // one stage of the ring
+  static constexpr int V_FLOATS = BK * D;       // one stage of the ring
+  static constexpr int P_FLOATS = BQ * BK;
+  static constexpr int SMEM =
+      4 * (Q_FLOATS + 2 * K_FLOATS + 2 * V_FLOATS + P_FLOATS);   // bytes
+  static_assert(SMEM <= 232448, "fits an H100 block's shared memory");
+};
+
+// Rows [r0, r0 + ROWS) of a row-major (n_rows, D) matrix of T into shared
+// memory (row stride LD elements) in 16-byte cp.async vectors; rows past
+// n_rows zero-filled.
+template <int ROWS, int D, int LD, int NTH, typename T>
+__device__ __forceinline__ void stage_rows(T* s, const T* g, int r0,
+                                           int n_rows) {
+  constexpr int PER = 16 / sizeof(T);           // elements a vector
+  constexpr int VR = D / PER;                   // vectors a row
+  static_assert(ROWS * VR % NTH == 0, "whole vectors a thread");
 #pragma unroll
-      for (int e = 0; e < 8; ++e) f[e] = 0.f;
-    }
-    float4* dst = reinterpret_cast<float4*>(s + r * (D + 4) + c);
-    dst[0] = make_float4(f[0] * mul, f[1] * mul, f[2] * mul, f[3] * mul);
-    dst[1] = make_float4(f[4] * mul, f[5] * mul, f[6] * mul, f[7] * mul);
+  for (int j = 0; j < ROWS * VR / NTH; ++j) {
+    const int i = threadIdx.x + j * NTH, r = i / VR, c = i % VR * PER;
+    const bool ok = r0 + r < n_rows;
+    cp_async16(smem_u32(s + r * LD + c), ok ? g + (size_t)(r0 + r) * D + c : g,
+               ok);
   }
 }
 
@@ -120,143 +155,206 @@ __device__ __forceinline__ void lds<4>(const float* p, float (&v)[4]) {
   v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
 }
 
+__device__ __forceinline__ float lane_of(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
 template <int D>
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__(256, 1)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int Hq,
                  int Hkv, int Sq, int Sk, float scale) {
-  constexpr int DS = D + 4;                  // shared row stride (floats)
-  constexpr int PS = BK + 4;
-  constexpr int VEC = D / 16 >= 4 ? 4 : D / 16;
-  constexpr int NJ = D / (16 * VEC);         // column groups per thread
+  using Tl = F32Tile<D>;
+  constexpr int NT = Tl::NT, RM = Tl::RM, CH = Tl::CH, U = Tl::U;
+  constexpr int SWZ = Tl::SWZ, KLD = Tl::KLD, VEC = Tl::VEC, NJ = Tl::NJ;
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* kv = qs + BQ * DS;
-  float* ps = kv + BK * DS;
+  float* const Qs = reinterpret_cast<float*>(smem4);   // [BQ][D], swizzled
+  float* const Ks = Qs + Tl::Q_FLOATS;                 // [2][BK][KLD]
+  float* const Vs = Ks + 2 * Tl::K_FLOATS;             // [2][BK][D]
+  float* const Ps = Vs + 2 * Tl::V_FLOATS;             // [BQ][BK], swizzled
 
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int h = lane / 16, tx = lane % 16;
   const int bh = blockIdx.x;
-  const int b = bh / Hq, h = bh % Hq;
-  const int kvh = b * Hkv + h / (Hq / Hkv);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int b = bh / Hq, hq = bh % Hq;
+  const int kvh = b * Hkv + hq / (Hq / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * Tl::BQ;   // longest first
+  const int r0 = 16 * w;                        // the warp's first row
   const float* qg = q + (size_t)bh * Sq * D;
   const float* kg = k + (size_t)kvh * Sk * D;
   const float* vg = v + (size_t)kvh * Sk * D;
 
-  load_tile<D>(qg, q0, Sq, scale, qs);
+  const int n_tiles = (min(min(q0 + Tl::BQ, Sq), Sk) - 1) / BK + 1;
+  stage_rows<BK, D, KLD, NT>(Ks, kg, 0, Sk);
+  cp_async_commit();                            // group: K_0
+  stage_rows<BK, D, D, NT>(Vs, vg, 0, Sk);
+  cp_async_commit();                            // group: V_0
+  // Q times 1/sqrt(D), as the TPU kernel scales it, while K_0 and V_0 land;
+  // chunk c of row r at c ^ (SWZ * (r & 1)); rows past Sq are zero
+  for (int i = threadIdx.x; i < Tl::BQ * CH; i += NT) {
+    const int r = i / CH, c = i % CH;
+    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < Sq)
+      f = __ldg(reinterpret_cast<const float4*>(qg + (size_t)(q0 + r) * D) +
+                c);
+    *reinterpret_cast<float4*>(Qs + r * D + 4 * (c ^ (SWZ * (r & 1)))) =
+        make_float4(f.x * scale, f.y * scale, f.z * scale, f.w * scale);
+  }
 
-  float m[4], l[4], acc[4][NJ * VEC];
+  // Chunk c of row r0 + 2i + h sits at base + 2i * D + 4c + 4 * SWZ * h
+  // when bit 2 of c is clear and - 4 * SWZ * h when it is set; every chunk
+  // index below is a compile-time step of 8, so the choice is too.
+  const float* const q_lo = Qs + (r0 + h) * D + 4 * SWZ * h;
+  const float* const q_hi = Qs + (r0 + h) * D - 4 * SWZ * h;
+  float* const p_lo = Ps + (r0 + h) * BK + 16 * h;
+  float* const p_hi = Ps + (r0 + h) * BK - 16 * h;
+
+  float m[RM], l[RM], acc[RM][NJ * VEC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RM; ++i) {
     m[i] = NEG_INF;
-    l[i] = 0.f;
+    l[i] = 0.f;                                 // this lane's keys' share
 #pragma unroll
     for (int n = 0; n < NJ * VEC; ++n) acc[i][n] = 0.f;
   }
 
-  const int k_last = min(min(q0 + BQ, Sq), Sk) - 1;   // causal edge
-  for (int k0 = 0; k0 <= k_last; k0 += BK) {
-    load_tile<D>(kg, k0, Sk, 1.f, kv);
-    __syncthreads();
-
-    float s[4][4];
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BK, cur = t & 1;
+    cp_async_wait<1>();             // K_t landed: this thread's
+    __syncthreads();                // ... everyone's; tile t-1 is read
+    if (t + 1 < n_tiles)
+      stage_rows<BK, D, KLD, NT>(Ks + (cur ^ 1) * Tl::K_FLOATS, kg, k0 + BK,
+                                Sk);
+    cp_async_commit();
+    if (t + 1 < n_tiles)
+      stage_rows<BK, D, D, NT>(Vs + (cur ^ 1) * Tl::V_FLOATS, vg, k0 + BK, Sk);
+    cp_async_commit();
+    // a warp whose 16 rows all lie above the tile (or past Sq) skips it:
+    // every score would be masked, and the update would leave m, l and O
+    // as they are
+    const bool live = q0 + r0 < Sq && k0 <= q0 + r0 + 15;
+    if (live) {
+      const float* const Kt = Ks + cur * Tl::K_FLOATS + tx * KLD;
+      float s[RM][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kk[4];
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int c8 = 0; c8 < CH; c8 += U) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * DS + d);
+        for (int u = 0; u < U; ++u) {
+          const int c = c8 + u;
+          const float* const qb = ((c & 4) ? q_hi : q_lo) + 4 * c;
+          float4 qv[RM], kk[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kk[j] = *reinterpret_cast<const float4*>(kv + (tx + 16 * j) * DS + d);
+          for (int i = 0; i < RM; ++i)
+            qv[i] = *reinterpret_cast<const float4*>(qb + 2 * i * D);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+          for (int j = 0; j < 4; ++j)
+            kk[j] = *reinterpret_cast<const float4*>(Kt + 16 * j * KLD + 4 * c);
+#pragma unroll
+          for (int i = 0; i < RM; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              s[i][j] = fmaf(qv[i].x, kk[j].x, s[i][j]);
+              s[i][j] = fmaf(qv[i].y, kk[j].y, s[i][j]);
+              s[i][j] = fmaf(qv[i].z, kk[j].z, s[i][j]);
+              s[i][j] = fmaf(qv[i].w, kk[j].w, s[i][j]);
+            }
+        }
+      }
+      // mask k_pos > q_pos (and keys past Sk) with -1e30, as the TPU kernel
+      // masks, where the tile reaches past the warp's first row; the row
+      // max over the 16 lanes of a half-warp; P = exp(S - m) to shared
+      // memory at key column (tx + 16j) ^ 16h
+      const bool edge = k0 + BK - 1 > q0 + r0 || k0 + BK > Sk;
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const int qp = q0 + r0 + 2 * i + h;
+        float mx = NEG_INF;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i].x, kk[j].x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kk[j].y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kk[j].z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kk[j].w, s[i][j]);
+          const int kp = k0 + tx + 16 * j;
+          if (edge && (kp > qp || kp >= Sk)) s[i][j] = NEG_INF;
+          mx = fmaxf(mx, s[i][j]);
         }
-    }
-    __syncthreads();                         // K read by every thread
-    load_tile<D>(vg, k0, Sk, 1.f, kv);
-
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty + 16 * i;
-      float mx = NEG_INF;
+        for (int off = 8; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m[i], mx);
+        float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        if (kp > qp || kp >= Sk) s[i][j] = NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
+        for (int j = 0; j < 4; ++j) {
+          const float p = expf(s[i][j] - m_new);
+          ((j & 1) ? p_hi : p_lo)[2 * i * BK + tx + 16 * j] = p;
+          sum += p;
+        }
+        const float coef = expf(m[i] - m_new);
+        l[i] = l[i] * coef + sum;
+        m[i] = m_new;
+#pragma unroll
+        for (int n = 0; n < NJ * VEC; ++n) acc[i][n] *= coef;
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        ps[(ty + 16 * i) * PS + tx + 16 * j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float coef = expf(m[i] - m_new);
-      l[i] = l[i] * coef + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int n = 0; n < NJ * VEC; ++n) acc[i][n] *= coef;
     }
-    __syncthreads();                         // P and V in shared memory
-
-#pragma unroll 2
-    for (int c = 0; c < BK; c += 4) {
-      float4 pv[4];
+    cp_async_wait<2>();             // V_t landed: this thread's
+    __syncthreads();                // ... everyone's, and P
+    if (live) {
+      const float* const Vt = Vs + cur * Tl::V_FLOATS + tx * VEC;
+      for (int c8 = 0; c8 < BK / 4; c8 += 8) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * PS + c);
+        for (int u = 0; u < 8; ++u) {
+          const int c4 = c8 + u;                // keys 4*c4 .. 4*c4 + 3
+          const float* const pb = ((c4 & 4) ? p_hi : p_lo) + 4 * c4;
+          float4 pv[RM];
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const float* vrow = kv + (c + cc) * DS;
+          for (int i = 0; i < RM; ++i)
+            pv[i] = *reinterpret_cast<const float4*>(pb + 2 * i * BK);
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          float vv[VEC];
-          lds<VEC>(vrow + j * 16 * VEC + tx * VEC, vv);
+          for (int cc = 0; cc < 4; ++cc) {
+            const float* const vrow = Vt + (4 * c4 + cc) * D;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = cc == 0 ? pv[i].x : cc == 1 ? pv[i].y
-                          : cc == 2 ? pv[i].z : pv[i].w;
+            for (int n = 0; n < NJ; ++n) {
+              float vv[VEC];
+              lds<VEC>(vrow + n * 16 * VEC, vv);
 #pragma unroll
-            for (int e = 0; e < VEC; ++e)
-              acc[i][j * VEC + e] = fmaf(p, vv[e], acc[i][j * VEC + e]);
+              for (int i = 0; i < RM; ++i) {
+                const float p = lane_of(pv[i], cc);
+#pragma unroll
+                for (int e = 0; e < VEC; ++e)
+                  acc[i][n * VEC + e] = fmaf(p, vv[e], acc[i][n * VEC + e]);
+              }
+            }
           }
         }
       }
     }
-    __syncthreads();                         // V and P read by every thread
   }
 
-  float* og = o + (size_t)bh * Sq * D;
+  // l: the sum of the 16 lanes' shares of each row; acc / max(l, 1e-30)
+  float* const og = o + (size_t)bh * Sq * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty + 16 * i;
+  for (int i = 0; i < RM; ++i) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+  }
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int qp = q0 + r0 + 2 * i + h;
     if (qp >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
+    for (int n = 0; n < NJ; ++n) {
+      float* const dst = og + (size_t)qp * D + n * 16 * VEC + tx * VEC;
+      if constexpr (VEC == 4) {
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(acc[i][n * 4] / den, acc[i][n * 4 + 1] / den,
+                        acc[i][n * 4 + 2] / den, acc[i][n * 4 + 3] / den);
+      } else {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e)
-        og[(size_t)qp * D + j * 16 * VEC + tx * VEC + e] =
-            acc[i][j * VEC + e] / den;
+        for (int e = 0; e < VEC; ++e) dst[e] = acc[i][n * VEC + e] / den;
+      }
+    }
   }
 }
 
@@ -264,14 +362,14 @@ template <int D>
 int launch_f32(const float* q, const float* k, const float* v, float* o,
                int B, int Hq, int Hkv, int Sq, int Sk, float scale,
                cudaStream_t st) {
-  const size_t smem = sizeof(float) * ((BQ + BK) * (D + 4) + BQ * (BK + 4));
-  cudaError_t err = cudaFuncSetAttribute(
+  using Tl = F32Tile<D>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
       flash_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(B * Hq, (Sq + BQ - 1) / BQ);
-  flash_f32_kernel<D><<<grid, NT, smem, st>>>(q, k, v, o, Hq, Hkv, Sq, Sk,
-                                              scale);
+      Tl::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid(B * Hq, (Sq + Tl::BQ - 1) / Tl::BQ);
+  flash_f32_kernel<D><<<grid, Tl::NT, Tl::SMEM, st>>>(q, k, v, o, Hq, Hkv,
+                                                      Sq, Sk, scale);
   return (int)cudaGetLastError();
 }
 
@@ -286,23 +384,6 @@ template <int D> struct FlashTile {
   static constexpr int KV_ELEMS = BK * LD;
   static constexpr int SMEM = (Q_ELEMS + 4 * KV_ELEMS) * 2;   // bytes
 };
-
-// Rows [r0, r0 + ROWS) of a row-major (S, D) bf16 matrix into shared memory
-// (row stride LD) in 16-byte cp.async vectors; rows past S zero-filled.
-template <int ROWS, int D, int LD, int NTH>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* s,
-                                           const __nv_bfloat16* g, int r0,
-                                           int S) {
-  constexpr int VR = D / 8;                     // vectors a row
-  static_assert(ROWS * VR % NTH == 0, "whole vectors a thread");
-#pragma unroll
-  for (int j = 0; j < ROWS * VR / NTH; ++j) {
-    const int i = threadIdx.x + j * NTH, r = i / VR, c = i % VR * 8;
-    const bool ok = r0 + r < S;
-    cp_async16(smem_u32(s + r * LD + c), ok ? g + (size_t)(r0 + r) * D + c : g,
-               ok);
-  }
-}
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);

@@ -1,10 +1,10 @@
 // Hopper building blocks shared by the kernels of this directory: shared-
 // memory addresses, cp.async copies into a ring of stages, ldmatrix
-// fragment loads, the bf16 and int8 mma.sync tensor-core products, and the
+// fragment loads, the bf16 and int8 mma.sync tensor-core products, the
 // deterministic split-K sum of a thread-block cluster (fp32 or int32
-// partials). Every source that includes this header is rebuilt when it
-// changes (kernels/build.py:library_path hashes the headers a source
-// includes).
+// partials), and programmatic dependent launch. Every source that
+// includes this header is rebuilt when it changes
+// (kernels/build.py:library_path hashes the headers a source includes).
 #pragma once
 
 #include <cstdint>
@@ -110,4 +110,23 @@ __device__ __forceinline__ void cluster_sum(
     out(r, f, s);
   }
   cluster.sync();
+}
+
+// A launch as a programmatic dependent of the stream's previous kernel
+// (programmatic stream serialization): it may start while that kernel
+// drains, and waits for it with griddepcontrol.wait before reading.
+template <typename... Params, typename... Args_>
+int launch_dependent(void (*kernel)(Params...), dim3 grid, int threads,
+                     int smem, cudaStream_t st, Args_... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
 }

@@ -6,9 +6,15 @@ device memory. Kernel: ``csrc/flash_attention.cu``, which replaces the TPU
 kernel ``src/repro/kernels/flash_attention.py:flash_attention`` together
 with the head repeat ``repro.kernels.ops.attention`` puts in front of it:
 query head ``h`` reads KV head ``h // (Hq // Hkv)`` in place. It is bound by
-operations: fp32 runs on FFMA on the CUDA cores, as the TPU kernel computes
-in fp32; bf16 on the tensor cores (``mma.sync``, fp32 sums, P rounded once
-to bf16 for the second product). See the source for the design.
+operations. fp32 runs on FFMA on the CUDA cores, as the TPU kernel computes
+in fp32, where every FFMA needs an issue slot: a block of 8 warps takes a
+128-row query tile, each lane 8 rows x 4 keys of S and the same 8 rows of
+O, so every 16-byte shared load feeds 16 or 32 FFMAs, and K and V stream
+into separate two-stage ``cp.async`` rings a tile ahead (3.37 ms at
+Qwen3-8B's 4096-token prefill, 61 % of the FFMA bound, against 4.29 ms for
+64-row tiles fed through registers, on an NVIDIA H100 80GB HBM3 at 700 W).
+bf16 runs on the tensor cores (``mma.sync``, fp32 sums, P rounded once to
+bf16 for the second product). See the source for the design.
 :func:`flash_attention` launches it on a CUDA tensor and runs
 :func:`flash_attention_plain` on a CPU tensor.
 """
@@ -102,7 +108,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     err = _entry(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           o.data_ptr(), B, Hq, Hkv, S, S, D,
                           1.0 / math.sqrt(D),
-                          torch.cuda.current_stream(q.device).cuda_stream)
+                          # the current stream's handle, without building a
+                          # Stream object (5 us of host time a call)
+                          torch._C._cuda_getCurrentRawStream(q.device.index))
     if err:
         raise RuntimeError(
             f"flash_attention kernel launch failed: CUDA error {err}")

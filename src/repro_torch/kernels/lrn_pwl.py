@@ -9,8 +9,13 @@ exponent bits plus the top n mantissa bits,
 Kernel: ``csrc/lrn_pwl.cu``, which replaces the TPU kernel
 ``src/repro/kernels/lrn_pwl.py:lrn_pwl`` in both of its element types
 (fp32, and bf16 computed in fp32 and rounded once on output). It is bound
-by device-memory bytes (one read and one write of the activation); see
-the source for the design. :func:`lrn_pwl` launches it on a CUDA tensor
+by device-memory bytes (one read and one write of the activation): a
+thread takes one 16-byte vector of one pixel's channels and gets the
+window's halo from its neighbouring lanes by shuffles, one pass with
+no loop; where C is no multiple of the vector a thread takes one element.
+It launches as a programmatic dependent, which overlaps it with an LRN
+before it but not with conv_pipe, its predecessor in the forward. See the source for
+the design and its times. :func:`lrn_pwl` launches it on a CUDA tensor
 and runs :func:`lrn_pwl_plain` on a CPU tensor.
 """
 from __future__ import annotations
@@ -21,8 +26,6 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
-
-from repro_torch.kernels.build import sm_count
 
 # AlexNet LRN constants
 LRN_N = 5
@@ -85,16 +88,21 @@ def lrn_pwl_plain(x: torch.Tensor, *, n: int = LRN_N, k: float = LRN_K,
     return x * (slope[addr] * z + icpt[addr])
 
 
-_LUTS: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+# (device index, beta, n_sub_bits) -> (slope, intercept, shift, base, n_seg)
+_LUTS: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor, int, int, int]] = {}
 
 
 def _device_lut(device: torch.device, beta: float, n_sub_bits: int):
-    key = (str(device), beta, n_sub_bits)
-    if key not in _LUTS:
-        slope, icpt, _, _ = build_pwl_lut(beta, n_sub_bits)
-        _LUTS[key] = (torch.from_numpy(slope.copy()).to(device),
-                      torch.from_numpy(icpt.copy()).to(device))
-    return _LUTS[key]
+    """The LUT on ``device`` with its addressing constants, built once a
+    device index."""
+    key = (device.index, beta, n_sub_bits)
+    lut = _LUTS.get(key)
+    if lut is None:
+        slope, icpt, shift, base = build_pwl_lut(beta, n_sub_bits)
+        lut = _LUTS[key] = (torch.from_numpy(slope.copy()).to(device),
+                            torch.from_numpy(icpt.copy()).to(device),
+                            shift, base, len(slope))
+    return lut
 
 
 _ENTRY = {torch.float32: "lrn_pwl_f32", torch.bfloat16: "lrn_pwl_bf16"}
@@ -107,7 +115,7 @@ def _entry(dtype: torch.dtype):
     fn.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -131,17 +139,20 @@ def lrn_pwl(x: torch.Tensor, *, n: int = LRN_N, k: float = LRN_K,
             f"lrn_pwl: needs a contiguous 4-D float32 or bfloat16 NHWC "
             f"tensor, got {tuple(x.shape)} {x.dtype} "
             f"contiguous={x.is_contiguous()}")
-    slope, icpt = _device_lut(x.device, beta, n_sub_bits)
-    _, _, shift, base = build_pwl_lut(beta, n_sub_bits)
-    y = torch.empty_like(x)
     total = x.numel()
+    if total >= 2 ** 31:
+        raise ValueError(f"lrn_pwl: {total} elements; the kernel takes "
+                         f"fewer than 2^31")
+    slope, icpt, shift, base, n_seg = _device_lut(x.device, beta, n_sub_bits)
+    y = torch.empty_like(x)
     if total == 0:
         return y
-    n_blocks = min(-(-total // 256), sm_count(x.device) * 16)
     err = _entry(x.dtype)(x.data_ptr(), y.data_ptr(), slope.data_ptr(),
-                          icpt.data_ptr(), len(slope), total, x.shape[3], n,
-                          k, alpha / n, shift, base, n_blocks,
-                          torch.cuda.current_stream(x.device).cuda_stream)
+                          icpt.data_ptr(), n_seg, total, x.shape[3], n, k,
+                          alpha / n, shift, base,
+                          # the current stream's handle, without building a
+                          # Stream object (5 us of host time a call)
+                          torch._C._cuda_getCurrentRawStream(x.device.index))
     if err:
         raise RuntimeError(f"lrn_pwl kernel launch failed: CUDA error {err}")
     if x.dtype == torch.bfloat16:

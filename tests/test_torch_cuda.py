@@ -8,8 +8,9 @@ conftest:
 
 Tolerances: conv/matmul ``|kernel - plain| <= 1e-4 * max(1, max|plain|)``
 (fp32 sums in another order, TF32 off on the plain side; the split-K FC
-kernel also gives the same bits on two calls); LRN ``rtol=1e-5,
-atol=1e-6`` (same operations, same rounding). The int8 modes are held
+kernel also gives the same bits on two calls); LRN bit for bit in
+fp32 (same operations, same order, each rounded explicitly) and within
+one bf16 ulp in bf16. The int8 modes are held
 bit for bit (``torch.equal``): the int32 accumulator is exact on both
 sides (the conv's and the FC's on the int8 tensor cores, the FC's in any
 split-K order) and the epilogue rounds the same steps. Attention (flash
@@ -210,16 +211,24 @@ def test_matmul_pipe_kernel_matches_plain(cuda, M, K, N, relu):
     assert matmul_pipe.launches == n0 + 1
 
 
-@pytest.mark.parametrize("shape", [(2, 6, 6, 8), (2, 6, 6, 32),
-                                   (2, 6, 6, 96), (1, 5, 7, 3),
-                                   (8, 27, 27, 256)])
+# NHWC shapes for lrn_pwl: C a multiple of both vectors (8, 32, 96, 256),
+# of the fp32 vector only (4, 12, 100), of neither (3: the scalar path),
+# pixels whose vectors straddle warps (96, 100), one pixel
+LRN_SHAPES = [(2, 6, 6, 8), (2, 6, 6, 32), (2, 6, 6, 96), (1, 5, 7, 3),
+              (8, 27, 27, 256), (2, 6, 6, 4), (2, 6, 6, 12), (2, 6, 6, 100),
+              (1, 1, 1, 96)]
+
+
+@pytest.mark.parametrize("shape", LRN_SHAPES)
 def test_lrn_pwl_kernel_matches_plain(cuda, shape):
+    """The same operations in the same order, explicitly rounded: the
+    kernel equals its plain version bit for bit."""
     rng = np.random.default_rng(2)
     x = _t(rng.standard_normal(shape) * 4, cuda)
     n0 = lrn_pwl.launches
     got, want = lrn_pwl(x), lrn_pwl_plain(x)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert torch.equal(got, want), (got - want).abs().max().item()
     assert lrn_pwl.launches == n0 + 1
 
 
@@ -745,15 +754,74 @@ def test_matmul_pipe_fp32_is_deterministic(cuda, M, K, N):
     assert torch.equal(y1, y2)
 
 
-@pytest.mark.parametrize("shape", [(2, 6, 6, 8), (2, 6, 6, 96),
-                                   (1, 5, 7, 3), (8, 27, 27, 256)])
+@pytest.mark.parametrize("shape", LRN_SHAPES)
 def test_lrn_pwl_bf16_kernel_matches_plain(cuda, shape):
+    """Within the bf16 tolerance and within one bf16 ulp of the plain
+    version (fp32 inside, one rounding on store)."""
     rng = np.random.default_rng(22)
     x = _bf(rng.standard_normal(shape) * 4, cuda)
     n0, h0, _ = _counts(lrn_pwl)
-    _close_bf16(lrn_pwl(x), lrn_pwl_plain(x))
+    got, want = lrn_pwl(x), lrn_pwl_plain(x)
+    _close_bf16(got, want)
+    w = want.float()
+    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
+    assert bool(((got.float() - w).abs() <= ulp).all())
     assert _counts(lrn_pwl) == (n0, h0 + 1, 0)
 
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_lrn_pwl_in_a_cuda_graph(cuda, dtype):
+    """One capture of both AlexNet LRN shapes replays to the eager
+    kernel's bits, on new inputs copied into the captured ones."""
+    rng = np.random.default_rng(23)
+    xs = [_t(rng.standard_normal(s) * 4, cuda).to(dtype)
+          for s in ((8, 55, 55, 96), (8, 27, 27, 256))]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for x in xs:
+            lrn_pwl(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ys = [lrn_pwl(x) for x in xs]
+    for x in xs:
+        x.copy_(_t(rng.standard_normal(tuple(x.shape)) * 4, cuda).to(dtype))
+    graph.replay()
+    eager = [lrn_pwl(x) for x in xs]
+    torch.cuda.synchronize()
+    for y, e in zip(ys, eager):
+        assert torch.equal(y, e)
+
+
+
+@pytest.mark.parametrize("dtype,C", [(torch.float32, 4),
+                                     (torch.float32, 3),
+                                     (torch.bfloat16, 3)],
+                         ids=["f32-vector", "f32-scalar", "bf16-scalar"])
+def test_lrn_pwl_near_the_element_limit(cuda, dtype, C):
+    """Just under 2^31 elements, the most the wrapper takes: the last
+    block's thread indices pass 2^31, and the first and last pixels still
+    equal the plain version (pixels are independent, so a slice is held
+    against the plain version of that slice)."""
+    P = (2 ** 31 - 1) // C
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    x = torch.empty((1, 1, P, C), dtype=dtype, device=cuda)
+    x.normal_(0.0, 4.0, generator=gen)
+    y = lrn_pwl(x)
+    for sl in (slice(0, 4096), slice(P - 4096, P)):
+        got = y[:, :, sl]
+        want = lrn_pwl_plain(x[:, :, sl].contiguous())
+        if dtype == torch.float32:
+            assert torch.equal(got, want)
+        else:
+            w = want.float()
+            ulp = torch.ldexp(torch.ones_like(w),
+                              torch.frexp(w).exponent - 8)
+            assert bool(((got.float() - w).abs() <= ulp).all())
+    del x, y
+    torch.cuda.empty_cache()
 
 def test_bf16_wrappers_refuse_mixed_dtypes(cuda):
     x = torch.zeros((1, 8, 8, 4), dtype=torch.bfloat16, device=cuda)
@@ -826,6 +894,10 @@ def _close_attn(got, want):
     (1, 2, 2, 16, 16, 16),         # one ragged tile: warps past S
     (2, 4, 1, 300, 300, 16),       # g=4, ragged
     (2, 8, 2, 1000, 1000, 128),    # two batches of the long case
+    # the edges of the fp32 kernel's 128-row query tile, GQA g=4
+    (1, 8, 2, 127, 127, 64), (1, 8, 2, 129, 129, 64),
+    (1, 8, 2, 257, 257, 64), (1, 8, 2, 127, 127, 128),
+    (1, 8, 2, 129, 129, 128), (1, 8, 2, 257, 257, 128),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Sk, D,
                                               dtype):
@@ -837,6 +909,21 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Sk, D,
     n0 = getattr(flash_attention, counter)
     _close_attn(flash_attention(q, k, v), flash_attention_plain(q, k, v))
     assert getattr(flash_attention, counter) == n0 + 1
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,D", [(1, 8, 2, 1000, 128),
+                                          (2, 4, 4, 300, 64),
+                                          (1, 32, 8, 2048, 128)])
+def test_flash_attention_fp32_is_deterministic(cuda, B, Hq, Hkv, S, D):
+    """Each output row is one block's fixed sequence of FFMAs: two calls
+    give the same bits."""
+    rng = np.random.default_rng(4)
+    q = _randn(rng, (B, Hq, S, D), torch.float32, cuda)
+    k = _randn(rng, (B, Hkv, S, D), torch.float32, cuda)
+    v = _randn(rng, (B, Hkv, S, D), torch.float32, cuda)
+    o1, o2 = flash_attention(q, k, v), flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2)
 
 
 @pytest.mark.parametrize("dtype", ATTN_DTYPES, ids=["f32", "bf16"])

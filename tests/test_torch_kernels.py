@@ -416,15 +416,19 @@ def test_library_path_hashes_the_headers_a_source_includes(tmp_path):
     every source that includes it, and of no other."""
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
+    # every kernel source includes the header; a source that does not
+    (csrc / "standalone.cu").write_text('extern "C" int f() { return 0; }\n')
     names = ("conv_pipe", "matmul_pipe", "lrn_pwl")
-    before = {n: build.library_path(n, csrc) for n in names}
-    assert before == {n: build.library_path(n) for n in names}
+    before = {n: build.library_path(n, csrc) for n in names + ("standalone",)}
+    assert {n: before[n] for n in names} == {
+        n: build.library_path(n) for n in names}
     with open(csrc / "hopper.cuh", "a") as f:
         f.write("// edited\n")
-    after = {n: build.library_path(n, csrc) for n in names}
+    after = {n: build.library_path(n, csrc) for n in names + ("standalone",)}
     assert after["conv_pipe"] != before["conv_pipe"]
     assert after["matmul_pipe"] != before["matmul_pipe"]
-    assert after["lrn_pwl"] == before["lrn_pwl"]
+    assert after["lrn_pwl"] != before["lrn_pwl"]
+    assert after["standalone"] == before["standalone"]
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

@@ -3,7 +3,7 @@
 the fp32, bf16 and int8 FC kernels at AlexNet's and VGG-16's batch-8
 layers, on one CUDA card.
 
-    python3 tile_sweep.py
+    python3 tile_sweep.py [--host]
 
 For each conv of the fp32 forwards (seeded weights; each layer's input
 the kernel fold's output of the layer before) it times conv_pipe at each
@@ -22,7 +22,9 @@ decode_attention, fp32 and bf16, at the decode shapes of
 Qwen3-8B's 8 KV heads, G 4, d_head 128; full and half caches) it times
 every split P beside the slot write + SDPA and prints ``decode_split``'s
 pick against the fastest. Then the host time of one wrapper call
-(enqueue only). Kernel times are CUDA-graph replays
+(enqueue only): matmul_pipe bf16 beside torch.addmm, conv_pipe fp32,
+lrn_pwl fp32 and bf16 at AlexNet's lrn2, flash_attention fp32; with
+``--host`` only these lines. Kernel times are CUDA-graph replays
 (``chip_smoke.graph_ms``), so the host's pace is out of them.
 Needs the repository around it; exits non-zero without a CUDA device.
 """
@@ -99,6 +101,54 @@ def sweep_decode(sms: int) -> None:
             del kc, vc
 
 
+def host_lines() -> None:
+    """Print the host time of one wrapper call (enqueue only; median of 3
+    runs of 200 calls) for a few launches that their host time paces."""
+    import torch
+    from repro_torch.kernels.conv_pipe import conv_pipe
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.lrn_pwl import lrn_pwl
+    from repro_torch.kernels.matmul_pipe import matmul_pipe
+
+    def host_us(fn, n=200):
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / n * 1e6
+
+    x8 = torch.randn((8, 4096), device="cuda").bfloat16()
+    w8 = torch.randn((4096, 1000), device="cuda").bfloat16()
+    b8 = torch.randn((1000,), device="cuda").bfloat16()
+    xc = torch.randn((8, 13, 13, 384), device="cuda")
+    wc = torch.randn((3, 3, 384, 256), device="cuda")
+    bc = torch.randn((256,), device="cuda")
+    xl = torch.randn((8, 27, 27, 256), device="cuda")      # AlexNet lrn2
+    xl16 = xl.bfloat16()
+    # Qwen3-8B's heads at a short prefill, so the card keeps up with 200
+    # enqueued calls
+    qa = torch.randn((1, 32, 128, 128), device="cuda")
+    ka = torch.randn((1, 8, 128, 128), device="cuda")
+    for name, fn in (
+            ("matmul_pipe bf16 8x4096x1000",
+             lambda: matmul_pipe(x8, w8, b8, relu=True)),
+            ("torch.addmm+relu_ bf16 8x4096x1000",
+             lambda: torch.addmm(b8, x8, w8).relu_()),
+            ("conv_pipe fp32 8x13x13x384 3x3x384x256",
+             lambda: conv_pipe(xc, wc, bc, pad=1)),
+            ("lrn_pwl fp32 8x27x27x256", lambda: lrn_pwl(xl)),
+            ("lrn_pwl bf16 8x27x27x256", lambda: lrn_pwl(xl16)),
+            ("flash_attention fp32 1x32x128x128 (8 KV heads)",
+             lambda: flash_attention(qa, ka, ka))):
+        runs = [host_us(fn) for _ in range(3)]
+        print(f"[host] {name}: {statistics.median(runs):.1f} us a call on "
+              f"the host (enqueue; median of 3 runs of 200)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -117,6 +167,9 @@ def main() -> int:
     from repro_torch.pipeline import ExecutionSpec, compile_cnn
 
     print(smi("name,power.limit"))
+    if sys.argv[1:] == ["--host"]:
+        host_lines()
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sms = sm_count(torch.device("cuda", 0))
@@ -294,33 +347,7 @@ def main() -> int:
 
     sweep_decode(sms)
 
-    def host_us(fn, n=200):
-        for _ in range(10):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        return (t1 - t0) / n * 1e6
-
-    x8 = torch.randn((8, 4096), device="cuda").bfloat16()
-    w8 = torch.randn((4096, 1000), device="cuda").bfloat16()
-    b8 = torch.randn((1000,), device="cuda").bfloat16()
-    xc = torch.randn((8, 13, 13, 384), device="cuda")
-    wc = torch.randn((3, 3, 384, 256), device="cuda")
-    bc = torch.randn((256,), device="cuda")
-    for name, fn in (
-            ("matmul_pipe bf16 8x4096x1000",
-             lambda: matmul_pipe(x8, w8, b8, relu=True)),
-            ("torch.addmm+relu_ bf16 8x4096x1000",
-             lambda: torch.addmm(b8, x8, w8).relu_()),
-            ("conv_pipe fp32 8x13x13x384 3x3x384x256",
-             lambda: conv_pipe(xc, wc, bc, pad=1))):
-        runs = [host_us(fn) for _ in range(3)]
-        print(f"[host] {name}: {statistics.median(runs):.1f} us a call on "
-              f"the host (enqueue; median of 3 runs of 200)")
+    host_lines()
     return 0
 
 
