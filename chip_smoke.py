@@ -96,6 +96,26 @@ Phases (any failure exits non-zero):
    forward of the same weights is printed.
 10. bf16 serve: the 19 requests through VGG-16 in bf16, each one ``ok``
    completion whose prediction matches the forward.
+12. Plans (the DSE, ``kernels/autotune.py``), before the kernels line:
+   the shared-memory table equal to what every instantiation requests;
+   VGG-16 in fp32, int8 and bf16 and AlexNet in fp32 compiled with the
+   default plans (each the tile or split the kernel's rule picks, one a
+   conv and fc group), launching as in 3, 3b, 7 and 9 with logits
+   ``torch.equal`` to those phases' and to the fold without plans; each
+   table saved and reloaded (``compile_cnn(plan_path=)``: no sweep, the
+   table byte-identical, the logits equal); a non-default fitting plan
+   pinned on every group (printed), each reaching its kernel, int8 logits
+   equal to the plain fold, fp32 within 1e-3 and bf16 within 2e-2 x
+   max|logit| of it; a plan that does not fit raising in the wrapper and
+   in a compile; ``compile_cnn(measure=True)`` for VGG-16 in each mode,
+   one row a group with its plan, t_model, t_measured (CUDA events),
+   drift (measured / modelled; below 1 is counted: the model is wrong)
+   and bound; ``refine_plan`` (top 4 modelled) on conv4_2 bf16, conv5_1
+   fp32, conv1_1 int8 and fc6 in each mode, the model's, the rule's and
+   the stopwatch's picks; and phase 4's 19 requests served through
+   AlexNet fp32 on the modelled clock, ``execute=False`` (nothing runs,
+   predictions -1) and True (the forward's predictions), the modelled
+   p50 beside phase 4's measured one.
 11. One JSON line ``{"kernels": [...]}`` (each kernel and mode; launches
    from phases 3, 3b, 6, 7 and 9; each CNN entry sums the times of one
    AlexNet and one VGG-16 forward's launches in its mode, with each
@@ -110,6 +130,7 @@ without the repository around it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import os
@@ -152,8 +173,6 @@ REPLACES = {"conv_pipe": "src/repro/kernels/conv_pipe.py:198",
             "matmul_pipe": "src/repro/kernels/matmul_pipe.py:66",
             "flash_attention": "src/repro/kernels/flash_attention.py:63",
             "decode_attention": "src/repro/kernels/decode_attention.py:83"}
-INT8_OPS_PER_CLOCK_SM = 8192   # dense int8 tensor-core ops / clock / SM
-BF16_OPS_PER_CLOCK_SM = 4096   # dense bf16 tensor-core FLOP / clock / SM
 BF16_RTOL = 2e-2               # tests/test_kernels.py:17-19, bf16
 BF16_LOGIT_RTOL = 2e-2         # |bf16 - plain| <= this x max|plain logit|
 BIAS_STD = 0.1                 # the random biases the CNN phases give
@@ -243,9 +262,6 @@ OLD_MS = {
                     "decode bf16 pos 16383": 1.0008,
                     "decode bf16 pos 32767": 1.9893,
                     "layer decode bf16": 0.2557}}}
-# published HBM rates (NVIDIA data sheets), by the name nvidia-smi reports
-MEM_BW = {"H100 80GB HBM3": 3.35e12, "H100 PCIe": 2.0e12,
-          "H100 NVL": 3.9e12, "H200": 4.8e12}
 
 
 def smi(query: str) -> str:
@@ -383,6 +399,7 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.configs import get_config
+    from repro_torch.core import roofline
     from repro_torch.kernels import build
     from repro_torch.kernels import ops as kernel_ops
     from repro_torch.kernels.conv_pipe import (conv_pipe, conv_pipe_plain,
@@ -453,23 +470,28 @@ def main() -> int:
     print(card)
     name = torch.cuda.get_device_name(0)
     props = torch.cuda.get_device_properties(0)
+    # the card's rates: the port's roofline (src/repro_torch/core/roofline.py)
+    prof = roofline.device_profile(0)
     sm_mhz = float(smi("clocks.max.sm").split()[0])
-    fp32_rate = props.multi_processor_count * 128 * 2 * sm_mhz * 1e6
-    int8_rate = (props.multi_processor_count * INT8_OPS_PER_CLOCK_SM
-                 * sm_mhz * 1e6)
-    bf16_rate = (props.multi_processor_count * BF16_OPS_PER_CLOCK_SM
-                 * sm_mhz * 1e6)
-    bw = next((v for k, v in MEM_BW.items() if k in name), None)
-    bw_src = "published" if bw else "assumed (H100 SXM)"
-    bw = bw or MEM_BW["H100 80GB HBM3"]
-    print(f"[device] {name}: {props.multi_processor_count} SMs, max SM "
-          f"clock {sm_mhz:.0f} MHz -> fp32 FFMA {fp32_rate / 1e12:.1f} "
-          f"TFLOP/s, dense int8 tensor cores ({INT8_OPS_PER_CLOCK_SM} "
-          f"ops/clock/SM) {int8_rate / 1e12:.1f} TOP/s, dense bf16 tensor "
-          f"cores ({BF16_OPS_PER_CLOCK_SM} FLOP/clock/SM) "
-          f"{bf16_rate / 1e12:.1f} TFLOP/s; HBM "
-          f"{bw / 1e12:.2f} TB/s ({bw_src}); torch "
-          f"{torch.__version__}, CUDA {torch.version.cuda}")
+    check(abs(sm_mhz - prof.clock_mhz) < 1, f"the roofline's clock "
+          f"{prof.clock_mhz} MHz differs from nvidia-smi's max SM clock "
+          f"{sm_mhz} MHz")
+    fp32_rate = prof.peak_ops("float32")
+    int8_rate = prof.peak_ops("int8")
+    bf16_rate = prof.peak_ops("bfloat16")
+    bw = prof.hbm_bw
+    bw_src = ("published" if any(k in name for k in roofline.MEM_BW)
+              else "assumed (H100 SXM)")
+    print(f"[device] {name}: {prof.sms} SMs, max SM clock "
+          f"{prof.clock_mhz:.0f} MHz (nvidia-smi {sm_mhz:.0f}) -> fp32 FFMA "
+          f"{fp32_rate / 1e12:.1f} TFLOP/s, dense int8 tensor cores "
+          f"({prof.int8_per_clock_sm:.0f} ops/clock/SM) "
+          f"{int8_rate / 1e12:.1f} TOP/s, dense bf16 tensor cores "
+          f"({prof.bf16_per_clock_sm:.0f} FLOP/clock/SM) "
+          f"{bf16_rate / 1e12:.1f} TFLOP/s; HBM {bw / 1e12:.2f} TB/s "
+          f"({bw_src}); shared memory {prof.smem_per_block} B a block; "
+          f"backend tag {prof.tag}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
     t0 = time.perf_counter()
     built = build.build_all()
     print(f"[build] {len(built)} kernels from src/repro_torch/csrc in "
@@ -831,7 +853,7 @@ def main() -> int:
     x_alex = x                      # phase 6 reuses the name x
 
     # -- 2. each kernel vs its plain version at AlexNet's shapes ------------
-    rows, _ = float_rows(cfg, params, x, "fp32")
+    rows, a_plain = float_rows(cfg, params, x, "fp32")
     phases.done("2")
 
 
@@ -1283,7 +1305,8 @@ def main() -> int:
               f"{b_ms:.3f} ms median")
         check(b_err <= b_tol, f"{arch} bf16 logits differ from the plain "
               f"fold: {b_err} > {b_tol}")
-        b.update(launches=counts, logit_err=b_err, logit_tol=b_tol,
+        b.update(logits=out, launches=counts, logit_err=b_err,
+                 logit_tol=b_tol,
                  top1_vs_fp32=b_top1, ms=b_ms)
     phases.done("9")
 
@@ -1291,6 +1314,340 @@ def main() -> int:
     brep, blat = serve(bf16["vgg16"]["compiled"], EXPECTED_BF16["vgg16"],
                        "vgg16 bf16 serve")
     phases.done("10")
+
+    # -- 12. plans: the DSE on the card ---------------------------------------
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import conv_pipe as cp_mod
+    from repro_torch.kernels import matmul_pipe as mp_mod
+    from repro_torch.models.cnn import (cnn_forward_stage,
+                                        cnn_forward_stage_quant)
+    from repro_torch.obs import profiler
+    from repro_torch.pipeline import PlanTable
+    from repro_torch.serve.stage_planner import group_io_shapes, group_shape
+
+    plans_out = {"smem": {}, "default": {}, "pinned": {}, "measured": {},
+                 "refine": [], "modeled_serve": {}}
+    n_inst = 0
+    for dt in (torch.float32, torch.bfloat16, torch.int8):
+        for cg in ((16, 3) if dt == torch.int8 else (16,)):
+            for tp, tn in itertools.product(cp_mod.POSITIONS,
+                                            cp_mod.CHANNELS):
+                want_smem = cp_mod.library_smem(dt, tp, tn, cg)
+                check(cp_mod.conv_smem(dt, tp, tn, cg) == want_smem,
+                      f"conv {dt} {tp}x{tn} (cg {cg}): the table's "
+                      f"{cp_mod.conv_smem(dt, tp, tn, cg)} B != the "
+                      f"kernel's {want_smem} B")
+                n_inst += 1
+        for tnf in mp_mod.FC_FEATURES[dt]:
+            check(mp_mod.fc_smem(dt, tnf) == mp_mod.library_smem(dt, tnf),
+                  f"matmul {dt} {tnf}: the table's shared memory differs "
+                  f"from the kernel's")
+            n_inst += 1
+    print(f"[plans] the shared-memory table equals what each of the {n_inst} "
+          f"instantiations requests (conv_pipe_smem, matmul_pipe_smem)")
+
+    def shapes_of(mcfg, dtype):
+        """(group, kind, shape) of every conv and fc group at batch 8."""
+        out = []
+        for g, i, o in group_io_shapes(mcfg):
+            sh = group_shape(mcfg, g, i, o, BATCH, dtype)
+            if sh is not None:
+                out.append((g, "conv" if isinstance(sh, autotune.ConvShape)
+                            else "gemm", sh))
+        return out
+
+    def rule_of(kind, sh):
+        """The tile or split the wrapper's rule picks on this card."""
+        dt = getattr(torch, sh.dtype)
+        if kind == "conv":
+            return conv_tile(dt, sh.b, sh.oh, sh.ow, sh.m // sh.groups,
+                             sh.groups, sh.pool, sh.pool_k, sh.pool_s,
+                             prof.sms, sh.c // sh.groups)
+        return fc_split(dt, sh.m, sh.k, sh.n, prof.sms)
+
+    def knob(plan):
+        return plan.tile if isinstance(plan, autotune.ConvPlan) else plan.split
+
+    def plan_str(plan):
+        return ("x".join(map(str, plan.tile[:2])) + f" ({plan.tph}x{plan.tpw})"
+                if isinstance(plan, autotune.ConvPlan)
+                else f"{plan.tnf}f x {plan.ranks}r")
+
+    def bound_ms(kind, sh):
+        t_ops, t_bytes = (autotune.conv_bound(sh, prof) if kind == "conv"
+                          else autotune.gemm_bound(sh, prof))
+        return max(t_ops, t_bytes) * 1e3
+
+    def plainless_fold(c, xb):
+        """The fold with no plan: each wrapper's own rule."""
+        with torch.inference_mode():
+            if c.quant:
+                return cnn_forward_stage_quant(c.params, xb, c.cfg,
+                                               c.model.groups)
+            return cnn_forward_stage(c.params, xb, c.cfg, c.model.groups)
+
+    def spy_launch(c, xb):
+        """One forward with the counts set to 0 just before it, each
+        wrapper call's tile or split recorded."""
+        seen = []
+        real = kernel_ops.conv_pipe, kernel_ops.matmul_pipe
+
+        def conv(*a, tile=None, **kw):
+            seen.append(tile)
+            return real[0](*a, tile=tile, **kw)
+
+        def fc(*a, split=None, **kw):
+            seen.append(split)
+            return real[1](*a, split=split, **kw)
+        kernel_ops.conv_pipe, kernel_ops.matmul_pipe = conv, fc
+        try:
+            reset_launches()
+            out = c.forward(xb)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        finally:
+            kernel_ops.conv_pipe, kernel_ops.matmul_pipe = real
+        return out, counts, seen
+
+    plan_cases = {
+        "vgg16 fp32": (vcfg, spec, vparams, x_vgg, vlogits, v_plain,
+                       EXPECTED_VGG),
+        "vgg16 int8": (vcfg, qspec, vqcompiled.params, x_vgg, vqlogits,
+                       vq_plain, EXPECTED_VGG_INT8),
+        "vgg16 bf16": (vcfg, bspec, bf16["vgg16"]["compiled"].params,
+                       bf16["vgg16"]["x"], bf16["vgg16"]["logits"],
+                       bf16["vgg16"]["plain"], EXPECTED_BF16["vgg16"]),
+        "alexnet fp32": (cfg, spec, params, x_alex, logits, a_plain,
+                         EXPECTED_LAUNCHES)}
+    plan_dir = os.path.join(ROOT, "build", "plans")
+    os.makedirs(plan_dir, exist_ok=True)
+    for tag, (mcfg, mspec, mparams, xb, ref_logits, plain_logits,
+              expect) in plan_cases.items():
+        # default plans: the rules' tiles, the logits and launches of today
+        autotune.reset_sweep_stats()
+        c = compile_cnn(mcfg, mspec, mparams, device="cuda")
+        shapes = shapes_of(mcfg, mspec.run_dtype)
+        check(sorted(c.group_plans) == [g for g, _, _ in shapes],
+              f"{tag}: plans for {sorted(c.group_plans)}")
+        for g, kind, sh in shapes:
+            check(knob(c.group_plans[g]) == rule_of(kind, sh),
+                  f"{tag} {g}: plan {knob(c.group_plans[g])} != the rule's "
+                  f"{rule_of(kind, sh)}")
+        out, counts, seen = spy_launch(c, xb)
+        check(counts == expect, f"{tag} default plans: launches {counts}")
+        check(seen == [knob(c.group_plans[g]) for g, _, _ in shapes],
+              f"{tag}: the kernels were launched with {seen}")
+        check(torch.equal(out, ref_logits), f"{tag}: default-plan logits "
+              f"differ from the earlier phase's forward")
+        check(torch.equal(out, plainless_fold(c, xb)),
+              f"{tag}: default-plan logits differ from the fold without "
+              f"plans")
+        tbl = c.plans()
+        n_conv = sum(k == "conv" for _, k, _ in shapes)
+        print(f"[plans] {tag}: default plans = the rules' tiles and splits "
+              f"on {len(shapes)} groups ({n_conv} conv + "
+              f"{len(shapes) - n_conv} fc; {tbl.summary()} distinct rows), "
+              f"launches {dict((k, v) for k, v in counts.items() if v)}, "
+              f"logits torch.equal to the earlier forward and to the fold "
+              f"without plans")
+        # a saved table reloads exactly, with no sweep
+        path = os.path.join(plan_dir, f"{tag.replace(' ', '_')}.json")
+        c.save_plan(path)
+        autotune.clear_registry()
+        autotune.reset_sweep_stats()
+        c2 = compile_cnn(mcfg, mspec, mparams, device="cuda",
+                         plan_path=path)
+        sweeps = autotune.sweep_stats()
+        with open(path) as f:
+            same = f.read() == c2.plans().to_json()
+        out2 = c2.forward(xb)
+        check(sweeps["conv_sweeps"] == 0 and sweeps["gemm_sweeps"] == 0
+              and same and torch.equal(out2, out),
+              f"{tag}: reloaded table: sweeps {sweeps}, byte-identical "
+              f"{same}, logits equal {torch.equal(out2, out)}")
+        print(f"[plans] {tag}: save_plan -> compile_cnn(plan_path=) ran "
+              f"{sweeps['conv_sweeps']} + {sweeps['gemm_sweeps']} sweeps, "
+              f"table byte-identical, logits torch.equal")
+        plans_out["default"][tag] = {
+            "table": tbl.summary(), "launches": counts,
+            "plans": {str(g): c.group_plans[g].to_dict()
+                      for g, _, _ in shapes}}
+
+        # pinned: another fitting plan on every group reaches its kernel
+        pinned, rows_c, rows_g = {}, [], []
+        for g, kind, sh in shapes:
+            cands = profiler.shortlist(sh, 99, backend=c.backend)
+            pinned[g] = next(p for p in cands
+                             if knob(p) != knob(c.group_plans[g]))
+            (rows_c if kind == "conv" else rows_g).append(
+                {"shape": dataclasses.asdict(sh), "backend": c.backend,
+                 "vmem_budget": mspec.tiling.vmem_budget,
+                 "plan": pinned[g].to_dict()})
+        autotune.clear_registry()
+        cp3 = compile_cnn(mcfg, mspec, mparams, device="cuda",
+                          plans=PlanTable.from_rows(rows_c, rows_g))
+        out3, counts3, seen3 = spy_launch(cp3, xb)
+        check(seen3 == [knob(pinned[g]) for g, _, _ in shapes],
+              f"{tag}: pinned plans launched as {seen3}")
+        check(counts3 == expect, f"{tag} pinned: launches {counts3}")
+        if "int8" in tag:
+            p_err, p_tol = int((out3 != plain_logits).sum()), 0
+            check(p_err == 0, f"{tag} pinned: {p_err} logits differ from "
+                  f"the plain fold")
+        else:
+            p_err = (out3.float() - plain_logits.float()).abs().max().item()
+            p_tol = (BF16_LOGIT_RTOL if "bf16" in tag else LOGIT_RTOL) * \
+                plain_logits.float().abs().max().item()
+            check(p_err <= p_tol, f"{tag} pinned: {p_err} > {p_tol}")
+        print(f"[plans] {tag}: pinned {len(pinned)} non-default plans, each "
+              f"reaching its kernel, launches as before; vs the plain fold: "
+              f"{'differing logits' if 'int8' in tag else 'max abs err'} "
+              f"{p_err:.4g} (allowed {p_tol:.4g})")
+        print(f"[plans] {tag}: pinned " + ", ".join(
+            f"{g}: {plan_str(c.group_plans[g])} -> {plan_str(pinned[g])}"
+            for g, _, _ in shapes))
+        plans_out["pinned"][tag] = {
+            "err": p_err, "tol": p_tol,
+            "plans": {str(g): pinned[g].to_dict() for g, _, _ in shapes}}
+        autotune.clear_registry()
+        del c, c2, cp3, out2, out3
+
+    # a plan that does not fit raises: the wrapper, and a compile
+    g12, _, sh12 = shapes_of(vcfg, "float32")[1]        # conv1_2 + pool
+    x12 = torch.zeros((BATCH, sh12.h, sh12.w, sh12.c), device="cuda")
+    w12 = torch.zeros((3, 3, sh12.c, sh12.m), device="cuda")
+    bad = autotune.ConvPlan(64, 64, 8, 8)   # a 16x16 patch over 64 rows
+    for what, fn in (
+            ("conv_pipe(tile=(64, 64, 8, 8))", lambda: conv_pipe(
+                x12, w12, torch.zeros(sh12.m, device="cuda"), pad=1,
+                pool="max", tile=bad.tile)),
+            ("compile_cnn(plans=) with it", lambda: compile_cnn(
+                vcfg, spec, vparams, device="cuda", plans=PlanTable.from_rows(
+                    [{"shape": dataclasses.asdict(sh12),
+                      "backend": prof.tag,
+                      "vmem_budget": spec.tiling.vmem_budget,
+                      "plan": bad.to_dict()}], [])))):
+        autotune.clear_registry()
+        try:
+            fn()
+        except ValueError as e:
+            print(f"[plans] {what} on VGG-16 {g12} raises: {e}")
+        else:
+            check(False, f"{what} did not raise")
+    autotune.clear_registry()
+
+    # measured tables: t_model against the stopwatch, one row a group
+    mopts = profiler.MeasureOptions(warmup=2, iters=20, repeats=5, trim=1)
+    n_low = 0
+    for tag, (mcfg, mspec, mparams) in (
+            ("vgg16 fp32", (vcfg, spec, vparams)),
+            ("vgg16 int8", (vcfg, qspec, vqcompiled.params)),
+            ("vgg16 bf16", (vcfg, bspec, bf16["vgg16"]["compiled"].params))):
+        c = compile_cnn(mcfg, mspec, mparams, device="cuda", measure=True,
+                        measure_opts=mopts)
+        kinds = {g: (k, sh) for g, k, sh in shapes_of(mcfg, mspec.run_dtype)}
+        meas_rows = []
+        for r in c.roofline_breakdown():
+            g = tuple(r["group"])
+            kind, sh = kinds[g]
+            t_meas = r["t_measured"]
+            check(t_meas is not None and 0 < t_meas < 1,
+                  f"{tag} {g}: t_measured {t_meas}")
+            drift = r["drift"]
+            n_low += drift < 1
+            meas_rows.append({"group": list(g), "plan": r["plan"],
+                          "t_model_ms": r["t_model"] * 1e3,
+                          "t_measured_ms": t_meas * 1e3, "drift": drift,
+                          "bound_ms": bound_ms(kind, sh)})
+            plan = (autotune.ConvPlan(**r["plan"]) if kind == "conv"
+                    else autotune.GemmPlan(**r["plan"]))
+            print(f"[measured] {tag} {str(g):<9} {plan_str(plan):<16} "
+                  f"t_model {r['t_model'] * 1e3:.4f} ms  t_measured "
+                  f"{t_meas * 1e3:.4f} ms  drift {drift:.3f}"
+                  f"{'  (< 1: the model is wrong)' if drift < 1 else ''}  "
+                  f"bound {bound_ms(kind, sh):.4f} ms")
+        prov = c.plans().provenance["measurement"]
+        plans_out["measured"][tag] = {"rows": meas_rows, "provenance": prov}
+        print(f"[measured] {tag}: {c.plans().summary()}, "
+              f"{json.dumps(prov['measure_stats'])}, backend "
+              f"{json.dumps(prov['backend'])}")
+        del c
+    print(f"[measured] rows with drift below 1 (the model slower than the "
+          f"card): {n_low}")
+
+    # the stopwatch against the rule and the model
+    vshapes = {(m, g): (k, sh) for m in ("float32", "int8", "bfloat16")
+               for g, k, sh in shapes_of(vcfg, m)}
+    for what, mode, g in (("conv4_2", "bfloat16", (11,)),
+                          ("conv5_1", "float32", (14,)),
+                          ("conv1_1", "int8", (0,)),
+                          ("fc6", "float32", (18,)), ("fc6", "int8", (18,)),
+                          ("fc6", "bfloat16", (18,))):
+        kind, sh = vshapes[mode, g]
+        best, recs = profiler.refine_plan(sh, top_k=4, opts=mopts,
+                                          backend=prof.tag)
+        rule = (autotune.rule_plan(sh, backend=prof.tag) if kind == "conv"
+                else autotune.rule_gemm_plan(sh, backend=prof.tag))
+        rrec = profiler.measure_record(kind, sh, rule, opts=mopts)
+        fastest = min([(r["t_measured"], r["plan"]) for r in recs]
+                      + [(rrec["t_measured"], rule.to_dict())],
+                      key=lambda t: t[0])
+        model = recs[0]
+        beats = fastest[0] < rrec["t_measured"]
+        plans_out["refine"].append({
+            "layer": what, "mode": mode, "group": list(g),
+            "candidates": recs, "rule": rule.to_dict(),
+            "rule_ms": rrec["t_measured"] * 1e3,
+            "stopwatch": fastest[1], "stopwatch_ms": fastest[0] * 1e3,
+            "bound_ms": bound_ms(kind, sh), "beats_rule": beats})
+
+        def show(plan_d, t):
+            p = (autotune.ConvPlan(**plan_d) if kind == "conv"
+                 else autotune.GemmPlan(**plan_d))
+            return f"{plan_str(p)} {t * 1e3:.4f} ms"
+        print(f"[refine] vgg16 {what} {mode}: model "
+              f"{show(model['plan'], model['t_measured'])} (modelled "
+              f"{model['t_model_call'] * 1e3:.4f}); rule "
+              f"{show(rule.to_dict(), rrec['t_measured'])}; stopwatch "
+              f"{show(fastest[1], fastest[0])}"
+              f"{' (beats the rule)' if beats else ''}; candidates "
+              + ", ".join(show(r["plan"], r["t_measured"]) for r in recs)
+              + f"; bound {bound_ms(kind, sh):.4f} ms")
+
+    # the modelled clock: phase 4's requests through AlexNet fp32
+    for execute in (False, True):
+        mc = compile_cnn(cfg, ExecutionSpec(serving=Serving(
+            batch=BATCH, clock="modeled", execute=execute)), params,
+            device="cuda")
+        reqs = synthetic_requests(n_req, cfg.input_hw, cfg.input_ch, 200.0)
+        reset_launches()
+        mrep = mc.serve(reqs)
+        torch.cuda.synchronize()
+        served = launch_counts()
+        done = sorted(mrep.completions, key=lambda d: d.rid)
+        check([d.rid for d in done] == list(range(n_req))
+              and all(d.status == "ok" for d in done),
+              f"modelled clock (execute={execute}): {len(done)} "
+              f"completions for {n_req} requests")
+        if execute:
+            imgs = torch.from_numpy(np.stack([r.image for r in reqs])).cuda()
+            preds = torch.cat([mc.forward(imgs[i:i + BATCH]).argmax(-1)
+                               for i in range(0, n_req, BATCH)]).tolist()
+            check([d.pred for d in done] == preds,
+                  "modelled clock: predictions differ from the forward's")
+        else:
+            check(all(d.pred == -1 for d in done)
+                  and not any(served.values()),
+                  f"execute=False ran something: {served}")
+        mlat = latency_report(mrep.completions)
+        plans_out["modeled_serve"][str(execute)] = {
+            "report": mrep.to_dict(), "latency": mlat,
+            "t_round_model": mc.engine.t_round_model}
+        print(f"[modeled] execute={execute}: {mrep.summary()}; round "
+              f"{mc.engine.t_round_model * 1e3:.4f} ms modelled; p50 "
+              f"{mlat['p50_ms']:.4f} ms modelled beside phase 4's measured "
+              f"{lat['p50_ms']:.4f} ms")
+    phases.done("12")
 
     # -- 11. the kernels line -------------------------------------------------
     # CNN entries sum one AlexNet and one VGG-16 forward's launches in their
@@ -1374,11 +1731,12 @@ def main() -> int:
                                               "launches": vqlaunches}},
                    "bf16": {a: {k: v for k, v in b.items()
                                 if k not in ("compiled", "x", "plain",
-                                             "fp32_logits")}
+                                             "fp32_logits", "logits")}
                             for a, b in bf16.items()},
                    "bf16_serve": {"report": brep.to_dict(), "latency": blat},
                    "redesign_sums": {f"{a} {k}": v
                                      for (a, k), v in sums.items()},
+                   "plans": plans_out,
                    "phase_seconds": phases.seconds},
                   f, indent=1, sort_keys=True)
     print(json.dumps({"kernels": line}))

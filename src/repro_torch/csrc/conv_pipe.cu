@@ -1247,3 +1247,24 @@ extern "C" int conv_pipe_s8(const int8_t* x, const int8_t* w, const float* b,
   return launch_s8_tile(x, w, b, scale, (float*)out, g, groups, tp, tn,
                         stream);
 }
+
+// The dynamic shared memory (bytes) one launch of a tile requests: mode 0
+// fp32, 1 bf16, 2 int8 (bk its reduction chunk, 128 or 64); -1 where no
+// kernel is instantiated. The Python wrapper's table (CONV_SMEM) is held
+// equal to this.
+extern "C" int conv_pipe_smem(int mode, int tp, int tn, int bk) {
+#define CONV_SMEM(TP, TN)                                                \
+  if (tp == TP && tn == TN) {                                            \
+    if (mode == 0) return F32Tile<TP, TN>::SMEM;                         \
+    if (mode == 1) return BfTile<TP, TN>::SMEM;                          \
+    if (mode == 2 && bk == 128) return S8Tile<TP, TN, 128>::SMEM;        \
+    if (mode == 2 && bk == 64) return S8Tile<TP, TN, 64>::SMEM;          \
+    return -1;                                                           \
+  }
+  CONV_SMEM(128, 128)
+  CONV_SMEM(128, 64)
+  CONV_SMEM(64, 128)
+  CONV_SMEM(64, 64)
+#undef CONV_SMEM
+  return -1;
+}

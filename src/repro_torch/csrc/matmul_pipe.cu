@@ -715,3 +715,17 @@ extern "C" int matmul_pipe_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
     return launch_bf16<32>(x, w, b, y, M, K, N, relu, ranks, stream);
   return (int)cudaErrorInvalidValue;
 }
+
+// The dynamic shared memory (bytes) a block of a split-K kernel requests:
+// mode 0 fp32, 1 bf16, 2 int8, at tnf features; -1 where no kernel is
+// instantiated. The Python wrapper's table (FC_SMEM) is held equal to this.
+extern "C" int matmul_pipe_smem(int mode, int tnf) {
+  if (mode == 0 && tnf == 128) return FcF32Tile<128>::SMEM;
+  if (mode == 0 && tnf == 64) return FcF32Tile<64>::SMEM;
+  if (mode == 0 && tnf == 32) return FcF32Tile<32>::SMEM;
+  if (mode == 1 && tnf == 64) return FcTile<64>::SMEM;
+  if (mode == 1 && tnf == 32) return FcTile<32>::SMEM;
+  if (mode == 2 && tnf == 128) return FcS8Tile<128>::SMEM;
+  if (mode == 2 && tnf == 32) return FcS8Tile<32>::SMEM;
+  return -1;
+}

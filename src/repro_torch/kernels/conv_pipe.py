@@ -31,7 +31,8 @@ from repro_torch.quant.ref import conv_int8_ref
 
 from repro_torch.kernels.build import sm_count
 
-__all__ = ["conv_pipe", "conv_pipe_plain", "conv_tile", "pool_tile"]
+__all__ = ["conv_pipe", "conv_pipe_plain", "conv_smem", "conv_tile",
+           "pool_tile", "tile_problem"]
 
 POSITIONS = (128, 64)        # every mode's tile rows (csrc TPB) and
 CHANNELS = (128, 64)         # columns (csrc TN)
@@ -47,6 +48,76 @@ FP32_BLOCK_COST = {(128, 128): 1.0, (128, 64): 0.56, (64, 128): 0.56,
 # 104 blocks of 128x64 beat 200 of 64x64 (tile_sweep.py, PERF.md section 6)
 INT8_FILL = 0.75
 _POOL_CODES = {None: 0, "max": 1, "avg": 2}
+# The dynamic shared memory one launch requests, bytes: each instantiation's
+# SMEM constexpr in csrc/conv_pipe.cu (F32Tile, BfTile, S8Tile), by mode and
+# (tp, tn), the int8 tiles also by their reduction chunk (128 k where the
+# gather takes 16-byte vectors, C/G % 16 == 0, else 64). chip_smoke.py and
+# tests/test_torch_cuda.py hold it equal to the kernels' own
+# (conv_pipe_smem in the library).
+CONV_SMEM = {
+    torch.float32: {(128, 128): 67584, (128, 64): 34816, (64, 128): 34048,
+                    (64, 64): 21760},
+    torch.bfloat16: {(128, 128): 75776, (128, 64): 59392, (64, 128): 55296,
+                     (64, 64): 38912},
+    (torch.int8, 128): {(128, 128): 110592, (128, 64): 92160,
+                        (64, 128): 73728, (64, 64): 55296},
+    (torch.int8, 64): {(128, 128): 69632, (128, 64): 51200,
+                       (64, 128): 40960, (64, 64): 30720}}
+
+
+def conv_smem(dtype: torch.dtype, tp: int, tn: int, cg: int) -> int:
+    """The shared memory (bytes) a block of tile ``tp`` x ``tn`` requests in
+    mode ``dtype``, for a layer with ``cg`` input channels a group; 0 where
+    no kernel is instantiated at that tile."""
+    key = (dtype, 128 if cg % 16 == 0 else 64) if dtype == torch.int8 \
+        else dtype
+    return CONV_SMEM.get(key, {}).get((tp, tn), 0)
+
+
+def library_smem(dtype: torch.dtype, tp: int, tn: int, cg: int) -> int:
+    """The shared memory the built kernel itself requests at this tile
+    (``conv_pipe_smem`` in the library; -1 where none is instantiated):
+    what :data:`CONV_SMEM` is held against. Builds the library."""
+    from repro_torch.kernels import build
+    fn = build.load("conv_pipe").conv_pipe_smem
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    mode = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[dtype]
+    return fn(mode, tp, tn, 128 if cg % 16 == 0 else 64)
+
+
+def tile_problem(tile, dtype: torch.dtype, cg: int, ph: int, pw: int,
+                 pool: Optional[str], pool_k: int, pool_s: int,
+                 smem_budget: int) -> Optional[str]:
+    """Why the kernel cannot launch ``tile`` = (tp, tn, tph, tpw), or None
+    where it can: an instantiated (tp, tn) whose shared memory fits
+    ``smem_budget``; with a pool, at least one pooled output a block each
+    way and a conv patch ``((tph-1)*s+k) x ((tpw-1)*s+k)`` within the tp
+    rows; without one, (tph, tpw) = (1, 1)."""
+    try:
+        tp, tn, tph, tpw = (int(v) for v in tile)
+    except (TypeError, ValueError):
+        return f"tile {tile!r} is not (tp, tn, tph, tpw)"
+    smem = conv_smem(dtype, tp, tn, cg)
+    if not smem:
+        return (f"no {dtype} kernel is instantiated at {tp}x{tn}: tp in "
+                f"{POSITIONS}, tn in {CHANNELS}")
+    if smem > smem_budget:
+        return (f"tile {tp}x{tn} needs {smem} B of shared memory, over the "
+                f"budget of {smem_budget} B")
+    if pool is None:
+        if (tph, tpw) != (1, 1):
+            return f"(tph, tpw) = ({tph}, {tpw}) without a pool: (1, 1)"
+        return None
+    if not (1 <= tph <= ph and 1 <= tpw <= pw):
+        return (f"(tph, tpw) = ({tph}, {tpw}) outside the {ph}x{pw} pooled "
+                f"map")
+    patch = ((tph - 1) * pool_s + pool_k) * ((tpw - 1) * pool_s + pool_k)
+    if patch > tp:
+        return (f"the conv patch of ({tph}, {tpw}) pooled outputs "
+                f"({pool_k}x{pool_k} pool, stride {pool_s}) is {patch} "
+                f"positions, over the tile's {tp} rows")
+    return None
 
 
 @functools.lru_cache(maxsize=None)
@@ -172,17 +243,23 @@ def conv_pipe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
               out_scale: Optional[float] = None,
               stride: int = 1, pad: int = 0, relu: bool = True,
               pool: Optional[str] = None, pool_k: int = 2, pool_s: int = 2,
-              groups: int = 1) -> torch.Tensor:
+              groups: int = 1, tile=None) -> torch.Tensor:
     """Fused conv(+bias)(+ReLU)(+pool). x (B,H,W,C); w (KH,KW,C/G,M); b (M,).
 
     x, w and b all fp32 or all bf16 (the output in their dtype); or the
     int8 mode: ``scale`` ((M,) fp32, s_x * s_w[m]) given, x and w int8;
     ``out_scale`` (a float) selects int8 output quantized by that step,
-    None fp32 output. A CPU tensor runs :func:`conv_pipe_plain`; a CUDA
+    None fp32 output. ``tile`` = (tp, tn, tph, tpw) pins the launch's tile
+    (a compiled plan); None takes :func:`conv_tile`'s. A tile the kernel
+    cannot launch (:func:`tile_problem`) raises on every device. A CPU
+    tensor runs :func:`conv_pipe_plain` (a tile changes no result); a CUDA
     tensor launches the kernel (counted in ``conv_pipe.launches``, fp32,
     ``conv_pipe.launches_bf16`` or ``conv_pipe.launches_s8``, int8) or
     raises."""
     if x.device.type == "cpu":
+        if tile is not None:
+            _check_tile(tile, x, w, stride, pad, pool, pool_k, pool_s,
+                        scale is not None)
         return conv_pipe_plain(x, w, b, scale=scale, out_scale=out_scale,
                                stride=stride, pad=pad, relu=relu, pool=pool,
                                pool_k=pool_k, pool_s=pool_s, groups=groups)
@@ -220,8 +297,12 @@ def conv_pipe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
                          f"kernel {KH}x{KW}, stride {stride}, pad {pad}, "
                          f"pool {pool}")
     bf16 = x.dtype == torch.bfloat16
-    *tile, tph, tpw = conv_tile(x.dtype, B, OH, OW, M // groups, groups, pool,
-                                pool_k, pool_s, sm_count(x.device), cg)
+    if tile is None:
+        tile = conv_tile(x.dtype, B, OH, OW, M // groups, groups, pool,
+                         pool_k, pool_s, sm_count(x.device), cg)
+    else:
+        _check_tile(tile, x, w, stride, pad, pool, pool_k, pool_s, int8)
+    *tile, tph, tpw = (int(v) for v in tile)
     pk, ps = (1, 1) if pool is None else (pool_k, pool_s)
     out_s8 = int8 and out_scale is not None
     out = torch.empty((B, ph, pw, M), device=x.device,
@@ -250,6 +331,36 @@ def conv_pipe(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     else:
         conv_pipe.launches += 1
     return out
+
+
+def _check_tile(tile, x, w, stride, pad, pool, pool_k, pool_s,
+                int8: bool) -> None:
+    """Raise where the kernel cannot launch ``tile`` on this layer (the
+    device's shared memory a block is the budget)."""
+    try:
+        tile = tuple(tile)
+    except TypeError:
+        raise ValueError(f"conv_pipe: tile {tile!r} is not (tp, tn, tph, "
+                         f"tpw)") from None
+    why = _tile_error(tile, torch.int8 if int8 else x.dtype, x.shape[1],
+                      x.shape[2], *w.shape[:3], stride, pad, pool, pool_k,
+                      pool_s, x.device)
+    if why is not None:
+        raise ValueError(f"conv_pipe: {why}")
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_error(tile, dtype, H, W, KH, KW, cg, stride, pad, pool, pool_k,
+                pool_s, device) -> Optional[str]:
+    """:func:`tile_problem` on one layer's geometry, memoised: a compiled
+    forward checks its plan at every launch."""
+    from repro_torch.core.roofline import device_profile
+    OH = (H + 2 * pad - KH) // stride + 1
+    OW = (W + 2 * pad - KW) // stride + 1
+    ph, pw = (OH, OW) if pool is None else (
+        (OH - pool_k) // pool_s + 1, (OW - pool_k) // pool_s + 1)
+    return tile_problem(tile, dtype, cg, ph, pw, pool, pool_k, pool_s,
+                        device_profile(device).smem_per_block)
 
 
 conv_pipe.launches = 0           # fp32 launches

@@ -20,16 +20,20 @@ __all__ = ["attention", "fc", "fc_q", "fused_conv", "fused_conv_q", "lrn"]
 
 
 def fused_conv(x, w, b, *, stride=1, pad=0, relu=True, pool=None, pool_k=2,
-               pool_s=2, groups=1, use_kernels=True):
-    """Fused conv(+bias)(+ReLU)(+pool), grouped. NHWC x HWIO."""
-    fn = conv_pipe if use_kernels else ref.conv_pipe_ref
-    return fn(x, w, b, stride=stride, pad=pad, relu=relu, pool=pool,
-              pool_k=pool_k, pool_s=pool_s, groups=groups)
+               pool_s=2, groups=1, use_kernels=True, tile=None):
+    """Fused conv(+bias)(+ReLU)(+pool), grouped. NHWC x HWIO. ``tile``
+    (a compiled plan's (tp, tn, tph, tpw)) pins the kernel's tile; the
+    oracle takes none."""
+    kw = dict(stride=stride, pad=pad, relu=relu, pool=pool, pool_k=pool_k,
+              pool_s=pool_s, groups=groups)
+    if use_kernels:
+        return conv_pipe(x, w, b, tile=tile, **kw)
+    return ref.conv_pipe_ref(x, w, b, **kw)
 
 
 def fused_conv_q(x_q, w_q, b, scale, *, out_scale=None, stride=1, pad=0,
                  relu=True, pool=None, pool_k=2, pool_s=2, groups=1,
-                 use_kernels=True):
+                 use_kernels=True, tile=None):
     """int8 fused conv, the fixed-point twin of :func:`fused_conv`: int8
     x_q/w_q, fp32 b, ``scale`` the (M,) s_x*s_w requantize multiplier,
     ``out_scale`` the output step (None: fp32 output). The oracle is the
@@ -37,7 +41,7 @@ def fused_conv_q(x_q, w_q, b, scale, *, out_scale=None, stride=1, pad=0,
     kw = dict(stride=stride, pad=pad, relu=relu, pool=pool, pool_k=pool_k,
               pool_s=pool_s, groups=groups, out_scale=out_scale)
     if use_kernels:
-        return conv_pipe(x_q, w_q, b, scale=scale, **kw)
+        return conv_pipe(x_q, w_q, b, scale=scale, tile=tile, **kw)
     return quant_ref.conv_int8_ref(x_q, w_q, b, scale, **kw)
 
 
@@ -46,18 +50,21 @@ def lrn(x, *, use_kernels=True):
     return lrn_pwl(x) if use_kernels else ref.lrn_ref(x)
 
 
-def fc(x, w, b, *, relu=False, use_kernels=True):
-    fn = matmul_pipe if use_kernels else ref.matmul_pipe_ref
-    return fn(x, w, b, relu=relu)
+def fc(x, w, b=None, *, relu=False, use_kernels=True, split=None):
+    """Batched FC; ``b=None`` is zeros, as in the JAX package. ``split``
+    (a compiled plan's (tnf, ranks)) pins the kernel's split."""
+    if use_kernels:
+        return matmul_pipe(x, w, b, relu=relu, split=split)
+    return ref.matmul_pipe_ref(x, w, b, relu=relu)
 
 
 def fc_q(x_q, w_q, b, scale, *, relu=False, out_scale=None,
-         use_kernels=True):
+         use_kernels=True, split=None):
     """int8 batched FC: int8 x/w, int32 accumulation, requantize epilogue;
     the oracle is the exact int32 reference, bit-equal to the kernel."""
     if use_kernels:
         return matmul_pipe(x_q, w_q, b, scale=scale, relu=relu,
-                           out_scale=out_scale)
+                           out_scale=out_scale, split=split)
     return quant_ref.fc_int8_ref(x_q, w_q, b, scale, relu=relu,
                                  out_scale=out_scale)
 

@@ -93,11 +93,25 @@ def fuse_plan(cfg: CNNConfig) -> List[Tuple[int, ...]]:
     return fuse_groups(cfg.layers)
 
 
+def _plan_kw(plans, group, kind: str) -> Dict[str, Any]:
+    """The kernel keyword a frozen plan gives ``group``: ``tile`` for a
+    conv, ``split`` for an FC; none without a plan (the kernel's rule)."""
+    plan = plans.get(group) if plans is not None else None
+    if plan is None:
+        return {}
+    return {"tile": plan.tile} if kind == "conv" else {"split": plan.split}
+
+
 def run_group(params: Params, x: torch.Tensor, cfg: CNNConfig,
-              group: Tuple[int, ...], *, use_kernels: bool = True
-              ) -> torch.Tensor:
+              group: Tuple[int, ...], *, use_kernels: bool = True,
+              plans=None) -> torch.Tensor:
     """Execute ONE fusion group of the fp32 or bf16 pipeline on NHWC ``x``
-    (the dtype of ``x`` and the parameters)."""
+    (the dtype of ``x`` and the parameters).
+
+    ``plans`` maps a group to its frozen plan (a compiled pipeline's
+    ``ConvPlan`` / ``GemmPlan``), which pins the kernel's tile or split; a
+    group without one launches with the kernel's own rule. The oracles
+    (``use_kernels=False``) take none."""
     l = cfg.layers[group[0]]
     p = params[group[0]]
     if l.kind == "conv":
@@ -108,21 +122,23 @@ def run_group(params: Params, x: torch.Tensor, cfg: CNNConfig,
             pool=pool.pool if pool else None,
             pool_k=pool.kernel if pool else 2,
             pool_s=pool.stride if pool else 2, groups=l.groups,
-            use_kernels=use_kernels)
+            use_kernels=use_kernels, **_plan_kw(plans, group, "conv"))
     if l.kind == "pool":
         return pool_ref(x, l.pool, l.kernel, l.stride)
     if l.kind == "lrn":
         return ops.lrn(x, use_kernels=use_kernels)
     # fc: flatten in NHWC order, as the JAX package does before fc6
     return ops.fc(x.reshape(x.shape[0], -1), p["w"], p["b"], relu=l.relu,
-                  use_kernels=use_kernels)
+                  use_kernels=use_kernels, **_plan_kw(plans, group, "fc"))
 
 
 def cnn_forward_stage(params: Params, x: torch.Tensor, cfg: CNNConfig,
-                      groups, *, use_kernels: bool = True) -> torch.Tensor:
+                      groups, *, use_kernels: bool = True,
+                      plans=None) -> torch.Tensor:
     """Run a contiguous slice of fusion groups — one pipeline stage."""
     for group in groups:
-        x = run_group(params, x, cfg, group, use_kernels=use_kernels)
+        x = run_group(params, x, cfg, group, use_kernels=use_kernels,
+                      plans=plans)
     return x
 
 
@@ -131,17 +147,19 @@ class CNN(nn.Module):
     parameters' dtype (fp32 or bf16, the batch in the same dtype).
 
     Holds the per-layer parameters (moved by ``.to``) and folds
-    :func:`run_group` over :func:`fuse_plan`.
+    :func:`run_group` over :func:`fuse_plan`, with the frozen ``plans``
+    (group -> plan) a compile resolved.
     """
 
     def __init__(self, cfg: CNNConfig, params: Params, *,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, plans=None):
         super().__init__()
         if len(params) != len(cfg.layers):
             raise ValueError(f"{len(params)} parameter entries for "
                              f"{len(cfg.layers)} layers of {cfg.name!r}")
         self.cfg = cfg
         self.use_kernels = use_kernels
+        self.plans = dict(plans or {})
         self.groups = fuse_plan(cfg)
         for i, p in enumerate(params):
             if p is not None:
@@ -162,7 +180,8 @@ class CNN(nn.Module):
 
     def forward_groups(self, x: torch.Tensor, groups) -> torch.Tensor:
         return cnn_forward_stage(self.params, x, self.cfg, groups,
-                                 use_kernels=self.use_kernels)
+                                 use_kernels=self.use_kernels,
+                                 plans=self.plans)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.forward_groups(x, self.groups)
@@ -173,10 +192,11 @@ class CNN(nn.Module):
 # ---------------------------------------------------------------------------
 
 def run_group_quant(qp: QuantizedCNNParams, q: torch.Tensor, cfg: CNNConfig,
-                    group: Tuple[int, ...], *, use_kernels: bool = True
-                    ) -> torch.Tensor:
+                    group: Tuple[int, ...], *, use_kernels: bool = True,
+                    plans=None) -> torch.Tensor:
     """Execute ONE fusion group of the int8 pipeline on int8 codes; every
-    scale it needs is a constant inside ``qp``."""
+    scale it needs is a constant inside ``qp``. ``plans`` as in
+    :func:`run_group`."""
     l = cfg.layers[group[0]]
     ql = qp.layers[group[0]]
     if l.kind == "conv":
@@ -186,7 +206,7 @@ def run_group_quant(qp: QuantizedCNNParams, q: torch.Tensor, cfg: CNNConfig,
             pad=l.pad, relu=l.relu, pool=pool.pool if pool else None,
             pool_k=pool.kernel if pool else 2,
             pool_s=pool.stride if pool else 2, groups=l.groups,
-            use_kernels=use_kernels)
+            use_kernels=use_kernels, **_plan_kw(plans, group, "conv"))
     if l.kind == "pool":
         # max-pool commutes with the int8 map: pool the codes, keep scale
         return pool_ref(q, l.pool, l.kernel, l.stride)
@@ -197,19 +217,21 @@ def run_group_quant(qp: QuantizedCNNParams, q: torch.Tensor, cfg: CNNConfig,
         return quantize(xf, ql.y_scale)
     return ops.fc_q(q.reshape(q.shape[0], -1), ql.w_q, ql.b, ql.scale,
                     relu=l.relu, out_scale=ql.y_scale,
-                    use_kernels=use_kernels)
+                    use_kernels=use_kernels, **_plan_kw(plans, group, "fc"))
 
 
 def cnn_forward_stage_quant(qp: QuantizedCNNParams, q: torch.Tensor,
                             cfg: CNNConfig, groups, *,
-                            use_kernels: bool = True) -> torch.Tensor:
+                            use_kernels: bool = True,
+                            plans=None) -> torch.Tensor:
     """Run a contiguous slice of int8 fusion groups (one pipeline stage).
     ``q`` is int8 codes at an interior boundary, or the raw fp32 batch
     for the first stage, which is quantized at the network edge."""
     if q.dtype != torch.int8:
         q = quantize(q, qp.in_scale)
     for group in groups:
-        q = run_group_quant(qp, q, cfg, group, use_kernels=use_kernels)
+        q = run_group_quant(qp, q, cfg, group, use_kernels=use_kernels,
+                            plans=plans)
     return q
 
 
@@ -251,13 +273,14 @@ class QuantCNN(nn.Module):
     :class:`CNN`."""
 
     def __init__(self, cfg: CNNConfig, qparams: QuantizedCNNParams, *,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, plans=None):
         super().__init__()
         if len(qparams.layers) != len(cfg.layers):
             raise ValueError(f"{len(qparams.layers)} quantized entries for "
                              f"{len(cfg.layers)} layers of {cfg.name!r}")
         self.cfg = cfg
         self.use_kernels = use_kernels
+        self.plans = dict(plans or {})
         self.groups = fuse_plan(cfg)
         self.in_scale = qparams.in_scale
         self._scales = [None if ql is None else (ql.kind, ql.x_scale,
@@ -290,7 +313,8 @@ class QuantCNN(nn.Module):
 
     def forward_groups(self, x: torch.Tensor, groups) -> torch.Tensor:
         return cnn_forward_stage_quant(self.qparams, x, self.cfg, groups,
-                                       use_kernels=self.use_kernels)
+                                       use_kernels=self.use_kernels,
+                                       plans=self.plans)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.forward_groups(x, self.groups)

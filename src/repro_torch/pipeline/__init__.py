@@ -2,8 +2,10 @@
 from repro_torch.core.config import SpecError
 from repro_torch.pipeline.compile import (CompiledCNN, compile_cnn,
                                           resolve_device)
+from repro_torch.pipeline.plan_table import PlanTable, load_plan, plan_key
 from repro_torch.pipeline.spec import (ExecutionSpec, Placement, Precision,
-                                       Serving)
+                                       Serving, Tiling)
 
-__all__ = ["CompiledCNN", "ExecutionSpec", "Placement", "Precision",
-           "Serving", "SpecError", "compile_cnn", "resolve_device"]
+__all__ = ["CompiledCNN", "ExecutionSpec", "Placement", "PlanTable",
+           "Precision", "Serving", "SpecError", "Tiling", "compile_cnn",
+           "load_plan", "plan_key", "resolve_device"]

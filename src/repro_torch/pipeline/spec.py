@@ -1,12 +1,13 @@
 """ExecutionSpec: the compile-time contract of the port's pipeline.
 
 The same sub-specs and field names as the JAX package's
-``pipeline/spec.py`` — :class:`Precision`, :class:`Placement`,
-:class:`Serving` — validated at construction. The port runs one
-combination of them so far: fp32, bf16 or calibrated int8, one replica,
-gang rounds on the measured clock. Every other value is refused with a :class:`SpecError`
-that names the ``ROADMAP.md`` item that will bring it; so is ``tiling``
-(the DSE knobs, which wait for the Hopper cost model).
+``pipeline/spec.py`` — :class:`Precision`, :class:`Tiling`,
+:class:`Placement`, :class:`Serving` — validated at construction. The port
+runs fp32, bf16 or calibrated int8 on one replica, gang rounds on the
+measured or the modelled clock, with per-layer plans from the DSE
+(:mod:`repro_torch.kernels.autotune`). Every other value is refused with
+a :class:`SpecError` that names the ``ROADMAP.md`` item that will bring
+it, and so is each manual tiling knob the CUDA kernels have no axis for.
 """
 from __future__ import annotations
 
@@ -14,10 +15,9 @@ from dataclasses import dataclass, field
 from typing import Any, Optional
 
 from repro_torch.core.config import SpecError
+from repro_torch.core.roofline import H100
 
 # what the port does not run yet, and the ROADMAP.md item that brings it
-LATER_DSE = ("ROADMAP.md Queue 1, slice 4 (the Hopper DSE and cost model, "
-             "with the modelled clock)")
 LATER_ARTIFACTS = "ROADMAP.md Queue 1, slice 5 (artifacts)"
 LATER_FLEET = ("ROADMAP.md Queue 1, slice 6 (dp/pp placement, with replica "
                "faults, retries and hot_swap)")
@@ -42,6 +42,33 @@ class Precision:
 
 
 @dataclass(frozen=True)
+class Tiling:
+    """The kernel design space (the paper's Fig. 7 sweep axes), as the CUDA
+    kernels take it.
+
+    ``autotune``: each conv and FC group gets its plan from the registry
+    (the kernels' measured rules, or a seeded table); False leaves the
+    kernels' own rule to each launch, and no plan is recorded.
+    ``vmem_budget``: the shared memory a block a plan may request (bytes;
+    the JAX field name, the card's counterpart of VMEM), by default the
+    H100's opt-in limit, 227 KB. ``cu_num``: the paper's CU_NUM, compute
+    units across output channels, maps to the conv tile's channels
+    ``tn`` (64 or 128; 0 = the rule's), a manual fallback that applies
+    with ``autotune=False`` only, as in the JAX package. ``vec_size``,
+    ``oh_blk`` and ``b_blk`` have no CUDA axis and are refused when set:
+    each kernel's reduction chunk is fixed by its instantiation, its rows
+    are a flat position tile (no line buffer), and a tile spans the batch
+    (no images-per-step fold).
+    """
+    autotune: bool = True
+    vmem_budget: int = H100.smem_per_block
+    vec_size: int = 0
+    cu_num: int = 0
+    oh_blk: int = 0
+    b_blk: int = 1
+
+
+@dataclass(frozen=True)
 class Placement:
     """Where the pipeline runs (one replica on one card, so far)."""
     replicas: int = 1
@@ -52,9 +79,11 @@ class Placement:
 @dataclass(frozen=True)
 class Serving:
     """The request loop around the compiled forward: gang rounds padded
-    to ``batch`` on the measured clock. ``max_queue`` bounds the queue
-    (0 = unbounded); ``slo`` is a latency bound the report counts
-    violations of (0 = off)."""
+    to ``batch``, on the ``"measured"`` clock (the forward's wall time) or
+    the ``"modeled"`` one (the roofline cost model's round time;
+    ``execute=False`` then runs nothing on the device). ``max_queue``
+    bounds the queue (0 = unbounded); ``slo`` is a latency bound the
+    report counts violations of (0 = off)."""
     batch: int = 8
     max_queue: int = 0
     clock: str = "measured"
@@ -74,13 +103,14 @@ class ExecutionSpec:
     ``use_kernels`` mirrors the JAX package's ``use_pallas``: True runs
     the fused kernels, False the exact oracles."""
     precision: Precision = field(default_factory=Precision)
+    tiling: Tiling = field(default_factory=Tiling)
     placement: Placement = field(default_factory=Placement)
     serving: Serving = field(default_factory=Serving)
     use_kernels: bool = True
-    tiling: Optional[Any] = None
 
     def __post_init__(self):
-        p, pl, s = self.precision, self.placement, self.serving
+        p, t, pl, s = self.precision, self.tiling, self.placement, \
+            self.serving
         if p.dtype not in ("float32", "bfloat16"):
             raise SpecError("Precision.dtype",
                             f"Precision.dtype={p.dtype!r}: float32 or bfloat16")
@@ -100,9 +130,43 @@ class ExecutionSpec:
                 "Precision.quant='int8' needs a calibration source: set "
                 "Precision.calib > 0 or hand compile_cnn a calibration "
                 "batch / a QuantizedCNNParams")
-        if self.tiling is not None:
-            raise refuse("ExecutionSpec.tiling", "Tiling (the DSE knobs)",
-                         LATER_DSE)
+        if not isinstance(t, Tiling):
+            raise SpecError("ExecutionSpec.tiling",
+                            f"ExecutionSpec.tiling={t!r}: a Tiling")
+        if t.vmem_budget <= 0:
+            raise SpecError(
+                "Tiling.vmem_budget",
+                f"Tiling.vmem_budget={t.vmem_budget}: must "
+                "be a positive byte budget")
+        if t.vec_size:
+            raise SpecError(
+                "Tiling.vec_size",
+                f"Tiling.vec_size={t.vec_size}: the CUDA kernels have no "
+                "VEC_SIZE axis; each instantiation fixes its reduction "
+                "chunk (fp32 16, bf16 32, int8 64 or 128 k). Leave it 0")
+        if t.oh_blk:
+            raise SpecError(
+                "Tiling.oh_blk",
+                f"Tiling.oh_blk={t.oh_blk}: the CUDA conv has no line "
+                "buffer; a block's rows are its tp positions (or a pooled "
+                "patch), chosen by the plan. Leave it 0")
+        if t.b_blk != 1:
+            raise SpecError(
+                "Tiling.b_blk",
+                f"Tiling.b_blk={t.b_blk}: the CUDA conv has no "
+                "images-per-step axis; its position tile runs over the "
+                "whole batch. Leave it 1")
+        if t.cu_num not in (0, 64, 128):
+            raise SpecError(
+                "Tiling.cu_num",
+                f"Tiling.cu_num={t.cu_num}: the conv tile's channels (tn) "
+                "are 64 or 128 (0 = the rule's)")
+        if t.cu_num and t.autotune:
+            raise SpecError(
+                "Tiling.cu_num",
+                f"Tiling.cu_num={t.cu_num} with autotune=True is "
+                "contradictory: CU_NUM is the manual fallback, as in the "
+                "JAX package; set autotune=False to pin tn")
         if pl.replicas < 1 or pl.pp_stages < 1:
             raise SpecError(
                 "Placement.replicas",
@@ -123,10 +187,7 @@ class ExecutionSpec:
         if s.clock not in ("measured", "modeled"):
             raise SpecError("Serving.clock",
                             f"Serving.clock={s.clock!r}: measured or modeled")
-        if s.clock == "modeled":
-            raise refuse("Serving.clock", "Serving.clock='modeled'",
-                         LATER_DSE)
-        if not s.execute:
+        if not s.execute and s.clock == "measured":
             raise SpecError(
                 "Serving.execute",
                 "Serving.execute=False with clock='measured' is "
@@ -150,6 +211,12 @@ class ExecutionSpec:
         if s.steal_threshold or s.autoscale is not None:
             raise refuse("Serving.steal_threshold",
                          "Serving.steal_threshold/autoscale", LATER_OBS)
+
+    @property
+    def run_dtype(self) -> str:
+        """The dtype plans and costs are keyed by ('int8' when quantized)."""
+        return "int8" if self.precision.quant == "int8" else \
+            self.precision.dtype
 
     @property
     def mode(self) -> str:

@@ -48,7 +48,7 @@ class FleetReport:
     replicas: int
     pp_stages: int
     batch: int                         # micro-batch requests are padded to
-    clock: str                         # "measured"
+    clock: str                         # "measured" | "modeled"
     scheduler: str = "gang"
     device: str = ""                   # where the forwards ran
     n_done: int = 0

@@ -15,10 +15,14 @@ import numpy as np
 
 @dataclass
 class Request:
-    """One inference request: an (H, W, C) image and its arrival time (s)."""
+    """One inference request: an (H, W, C) image and its arrival time (s).
+    ``cost`` is its relative service weight (1.0 nominal): the modelled
+    clock charges a gang round its dearest request's ``cost`` times the
+    round time."""
     rid: int
     image: np.ndarray
     t_arrival: float
+    cost: float = 1.0
 
 
 @dataclass

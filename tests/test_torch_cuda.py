@@ -42,7 +42,8 @@ from repro_torch.kernels.decode_attention import (decode_attention,
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.lrn_pwl import lrn_pwl, lrn_pwl_plain
-from repro_torch.kernels.matmul_pipe import (FC_FEATURES, matmul_pipe,
+from repro_torch.kernels.matmul_pipe import (FC_FEATURES, fc_chunk,
+                                             matmul_pipe,
                                              matmul_pipe_plain)
 from repro_torch.models.cnn import init_cnn_params
 from repro_torch.pipeline import ExecutionSpec, Precision, compile_cnn
@@ -1135,3 +1136,160 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         decode_attention(torch.zeros((1, 2, 9, 64), device=cuda), kc,
                          kc.clone(), nk, nk, 3)              # G > 8
+
+
+# ---------------------------------------------------------------------------
+# plans (the DSE): every fitting plan launches and equals the plain version
+# ---------------------------------------------------------------------------
+
+def test_smem_tables_equal_what_the_kernels_request(cuda):
+    from repro_torch.kernels import conv_pipe as cp
+    from repro_torch.kernels import matmul_pipe as mp
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        for cg in ((16, 3) if dtype == torch.int8 else (16,)):
+            for tp, tn in TILES:
+                assert cp.conv_smem(dtype, tp, tn, cg) == cp.library_smem(
+                    dtype, tp, tn, cg), (dtype, tp, tn, cg)
+        for tnf in FC_FEATURES[dtype]:
+            assert mp.fc_smem(dtype, tnf) == mp.library_smem(dtype, tnf)
+    assert cp.library_smem(torch.float32, 32, 64, 16) == -1
+    assert mp.library_smem(torch.bfloat16, 128) == -1
+
+
+PLAN_MODES = {"fp32": torch.float32, "bf16": torch.bfloat16,
+              "int8": torch.int8}
+
+
+@pytest.mark.parametrize("mode", sorted(PLAN_MODES))
+@pytest.mark.parametrize("B,H,C,K,M,pad,pool,pool_k,pool_s,groups", [
+    (2, 27, 16, 3, 96, 1, "max", 3, 2, 2),
+    (3, 20, 3, 3, 70, 1, None, 2, 2, 1)])
+def test_every_fitting_conv_plan_equals_plain(cuda, mode, B, H, C, K, M, pad,
+                                              pool, pool_k, pool_s, groups):
+    from repro_torch.kernels import autotune
+    rng = np.random.default_rng(40)
+    shape = autotune.ConvShape(h=H, w=H, c=C, kh=K, kw=K, m=M, pad=pad,
+                               groups=groups, pool=pool, pool_k=pool_k,
+                               pool_s=pool_s, b=B,
+                               dtype=str(PLAN_MODES[mode])[6:])
+    kw = dict(pad=pad, pool=pool, pool_k=pool_k, pool_s=pool_s,
+              groups=groups)
+    if mode == "int8":
+        x = torch.from_numpy(rng.integers(-127, 128, (B, H, H, C),
+                                          dtype=np.int8)).to(cuda)
+        w = torch.from_numpy(rng.integers(-127, 128, (K, K, C // groups, M),
+                                          dtype=np.int8)).to(cuda)
+        scale, b = _requant(rng, M, K * K * C // groups, cuda)
+        kw.update(scale=scale, out_scale=OUT_SCALE)
+    else:
+        x = _t(rng.standard_normal((B, H, H, C)), cuda)
+        w = _t(rng.standard_normal((K, K, C // groups, M)) * 0.2, cuda)
+        b = _t(rng.standard_normal(M), cuda)
+        x, w, b = (t.to(PLAN_MODES[mode]) for t in (x, w, b))
+    want = conv_pipe_plain(x, w, b, **kw)
+    plans = autotune.enumerate_plans(shape)
+    assert len(plans) == 4
+    for plan in plans:
+        got = conv_pipe(x, w, b, tile=plan.tile, **kw)
+        if mode == "int8":
+            _equal(got, want)
+        elif mode == "bf16":
+            _close_bf16(got, want)
+        else:
+            _close(got, want)
+
+
+@pytest.mark.parametrize("mode", sorted(PLAN_MODES))
+@pytest.mark.parametrize("M,K,N", [(8, 3000, 200), (13, 1000, 70)])
+def test_every_fitting_fc_plan_equals_plain(cuda, mode, M, K, N):
+    from repro_torch.kernels import autotune
+    rng = np.random.default_rng(41)
+    shape = autotune.GemmShape(m=M, k=K, n=N,
+                               dtype=str(PLAN_MODES[mode])[6:])
+    if mode == "int8":
+        x = torch.from_numpy(rng.integers(-127, 128, (M, K),
+                                          dtype=np.int8)).to(cuda)
+        w = torch.from_numpy(rng.integers(-127, 128, (K, N),
+                                          dtype=np.int8)).to(cuda)
+        scale, b = _requant(rng, N, K, cuda)
+        kw = dict(scale=scale, out_scale=OUT_SCALE, relu=True)
+    else:
+        x = _t(rng.standard_normal((M, K)) * 0.3, cuda).to(PLAN_MODES[mode])
+        w = _t(rng.standard_normal((K, N)) * 0.05, cuda).to(PLAN_MODES[mode])
+        b = _t(rng.standard_normal(N), cuda).to(PLAN_MODES[mode])
+        kw = dict(relu=True)
+    want = matmul_pipe_plain(x, w, b, **kw)
+    plans = autotune.enumerate_gemm_plans(shape)
+    assert len(plans) == sum(min(8, -(-K // fc_chunk(PLAN_MODES[mode], f)))
+                             for f in FC_FEATURES[PLAN_MODES[mode]])
+    for plan in plans:
+        got = matmul_pipe(x, w, b, split=plan.split, **kw)
+        if mode == "int8":
+            _equal(got, want)
+        elif mode == "bf16":
+            _close_bf16(got, want)
+        else:
+            _close(got, want)
+
+
+def test_plans_that_do_not_fit_raise(cuda):
+    x = torch.zeros((1, 16, 16, 8), device=cuda)
+    w = torch.zeros((3, 3, 8, 16), device=cuda)
+    b = torch.zeros(16, device=cuda)
+    n0 = conv_pipe.launches
+    for tile in ((64, 64, 5, 5), (96, 64, 1, 1), (64, 32, 1, 1)):
+        with pytest.raises(ValueError):
+            conv_pipe(x, w, b, pad=1, pool="max", tile=tile)
+    with pytest.raises(ValueError):
+        conv_pipe(x, w, b, pad=1, tile=(64, 64, 2, 2))   # no pool: (1, 1)
+    xf, wf = torch.zeros((8, 64), device=cuda), torch.zeros((64, 8),
+                                                            device=cuda)
+    m0 = matmul_pipe.launches
+    for split in ((64, 9), (64, 0), (48, 1), (64, 3)):  # 64 k: 2 chunks
+        with pytest.raises(ValueError):
+            matmul_pipe(xf, wf, split=split)
+    assert conv_pipe.launches == n0 and matmul_pipe.launches == m0
+
+
+@pytest.mark.parametrize("kind", ["conv", "gemm"])
+def test_measure_record_is_a_positive_card_time(cuda, kind):
+    from repro_torch.kernels import autotune
+    from repro_torch.obs import profiler
+    if kind == "conv":
+        shape = autotune.ConvShape(h=28, w=28, c=64, kh=3, kw=3, m=64,
+                                   pad=1, pool="max", b=8)
+        plan = autotune.best_plan(shape)
+    else:
+        shape = autotune.GemmShape(m=8, k=4096, n=1000, dtype="int8")
+        plan = autotune.best_gemm_plan(shape)
+    before = autotune.measure_stats()[f"{kind}_measured"]
+    rec = profiler.measure_record(kind, shape, plan, opts=profiler.
+                                  MeasureOptions(repeats=3, iters=5))
+    assert 0 < rec["t_measured"] < 1 and np.isfinite(rec["t_measured"])
+    assert autotune.measure_stats()[f"{kind}_measured"] == before + 3
+    assert profiler.backend_fingerprint()["timer"] == "cuda events"
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "int8-s8", "int8-f32"])
+def test_matmul_pipe_without_bias_equals_zero_bias(cuda, mode):
+    rng = np.random.default_rng(42)
+    if mode.startswith("int8"):
+        x = torch.from_numpy(rng.integers(-127, 128, (8, 1000),
+                                          dtype=np.int8)).to(cuda)
+        w = torch.from_numpy(rng.integers(-127, 128, (1000, 200),
+                                          dtype=np.int8)).to(cuda)
+        scale, _ = _requant(rng, 200, 1000, cuda)
+        kw = dict(scale=scale, relu=True,
+                  out_scale=OUT_SCALE if mode == "int8-s8" else None)
+        zero = torch.zeros(200, device=cuda)
+    else:
+        dt = torch.float32 if mode == "fp32" else torch.bfloat16
+        x = _t(rng.standard_normal((8, 1000)) * 0.3, cuda).to(dt)
+        w = _t(rng.standard_normal((1000, 200)) * 0.05, cuda).to(dt)
+        kw = dict(relu=True)
+        zero = torch.zeros(200, device=cuda, dtype=dt)
+    got = matmul_pipe(x, w, **kw)
+    _equal(got, matmul_pipe(x, w, zero, **kw))
+    _equal(matmul_pipe_plain(x, w, **kw), matmul_pipe_plain(x, w, zero, **kw))
+    if not mode.startswith("int8"):
+        _equal(ops.fc(x, w, relu=True), got)

@@ -1,6 +1,8 @@
 """Serving parity: the port's ``compile_cnn(...).serve`` against the JAX
 package's on the smoke AlexNet, the copied report helpers against the
-JAX ones, and the spec/compile refusals of what the port does not run."""
+JAX ones, and the spec/compile refusals of what the port does not run.
+The modelled clock's parity with the JAX engine is in
+``tests/test_torch_dse.py``."""
 import jax
 import numpy as np
 import pytest
@@ -117,14 +119,9 @@ REFUSED = {
         placement=Placement(microbatches=2)),
     "continuous": lambda c: ExecutionSpec(
         serving=Serving(scheduler="continuous")),
-    "modeled": lambda c: ExecutionSpec(serving=Serving(clock="modeled")),
     "autoscale": lambda c: ExecutionSpec(serving=Serving(autoscale={})),
     "steal": lambda c: ExecutionSpec(serving=Serving(steal_threshold=2)),
     "retries": lambda c: ExecutionSpec(serving=Serving(retries=1)),
-    "tiling": lambda c: ExecutionSpec(tiling={"vec_size": 8}),
-    "plans": lambda c: compile_cnn(c.cfg, device="cpu", plans=object()),
-    "plan_path": lambda c: compile_cnn(c.cfg, device="cpu", plan_path="p"),
-    "measure": lambda c: compile_cnn(c.cfg, device="cpu", measure=True),
     "compile_trace": lambda c: compile_cnn(c.cfg, device="cpu",
                                            trace=object()),
     "faults": lambda c: c.serve([], faults=object()),
@@ -134,8 +131,6 @@ REFUSED = {
     "save": lambda c: c.save("artifact"),
     "load": lambda c: CompiledCNN.load("artifact"),
     "verify": lambda c: c.verify(),
-    "plan_table": lambda c: c.plans(),
-    "save_plan": lambda c: c.save_plan("plans.json"),
 }
 
 

@@ -23,13 +23,17 @@ Qwen3-8B's 8 KV heads, G 4, d_head 128; full and half caches) it times
 every split P beside the slot write + SDPA and prints ``decode_split``'s
 pick against the fastest. Then the host time of one wrapper call
 (enqueue only): matmul_pipe bf16 beside torch.addmm, conv_pipe fp32,
-lrn_pwl fp32 and bf16 at AlexNet's lrn2, flash_attention fp32; with
-``--host`` only these lines. Kernel times are CUDA-graph replays
+lrn_pwl fp32 and bf16 at AlexNet's lrn2, flash_attention fp32, and
+where the wrappers take a pinned plan conv_pipe and matmul_pipe with
+one; then the AlexNet batch-8 forwards in fp32, int8 and bf16, which
+their launches' host time paces (``chip_smoke.time_ms``, median of 5);
+with ``--host`` only these lines. Kernel times are CUDA-graph replays
 (``chip_smoke.graph_ms``), so the host's pace is out of them.
 Needs the repository around it; exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
+import inspect
 import os
 import statistics
 import sys
@@ -147,6 +151,33 @@ def host_lines() -> None:
         runs = [host_us(fn) for _ in range(3)]
         print(f"[host] {name}: {statistics.median(runs):.1f} us a call on "
               f"the host (enqueue; median of 3 runs of 200)")
+    if "tile" in inspect.signature(conv_pipe).parameters:
+        # a compiled forward pins each launch's plan
+        for name, fn in (
+                ("conv_pipe fp32 8x13x13x384 3x3x384x256, tile pinned",
+                 lambda: conv_pipe(xc, wc, bc, pad=1, tile=(64, 64, 1, 1))),
+                ("matmul_pipe bf16 8x4096x1000, split pinned",
+                 lambda: matmul_pipe(x8, w8, b8, relu=True, split=(64, 5)))):
+            runs = [host_us(fn) for _ in range(3)]
+            print(f"[host] {name}: {statistics.median(runs):.1f} us a call "
+                  f"on the host (enqueue; median of 3 runs of 200)")
+    # the AlexNet forwards whose launches the host paces
+    from chip_smoke import time_ms
+    from repro_torch.configs import get_config
+    from repro_torch.pipeline import ExecutionSpec, Precision, compile_cnn
+    cfg = get_config("alexnet")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((8, cfg.input_hw, cfg.input_hw, cfg.input_ch),
+                    generator=gen, device="cuda")
+    params = compile_cnn(cfg, generator=gen, device="cuda").params
+    for mode, prec in (("fp32", Precision()), ("int8", Precision(
+            quant="int8")), ("bf16", Precision(dtype="bfloat16"))):
+        c = compile_cnn(cfg, ExecutionSpec(precision=prec), params,
+                        device="cuda")
+        runs = [time_ms(lambda c=c: c.forward(x)) for _ in range(5)]
+        print(f"[host] forward alexnet {mode} batch 8: "
+              f"{statistics.median(runs):.4f} ms (median of 5 chip_smoke "
+              f"time_ms runs: {', '.join(f'{r:.4f}' for r in runs)})")
 
 
 def main() -> int:
