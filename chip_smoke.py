@@ -116,6 +116,30 @@ Phases (any failure exits non-zero):
    AlexNet fp32 on the modelled clock, ``execute=False`` (nothing runs,
    predictions -1) and True (the forward's predictions), the modelled
    p50 beside phase 4's measured one.
+13. The fleet at full width (``ROADMAP.md`` Queue 1 slice 6): AlexNet,
+   batch 8, the weights of phase 3, compiled as dp (2 replicas), pp (2
+   stages, 4 microbatches) and hybrid (2 x 2), each replica or stage a
+   CUDA stream. Phase 4's 19 requests through each on the measured clock:
+   every request one ``ok`` completion with phase 3's forward's
+   prediction for its image, and the counters R x (5 conv, 2 lrn, 3
+   matmul) a round in dp and the same a microbatch in pp, over the
+   rounds and one warm-up round. Each mode's measured round (four full
+   rounds of a burst, timed the second time) beside single mode's. The pp
+   forward through the stage streams: int8 ``torch.equal`` to phase 3b's
+   logits, fp32 within 1e-4 x max|logit| of phase 3's. On dp with
+   ``retries=2``: replica 0 failing at 20 ms and recovering at 40 ms
+   (plus its modelled restore), then an fp32 -> int8 ``hot_swap`` from
+   20 ms, each over the 19 images arriving at 50 a second: no request
+   stranded, every ok prediction its version's forward's, the counters
+   printed.
+14. Artifacts at full width (slice 5): VGG-16 fp32, int8 and bf16 of
+   phases 7 and 8, ``save`` -> ``CompiledCNN.load`` on the card (the
+   registry cleared first: no sweep) -> ``save`` in a temporary
+   directory the phase removes: logits ``torch.equal`` to the compiled
+   forward's, ``manifest.json`` and ``plan_table.json`` byte-identical;
+   the artifact's bytes, the wall time of the save and of the load, and
+   the restore model's time for those bytes (the reference's 2 GB/s + 5
+   ms, a model).
 11. One JSON line ``{"kernels": [...]}`` (each kernel and mode; launches
    from phases 3, 3b, 6, 7 and 9; each CNN entry sums the times of one
    AlexNet and one VGG-16 forward's launches in its mode, with each
@@ -1649,6 +1673,216 @@ def main() -> int:
               f"{lat['p50_ms']:.4f} ms")
     phases.done("12")
 
+    # -- 13. the fleet at full width: AlexNet, batch 8 ------------------------
+    from repro_torch.pipeline import Placement
+    from repro_torch.serve import FaultSchedule
+
+    fleet_out = {"modes": {}, "card": card}
+    reqs = synthetic_requests(n_req, cfg.input_hw, cfg.input_ch, 200.0)
+    imgs = torch.from_numpy(np.stack([r.image for r in reqs])).cuda()
+
+    def preds_of(c):
+        """Each request image's prediction by ``c``'s single forward."""
+        return torch.cat([c.forward(imgs[i:i + BATCH]).float().argmax(-1)
+                          for i in range(0, n_req, BATCH)]).tolist()
+
+    want = {0: preds_of(compiled)}             # phase 3's fp32 model
+
+    def fleet_spec(R, S, M, **serving):
+        return ExecutionSpec(
+            placement=Placement(replicas=R, pp_stages=S, microbatches=M),
+            serving=Serving(batch=BATCH, **serving))
+
+    def check_done(rep, tag, versions=None):
+        """Every request one completion (ok, or failed past its budget),
+        each ok prediction its version's forward's."""
+        done = sorted(rep.completions, key=lambda d: d.rid)
+        check([d.rid for d in done] == list(range(n_req)),
+              f"{tag}: {len(done)} completions for {n_req} requests")
+        for d in done:
+            if d.status == "ok":
+                check(d.pred == (versions or want)[d.version][d.rid],
+                      f"{tag}: request {d.rid} (version {d.version}) "
+                      f"predicted {d.pred}")
+        return done
+
+    def round_ms(c):
+        """The measured clock's mean round, full rounds: 4 x R x 8
+        requests arriving at once, served twice (the second is timed)."""
+        R = c.spec.placement.replicas
+        burst = synthetic_requests(4 * R * BATCH, cfg.input_hw, cfg.input_ch,
+                                   1e12, seed=1)
+        c.serve(burst)
+        rep = c.serve(burst)
+        return rep.makespan_s / rep.rounds * 1e3
+
+    def copy_ms(R):
+        """Host clock around the round's one copy of R packed batches to
+        the card (pageable memory), synchronised; median of 5."""
+        packed = np.stack([r.image for r in reqs[:BATCH]] * R)
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            torch.from_numpy(packed).to("cuda")
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts)
+
+    single_ms = round_ms(compiled)
+    fleet_out["copy_ms"] = {R: copy_ms(R) for R in (1, 2)}
+    print(f"[fleet] single: round {single_ms:.4f} ms measured "
+          f"({BATCH / single_ms * 1e3:.0f} images/s), of which the copy of "
+          f"the batch to the card {fleet_out['copy_ms'][1]:.4f} ms (2 "
+          f"batches: {fleet_out['copy_ms'][2]:.4f} ms) and phase 3's "
+          f"forward {fwd_ms:.4f} ms as timed; {card}")
+    for mode, (R, S, M) in (("dp", (2, 1, 0)), ("pp", (1, 2, 4)),
+                            ("hybrid", (2, 2, 2))):
+        fc = compile_cnn(cfg, fleet_spec(R, S, M, retries=2), params,
+                         device="cuda")
+        check(fc.mode == mode, f"{mode}: compiled as {fc.mode}")
+        m = fc.engine.n_micro
+        reset_launches()
+        rep = fc.serve(reqs)
+        torch.cuda.synchronize()
+        served = launch_counts()
+        n_fwd = (rep.rounds + 1) * R * m     # every replica and microbatch
+        print(f"[fleet] {mode} (R {R}, S {S}, M {m}): launches {served} over "
+              f"{rep.rounds} rounds + 1 warm-up, {R * m} forwards a round")
+        check(served == {k: v * n_fwd for k, v in EXPECTED_LAUNCHES.items()},
+              f"{mode} launches {served} != {n_fwd} x {EXPECTED_LAUNCHES}")
+        done = check_done(rep, mode)
+        check(all(d.status == "ok" for d in done), f"{mode}: a failed request")
+        ms = round_ms(fc)
+        print(f"[fleet] {mode}: {rep.summary()}; round {ms:.4f} ms measured "
+              f"against single's {single_ms:.4f} ms ({ms / single_ms:.2f}x; "
+              f"{R * BATCH / ms * 1e3:.0f} images/s; modelled "
+              f"{fc.engine.t_round_model * 1e3:.4f} ms; {card})")
+        fleet_out["modes"][mode] = {"round_ms": ms,
+                                    "t_round_model": fc.engine.t_round_model,
+                                    "n_micro": m, "launches": served,
+                                    "report": rep.to_dict()}
+        if S > 1:
+            print(f"[fleet] {mode} stages: " + " | ".join(
+                f"{list(st.groups)} {st.t_model * 1e3:.4f} ms modelled"
+                for st in fc.stage_plan.stages))
+    fleet_out["single_round_ms"] = single_ms
+
+    # the stage schedule's logits: int8 bit-equal, fp32 within 1e-4
+    for tag, base, ref_logits, expect in (
+            ("int8", qcompiled, qlogits, EXPECTED_LAUNCHES_INT8),
+            ("fp32", compiled, logits, EXPECTED_LAUNCHES)):
+        pc = compile_cnn(cfg, dataclasses.replace(
+            base.spec, placement=Placement(pp_stages=2, microbatches=4)),
+            base.params, device="cuda")
+        reset_launches()
+        out = pc.forward(x_alex)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check(counts == {k: 4 * v for k, v in expect.items()},
+              f"pp {tag} forward launches {counts}")
+        err = (out - ref_logits).abs().max().item()
+        tol = 0.0 if tag == "int8" else \
+            KERNEL_RTOL * ref_logits.abs().max().item()
+        print(f"[fleet] pp {tag} forward through the stage streams (4 "
+              f"microbatches of 2): max abs err {err:.3e} against phase "
+              f"{'3b' if tag == 'int8' else '3'}'s forward (allowed "
+              f"{tol:.3e}{', torch.equal' if tag == 'int8' else ''})")
+        check(torch.equal(out, ref_logits) if tag == "int8" else err <= tol,
+              f"pp {tag} logits differ from the forward: {err}")
+        fleet_out[f"pp_{tag}_err"] = err
+
+    # faults: replica 0 fails at 20 ms and recovers at 40 ms (+ the
+    # modelled restore, 127 ms for AlexNet fp32), under the same images
+    # arriving at 50 a second (over about 380 ms, so it rejoins in time)
+    slow = synthetic_requests(n_req, cfg.input_hw, cfg.input_ch, 50.0)
+    fc = compile_cnn(cfg, fleet_spec(2, 1, 0, retries=2), params,
+                     device="cuda")
+    rep = fc.serve(slow, faults=FaultSchedule.at(20e-3, 40e-3, replica=0))
+    done = check_done(rep, "dp faults")
+    n_ok = sum(d.status == "ok" for d in done)
+    print(f"[fleet] dp faults: {rep.summary()}; {n_ok} ok, "
+          f"{n_req - n_ok} failed, none stranded; counters "
+          f"{json.dumps(fc.engine.counters)}; TTR "
+          f"{[round(t * 1e3, 4) for t in rep.time_to_recover_s]} ms "
+          f"(modelled restore {fc.engine.t_restore_model * 1e3:.4f} ms)")
+    check(rep.n_failures == 1 and rep.n_recoveries == 1,
+          f"dp faults: {rep.n_failures} failures, {rep.n_recoveries} "
+          f"recoveries")
+    fleet_out["faults"] = {"report": rep.to_dict(),
+                           "counters": fc.engine.counters}
+
+    # fp32 -> int8 hot_swap under load, from 20 ms (a replica's modelled
+    # restore of the int8 artifact: about 36 ms)
+    fc = compile_cnn(cfg, fleet_spec(2, 1, 0), params, device="cuda")
+    v = fc.engine.hot_swap(qcompiled, at=20e-3)
+    want[v] = preds_of(qcompiled)
+    rep = fc.serve(slow)
+    done = check_done(rep, "hot_swap", want)
+    by_v = {u: sum(d.version == u for d in done) for u in (0, v)}
+    print(f"[fleet] hot_swap fp32 -> int8: {rep.summary()}; completions by "
+          f"version {by_v}, each prediction its version's forward's; "
+          f"counters {json.dumps(fc.engine.counters)}")
+    check(all(d.status == "ok" for d in done) and rep.n_swapped == 2
+          and fc.engine.dtype == "int8",
+          f"hot_swap: {rep.n_swapped} swapped, dtype {fc.engine.dtype}")
+    fleet_out["hot_swap"] = {"report": rep.to_dict(), "by_version": by_v}
+    phases.done("13")
+
+    # -- 14. artifacts at full width: VGG-16, batch 8 -------------------------
+    import shutil
+    import tempfile
+    from repro_torch.pipeline import CompiledCNN
+    from repro_torch.serve import restore_latency_model
+
+    art_out = {"card": card}
+    art_dir = tempfile.mkdtemp(prefix="chip_smoke_artifacts_")
+    try:
+        for tag, c, xb, ref_logits in (
+                ("fp32", vcompiled, x_vgg, vlogits),
+                ("int8", vqcompiled, x_vgg, vqlogits),
+                ("bf16", bf16["vgg16"]["compiled"], bf16["vgg16"]["x"],
+                 bf16["vgg16"]["logits"])):
+            a1 = os.path.join(art_dir, f"{tag}_1")
+            a2 = os.path.join(art_dir, f"{tag}_2")
+            t0 = time.perf_counter()
+            c.save(a1)
+            t_save = time.perf_counter() - t0
+            nbytes = sum(os.path.getsize(os.path.join(a1, f))
+                         for f in os.listdir(a1))
+            autotune.clear_registry()
+            autotune.reset_sweep_stats()
+            t0 = time.perf_counter()
+            c2 = CompiledCNN.load(a1)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            sweeps = autotune.sweep_stats()
+            out = c2.forward(xb)
+            c2.save(a2)
+            same = {f: open(os.path.join(a1, f), "rb").read()
+                    == open(os.path.join(a2, f), "rb").read()
+                    for f in ("manifest.json", "plan_table.json")}
+            t_model = restore_latency_model(nbytes)
+            print(f"[artifact] vgg16 {tag}: {nbytes} bytes, save "
+                  f"{t_save:.3f} s, load {t_load:.3f} s (wall, host clock; "
+                  f"{nbytes / t_load / 1e9:.2f} GB/s) beside the restore "
+                  f"model's {t_model:.3f} s; {sweeps['conv_sweeps']} + "
+                  f"{sweeps['gemm_sweeps']} sweeps; logits torch.equal "
+                  f"{torch.equal(out, ref_logits)}; byte-identical over "
+                  f"save -> load -> save {same} ({card})")
+            check(torch.equal(out, ref_logits),
+                  f"artifact {tag}: reloaded logits differ")
+            check(sweeps["conv_sweeps"] == 0 and sweeps["gemm_sweeps"] == 0,
+                  f"artifact {tag}: the load swept {sweeps}")
+            check(all(same.values()), f"artifact {tag}: {same}")
+            art_out[tag] = {"bytes": nbytes, "save_s": t_save,
+                            "load_s": t_load, "restore_model_s": t_model}
+            shutil.rmtree(a1)
+            shutil.rmtree(a2)
+            del c2, out
+    finally:
+        shutil.rmtree(art_dir, ignore_errors=True)
+    phases.done("14")
+
     # -- 11. the kernels line -------------------------------------------------
     # CNN entries sum one AlexNet and one VGG-16 forward's launches in their
     # mode (fp32 phases 2, 3 and 7; int8 2b, 3b and 7; bf16 8 and 9), with
@@ -1736,7 +1970,8 @@ def main() -> int:
                    "bf16_serve": {"report": brep.to_dict(), "latency": blat},
                    "redesign_sums": {f"{a} {k}": v
                                      for (a, k), v in sums.items()},
-                   "plans": plans_out,
+                   "plans": plans_out, "fleet": fleet_out,
+                   "artifacts": art_out,
                    "phase_seconds": phases.seconds},
                   f, indent=1, sort_keys=True)
     print(json.dumps({"kernels": line}))

@@ -2,17 +2,26 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve_cnn --arch alexnet \\
         [--smoke] [--batch 8] [--requests N] [--rate 200] [--device cpu] \\
-        [--quant int8 [--calib 8]]
+        [--quant int8 [--calib 8]] [--replicas R] [--pp-stages S] \\
+        [--microbatches M] [--clock measured|modeled] [--max-queue N] \\
+        [--fail-at T [--recover-at T] [--fail-replica r] | --mtbf T --mttr T] \\
+        [--retries N] [--backoff T] [--slo T] \\
+        [--straggler-every k] [--straggler-cost c] [--report-json PATH]
 
 Compiles the model once (random weights from ``--seed``; with
 ``--quant int8`` calibrated on ``--calib`` synthetic images and served by
-the int8 kernel pipeline), serves a synthetic request stream
-(exponential inter-arrival times) on the measured clock, and prints the
-report. Runs on the CUDA device unless ``--device`` says otherwise.
+the int8 kernel pipeline), placed as ``--replicas`` data-parallel
+replicas of ``--pp-stages`` pipeline stages (each a CUDA stream of the
+one card), serves a synthetic request stream (exponential inter-arrival
+times) on the chosen clock, with replica faults injected when asked, and
+prints the report. Runs on the CUDA device unless ``--device`` says
+otherwise. The continuous scheduler's, autoscaler's, trace, metrics,
+measurement and drift flags come with ROADMAP.md Queue 1 slice 7.
 """
 from __future__ import annotations
 
 import argparse
+import json
 from typing import List
 
 import numpy as np
@@ -20,22 +29,27 @@ import torch
 
 from repro_torch.configs import CNN_IDS, get_config
 from repro_torch.core.config import flops_per_image
-from repro_torch.pipeline import (ExecutionSpec, Precision, Serving,
-                                  compile_cnn)
+from repro_torch.pipeline import (ExecutionSpec, Placement, Precision,
+                                  Serving, compile_cnn)
 from repro_torch.serve import Request, latency_report
+from repro_torch.serve.faults import FaultSchedule
 
 
 def synthetic_requests(n: int, hw: int, ch: int, rate: float,
-                       seed: int = 0) -> List[Request]:
+                       seed: int = 0, straggler_every: int = 0,
+                       straggler_cost: float = 4.0) -> List[Request]:
     """n requests with exponential inter-arrival times (mean 1/rate s) and
     standard-normal images; the same stream as the JAX launcher's for the
-    same seed."""
+    same seed. ``straggler_every`` > 0 gives every k-th request the service
+    weight ``straggler_cost`` (a gang round runs at its dearest)."""
     rng = np.random.default_rng(seed)
     t = 0.0
     out = []
     for i in range(n):
         t += rng.exponential(1.0 / rate)
-        out.append(Request(rid=i, t_arrival=t,
+        cost = (straggler_cost
+                if straggler_every and i % straggler_every == 0 else 1.0)
+        out.append(Request(rid=i, t_arrival=t, cost=cost,
                            image=rng.standard_normal(
                                (hw, hw, ch)).astype(np.float32)))
     return out
@@ -67,27 +81,101 @@ def main(argv=None) -> None:
                          "batch, then run the int8 kernel pipeline")
     ap.add_argument("--calib", type=int, default=8,
                     help="calibration images for --quant int8")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="data-parallel replicas (CUDA streams of the card)")
+    ap.add_argument("--pp-stages", type=int, default=1,
+                    help="pipeline stages (CUDA streams of the card)")
+    ap.add_argument("--microbatches", type=int, default=0,
+                    help="GPipe microbatches a pipeline round (0 = the "
+                         "modelled round's best)")
+    ap.add_argument("--clock", choices=("measured", "modeled"),
+                    default="measured",
+                    help="advance the clock by wall time or by the card's "
+                         "cost model (deterministic)")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="admission control: reject when the chosen "
+                         "replica queue holds this many (0 = unbounded)")
+    ap.add_argument("--fail-at", type=float, default=None,
+                    help="fail a replica at this simulated second")
+    ap.add_argument("--recover-at", type=float, default=None,
+                    help="recover it at this simulated second (needs "
+                         "--fail-at; the modelled restore is charged on "
+                         "top)")
+    ap.add_argument("--fail-replica", type=int, default=0,
+                    help="which replica --fail-at fails")
+    ap.add_argument("--mtbf", type=float, default=0.0,
+                    help="seeded random faults: mean time between failures "
+                         "a replica (s; needs --mttr)")
+    ap.add_argument("--mttr", type=float, default=0.0,
+                    help="mean time to repair for --mtbf (s)")
+    ap.add_argument("--retries", type=int, default=0,
+                    help="re-dispatch budget of a request lost to a fault "
+                         "(past it: a failed completion)")
+    ap.add_argument("--backoff", type=float, default=0.0,
+                    help="base exponential backoff (s) before a retried "
+                         "request is re-admitted")
+    ap.add_argument("--slo", type=float, default=0.0,
+                    help="latency bound (s) the report counts violations "
+                         "of (0 = off)")
+    ap.add_argument("--straggler-every", type=int, default=0,
+                    help="give every k-th request --straggler-cost (0 = "
+                         "none)")
+    ap.add_argument("--straggler-cost", type=float, default=4.0,
+                    help="service weight of a straggler request")
+    ap.add_argument("--report-json", default=None, metavar="PATH",
+                    help="write FleetReport.to_dict() as JSON")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
-    n_req = args.requests or default_request_count(args.batch)
+    n_req = args.requests or default_request_count(args.batch, args.replicas)
+    if args.mtbf and args.fail_at is not None:
+        raise SystemExit("--fail-at (deterministic) and --mtbf (seeded "
+                         "random) are exclusive fault modes")
+    if args.recover_at is not None and args.fail_at is None:
+        raise SystemExit("--recover-at requires --fail-at")
+    faults = None
+    if args.fail_at is not None:
+        faults = FaultSchedule.at(args.fail_at, args.recover_at,
+                                  replica=args.fail_replica)
+    elif args.mtbf:
+        faults = FaultSchedule.mtbf(args.mtbf, args.mttr, args.replicas,
+                                    seed=args.seed)
     compiled = compile_cnn(cfg, ExecutionSpec(
         precision=Precision(quant=args.quant, calib=args.calib),
-        serving=Serving(batch=args.batch)),
+        placement=Placement(replicas=args.replicas,
+                            pp_stages=args.pp_stages,
+                            microbatches=args.microbatches),
+        serving=Serving(batch=args.batch, clock=args.clock,
+                        max_queue=args.max_queue, retries=args.retries,
+                        backoff=args.backoff, slo=args.slo)),
         generator=torch.Generator().manual_seed(args.seed),
         device=args.device)
     requests = synthetic_requests(n_req, cfg.input_hw, cfg.input_ch,
-                                  args.rate, seed=args.seed)
-    rep = compiled.serve(requests)
+                                  args.rate, seed=args.seed,
+                                  straggler_every=args.straggler_every,
+                                  straggler_cost=args.straggler_cost)
+    sp = compiled.stage_plan
+    if sp is not None:
+        m = compiled.engine.n_micro
+        print(f"[serve_cnn] {args.pp_stages} pipeline stages (balance "
+              f"{sp.balance:.2f}, bubble {sp.bubble(m):.0%} at M={m}): "
+              + " | ".join(f"s{i}:{len(s.groups)}g {s.t_model * 1e6:.0f}us"
+                           for i, s in enumerate(sp.stages)))
+    if faults is not None:
+        print(f"[serve_cnn] faults: {faults!r}, retries={args.retries}, "
+              f"backoff={args.backoff}s")
+    rep = compiled.serve(requests, faults=faults)
+    # every request ends as one completion (ok or failed) or one rejection
     if len(rep.completions) + rep.n_rejected != n_req:
         raise SystemExit(f"{n_req} requests but {len(rep.completions)} "
                          f"completions and {rep.n_rejected} rejections")
     gops = flops_per_image(cfg) * rep.throughput / 1e9
     print(f"[serve_cnn] {args.arch}{' (smoke)' if args.smoke else ''}: "
           f"{n_req} requests @ micro-batch {args.batch} on "
-          f"{compiled.device}{', int8' if compiled.quant else ''}")
+          f"{compiled.device}{', int8' if compiled.quant else ''}, mode "
+          f"{compiled.mode} (R={args.replicas}, S={args.pp_stages})")
     if compiled.quant:
         qp = compiled.params
         n_conv = sum(1 for l in qp.layers
@@ -98,6 +186,11 @@ def main(argv=None) -> None:
     print(f"[serve_cnn] {rep.summary()}")
     print(f"[serve_cnn] latency_report {latency_report(rep.completions)}")
     print(f"[serve_cnn] {gops:.2f} GOPS at the reported throughput")
+    if args.report_json:
+        with open(args.report_json, "w") as f:
+            json.dump(rep.to_dict(), f, sort_keys=True, indent=1)
+            f.write("\n")
+        print(f"[serve_cnn] report -> {args.report_json}")
 
 
 if __name__ == "__main__":

@@ -12,13 +12,19 @@ one plan a conv and FC group at the serving batch; the forward launches
 each group with its plan, and the plans freeze into a
 :class:`~repro_torch.pipeline.plan_table.PlanTable` (``save_plan``; a
 later ``compile_cnn(plan_path=...)`` runs no sweep; ``measure=True``
-times every plan on the card). Entry points run on the CUDA device by
-default and raise when there is none, unless the caller passes
-``device="cpu"`` (the kernels then run their plain versions).
+times every plan on the card). The compile also builds the serving
+engine (:class:`~repro_torch.serve.engine.ServeEngine`): the placement's
+dp replicas and pp stages, the stage partition and GPipe's microbatch
+count are resolved here, and in pp/hybrid ``.forward`` streams the batch
+through the stages. ``CompiledCNN.save``/``load`` commit and rebuild the
+whole pipeline as one artifact (:mod:`repro_torch.pipeline.artifact`).
+Entry points run on the CUDA device by default and raise when there is
+none, unless the caller passes ``device="cpu"`` (the kernels then run
+their plain versions).
 
-What the JAX ``compile_cnn`` also does — dp/pp placement, artifacts,
-compile traces and static verification — is refused with an error naming
-the ``ROADMAP.md`` item that will bring it.
+What the JAX ``compile_cnn`` also does — compile traces and static
+verification — is refused with an error naming the ``ROADMAP.md`` item
+that will bring it.
 """
 from __future__ import annotations
 
@@ -33,8 +39,7 @@ from repro_torch.core.roofline import device_profile, profile_for
 from repro_torch.kernels import autotune
 from repro_torch.models.cnn import CNN, Params, QuantCNN, init_cnn_params
 from repro_torch.pipeline.plan_table import PlanTable, load_plan, plan_key
-from repro_torch.pipeline.spec import (LATER_ARTIFACTS, LATER_FLEET,
-                                       LATER_OBS, ExecutionSpec, refuse)
+from repro_torch.pipeline.spec import LATER_OBS, ExecutionSpec, refuse
 from repro_torch.quant.calibrate import QuantizedCNNParams, calibrate_cnn
 
 
@@ -115,7 +120,7 @@ class CompiledCNN:
                  model: Union[CNN, QuantCNN], device: torch.device,
                  group_plans: Optional[Dict[Tuple[int, ...], Any]] = None,
                  plan_table: Optional[PlanTable] = None,
-                 backend: Optional[str] = None):
+                 backend: Optional[str] = None, engine=None):
         self.cfg = cfg
         self.spec = spec
         self.model = model
@@ -124,7 +129,7 @@ class CompiledCNN:
         self.plan_table = plan_table if plan_table is not None \
             else PlanTable()
         self.backend = backend or device_profile(device).tag
-        self.engine = None
+        self.engine = engine
 
     @property
     def mode(self) -> str:
@@ -142,8 +147,18 @@ class CompiledCNN:
         return self.model.qparams if self.quant else self.model.params
 
     @property
+    def stage_plan(self):
+        """The engine's stage partition (pp/hybrid), else None."""
+        return self.engine.stage_plan if self.engine is not None else None
+
+    @property
     def stages(self):
-        """One stage per fusion group (no pipeline placement yet)."""
+        """Each stage's fusion groups: the compiled stage partition, or
+        one stage a fusion group when no pipeline placement was
+        compiled."""
+        sp = self.stage_plan
+        if sp is not None:
+            return tuple(s.groups for s in sp.stages)
         return tuple((g,) for g in self.model.groups)
 
     @property
@@ -155,8 +170,12 @@ class CompiledCNN:
         logits (B, n_classes) on the compiled device. The batch is
         converted to the run dtype first (fp32 for int8, which quantizes
         at the network edge); the logits are bf16 in a bf16 pipeline, else
-        fp32."""
+        fp32. In pp/hybrid the batch streams through the compiled stages
+        (B must divide into replicas x microbatches); the numbers are the
+        fold's either way."""
         x = torch.as_tensor(x, device=self.device).to(self.model.in_dtype)
+        if self.spec.placement.pp_stages > 1:
+            return self.engine.staged_logits(x.contiguous())
         with torch.inference_mode():
             return self.model(x.contiguous())
 
@@ -172,17 +191,15 @@ class CompiledCNN:
 
     def serve(self, requests: List, *, faults=None, trace=None,
               metrics=None):
-        """Drain a request stream; returns the
+        """Drain a request stream through the compiled fleet; returns the
         :class:`~repro_torch.serve.report.FleetReport`, with the
-        per-request completions on ``report.completions``."""
-        if faults is not None:
-            raise refuse("serve.faults", "fault injection", LATER_FLEET)
+        per-request completions on ``report.completions``. ``faults`` (a
+        :class:`~repro_torch.serve.faults.FaultSchedule`) injects replica
+        fail/recover events; lost requests retry per
+        ``spec.serving.retries``/``backoff``."""
         if trace is not None or metrics is not None:
             raise refuse("serve.trace", "trace/metrics export", LATER_OBS)
-        if self.engine is None:
-            from repro_torch.serve.engine import ServeEngine
-            self.engine = ServeEngine.from_spec(self.model, self.spec)
-        done, rep = self.engine.serve(requests)
+        done, rep = self.engine.serve(requests, faults=faults)
         rep.completions = done
         return rep
 
@@ -238,11 +255,21 @@ class CompiledCNN:
     load_plan = staticmethod(load_plan)
 
     def save(self, path: str):
-        raise refuse("CompiledCNN.save", "artifacts", LATER_ARTIFACTS)
+        """Commit this pipeline as one artifact directory: parameters,
+        plan table, spec and config, under the ``_COMMITTED`` protocol
+        (:mod:`repro_torch.pipeline.artifact`). Returns its path."""
+        from repro_torch.pipeline.artifact import save_artifact
+        return save_artifact(path, cfg=self.cfg, spec=self.spec,
+                             params=self.params, plan_table=self.plan_table)
 
     @classmethod
-    def load(cls, path: str, **kwargs):
-        raise refuse("CompiledCNN.load", "artifacts", LATER_ARTIFACTS)
+    def load(cls, path: str, *, device=None) -> "CompiledCNN":
+        """Rebuild a pipeline from a committed artifact (the port's or the
+        JAX package's) on ``device`` (default: the CUDA device). The saved
+        plan table seeds the registries, so loading a port artifact runs
+        no sweep: the restore a recovering replica is charged for."""
+        from repro_torch.pipeline.artifact import load_artifact
+        return load_artifact(path, device=device)
 
     def verify(self, *, strict: bool = False):
         raise refuse("CompiledCNN.verify", "static verification", LATER_OBS)
@@ -343,8 +370,9 @@ def compile_cnn(cfg: CNNConfig, spec: Optional[ExecutionSpec] = None,
 
     sweeps_before = autotune.sweep_stats()
     group_plans: Dict[Tuple[int, ...], Any] = {}
+    recording = spec.use_kernels and spec.tiling.autotune
     with autotune.record_lookups() as rec:
-        if spec.use_kernels and spec.tiling.autotune:
+        if recording:
             group_plans = _resolve_group_plans(
                 cfg, spec.serving.batch, spec.run_dtype,
                 vmem_budget=budget, backend=backend)
@@ -352,6 +380,22 @@ def compile_cnn(cfg: CNNConfig, spec: Optional[ExecutionSpec] = None,
             group_plans = _manual_plans(
                 cfg, spec.serving.batch, spec.run_dtype, spec.tiling.cu_num,
                 vmem_budget=budget, backend=backend)
+        if not quantize:
+            params = [None if p is None else
+                      {k: v.to(dtype=dtype) for k, v in p.items()}
+                      for p in params]
+            model = CNN(cfg, params, use_kernels=spec.use_kernels,
+                        plans=group_plans)
+        else:
+            model = QuantCNN(cfg, params, use_kernels=spec.use_kernels,
+                             plans=group_plans)
+        model = model.to(dev).eval()
+        # the engine's stage planning (GPipe's microbatch sweep) prices
+        # plans too: its lookups go into the table, so a load sweeps nothing
+        from repro_torch.serve.engine import ServeEngine
+        engine = ServeEngine.from_spec(model, spec)
+    if not recording:
+        rec = {"conv": [], "gemm": []}  # no plan reaches a kernel: no row
     sweeps_after = autotune.sweep_stats()
     if plans is not None:
         # a seeded compile re-captures the same plans: carry the seed's
@@ -362,23 +406,24 @@ def compile_cnn(cfg: CNNConfig, spec: Optional[ExecutionSpec] = None,
             provenance=plans.provenance).with_measurements(
                 plans.measurements())
     else:
-        table = PlanTable.from_rows(rec["conv"], rec["gemm"], provenance={
+        provenance = {
             "sweep_stats": {k: sweeps_after[k] - sweeps_before[k]
                             for k in sorted(sweeps_after)},
-            "lookups": {"conv": len(rec["conv"]), "gemm": len(rec["gemm"])}})
+            "lookups": {"conv": len(rec["conv"]), "gemm": len(rec["gemm"])}}
+        if engine.stage_plan is not None:
+            # what a microbatch launches: the serving batch's plans (a
+            # tile or split fits any batch); the table's rows at the
+            # microbatch sizes are the stage planner's prices
+            provenance["stages"] = {
+                "pp_stages": engine.pp_stages,
+                "microbatches": engine.n_micro,
+                "microbatch_rows": engine.mb,
+                "microbatch_plans": f"serving batch {spec.serving.batch}"}
+        table = PlanTable.from_rows(rec["conv"], rec["gemm"],
+                                    provenance=provenance)
         if measure:
             from repro_torch.obs.profiler import profile_table
             table = profile_table(table, opts=measure_opts, device=dev)
-
-    if not quantize:
-        params = [None if p is None else
-                  {k: v.to(dtype=dtype) for k, v in p.items()}
-                  for p in params]
-        model = CNN(cfg, params, use_kernels=spec.use_kernels,
-                    plans=group_plans)
-    else:
-        model = QuantCNN(cfg, params, use_kernels=spec.use_kernels,
-                         plans=group_plans)
-    return CompiledCNN(cfg=cfg, spec=spec, model=model.to(dev).eval(),
-                       device=dev, group_plans=group_plans,
-                       plan_table=table, backend=backend)
+    return CompiledCNN(cfg=cfg, spec=spec, model=model, device=dev,
+                       group_plans=group_plans, plan_table=table,
+                       backend=backend, engine=engine)

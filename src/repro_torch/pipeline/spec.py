@@ -3,11 +3,13 @@
 The same sub-specs and field names as the JAX package's
 ``pipeline/spec.py`` — :class:`Precision`, :class:`Tiling`,
 :class:`Placement`, :class:`Serving` — validated at construction. The port
-runs fp32, bf16 or calibrated int8 on one replica, gang rounds on the
-measured or the modelled clock, with per-layer plans from the DSE
-(:mod:`repro_torch.kernels.autotune`). Every other value is refused with
-a :class:`SpecError` that names the ``ROADMAP.md`` item that will bring
-it, and so is each manual tiling knob the CUDA kernels have no axis for.
+runs fp32, bf16 or calibrated int8, with per-layer plans from the DSE
+(:mod:`repro_torch.kernels.autotune`), placed as one replica or as dp
+replicas, pp stages or both on one card, and serves gang rounds on the
+measured or the modelled clock with retries and backoff under replica
+faults. The continuous scheduler is refused with a :class:`SpecError`
+that names the ``ROADMAP.md`` item that will bring it, and so is each
+manual tiling knob the CUDA kernels have no axis for.
 """
 from __future__ import annotations
 
@@ -18,9 +20,6 @@ from repro_torch.core.config import SpecError
 from repro_torch.core.roofline import H100
 
 # what the port does not run yet, and the ROADMAP.md item that brings it
-LATER_ARTIFACTS = "ROADMAP.md Queue 1, slice 5 (artifacts)"
-LATER_FLEET = ("ROADMAP.md Queue 1, slice 6 (dp/pp placement, with replica "
-               "faults, retries and hot_swap)")
 LATER_OBS = ("ROADMAP.md Queue 1, slice 7 (continuous scheduling, obs, "
              "profiler, analysis, CLIs and benchmarks)")
 
@@ -70,7 +69,11 @@ class Tiling:
 
 @dataclass(frozen=True)
 class Placement:
-    """Where the pipeline runs (one replica on one card, so far)."""
+    """Where the pipeline runs: ``replicas`` data-parallel replicas of
+    ``pp_stages`` pipeline stages, each a CUDA stream of the one card (the
+    JAX package's devices of a (data, pipe) mesh); ``microbatches`` is
+    GPipe's M a round (0: the modelled round's best divisor of the
+    batch)."""
     replicas: int = 1
     pp_stages: int = 1
     microbatches: int = 0
@@ -79,11 +82,14 @@ class Placement:
 @dataclass(frozen=True)
 class Serving:
     """The request loop around the compiled forward: gang rounds padded
-    to ``batch``, on the ``"measured"`` clock (the forward's wall time) or
+    to ``batch``, on the ``"measured"`` clock (the round's wall time) or
     the ``"modeled"`` one (the roofline cost model's round time;
     ``execute=False`` then runs nothing on the device). ``max_queue``
-    bounds the queue (0 = unbounded); ``slo`` is a latency bound the
-    report counts violations of (0 = off)."""
+    bounds each replica's queue (0 = unbounded); ``slo`` is a latency
+    bound the report counts violations of (0 = off). Under injected
+    replica faults a lost request re-dispatches up to ``retries`` times,
+    ``backoff * 2**(attempt-1)`` seconds after its loss; past the budget
+    it ends as ``Completion(status="failed")``."""
     batch: int = 8
     max_queue: int = 0
     clock: str = "measured"
@@ -172,11 +178,19 @@ class ExecutionSpec:
                 "Placement.replicas",
                 f"Placement.replicas={pl.replicas} / "
                 f"pp_stages={pl.pp_stages}: both must be >= 1")
-        if pl.replicas > 1 or pl.pp_stages > 1 or pl.microbatches:
-            raise refuse("Placement.replicas",
-                         f"Placement(replicas={pl.replicas}, pp_stages="
-                         f"{pl.pp_stages}, microbatches={pl.microbatches})",
-                         LATER_FLEET)
+        if pl.microbatches:
+            if pl.pp_stages == 1:
+                raise SpecError(
+                    "Placement.microbatches",
+                    "Placement.microbatches set without pipeline stages "
+                    "(pp_stages=1): GPipe microbatching only exists "
+                    "between stages")
+            if s.batch % pl.microbatches:
+                raise SpecError(
+                    "Placement.microbatches",
+                    f"Placement.microbatches={pl.microbatches} must "
+                    f"divide Serving.batch={s.batch} so every microbatch "
+                    f"has one shape")
         if s.batch < 1:
             raise SpecError("Serving.batch",
                             f"Serving.batch={s.batch}: must be >= 1")
@@ -193,14 +207,20 @@ class ExecutionSpec:
                 "Serving.execute=False with clock='measured' is "
                 "contradictory: a device-free simulation has no wall "
                 "time to measure — use clock='modeled'")
-        if s.retries < 0 or s.backoff < 0 or s.slo < 0:
+        if s.retries < 0:
             raise SpecError(
                 "Serving.retries",
-                f"Serving.retries={s.retries} / backoff={s.backoff} / "
-                f"slo={s.slo}: all must be >= 0")
-        if s.retries or s.backoff:
-            raise refuse("Serving.retries", "Serving.retries/backoff",
-                         LATER_FLEET)
+                f"Serving.retries={s.retries}: must be >= 0")
+        if s.backoff < 0 or s.slo < 0:
+            raise SpecError(
+                "Serving.backoff",
+                f"Serving.backoff={s.backoff} / slo={s.slo}: both are "
+                "seconds >= 0")
+        if s.backoff and not s.retries:
+            raise SpecError(
+                "Serving.backoff",
+                "Serving.backoff set with retries=0 is contradictory: "
+                "backoff only delays re-admission of retried requests")
         if s.scheduler not in ("gang", "continuous"):
             raise SpecError("Serving.scheduler",
                             f"Serving.scheduler={s.scheduler!r}: gang "
@@ -220,4 +240,6 @@ class ExecutionSpec:
 
     @property
     def mode(self) -> str:
-        return "single"
+        R, S = self.placement.replicas, self.placement.pp_stages
+        return ("single" if R * S == 1 else "dp" if S == 1 else
+                "pp" if R == 1 else "hybrid")

@@ -1,9 +1,11 @@
 """Latency / throughput accounting for served runs.
 
 The port's copy of the JAX package's ``serve/report.py``, cut to the
-fields a single-replica gang run fills: nearest-rank percentiles
-(``rank(q) = ceil(q*n) - 1``, exact down to n=1), the hardened
-:func:`latency_report`, and the :class:`FleetReport`.
+fields a gang run fills: nearest-rank percentiles (``rank(q) = ceil(q*n)
+- 1``, exact down to n=1), the hardened :func:`latency_report`, and the
+:class:`FleetReport` with its pipeline-bubble and fault/recovery
+accounting. The continuous scheduler's fields (occupancy, steals,
+scaling) come with ROADMAP.md Queue 1 slice 7.
 """
 from __future__ import annotations
 
@@ -44,8 +46,8 @@ def latency_report(done: List) -> dict:
 @dataclass
 class FleetReport:
     """Serving summary of one engine run."""
-    mode: str                          # "single"
-    replicas: int
+    mode: str                          # "single" | "dp" | "pp" | "hybrid"
+    replicas: int                      # replicas the run started with
     pp_stages: int
     batch: int                         # micro-batch requests are padded to
     clock: str                         # "measured" | "modeled"
@@ -59,6 +61,15 @@ class FleetReport:
     p95_ms: float = float("nan")
     makespan_s: float = 0.0
     utilization: List[float] = field(default_factory=list)  # per replica
+    bubble_fraction: float = 0.0       # GPipe fill/drain share (pp modes)
+    # -- fault / recovery accounting --------------------------------------
+    n_failed: int = 0                  # retry budget exhausted -> "failed"
+    n_retries: int = 0                 # re-dispatches charged to budgets
+    n_failures: int = 0                # replica fail events that landed
+    n_recoveries: int = 0              # replicas restored into dispatch
+    degraded_rounds: int = 0           # rounds with < replicas alive
+    time_to_recover_s: List[float] = field(default_factory=list)
+    n_swapped: int = 0                 # replicas rolled by hot_swap
     slo_s: float = 0.0                 # per-request latency bound (0=off)
     slo_violations: int = 0            # ok completions over the bound
     completions: List = field(default_factory=list, repr=False)
@@ -75,23 +86,42 @@ class FleetReport:
         util = (", util " + "/".join(f"{u:.0%}" for u in self.utilization)
                 if self.utilization else "")
         rej = f", {self.n_rejected} rejected" if self.n_rejected else ""
+        bub = (f", bubble {self.bubble_fraction:.0%}"
+               if self.pp_stages > 1 else "")
         slo = (f", SLO({self.slo_s * 1e3:.0f} ms) violations "
                f"{self.slo_violations}" if self.slo_s else "")
+        chaos = ""
+        if self.n_failures or self.n_failed or self.n_retries:
+            ttr = (f", TTR {max(self.time_to_recover_s) * 1e3:.0f} ms"
+                   if self.time_to_recover_s else "")
+            chaos = (f" | chaos: {self.n_failures} failures, "
+                     f"{self.n_recoveries} recoveries, "
+                     f"{self.degraded_rounds} degraded rounds, "
+                     f"{self.n_retries} retries, {self.n_failed} failed"
+                     f"{ttr}")
+        swap = (f" | hot-swap: {self.n_swapped} replicas rolled"
+                if self.n_swapped else "")
 
         def ms(v):
             return "n/a" if math.isnan(v) else f"{v:.3f} ms"
         return (f"[{self.mode}/{self.scheduler}] {self.n_done} served in "
                 f"{self.rounds} rounds ({self.clock} clock, {self.device}): "
                 f"{self.throughput:.1f} img/s, p50 {ms(self.p50_ms)}, "
-                f"p95 {ms(self.p95_ms)}{util}{rej}{slo}")
+                f"p95 {ms(self.p95_ms)}{util}{rej}{bub}{slo}{chaos}{swap}")
 
 
 def fleet_report(done: List, rejected: List, *, mode: str, replicas: int,
                  pp_stages: int, batch: int, clock: str, rounds: int,
                  busy_s: Sequence[float], makespan_s: float,
-                 slo_s: float = 0.0, device: str = "") -> FleetReport:
+                 bubble_fraction: float = 0.0, n_retries: int = 0,
+                 n_failures: int = 0, n_recoveries: int = 0,
+                 degraded_rounds: int = 0,
+                 time_to_recover_s: Sequence[float] = (),
+                 n_swapped: int = 0, slo_s: float = 0.0,
+                 device: str = "") -> FleetReport:
     """Assemble the report from an engine run's accounting."""
     lat = latency_report(done)
+    failed = [c for c in done if getattr(c, "status", "ok") == "failed"]
     slo_violations = (sum(1 for c in done
                           if getattr(c, "status", "ok") == "ok"
                           and c.latency > slo_s) if slo_s > 0 else 0)
@@ -103,4 +133,8 @@ def fleet_report(done: List, rejected: List, *, mode: str, replicas: int,
         p50_ms=lat["p50_ms"], p95_ms=lat["p95_ms"], makespan_s=makespan_s,
         utilization=[b / makespan_s if makespan_s > 0 else 0.0
                      for b in busy_s],
+        bubble_fraction=bubble_fraction, n_failed=len(failed),
+        n_retries=n_retries, n_failures=n_failures,
+        n_recoveries=n_recoveries, degraded_rounds=degraded_rounds,
+        time_to_recover_s=list(time_to_recover_s), n_swapped=n_swapped,
         slo_s=slo_s, slo_violations=slo_violations)

@@ -1,14 +1,16 @@
 """Request queue of the serving engine (numpy only).
 
 The port's copy of the JAX package's ``serve/router.py``, cut to what the
-gang scheduler of one replica uses: :class:`Request`, :class:`Completion`,
-the padding :class:`MicroBatcher` and the least-loaded :class:`Router`
-with admission control.
+gang scheduler uses: :class:`Request`, :class:`Completion`, the padding
+:class:`MicroBatcher` and the least-loaded :class:`Router` with admission
+control over the alive replicas, evacuation and gang drains. Work
+stealing (``Router.steal``, ``MicroBatcher.pop``/``steal_tail``) comes
+with the continuous scheduler (ROADMAP.md Queue 1 slice 7).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -27,12 +29,19 @@ class Request:
 
 @dataclass
 class Completion:
-    """One finished request (``status`` "ok"; "failed" comes with faults)."""
+    """One finished request. ``status`` is ``"ok"``, or ``"failed"`` when
+    replica faults used up its retry budget (``pred`` and ``replica`` are
+    then -1): every admitted request ends as exactly one completion.
+    ``version`` counts hot swaps (0: the compiled model, 1: the first
+    ``hot_swap``'s); ``attempts`` is how often it was re-dispatched."""
     rid: int
     pred: int
     t_arrival: float
     t_done: float
-    status: str = "ok"
+    replica: int = 0
+    status: str = "ok"                 # "ok" | "failed"
+    version: int = 0
+    attempts: int = 0
 
     @property
     def latency(self) -> float:
@@ -69,11 +78,19 @@ class MicroBatcher:
             imgs = np.concatenate([imgs, pad])
         return take, imgs, n_real
 
+    def drain_all(self) -> List[Request]:
+        """Pop the whole queue unpadded: the evacuation of a failed or
+        swapping replica."""
+        take, self._q = self._q, []
+        return take
+
 
 class Router:
     """Least-loaded dispatch over N replica queues with admission control:
     with ``max_queue`` > 0 a request is rejected when the chosen queue
-    already holds that many."""
+    already holds that many. ``alive`` (a boolean a replica) restricts
+    dispatch and gang drains to the surviving replicas; down replicas
+    drain as idle entries."""
 
     def __init__(self, n_replicas: int, plan_batch: int, *,
                  max_queue: int = 0):
@@ -82,21 +99,47 @@ class Router:
         self.queues = [MicroBatcher(plan_batch) for _ in range(n_replicas)]
         self.max_queue = max_queue
         self.rejected: List[Request] = []
+        self.last_replica = -1         # the latest dispatch's (-1: rejected)
+
+    @property
+    def n_replicas(self) -> int:
+        return len(self.queues)
 
     def backlog(self) -> int:
         return sum(len(q) for q in self.queues)
 
-    def dispatch(self, req: Request) -> bool:
-        """Route one request; False = rejected by admission control."""
-        r = min(range(len(self.queues)),
-                key=lambda i: (len(self.queues[i]), i))
+    def dispatch(self, req: Request,
+                 alive: Optional[Sequence[bool]] = None) -> bool:
+        """Route one request to the least-loaded alive replica (ties to
+        the lowest id); False = rejected by admission control. Raises when
+        ``alive`` rules out every replica: the engine decides what a dead
+        fleet means."""
+        cands = [i for i in range(len(self.queues))
+                 if alive is None or alive[i]]
+        if not cands:
+            raise RuntimeError("no alive replica to dispatch to")
+        r = min(cands, key=lambda i: (len(self.queues[i]), i))
         if self.max_queue and len(self.queues[r]) >= self.max_queue:
             self.rejected.append(req)
+            self.last_replica = -1
             return False
         self.queues[r].submit(req)
+        self.last_replica = r
         return True
 
-    def drain_round(self):
-        """Pop one padded micro-batch per replica — a gang round:
-        ``[(replica, requests, images, n_real), ...]``."""
-        return [(r,) + q.next_batch() for r, q in enumerate(self.queues)]
+    def evacuate(self, r: int) -> List[Request]:
+        """Pop every request queued on replica ``r``; the caller
+        re-dispatches them."""
+        return self.queues[r].drain_all()
+
+    def depths(self) -> List[int]:
+        """Queue depth a replica."""
+        return [len(q) for q in self.queues]
+
+    def drain_round(self, alive: Optional[Sequence[bool]] = None):
+        """Pop one padded micro-batch per replica, a gang round:
+        ``[(replica, requests, images, n_real), ...]``; idle and down
+        replicas appear as ``(r, [], None, 0)``."""
+        return [(r,) + (q.next_batch() if alive is None or alive[r]
+                        else ([], None, 0))
+                for r, q in enumerate(self.queues)]

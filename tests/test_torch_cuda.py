@@ -1293,3 +1293,93 @@ def test_matmul_pipe_without_bias_equals_zero_bias(cuda, mode):
     _equal(matmul_pipe_plain(x, w, **kw), matmul_pipe_plain(x, w, zero, **kw))
     if not mode.startswith("int8"):
         _equal(ops.fc(x, w, relu=True), got)
+
+
+# -- the fleet's stage streams and the artifact on the card ----------------
+
+FLEET_MODES = {"fp32": {}, "bf16": {"dtype": "bfloat16"},
+               "int8": {"quant": "int8"}}
+
+
+@pytest.mark.parametrize("placement", [(1, 3, 4), (2, 2, 2), (3, 1, 0)],
+                         ids=["pp", "hybrid", "dp"])
+@pytest.mark.parametrize("mode", sorted(FLEET_MODES))
+def test_stage_streams_equal_a_sequential_run(cuda, mode, placement):
+    """The compiled placement's forward (replicas and stages on CUDA
+    streams) and its serve give the plain fold's logits and predictions
+    bit for bit: the same kernels in another order of streams."""
+    from repro_torch.launch.serve_cnn import synthetic_requests
+    from repro_torch.pipeline import Placement, Serving
+    R, S, M = placement
+    cfg = get_config("alexnet").smoke()
+    c = compile_cnn(cfg, ExecutionSpec(
+        precision=Precision(**FLEET_MODES[mode]),
+        placement=Placement(replicas=R, pp_stages=S, microbatches=M),
+        serving=Serving(batch=8, retries=1)),
+        generator=torch.Generator().manual_seed(4), device=cuda)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (8 * R, cfg.input_hw, cfg.input_hw, cfg.input_ch)).astype(
+            np.float32)).to(cuda)
+    with torch.inference_mode():
+        fold = c.model(x.to(c.model.in_dtype))
+    if S > 1:
+        assert torch.equal(c.forward(x), fold)
+    reqs = synthetic_requests(8 * R + 3, cfg.input_hw, cfg.input_ch, 1e4)
+    rep = c.serve(reqs)
+    imgs = torch.from_numpy(np.stack([r.image for r in reqs])).to(cuda)
+    with torch.inference_mode():
+        want = torch.cat([c.model(imgs[i:i + 8].to(c.model.in_dtype))
+                          .float().argmax(-1) for i in range(0, len(reqs),
+                                                             8)]).tolist()
+    done = sorted(rep.completions, key=lambda d: d.rid)
+    assert [d.pred for d in done] == want
+    assert all(d.status == "ok" for d in done)
+
+
+def test_stage_boundaries_survive_the_allocator(cuda):
+    """A boundary tensor freed on the host while a slower stage still
+    reads it: its memory must not go to the next microbatch's boundary
+    (``record_stream``). Stage 1 sleeps before it reads; stage 0 writes
+    each microbatch's new boundary meanwhile."""
+    from repro_torch.parallel.pipeline_par import gpipe_schedule
+
+    def stage(s, h):
+        if s == 1:
+            torch.cuda._sleep(2_000_000)
+        return h + 1.0
+
+    micro = [torch.full((1 << 20,), float(m), device=cuda)
+             for m in range(8)]
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    out = gpipe_schedule(stage, micro, 2, streams=streams)
+    del micro
+    junk = [torch.full((1 << 20,), -7.0, device=cuda) for _ in range(8)]
+    torch.cuda.synchronize()
+    for m, o in enumerate(out):
+        assert torch.equal(o, torch.full_like(o, m + 2.0)), m
+    del junk
+
+
+@pytest.mark.parametrize("mode", sorted(FLEET_MODES))
+def test_artifact_saved_on_the_card_reloads_equal(cuda, mode, tmp_path):
+    from repro_torch.kernels import autotune
+    from repro_torch.pipeline import CompiledCNN
+    cfg = get_config("vgg16").smoke()
+    c = compile_cnn(cfg, ExecutionSpec(
+        precision=Precision(**FLEET_MODES[mode])),
+        generator=torch.Generator().manual_seed(6), device=cuda)
+    c.save(tmp_path / "a1")
+    autotune.clear_registry()
+    autotune.reset_sweep_stats()
+    c2 = CompiledCNN.load(tmp_path / "a1")
+    st = autotune.sweep_stats()
+    assert st["conv_sweeps"] == 0 and st["gemm_sweeps"] == 0
+    assert c2.device.type == "cuda"
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (4, cfg.input_hw, cfg.input_hw, cfg.input_ch)).astype(
+            np.float32)).to(cuda)
+    assert torch.equal(c2.forward(x), c.forward(x))
+    c2.save(tmp_path / "a2")
+    for f in ("manifest.json", "plan_table.json"):
+        assert (tmp_path / "a1" / f).read_bytes() == \
+            (tmp_path / "a2" / f).read_bytes()

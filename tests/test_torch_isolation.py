@@ -1,6 +1,6 @@
-"""The port stands alone: no JAX and nothing of the JAX package in
-``src/repro_torch``, ``chip_smoke.py`` or ``tile_sweep.py``, and no
-silent CPU fallback."""
+"""The port stands alone: no JAX, nothing of the JAX package and no
+``ml_dtypes`` (the card's machine has none) in ``src/repro_torch``,
+``chip_smoke.py`` or ``tile_sweep.py``, and no silent CPU fallback."""
 import ast
 import os
 import shutil
@@ -37,7 +37,7 @@ def _imported_modules(path):
                          ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
 def test_no_jax_or_repro_import(path):
     bad = [m for m in _imported_modules(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
@@ -47,7 +47,7 @@ def test_importing_the_port_leaves_jax_out():
             "'repro_torch.'):\n"
             "    __import__(m.name)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro'))\n"
+            "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     run = subprocess.run([sys.executable, "-c", code], env=env,

@@ -21,7 +21,7 @@ from repro_torch.launch.serve_cnn import (default_request_count, main,
 from repro_torch.models.cnn import params_from_jax
 from repro_torch.pipeline import (CompiledCNN, ExecutionSpec, Placement,
                                   Precision, Serving, compile_cnn)
-from repro_torch.serve import latency_report, nearest_rank
+from repro_torch.serve import FaultSchedule, latency_report, nearest_rank
 from repro_torch.serve.router import Completion
 
 
@@ -102,34 +102,20 @@ def test_invalid_values_fail_on_the_same_field_as_jax(make):
     assert got.value.field == want.value.field
 
 
-def _hot_swap(c):
-    c.serve([])
-    c.engine.hot_swap(c)
-
-
 @pytest.fixture(scope="module")
 def compiled():
     return compile_cnn(get_config("alexnet").smoke(), device="cpu")
 
 
 REFUSED = {
-    "replicas": lambda c: ExecutionSpec(placement=Placement(replicas=2)),
-    "pp_stages": lambda c: ExecutionSpec(placement=Placement(pp_stages=2)),
-    "microbatches": lambda c: ExecutionSpec(
-        placement=Placement(microbatches=2)),
     "continuous": lambda c: ExecutionSpec(
         serving=Serving(scheduler="continuous")),
     "autoscale": lambda c: ExecutionSpec(serving=Serving(autoscale={})),
     "steal": lambda c: ExecutionSpec(serving=Serving(steal_threshold=2)),
-    "retries": lambda c: ExecutionSpec(serving=Serving(retries=1)),
     "compile_trace": lambda c: compile_cnn(c.cfg, device="cpu",
                                            trace=object()),
-    "faults": lambda c: c.serve([], faults=object()),
     "trace": lambda c: c.serve([], trace=object()),
     "metrics": lambda c: c.serve([], metrics=object()),
-    "hot_swap": lambda c: _hot_swap(c),
-    "save": lambda c: c.save("artifact"),
-    "load": lambda c: CompiledCNN.load("artifact"),
     "verify": lambda c: c.verify(),
 }
 
@@ -138,6 +124,54 @@ REFUSED = {
 def test_refused_knobs_name_their_roadmap_item(compiled, knob):
     with pytest.raises(SpecError, match=r"ROADMAP\.md Queue"):
         REFUSED[knob](compiled)
+
+
+def _fleet(c, **placement):
+    """A compile of ``c``'s model and config at ``placement``, serving
+    19 requests with two retries."""
+    fc = compile_cnn(c.cfg, ExecutionSpec(
+        placement=Placement(**placement),
+        serving=Serving(batch=8, retries=2)), c.params, device="cpu")
+    reqs = synthetic_requests(19, c.cfg.input_hw, c.cfg.input_ch, 200.0)
+    return fc, fc.serve(reqs)
+
+
+def _hot_swap(c):
+    c.serve([])
+    v = c.engine.hot_swap(c)
+    rep = c.serve(synthetic_requests(5, c.cfg.input_hw, c.cfg.input_ch,
+                                     200.0))
+    return v, rep, c.engine._cur_version
+
+
+def _save_load(c, tmp_path):
+    c.save(tmp_path / "artifact")
+    return CompiledCNN.load(tmp_path / "artifact", device="cpu")
+
+
+# what the refusals of the parent named (the artifacts of Queue 1 slice 5,
+# the fleet of slice 6), now run: each value -> a check of what it does
+LIFTED = {
+    "replicas": lambda c, tmp: _fleet(c, replicas=2)[1].mode == "dp",
+    "pp_stages": lambda c, tmp: _fleet(c, pp_stages=2)[0].n_stages == 2,
+    "microbatches": lambda c, tmp: _fleet(
+        c, pp_stages=2, microbatches=2)[0].engine.n_micro == 2,
+    "retries": lambda c, tmp: ExecutionSpec(
+        serving=Serving(retries=1)).serving.retries == 1,
+    "faults": lambda c, tmp: c.serve(
+        [], faults=FaultSchedule.at(0.5)).n_failures == 0,
+    "hot_swap": lambda c, tmp: _hot_swap(c)[0::2] == (1, 1),
+    "save": lambda c, tmp: (c.save(tmp / "a") / "_COMMITTED").exists(),
+    "load": lambda c, tmp: torch.equal(
+        _save_load(c, tmp).forward(np.zeros((2, 67, 67, 3), np.float32)),
+        c.forward(np.zeros((2, 67, 67, 3), np.float32))),
+}
+
+
+@pytest.mark.parametrize("knob", sorted(LIFTED))
+def test_lifted_refusals_now_run(knob, tmp_path):
+    c = compile_cnn(get_config("alexnet").smoke(), device="cpu")
+    assert LIFTED[knob](c, tmp_path)
 
 
 def test_compile_rejects_unknown_keywords(compiled):
