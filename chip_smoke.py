@@ -140,6 +140,27 @@ Phases (any failure exits non-zero):
    the artifact's bytes, the wall time of the save and of the load, and
    the restore model's time for those bytes (the reference's 2 GB/s + 5
    ms, a model).
+15. Slice 7 at full width (``ROADMAP.md`` Queue 1 slice 7): AlexNet,
+   batch 8, the weights of phase 3, fp32 and phase 3b's int8, served by
+   the continuous scheduler on the modelled clock with the kernels on the
+   card (``execute=True``, 2 replicas, ``retries=2``, ``steal_threshold=2``,
+   ``AutoscalePolicy(min_replicas=1, max_replicas=4)``): phase 4's 19
+   requests with a straggler (cost 4) at every 5th, then a burst of 32 at
+   one instant. Every request one completion or one rejection, every ok
+   prediction phase 3's (3b's) forward's for its image, and the launch
+   counters exactly admission groups x (5 conv, 2 lrn, 3 matmul); steals
+   and scale events printed. Both runs traced and metered:
+   ``validate_trace``, ``validate_metrics`` and ``reconcile`` find no
+   problem, and a repeat of the fp32 run traces the same bytes; phase 4's
+   gang serve on the measured clock, traced, reconciles too.
+   ``compile_cnn(trace=, measure=True)`` for VGG-16 fp32 records one
+   ``sweep`` span and one ``measure`` span a plan; ``drift_report`` of
+   phase 12's three measured tables passes ``validate_drift``;
+   ``verify(strict=True)`` of phases 7-9's VGG-16 compiles and
+   ``verify_artifact`` of phase 14's artifacts find nothing, and a row's
+   ``smem_bytes`` past the budget is RPA301 or RPA302. Printed only: the
+   host time of one admission group's forward and of the scheduler a
+   request, and the modelled p50/p95 of continuous against gang.
 11. One JSON line ``{"kernels": [...]}`` (each kernel and mode; launches
    from phases 3, 3b, 6, 7 and 9; each CNN entry sums the times of one
    AlexNet and one VGG-16 forward's launches in its mode, with each
@@ -413,6 +434,205 @@ class Phases:
         self.seconds[name] = now - self.t
         print(f"[phase {name}] {now - self.t:.1f} s")
         self.t = now
+
+
+def slice7(*, cfg, compiled, qcompiled, vgg, vcfg, vparams, measured,
+           art_findings, n_req, card, reset_launches, launch_counts,
+           mopts) -> dict:
+    """Phase 15, slice 7 at full width: the continuous scheduler with
+    steals and autoscaling on AlexNet fp32 and int8 (the kernels on the
+    card, the clock modelled), traces and metrics that validate and
+    reconcile, the compile trace, drift reports and static verification.
+    ``compiled``/``qcompiled`` are phases 3 and 3b's, ``vgg`` phases 7-9's
+    VGG-16 compiles by mode, ``measured`` phase 12's measured tables and
+    ``art_findings`` what ``verify_artifact`` found in phase 14's
+    artifacts. Returns the phase's record."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis import verify_plan_table
+    from repro_torch.launch.serve_cnn import synthetic_requests
+    from repro_torch.obs import (MetricsRegistry, TraceRecorder,
+                                 drift_report, reconcile, validate_drift,
+                                 validate_metrics, validate_trace)
+    from repro_torch.pipeline import (AutoscalePolicy, ExecutionSpec,
+                                      Placement, PlanTable, Serving,
+                                      compile_cnn)
+    from repro_torch.serve import latency_report
+
+    out = {"card": card}
+    # phase 4's 19 requests with a straggler at every 5th (cost 4), then a
+    # burst of 32 at one instant, just before the policy's second look
+    reqs = synthetic_requests(n_req, cfg.input_hw, cfg.input_ch, 200.0)
+    for r in reqs[::5]:
+        r.cost = 4.0
+    burst = synthetic_requests(32, cfg.input_hw, cfg.input_ch, 1.0, seed=2)
+    for i, r in enumerate(burst):
+        r.rid, r.t_arrival = n_req + i, 0.0999
+    reqs += burst
+    n = len(reqs)
+    imgs = torch.from_numpy(np.stack([r.image for r in reqs])).cuda()
+
+    def preds_of(c):
+        return torch.cat([c.forward(imgs[i:i + BATCH]).float().argmax(-1)
+                          for i in range(0, n, BATCH)]).tolist()
+
+    def obs_ok(rep, trace, metrics, tag):
+        tdoc = json.loads(trace.to_json())
+        mdoc = json.loads(metrics.to_json())
+        problems = (validate_trace(tdoc) + validate_metrics(mdoc)
+                    + reconcile(rep.to_dict(), trace=tdoc, metrics=mdoc))
+        check(not problems, f"{tag}: {problems[:5]}")
+        print(f"[slice7] {tag}: trace {len(trace)} events, metrics "
+              f"{len(mdoc['counters'])} counters: validate_trace, "
+              f"validate_metrics and reconcile found no problem")
+
+    cb_serving = Serving(batch=BATCH, scheduler="continuous",
+                         clock="modeled", execute=True, retries=2,
+                         steal_threshold=2,
+                         autoscale=AutoscalePolicy(min_replicas=1,
+                                                   max_replicas=4))
+    for tag, base, expect in (("fp32", compiled, EXPECTED_LAUNCHES),
+                              ("int8", qcompiled, EXPECTED_LAUNCHES_INT8)):
+        c = compile_cnn(cfg, dataclasses.replace(
+            base.spec, placement=Placement(replicas=2), serving=cb_serving),
+            base.params, device="cuda")
+        want = preds_of(base)
+        trace, metrics = TraceRecorder(), MetricsRegistry()
+        reset_launches()
+        # repro: allow[RPA102] the host time of the scheduler, printed
+        t0 = time.perf_counter()
+        rep = c.serve(reqs, trace=trace, metrics=metrics)
+        torch.cuda.synchronize()
+        # repro: allow[RPA102] the host time of the scheduler, printed
+        t_host = time.perf_counter() - t0
+        counts = launch_counts()
+        groups = c.engine.admission_groups
+        done = rep.completions
+        check(sorted([d.rid for d in done]
+                     + [r.rid for r in c.engine.router.rejected])
+              == list(range(n)),
+              f"continuous {tag}: {len(done)} completions and "
+              f"{len(c.engine.router.rejected)} rejections for {n}")
+        bad = [d.rid for d in done
+               if d.status == "ok" and d.pred != want[d.rid]]
+        check(not bad, f"continuous {tag}: requests {bad} predicted other "
+              f"than phase {'3b' if tag == 'int8' else '3'}'s forward")
+        check(counts == {k: v * groups for k, v in expect.items()},
+              f"continuous {tag}: launches {counts} != {groups} admission "
+              f"groups x {expect}")
+        print(f"[slice7] continuous {tag}: {rep.summary()}")
+        print(f"[slice7] continuous {tag}: {n} requests, "
+              f"{sum(d.status == 'ok' for d in done)} ok with phase "
+              f"{'3b' if tag == 'int8' else '3'}'s predictions, "
+              f"{groups} admission groups launching "
+              f"{dict((k, v) for k, v in counts.items() if v)}; "
+              f"{rep.n_steals} steals; scale events "
+              f"{json.dumps(rep.scale_events)}; occupancy "
+              f"{[round(o, 4) for o in rep.occupancy]}; host time "
+              f"{t_host * 1e3:.2f} ms ({t_host / n * 1e3:.4f} ms a request, "
+              f"the kernels' forwards included; {card})")
+        obs_ok(rep, trace, metrics, f"continuous {tag}")
+        out[f"continuous_{tag}"] = {
+            "report": rep.to_dict(), "admission_groups": groups,
+            "launches": counts, "host_s": t_host,
+            "latency": latency_report(done)}
+        if tag == "fp32":
+            again = TraceRecorder()
+            c.serve(reqs, trace=again, metrics=MetricsRegistry())
+            check(again.to_json() == trace.to_json(),
+                  "a repeat of the continuous fp32 run traced other bytes")
+            print("[slice7] continuous fp32 repeated: trace JSON "
+                  "byte-identical")
+            fp32_rep, cb = rep, c
+
+    # the scheduler alone (nothing runs on the card), and one admission
+    # group's forward through the slot path, host clock
+    sim = compile_cnn(cfg, dataclasses.replace(
+        cb.spec, serving=dataclasses.replace(cb_serving, execute=False)),
+        compiled.params, device="cuda")
+    # repro: allow[RPA102] the host time of the scheduler, printed
+    t0 = time.perf_counter()
+    sim_rep = sim.serve(reqs)
+    # repro: allow[RPA102] the host time of the scheduler, printed
+    t_sched = (time.perf_counter() - t0) / n
+    check([(d.rid, d.t_done) for d in sim_rep.completions]
+          == [(d.rid, d.t_done) for d in fp32_rep.completions],
+          "execute=False scheduled other than execute=True")
+    group = np.stack([r.image for r in reqs[:BATCH]])
+    slot = cb.engine._slot_fn(0)
+    ts = []
+    for _ in range(12):
+        # repro: allow[RPA102] the host time of one admission group
+        t0 = time.perf_counter()
+        slot(group)
+        # repro: allow[RPA102] the host time of one admission group
+        ts.append(time.perf_counter() - t0)
+    slot_ms = statistics.median(ts[2:]) * 1e3
+    gang = compile_cnn(cfg, ExecutionSpec(
+        placement=Placement(replicas=2),
+        serving=Serving(batch=BATCH, clock="modeled", execute=False,
+                        retries=2)), compiled.params, device="cuda")
+    grep = gang.serve(reqs)
+    print(f"[slice7] one admission group's forward (copy to the card, "
+          f"forward, argmax back): {slot_ms:.4f} ms host wall, median of "
+          f"10; the scheduler alone (execute=False): {t_sched * 1e3:.4f} "
+          f"ms a request ({card})")
+    print(f"[slice7] modelled on the same trace: continuous p50 "
+          f"{fp32_rep.p50_ms:.4f} / p95 {fp32_rep.p95_ms:.4f} ms against "
+          f"gang's {grep.p50_ms:.4f} / {grep.p95_ms:.4f} ms (2 replicas; "
+          f"continuous scaled {fp32_rep.n_scale_up} up, "
+          f"{fp32_rep.n_scale_down} down)")
+    out.update(slot_ms=slot_ms, scheduler_ms_a_request=t_sched * 1e3,
+               gang=grep.to_dict())
+
+    # phase 4's gang serve on the measured clock, traced
+    trace, metrics = TraceRecorder(), MetricsRegistry()
+    g_reqs = synthetic_requests(n_req, cfg.input_hw, cfg.input_ch, 200.0)
+    rep = compiled.serve(g_reqs, trace=trace, metrics=metrics)
+    obs_ok(rep, trace, metrics, "gang, measured clock")
+
+    # the compile trace and the drift of phase 12's measured tables
+    trace = TraceRecorder()
+    c = compile_cnn(vcfg, vgg["fp32"].spec, vparams, device="cuda",
+                    measure=True, measure_opts=mopts, trace=trace)
+    spans = [e["name"] for e in trace.to_chrome()["traceEvents"]
+             if e["ph"] == "X"]
+    check(spans == ["sweep"] + ["measure"] * len(c.plans()),
+          f"compile trace spans {spans}")
+    check(not validate_trace(json.loads(trace.to_json())),
+          "the compile trace does not validate")
+    print(f"[slice7] compile_cnn(trace=, measure=True) vgg16 fp32: 1 sweep "
+          f"span and {len(spans) - 1} measure spans for "
+          f"{len(c.plans())} plans")
+    out["drift"] = {}
+    for tag, table in measured.items():
+        rep = drift_report(table)
+        problems = validate_drift(rep, table=json.loads(table.to_json()))
+        check(not problems, f"drift {tag}: {problems}")
+        out["drift"][tag] = rep["ratio"]
+        print(f"[slice7] drift {tag}: {rep['n_measured']}/{rep['n_plans']} "
+              f"measured, ratio min {rep['ratio']['min']:.3f} median "
+              f"{rep['ratio']['median']:.3f} geomean "
+              f"{rep['ratio']['geomean']:.3f} max {rep['ratio']['max']:.3f}"
+              f"; validate_drift: no problem")
+
+    # static verification
+    for tag, vc in vgg.items():
+        check(vc.verify(strict=True) == [], f"verify vgg16 {tag}")
+    for tag, findings in art_findings.items():
+        check(findings == [], f"verify_artifact vgg16 {tag}: "
+              f"{[str(f) for f in findings]}")
+    doc = json.loads(vgg["fp32"].plans().to_json())
+    doc["conv"][0]["plan"]["smem_bytes"] = doc["conv"][0]["vmem_budget"] + 1
+    codes = sorted({f.code for f in verify_plan_table(
+        PlanTable.from_json(json.dumps(doc)))})
+    check(codes in (["RPA301"], ["RPA302"]),
+          f"a row's smem_bytes past the budget gave {codes}")
+    print(f"[slice7] verify(strict=True) on vgg16 "
+          f"{'/'.join(vgg)}: no finding; verify_artifact on phase 14's "
+          f"{'/'.join(art_findings)}: no finding; smem_bytes past the "
+          f"budget: {codes}")
+    return out
 
 
 def main() -> int:
@@ -1563,6 +1783,7 @@ def main() -> int:
     # measured tables: t_model against the stopwatch, one row a group
     mopts = profiler.MeasureOptions(warmup=2, iters=20, repeats=5, trim=1)
     n_low = 0
+    measured_tables = {}
     for tag, (mcfg, mspec, mparams) in (
             ("vgg16 fp32", (vcfg, spec, vparams)),
             ("vgg16 int8", (vcfg, qspec, vqcompiled.params)),
@@ -1592,6 +1813,7 @@ def main() -> int:
                   f"bound {bound_ms(kind, sh):.4f} ms")
         prov = c.plans().provenance["measurement"]
         plans_out["measured"][tag] = {"rows": meas_rows, "provenance": prov}
+        measured_tables[tag] = c.plans()         # phase 15's drift
         print(f"[measured] {tag}: {c.plans().summary()}, "
               f"{json.dumps(prov['measure_stats'])}, backend "
               f"{json.dumps(prov['backend'])}")
@@ -1674,6 +1896,7 @@ def main() -> int:
     phases.done("12")
 
     # -- 13. the fleet at full width: AlexNet, batch 8 ------------------------
+    from repro_torch.obs import MetricsRegistry
     from repro_torch.pipeline import Placement
     from repro_torch.serve import FaultSchedule
 
@@ -1797,31 +2020,34 @@ def main() -> int:
     slow = synthetic_requests(n_req, cfg.input_hw, cfg.input_ch, 50.0)
     fc = compile_cnn(cfg, fleet_spec(2, 1, 0, retries=2), params,
                      device="cuda")
-    rep = fc.serve(slow, faults=FaultSchedule.at(20e-3, 40e-3, replica=0))
+    reg = MetricsRegistry()
+    rep = fc.serve(slow, faults=FaultSchedule.at(20e-3, 40e-3, replica=0),
+                   metrics=reg)
     done = check_done(rep, "dp faults")
     n_ok = sum(d.status == "ok" for d in done)
     print(f"[fleet] dp faults: {rep.summary()}; {n_ok} ok, "
           f"{n_req - n_ok} failed, none stranded; counters "
-          f"{json.dumps(fc.engine.counters)}; TTR "
+          f"{json.dumps(reg.snapshot()['counters'])}; TTR "
           f"{[round(t * 1e3, 4) for t in rep.time_to_recover_s]} ms "
           f"(modelled restore {fc.engine.t_restore_model * 1e3:.4f} ms)")
     check(rep.n_failures == 1 and rep.n_recoveries == 1,
           f"dp faults: {rep.n_failures} failures, {rep.n_recoveries} "
           f"recoveries")
     fleet_out["faults"] = {"report": rep.to_dict(),
-                           "counters": fc.engine.counters}
+                           "counters": reg.snapshot()["counters"]}
 
     # fp32 -> int8 hot_swap under load, from 20 ms (a replica's modelled
     # restore of the int8 artifact: about 36 ms)
     fc = compile_cnn(cfg, fleet_spec(2, 1, 0), params, device="cuda")
     v = fc.engine.hot_swap(qcompiled, at=20e-3)
     want[v] = preds_of(qcompiled)
-    rep = fc.serve(slow)
+    reg = MetricsRegistry()
+    rep = fc.serve(slow, metrics=reg)
     done = check_done(rep, "hot_swap", want)
     by_v = {u: sum(d.version == u for d in done) for u in (0, v)}
     print(f"[fleet] hot_swap fp32 -> int8: {rep.summary()}; completions by "
           f"version {by_v}, each prediction its version's forward's; "
-          f"counters {json.dumps(fc.engine.counters)}")
+          f"counters {json.dumps(reg.snapshot()['counters'])}")
     check(all(d.status == "ok" for d in done) and rep.n_swapped == 2
           and fc.engine.dtype == "int8",
           f"hot_swap: {rep.n_swapped} swapped, dtype {fc.engine.dtype}")
@@ -1831,10 +2057,12 @@ def main() -> int:
     # -- 14. artifacts at full width: VGG-16, batch 8 -------------------------
     import shutil
     import tempfile
+    from repro_torch.analysis import verify_artifact
     from repro_torch.pipeline import CompiledCNN
     from repro_torch.serve import restore_latency_model
 
     art_out = {"card": card}
+    art_findings = {}                            # phase 15's gate
     art_dir = tempfile.mkdtemp(prefix="chip_smoke_artifacts_")
     try:
         for tag, c, xb, ref_logits in (
@@ -1847,6 +2075,7 @@ def main() -> int:
             t0 = time.perf_counter()
             c.save(a1)
             t_save = time.perf_counter() - t0
+            art_findings[tag] = verify_artifact(a1)
             nbytes = sum(os.path.getsize(os.path.join(a1, f))
                          for f in os.listdir(a1))
             autotune.clear_registry()
@@ -1882,6 +2111,16 @@ def main() -> int:
     finally:
         shutil.rmtree(art_dir, ignore_errors=True)
     phases.done("14")
+
+    # -- 15. slice 7 at full width: continuous serving, obs, verify ---------
+    s7_out = slice7(cfg=cfg, compiled=compiled, qcompiled=qcompiled,
+                    vgg={"fp32": vcompiled, "int8": vqcompiled,
+                         "bf16": bf16["vgg16"]["compiled"]},
+                    vcfg=vcfg, vparams=vparams, measured=measured_tables,
+                    art_findings=art_findings, n_req=n_req, card=card,
+                    reset_launches=reset_launches,
+                    launch_counts=launch_counts, mopts=mopts)
+    phases.done("15")
 
     # -- 11. the kernels line -------------------------------------------------
     # CNN entries sum one AlexNet and one VGG-16 forward's launches in their
@@ -1971,7 +2210,7 @@ def main() -> int:
                    "redesign_sums": {f"{a} {k}": v
                                      for (a, k), v in sums.items()},
                    "plans": plans_out, "fleet": fleet_out,
-                   "artifacts": art_out,
+                   "artifacts": art_out, "slice7": s7_out,
                    "phase_seconds": phases.seconds},
                   f, indent=1, sort_keys=True)
     print(json.dumps({"kernels": line}))

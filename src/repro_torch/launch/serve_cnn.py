@@ -6,32 +6,54 @@
         [--microbatches M] [--clock measured|modeled] [--max-queue N] \\
         [--fail-at T [--recover-at T] [--fail-replica r] | --mtbf T --mttr T] \\
         [--retries N] [--backoff T] [--slo T] \\
-        [--straggler-every k] [--straggler-cost c] [--report-json PATH]
+        [--straggler-every k] [--straggler-cost c] [--report-json PATH] \\
+        [--scheduler gang|continuous] [--steal-threshold N] \\
+        [--autoscale [--min-replicas N] [--max-replicas N] \\
+         [--scale-interval T] [--scale-cooldown T] [--util-high u] \\
+         [--util-low u]] [--trace-out PATH] [--metrics-out PATH[.prom]] \\
+        [--measure [--measure-repeats N]] [--plan-out PATH] \\
+        [--drift-out PATH] [--verify] [--no-kernels]
 
 Compiles the model once (random weights from ``--seed``; with
 ``--quant int8`` calibrated on ``--calib`` synthetic images and served by
-the int8 kernel pipeline), placed as ``--replicas`` data-parallel
-replicas of ``--pp-stages`` pipeline stages (each a CUDA stream of the
-one card), serves a synthetic request stream (exponential inter-arrival
-times) on the chosen clock, with replica faults injected when asked, and
-prints the report. Runs on the CUDA device unless ``--device`` says
-otherwise. The continuous scheduler's, autoscaler's, trace, metrics,
-measurement and drift flags come with ROADMAP.md Queue 1 slice 7.
+the int8 kernel pipeline; ``--no-kernels`` runs the exact oracles instead
+of the kernels, the JAX launcher's ``--no-pallas``), placed as
+``--replicas`` data-parallel replicas of ``--pp-stages`` pipeline stages
+(each a CUDA stream of the one card), serves a synthetic request stream
+(exponential inter-arrival times) on the chosen clock, with replica
+faults injected when asked, and prints the report.
+
+``--scheduler continuous`` (with ``--clock modeled``) admits and retires
+requests one by one at microbatch boundaries, ``--steal-threshold`` turns
+on work stealing across queues, and ``--autoscale`` scales the fleet
+between ``--min-replicas`` and ``--max-replicas`` on the p95-against-SLO
+and load signals. ``--trace-out`` writes the run's Chrome trace-event
+JSON (Perfetto), ``--metrics-out`` the metrics snapshot (a ``.prom``
+suffix: Prometheus text), ``--report-json`` the report; all three come
+from one set of counters, so ``python -m repro_torch.obs.validate``
+reconciles them. ``--measure`` times every compiled plan on the card
+(format-3 table, ``--plan-out``), ``--drift-out`` writes the measured
+against modelled drift report, and ``--verify`` re-proves the compiled
+plans statically and refuses to serve on a finding. Runs on the CUDA
+device unless ``--device`` says otherwise.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import warnings
 from typing import List
 
 import numpy as np
 import torch
 
 from repro_torch.configs import CNN_IDS, get_config
-from repro_torch.core.config import flops_per_image
-from repro_torch.pipeline import (ExecutionSpec, Placement, Precision,
-                                  Serving, compile_cnn)
-from repro_torch.serve import Request, latency_report
+from repro_torch.obs import (MeasureOptions, MetricsRegistry, TraceRecorder,
+                             drift_report, record_drift)
+from repro_torch.core.config import CNNConfig, flops_per_image
+from repro_torch.pipeline import (AutoscalePolicy, ExecutionSpec, Placement,
+                                  Precision, Serving, compile_cnn)
+from repro_torch.serve import Completion, Request, latency_report
 from repro_torch.serve.faults import FaultSchedule
 
 
@@ -53,6 +75,27 @@ def synthetic_requests(n: int, hw: int, ch: int, rate: float,
                            image=rng.standard_normal(
                                (hw, hw, ch)).astype(np.float32)))
     return out
+
+
+def serve(cfg: CNNConfig, params, requests: List[Request], *,
+          batch: int, use_kernels: bool, replicas: int = 1,
+          pp_stages: int = 1, clock: str = "measured", max_queue: int = 0,
+          device=None) -> List[Completion]:
+    """Deprecated (the JAX package's first launcher API): compile, serve,
+    return the completions. ``params`` are fp32/bf16 parameters or a
+    ``QuantizedCNNParams`` (served in int8). Call
+    ``compile_cnn(cfg, spec, params).serve(requests)`` instead."""
+    from repro_torch.quant import QuantizedCNNParams
+    warnings.warn("serve is deprecated: compile_cnn(cfg, spec, params)"
+                  ".serve(requests)", DeprecationWarning, stacklevel=2)
+    quant = "int8" if isinstance(params, QuantizedCNNParams) else "none"
+    spec = ExecutionSpec(
+        precision=Precision(quant=quant),
+        placement=Placement(replicas=replicas, pp_stages=pp_stages),
+        serving=Serving(batch=batch, clock=clock, max_queue=max_queue),
+        use_kernels=use_kernels)
+    return compile_cnn(cfg, spec, params, device=device).serve(
+        requests).completions
 
 
 def default_request_count(batch: int, replicas: int = 1) -> int:
@@ -124,6 +167,61 @@ def main(argv=None) -> None:
                     help="service weight of a straggler request")
     ap.add_argument("--report-json", default=None, metavar="PATH",
                     help="write FleetReport.to_dict() as JSON")
+    ap.add_argument("--no-kernels", action="store_true",
+                    help="serve through the exact oracles instead of the "
+                         "CUDA kernels (use_kernels=False)")
+    # -- continuous scheduling and the elastic fleet --------------------------
+    ap.add_argument("--scheduler", choices=("gang", "continuous"),
+                    default="gang",
+                    help="padded gang rounds, or per-request slots admitted "
+                         "and retired at microbatch boundaries (needs "
+                         "--clock modeled)")
+    ap.add_argument("--steal-threshold", type=int, default=0,
+                    help="continuous only: steal one queued request a "
+                         "boundary when queue depths differ by more than "
+                         "this (each steal charges the retry budget; 0 = "
+                         "off)")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="continuous only: scale the replicas between "
+                         "--min-replicas and --max-replicas on the "
+                         "p95-against-SLO and load signals")
+    ap.add_argument("--min-replicas", type=int, default=0,
+                    help="autoscale floor (default: --replicas)")
+    ap.add_argument("--max-replicas", type=int, default=0,
+                    help="autoscale ceiling (default: 2 x --replicas)")
+    ap.add_argument("--scale-interval", type=float, default=0.05,
+                    help="seconds between autoscale evaluations")
+    ap.add_argument("--scale-cooldown", type=float, default=0.0,
+                    help="least seconds between scaling decisions")
+    ap.add_argument("--util-high", type=float, default=0.85,
+                    help="scale up when the fleet's load (slots + backlog "
+                         "over capacity) exceeds this")
+    ap.add_argument("--util-low", type=float, default=0.30,
+                    help="scale down (graceful drain) when the load falls "
+                         "below this")
+    # -- observability ------------------------------------------------------
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the run's Chrome trace-event JSON "
+                         "(Perfetto); byte-identical across runs on "
+                         "--clock modeled")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the metrics snapshot (JSON, or Prometheus "
+                         "text for a .prom suffix)")
+    ap.add_argument("--measure", action="store_true",
+                    help="time every compiled plan on the card and record "
+                         "it in the plan table (format 3)")
+    ap.add_argument("--measure-repeats", type=int, default=3,
+                    help="timing samples a plan for --measure (trimmed "
+                         "mean)")
+    ap.add_argument("--plan-out", default=None, metavar="PATH",
+                    help="write the compiled plan table JSON")
+    ap.add_argument("--drift-out", default=None, metavar="PATH",
+                    help="write the measured-against-modelled drift report "
+                         "(python -m repro_torch.obs.drift's document)")
+    ap.add_argument("--verify", action="store_true",
+                    help="re-prove the compiled plans statically "
+                         "(repro_torch.analysis) and refuse to serve on a "
+                         "finding")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -142,6 +240,15 @@ def main(argv=None) -> None:
     elif args.mtbf:
         faults = FaultSchedule.mtbf(args.mtbf, args.mttr, args.replicas,
                                     seed=args.seed)
+    autoscale = None
+    if args.autoscale:
+        autoscale = AutoscalePolicy(
+            min_replicas=args.min_replicas or args.replicas,
+            max_replicas=args.max_replicas or 2 * args.replicas,
+            interval=args.scale_interval, cooldown=args.scale_cooldown,
+            util_high=args.util_high, util_low=args.util_low)
+    trace = TraceRecorder() if args.trace_out else None
+    metrics = MetricsRegistry() if args.metrics_out else None
     compiled = compile_cnn(cfg, ExecutionSpec(
         precision=Precision(quant=args.quant, calib=args.calib),
         placement=Placement(replicas=args.replicas,
@@ -149,9 +256,25 @@ def main(argv=None) -> None:
                             microbatches=args.microbatches),
         serving=Serving(batch=args.batch, clock=args.clock,
                         max_queue=args.max_queue, retries=args.retries,
-                        backoff=args.backoff, slo=args.slo)),
+                        backoff=args.backoff, slo=args.slo,
+                        scheduler=args.scheduler,
+                        steal_threshold=args.steal_threshold,
+                        autoscale=autoscale),
+        use_kernels=not args.no_kernels),
         generator=torch.Generator().manual_seed(args.seed),
-        device=args.device)
+        device=args.device, measure=args.measure,
+        measure_opts=(MeasureOptions(repeats=args.measure_repeats)
+                      if args.measure else None), trace=trace)
+    if args.verify:
+        findings = compiled.verify()
+        for f in findings:
+            print(f"[serve_cnn] VERIFY {f}")
+        if findings:
+            raise SystemExit(f"[serve_cnn] --verify: {len(findings)} "
+                             f"static finding(s): refusing to serve "
+                             f"{args.arch!r}")
+        print(f"[serve_cnn] --verify: plan table statically verified "
+              f"({len(compiled.plan_table)} rows, 0 findings)")
     requests = synthetic_requests(n_req, cfg.input_hw, cfg.input_ch,
                                   args.rate, seed=args.seed,
                                   straggler_every=args.straggler_every,
@@ -166,11 +289,26 @@ def main(argv=None) -> None:
     if faults is not None:
         print(f"[serve_cnn] faults: {faults!r}, retries={args.retries}, "
               f"backoff={args.backoff}s")
-    rep = compiled.serve(requests, faults=faults)
+    rep = compiled.serve(requests, faults=faults, trace=trace,
+                         metrics=metrics)
     # every request ends as one completion (ok or failed) or one rejection
     if len(rep.completions) + rep.n_rejected != n_req:
         raise SystemExit(f"{n_req} requests but {len(rep.completions)} "
                          f"completions and {rep.n_rejected} rejections")
+    if args.scheduler == "continuous":
+        # one scale event a decision, and the final fleet follows from them
+        ups = sum(e["kind"] == "up" for e in rep.scale_events)
+        downs = sum(e["kind"] == "down" for e in rep.scale_events)
+        if (ups, downs) != (rep.n_scale_up, rep.n_scale_down) or \
+                rep.replicas_final != args.replicas + ups - downs:
+            raise SystemExit(f"scale accounting: events +{ups}/-{downs}, "
+                             f"counters +{rep.n_scale_up}/"
+                             f"-{rep.n_scale_down}, "
+                             f"{rep.replicas_final} final replicas")
+        print(f"[serve_cnn] continuous: {rep.n_steals} steals, "
+              f"{rep.n_scale_up} scale-ups, {rep.n_scale_down} "
+              f"scale-downs, {rep.replicas_final} final replicas, mean "
+              f"occupancy " + "/".join(f"{o:.0%}" for o in rep.occupancy))
     gops = flops_per_image(cfg) * rep.throughput / 1e9
     print(f"[serve_cnn] {args.arch}{' (smoke)' if args.smoke else ''}: "
           f"{n_req} requests @ micro-batch {args.batch} on "
@@ -186,11 +324,38 @@ def main(argv=None) -> None:
     print(f"[serve_cnn] {rep.summary()}")
     print(f"[serve_cnn] latency_report {latency_report(rep.completions)}")
     print(f"[serve_cnn] {gops:.2f} GOPS at the reported throughput")
+    if args.plan_out:
+        compiled.save_plan(args.plan_out)
+        print(f"[serve_cnn] plan table ({compiled.plan_table.summary()}) "
+              f"-> {args.plan_out}")
+    if args.measure or args.drift_out:
+        drift = drift_report(compiled.plan_table)
+        stats = drift["ratio"]
+        print(f"[serve_cnn] drift: {drift['n_measured']}/"
+              f"{drift['n_plans']} plans measured"
+              + (f", geomean ratio {stats['geomean']:.3g}x" if stats
+                 else ""))
+        if metrics is not None and args.measure:
+            record_drift(metrics, drift)
+        if args.drift_out:
+            _write_json(args.drift_out, drift)
+            print(f"[serve_cnn] drift report -> {args.drift_out}")
+    if trace is not None:
+        trace.save(args.trace_out)
+        print(f"[serve_cnn] trace: {len(trace)} events -> {args.trace_out}")
+    if metrics is not None:
+        metrics.save(args.metrics_out)
+        print(f"[serve_cnn] metrics -> {args.metrics_out}")
     if args.report_json:
-        with open(args.report_json, "w") as f:
-            json.dump(rep.to_dict(), f, sort_keys=True, indent=1)
-            f.write("\n")
+        _write_json(args.report_json, rep.to_dict())
         print(f"[serve_cnn] report -> {args.report_json}")
+
+
+def _write_json(path: str, doc: dict) -> None:
+    """Canonical JSON (sorted keys, indent 1, trailing newline)."""
+    with open(path, "w") as f:
+        json.dump(doc, f, sort_keys=True, indent=1)
+        f.write("\n")
 
 
 if __name__ == "__main__":

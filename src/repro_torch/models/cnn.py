@@ -19,6 +19,7 @@ pipeline as in the paper. The final fc emits fp32 logits.
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -259,6 +260,27 @@ def cnn_forward_quant(qp: QuantizedCNNParams, x: torch.Tensor,
     for _, out, _ in _quant_groups(qp, x, cfg, use_kernels=use_kernels):
         pass
     return out
+
+
+def cnn_forward(params, x: torch.Tensor, cfg: CNNConfig, *,
+                use_kernels: bool = False, fused: bool = True
+                ) -> torch.Tensor:
+    """Deprecated: x (B, H, W, C) -> logits (B, n_classes) by a fold over
+    the layers, the JAX package's free function (its ``use_pallas`` is
+    ``use_kernels`` here, off by default as there). A
+    :class:`QuantizedCNNParams` runs the int8 pipeline; ``fused=False``
+    runs every layer as its own group (a conv and its pool apart). The
+    compile-once entry point is ``compile_cnn(cfg, spec, params)
+    .forward(x)``."""
+    warnings.warn("cnn_forward is deprecated: compile_cnn(cfg, spec, "
+                  "params).forward(x)", DeprecationWarning, stacklevel=2)
+    with torch.inference_mode():
+        if isinstance(params, QuantizedCNNParams):
+            return cnn_forward_quant(params, x, cfg, use_kernels=use_kernels)
+        groups = fuse_plan(cfg) if fused else \
+            [(i,) for i in range(len(cfg.layers))]
+        return cnn_forward_stage(params, x, cfg, groups,
+                                 use_kernels=use_kernels)
 
 
 _QTENSORS = ("w_q", "w_scale", "scale", "b")

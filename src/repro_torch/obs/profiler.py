@@ -164,18 +164,23 @@ def refine_plan(shape, *, top_k: Optional[int] = None,
 
 
 def profile_table(table, *, opts: Optional[MeasureOptions] = None,
-                  device=None):
+                  device=None, trace=None, t0: Optional[float] = None):
     """Measure every port plan row of ``table`` on the card: the format-3
     table with each row's ``measured`` record and
     ``provenance["measurement"]`` (the backend fingerprint, the harness,
     and the measure-stat delta this pass ran). Rows of another backend
-    (a JAX table's) are carried unmeasured. No trace spans: compile
-    traces come with ROADMAP.md Queue 1 slice 7."""
+    (a JAX table's) are carried unmeasured. With ``trace``, one
+    ``measure`` span a measured plan lands on the ``compile`` track, host
+    wall time relative to ``t0`` (default: now)."""
+    import time
+
     from repro_torch.kernels import autotune
+    from repro_torch.obs.trace import CAT_COMPILE, COMPILE_TRACK
     from repro_torch.pipeline.plan_table import plan_key
 
     opts = opts or MeasureOptions()
     before = autotune.measure_stats()
+    origin = time.perf_counter() if t0 is None else t0
     measured: Dict[str, dict] = {}
     for kind, rows, mk_shape, mk_plan in (
             ("conv", table.conv, autotune.ConvShape, autotune.ConvPlan),
@@ -183,9 +188,17 @@ def profile_table(table, *, opts: Optional[MeasureOptions] = None,
         for row in rows:
             if not autotune.is_port_backend(row["backend"]):
                 continue
-            measured[plan_key(row)] = measure_record(
-                kind, mk_shape(**row["shape"]), mk_plan(**row["plan"]),
-                opts=opts, device=device)
+            ts = time.perf_counter() - origin
+            rec = measure_record(kind, mk_shape(**row["shape"]),
+                                 mk_plan(**row["plan"]), opts=opts,
+                                 device=device)
+            if trace is not None:
+                trace.span("measure", ts, time.perf_counter() - origin,
+                           track=COMPILE_TRACK, cat=CAT_COMPILE,
+                           args={"kind": kind, "plan": row["plan"],
+                                 "t_measured": rec["t_measured"],
+                                 "t_model_call": rec["t_model_call"]})
+            measured[plan_key(row)] = rec
     after = autotune.measure_stats()
     provenance = dict(table.provenance)
     provenance["measurement"] = {

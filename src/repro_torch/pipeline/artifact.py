@@ -37,8 +37,8 @@ import torch
 from repro_torch.ckpt.checkpoint import CheckpointError, commit_dir
 from repro_torch.core.config import CNNConfig, ConvLayer
 from repro_torch.pipeline.plan_table import PlanTable
-from repro_torch.pipeline.spec import (ExecutionSpec, Placement, Precision,
-                                       Serving, Tiling)
+from repro_torch.pipeline.spec import (AutoscalePolicy, ExecutionSpec,
+                                       Placement, Precision, Serving, Tiling)
 from repro_torch.quant.calibrate import QuantizedCNNParams, QuantLayer
 
 _FORMAT = 1
@@ -100,7 +100,11 @@ def spec_from_dict(d: dict) -> ExecutionSpec:
     no interpret mode); of its ``Tiling`` only ``autotune`` is kept:
     ``vmem_budget`` (VMEM bytes, 16 MiB by default), ``vec_size``,
     ``cu_num``, ``oh_blk`` and ``b_blk`` describe Pallas blockings, so the
-    port's defaults stand for them."""
+    port's defaults stand for them. A nested autoscale policy is rebuilt
+    as an :class:`AutoscalePolicy`, so a loaded artifact keeps it."""
+    serving = dict(d["serving"])
+    if serving.get("autoscale") is not None:
+        serving["autoscale"] = AutoscalePolicy(**serving["autoscale"])
     tiling = dict(d["tiling"])
     if "use_pallas" in d:
         tiling = {"autotune": tiling["autotune"]}
@@ -110,7 +114,7 @@ def spec_from_dict(d: dict) -> ExecutionSpec:
     return ExecutionSpec(precision=Precision(**d["precision"]),
                          tiling=Tiling(**tiling),
                          placement=Placement(**d["placement"]),
-                         serving=Serving(**d["serving"]),
+                         serving=Serving(**serving),
                          use_kernels=use_kernels)
 
 

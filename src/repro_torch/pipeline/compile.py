@@ -18,28 +18,28 @@ dp replicas and pp stages, the stage partition and GPipe's microbatch
 count are resolved here, and in pp/hybrid ``.forward`` streams the batch
 through the stages. ``CompiledCNN.save``/``load`` commit and rebuild the
 whole pipeline as one artifact (:mod:`repro_torch.pipeline.artifact`).
-Entry points run on the CUDA device by default and raise when there is
-none, unless the caller passes ``device="cpu"`` (the kernels then run
-their plain versions).
-
-What the JAX ``compile_cnn`` also does — compile traces and static
-verification — is refused with an error naming the ``ROADMAP.md`` item
-that will bring it.
+``compile_cnn(trace=...)`` records the compile phase on a trace's
+``compile`` track, ``.serve(trace=, metrics=)`` the serving run, and
+``.verify()`` re-proves the compiled plans statically
+(:mod:`repro_torch.analysis.plans`). Entry points run on the CUDA device
+by default and raise when there is none, unless the caller passes
+``device="cpu"`` (the kernels then run their plain versions).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.core.config import CNNConfig
+from repro_torch.core.config import CNNConfig, SpecError
 from repro_torch.core.roofline import device_profile, profile_for
 from repro_torch.kernels import autotune
 from repro_torch.models.cnn import CNN, Params, QuantCNN, init_cnn_params
 from repro_torch.pipeline.plan_table import PlanTable, load_plan, plan_key
-from repro_torch.pipeline.spec import LATER_OBS, ExecutionSpec, refuse
+from repro_torch.pipeline.spec import ExecutionSpec
 from repro_torch.quant.calibrate import QuantizedCNNParams, calibrate_cnn
 
 
@@ -196,10 +196,18 @@ class CompiledCNN:
         per-request completions on ``report.completions``. ``faults`` (a
         :class:`~repro_torch.serve.faults.FaultSchedule`) injects replica
         fail/recover events; lost requests retry per
-        ``spec.serving.retries``/``backoff``."""
-        if trace is not None or metrics is not None:
-            raise refuse("serve.trace", "trace/metrics export", LATER_OBS)
-        done, rep = self.engine.serve(requests, faults=faults)
+        ``spec.serving.retries``/``backoff``. ``trace`` (a
+        :class:`~repro_torch.obs.TraceRecorder`) and ``metrics`` (a
+        :class:`~repro_torch.obs.MetricsRegistry`) receive the run's
+        events and metric streams; the trace also carries this compile's
+        repr, plan provenance and roofline breakdown in ``otherData``, so
+        it says which plans its spans ran."""
+        if trace is not None:
+            trace.set_meta("compiled", repr(self))
+            trace.set_meta("plan_provenance", self.plan_table.provenance)
+            trace.set_meta("roofline_breakdown", self.roofline_breakdown())
+        done, rep = self.engine.serve(requests, faults=faults, trace=trace,
+                                      metrics=metrics)
         rep.completions = done
         return rep
 
@@ -271,8 +279,24 @@ class CompiledCNN:
         from repro_torch.pipeline.artifact import load_artifact
         return load_artifact(path, device=device)
 
-    def verify(self, *, strict: bool = False):
-        raise refuse("CompiledCNN.verify", "static verification", LATER_OBS)
+    def verify(self, *, strict: bool = False) -> list:
+        """Re-prove this compile's plans statically
+        (:func:`repro_torch.analysis.plans.verify_compiled`): shared memory
+        against the budget and the kernels' table, tile geometry, spec
+        consistency, fusion-group and stage coverage, measured-record
+        joins; no kernel runs and no plan is looked up. Returns the
+        findings; ``strict=True`` raises :class:`SpecError` on any (the
+        ``serve_cnn --verify`` pre-flight)."""
+        from repro_torch.analysis.plans import verify_compiled
+
+        findings = verify_compiled(self)
+        if strict and findings:
+            raise SpecError(
+                "plan_table",
+                f"{len(findings)} static-verification finding(s) for "
+                f"{self.cfg.name!r}: "
+                + "; ".join(str(f) for f in findings))
+        return findings
 
     def __repr__(self) -> str:
         return (f"CompiledCNN({self.cfg.name}, mode={self.mode}, "
@@ -323,10 +347,13 @@ def compile_cnn(cfg: CNNConfig, spec: Optional[ExecutionSpec] = None,
     ``measure=True`` on an unseeded compile times every plan on the card
     (``repro_torch.obs.profiler.profile_table`` under ``measure_opts``, a
     ``MeasureOptions``) and returns a format-3 table.
+
+    ``trace`` (a :class:`~repro_torch.obs.TraceRecorder`) records the
+    compile on its ``compile`` track: one ``sweep`` span over the plan
+    resolve (the lookups and the engine's stage planning), and with
+    ``measure=True`` one ``measure`` span a profiled plan, host wall time
+    from the resolve's start.
     """
-    if trace is not None:
-        raise refuse("compile_cnn.trace", "compile_cnn(trace=...)",
-                      LATER_OBS)
     spec = spec if spec is not None else ExecutionSpec()
     quantize = spec.precision.quant == "int8"
 
@@ -369,6 +396,8 @@ def compile_cnn(cfg: CNNConfig, spec: Optional[ExecutionSpec] = None,
              for p in params], calib, cfg)
 
     sweeps_before = autotune.sweep_stats()
+    # repro: allow[RPA102] compile-track trace spans price the resolve
+    t0 = time.perf_counter()
     group_plans: Dict[Tuple[int, ...], Any] = {}
     recording = spec.use_kernels and spec.tiling.autotune
     with autotune.record_lookups() as rec:
@@ -397,6 +426,16 @@ def compile_cnn(cfg: CNNConfig, spec: Optional[ExecutionSpec] = None,
     if not recording:
         rec = {"conv": [], "gemm": []}  # no plan reaches a kernel: no row
     sweeps_after = autotune.sweep_stats()
+    sweep_delta = {k: sweeps_after[k] - sweeps_before[k]
+                   for k in sorted(sweeps_after)}
+    if trace is not None:
+        from repro_torch.obs.trace import CAT_COMPILE, COMPILE_TRACK
+        # repro: allow[RPA102] compile-track trace spans price the resolve
+        trace.span("sweep", 0.0, time.perf_counter() - t0,
+                   track=COMPILE_TRACK, cat=CAT_COMPILE,
+                   args={"lookups": {"conv": len(rec["conv"]),
+                                     "gemm": len(rec["gemm"])},
+                         **sweep_delta})
     if plans is not None:
         # a seeded compile re-captures the same plans: carry the seed's
         # provenance and measurements verbatim, so save -> load -> compile
@@ -407,8 +446,7 @@ def compile_cnn(cfg: CNNConfig, spec: Optional[ExecutionSpec] = None,
                 plans.measurements())
     else:
         provenance = {
-            "sweep_stats": {k: sweeps_after[k] - sweeps_before[k]
-                            for k in sorted(sweeps_after)},
+            "sweep_stats": sweep_delta,
             "lookups": {"conv": len(rec["conv"]), "gemm": len(rec["gemm"])}}
         if engine.stage_plan is not None:
             # what a microbatch launches: the serving batch's plans (a
@@ -423,7 +461,8 @@ def compile_cnn(cfg: CNNConfig, spec: Optional[ExecutionSpec] = None,
                                     provenance=provenance)
         if measure:
             from repro_torch.obs.profiler import profile_table
-            table = profile_table(table, opts=measure_opts, device=dev)
+            table = profile_table(table, opts=measure_opts, device=dev,
+                                  trace=trace, t0=t0)
     return CompiledCNN(cfg=cfg, spec=spec, model=model, device=dev,
                        group_plans=group_plans, plan_table=table,
                        backend=backend, engine=engine)

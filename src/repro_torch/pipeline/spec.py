@@ -6,29 +6,23 @@ The same sub-specs and field names as the JAX package's
 runs fp32, bf16 or calibrated int8, with per-layer plans from the DSE
 (:mod:`repro_torch.kernels.autotune`), placed as one replica or as dp
 replicas, pp stages or both on one card, and serves gang rounds on the
-measured or the modelled clock with retries and backoff under replica
-faults. The continuous scheduler is refused with a :class:`SpecError`
-that names the ``ROADMAP.md`` item that will bring it, and so is each
-manual tiling knob the CUDA kernels have no axis for.
+measured or the modelled clock, or continuous slots with work stealing
+and autoscaling on the modelled one, with retries and backoff under
+replica faults. Each manual tiling knob the CUDA kernels have no axis for
+is refused with a :class:`SpecError` naming the field.
+:func:`spec_from_config` and :func:`resolve_config` are the JAX package's
+deprecated bridges to its knob-carrying ``CNNConfig``.
 """
 from __future__ import annotations
 
+import dataclasses
+import warnings
 from dataclasses import dataclass, field
-from typing import Any, Optional
+from typing import Optional
 
-from repro_torch.core.config import SpecError
+from repro_torch.core.config import CNNConfig, SpecError
 from repro_torch.core.roofline import H100
-
-# what the port does not run yet, and the ROADMAP.md item that brings it
-LATER_OBS = ("ROADMAP.md Queue 1, slice 7 (continuous scheduling, obs, "
-             "profiler, analysis, CLIs and benchmarks)")
-
-
-def refuse(field_name: str, what: str, later: str) -> SpecError:
-    """The error for a knob the port does not run yet."""
-    return SpecError(field_name,
-                     f"{what} is not in the PyTorch port yet: it comes with "
-                     f"{later}")
+from repro_torch.serve.scheduler import AutoscalePolicy
 
 
 @dataclass(frozen=True)
@@ -86,10 +80,16 @@ class Serving:
     the ``"modeled"`` one (the roofline cost model's round time;
     ``execute=False`` then runs nothing on the device). ``max_queue``
     bounds each replica's queue (0 = unbounded); ``slo`` is a latency
-    bound the report counts violations of (0 = off). Under injected
-    replica faults a lost request re-dispatches up to ``retries`` times,
-    ``backoff * 2**(attempt-1)`` seconds after its loss; past the budget
-    it ends as ``Completion(status="failed")``."""
+    bound the report counts violations of, and the autoscaler's p95
+    target (0 = off). Under injected replica faults a lost request
+    re-dispatches up to ``retries`` times, ``backoff * 2**(attempt-1)``
+    seconds after its loss; past the budget it ends as
+    ``Completion(status="failed")``. ``scheduler="continuous"`` (modelled
+    clock only) admits and retires requests one by one at microbatch
+    boundaries; ``steal_threshold`` > 0 lets a replica steal from a queue
+    that many deeper than its own (each steal charges the retry budget);
+    ``autoscale`` (an :class:`AutoscalePolicy`) scales the fleet between
+    its ``min_replicas`` and ``max_replicas``."""
     batch: int = 8
     max_queue: int = 0
     clock: str = "measured"
@@ -99,7 +99,7 @@ class Serving:
     slo: float = 0.0
     scheduler: str = "gang"
     steal_threshold: int = 0
-    autoscale: Optional[Any] = None
+    autoscale: Optional[AutoscalePolicy] = None
 
 
 @dataclass(frozen=True)
@@ -225,12 +225,37 @@ class ExecutionSpec:
             raise SpecError("Serving.scheduler",
                             f"Serving.scheduler={s.scheduler!r}: gang "
                             "or continuous")
-        if s.scheduler == "continuous":
-            raise refuse("Serving.scheduler", "Serving.scheduler="
-                         "'continuous'", LATER_OBS)
-        if s.steal_threshold or s.autoscale is not None:
-            raise refuse("Serving.steal_threshold",
-                         "Serving.steal_threshold/autoscale", LATER_OBS)
+        if s.scheduler == "continuous" and s.clock != "modeled":
+            raise SpecError(
+                "Serving.scheduler",
+                "Serving.scheduler='continuous' requires "
+                "clock='modeled': slot service and microbatch-boundary "
+                "times come from the roofline model, not wall time")
+        if s.steal_threshold < 0:
+            raise SpecError(
+                "Serving.steal_threshold",
+                f"Serving.steal_threshold={s.steal_threshold}: 0 "
+                "(stealing off) or a positive queue-skew depth")
+        if (s.steal_threshold or s.autoscale is not None) and \
+                s.scheduler != "continuous":
+            raise SpecError(
+                "Serving.steal_threshold",
+                "Serving.steal_threshold / autoscale only exist under "
+                "scheduler='continuous': gang rounds have no "
+                "per-request slots to steal or scale")
+        if s.autoscale is not None and not isinstance(s.autoscale,
+                                                      AutoscalePolicy):
+            raise SpecError(
+                "Serving.autoscale",
+                f"Serving.autoscale={s.autoscale!r}: an AutoscalePolicy")
+        if s.autoscale is not None and not (
+                s.autoscale.min_replicas <= pl.replicas
+                <= s.autoscale.max_replicas):
+            raise SpecError(
+                "Placement.replicas",
+                f"Placement.replicas={pl.replicas} outside the "
+                f"autoscale range [{s.autoscale.min_replicas}, "
+                f"{s.autoscale.max_replicas}]")
 
     @property
     def run_dtype(self) -> str:
@@ -243,3 +268,27 @@ class ExecutionSpec:
         R, S = self.placement.replicas, self.placement.pp_stages
         return ("single" if R * S == 1 else "dp" if S == 1 else
                 "pp" if R == 1 else "hybrid")
+
+
+def spec_from_config(cfg: CNNConfig, **overrides) -> ExecutionSpec:
+    """Deprecated: the JAX package builds the spec from its
+    ``CNNConfig``'s legacy knobs, for its old call sites. The port's
+    ``CNNConfig`` describes the architecture only, so every knob takes the
+    JAX ``CNNConfig``'s default (a serving batch of 64; the budget the
+    card's); ``overrides`` replace top-level spec fields or whole
+    sub-specs. Build an :class:`ExecutionSpec` instead."""
+    warnings.warn("spec_from_config is deprecated: build an ExecutionSpec",
+                  DeprecationWarning, stacklevel=2)
+    spec = ExecutionSpec(serving=Serving(batch=64))
+    return dataclasses.replace(spec, **overrides) if overrides else spec
+
+
+def resolve_config(cfg: CNNConfig, spec: ExecutionSpec) -> CNNConfig:
+    """Deprecated: the JAX package folds a spec's knobs back onto its
+    ``CNNConfig``. The port's config carries no knobs (every consumer
+    reads the spec), so the architecture comes back as it is; ``spec`` is
+    taken for the JAX signature."""
+    warnings.warn("resolve_config is deprecated: the port's CNNConfig "
+                  "carries no runtime knobs; read the ExecutionSpec",
+                  DeprecationWarning, stacklevel=2)
+    return cfg

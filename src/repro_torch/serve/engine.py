@@ -47,9 +47,23 @@ replicas drain and swap one at a time, evacuated requests re-dispatch
 for free, and each completion records the version that served it. Every
 admitted request ends as exactly one completion or one rejection.
 
-The run's counters (:data:`SERVE_COUNTERS`' keys) land in
-``engine.counters``; trace and metrics recorders come with ROADMAP.md
-Queue 1 slice 7.
+Observability. ``serve(requests, trace=, metrics=)`` records the run into
+a :class:`~repro_torch.obs.TraceRecorder` (spans and instants at the JAX
+engine's points, with its names) and a
+:class:`~repro_torch.obs.MetricsRegistry`: the loop counts into the
+registry's ``serve_<key>_total`` counters (:data:`SERVE_COUNTERS`' keys)
+and its latency histogram, and the report reads this run's deltas back
+from them, so the report and the exported metrics are one set of books.
+Left as None, both are throwaway instances.
+
+Gang rounds are the default. ``scheduler="continuous"`` (modelled clock
+only) hands the whole call to
+:class:`~repro_torch.serve.scheduler.ContinuousScheduler`: requests admit
+and retire one by one at microbatch boundaries, queues work-steal past
+``steal_threshold``, and an ``autoscale`` policy grows and shrinks the
+fleet. Each admission group runs version ``v``'s forward on the card
+(:meth:`ServeEngine._slot_fn`), a single-replica fold whatever the
+placement.
 """
 from __future__ import annotations
 
@@ -64,8 +78,9 @@ import torch
 from repro_torch.core.roofline import device_profile
 from repro_torch.kernels.autotune import DEFAULT_BUDGET
 from repro_torch.models.cnn import CNN, QuantCNN
+from repro_torch.obs.metrics import MetricsRegistry, record_report
+from repro_torch.obs.trace import CAT_REQUEST, FLEET_TRACK, TraceRecorder
 from repro_torch.parallel.pipeline_par import gpipe_schedule
-from repro_torch.pipeline.spec import ExecutionSpec
 from repro_torch.serve.faults import FaultSchedule
 from repro_torch.serve.report import FleetReport, fleet_report
 from repro_torch.serve.router import Completion, Request, Router
@@ -73,7 +88,8 @@ from repro_torch.serve.stage_planner import plan_stages, total_cost
 
 Model = Union[CNN, QuantCNN]
 
-# (counter key, help): what a gang run counts into ``engine.counters``
+# (counter key, help) of the serve counters; a key is the registry's
+# serve_<key>_total
 SERVE_COUNTERS = (
     ("done", "requests served ok"),
     ("failed", "retry budget exhausted -> Completion(failed)"),
@@ -88,6 +104,29 @@ SERVE_COUNTERS = (
     ("scale_down", "replicas the autoscaler drained out"),
     ("rounds", "gang rounds / microbatch boundaries"),
 )
+
+
+
+def _serve_obs(trace, metrics, n_replicas, *, scheduler, clock):
+    """The (trace, metrics) pair a serving loop records into: the caller's,
+    or fresh ones when None, so the loops record unconditionally. Tracks
+    are registered up front (fleet first, then each replica), so thread
+    ids never depend on event order. Returns ``(trace, metrics, counters,
+    their values before this run, the latency histogram)``."""
+    trace = trace if trace is not None else TraceRecorder()
+    metrics = metrics if metrics is not None else MetricsRegistry()
+    trace.track(FLEET_TRACK)
+    for r in range(n_replicas):
+        trace.track(f"replica {r}")
+    trace.set_meta("scheduler", scheduler)
+    trace.set_meta("clock", clock)
+    ctr = {key: metrics.counter(f"serve_{key}_total", help)
+           for key, help in SERVE_COUNTERS}
+    base = {key: c.value for key, c in ctr.items()}
+    hist = metrics.histogram("request_latency_seconds",
+                             "ok-completion request latency")
+    return trace, metrics, ctr, base, hist
+
 
 # The reference's MODEL of an artifact restore (not a measurement): a
 # recovering or hot-swapping replica re-reads its committed artifact at a
@@ -129,13 +168,41 @@ class ServeEngine:
                  clock: str = "measured", max_queue: int = 0,
                  execute: bool = True, retries: int = 0,
                  backoff: float = 0.0, slo: float = 0.0,
-                 vmem_budget: int = DEFAULT_BUDGET):
+                 scheduler: str = "gang", steal_threshold: int = 0,
+                 autoscale=None, vmem_budget: int = DEFAULT_BUDGET):
+        from repro_torch.serve.scheduler import AutoscalePolicy
         if clock not in ("measured", "modeled"):
             raise ValueError(f"unknown clock {clock!r}")
         if retries < 0:
             raise ValueError(f"retries={retries} must be >= 0")
         if backoff < 0 or slo < 0:
             raise ValueError("backoff/slo are seconds >= 0")
+        if scheduler not in ("gang", "continuous"):
+            raise ValueError(f"unknown scheduler {scheduler!r}: "
+                             "gang or continuous")
+        if scheduler == "continuous" and clock != "modeled":
+            raise ValueError(
+                "scheduler='continuous' needs clock='modeled': slot "
+                "service and microbatch-boundary times come from the "
+                "cost model, not wall time")
+        if steal_threshold < 0:
+            raise ValueError(
+                f"steal_threshold={steal_threshold} must be >= 0 "
+                "(0 = stealing off)")
+        if isinstance(autoscale, dict):
+            autoscale = AutoscalePolicy(**autoscale)
+        if (steal_threshold or autoscale is not None) and \
+                scheduler != "continuous":
+            raise ValueError(
+                "steal_threshold / autoscale only exist under "
+                "scheduler='continuous': gang rounds have no per-request "
+                "slots to steal or scale")
+        if autoscale is not None and not (
+                autoscale.min_replicas <= replicas
+                <= autoscale.max_replicas):
+            raise ValueError(
+                f"replicas={replicas} outside the autoscale range "
+                f"[{autoscale.min_replicas}, {autoscale.max_replicas}]")
         R, S = replicas, pp_stages
         if R < 1 or S < 1:
             raise ValueError("replicas and pp_stages must be >= 1")
@@ -143,6 +210,9 @@ class ServeEngine:
             raise ValueError(
                 "execute=False (device-free simulation) has no wall time "
                 "to measure; use clock='modeled'")
+        self.scheduler = scheduler
+        self.steal_threshold = int(steal_threshold)
+        self.autoscale = autoscale
         self.model = model
         self.cfg = model.cfg
         self.dtype = _run_dtype(model)
@@ -182,7 +252,10 @@ class ServeEngine:
             # one replica's micro-batch: dp replicas run concurrently
             self.t_round_model = self._total_cost(self.cfg, self.dtype)
         self.mb = batch // self.n_micro
-        self.router = Router(R, batch, max_queue=max_queue)
+        # an elastic fleet has queues up to max_replicas; the scheduler's
+        # active mask decides which receive dispatch
+        self.router = Router(autoscale.max_replicas if autoscale is not None
+                             else R, batch, max_queue=max_queue)
         self.t_restore_model = restore_latency_model(params_nbytes(model))
         self._cur_version = 0
         self._n_versions = 1
@@ -193,10 +266,11 @@ class ServeEngine:
         self._pending_swap = None
         self._warm = set()              # versions whose first round ran
         self._streams = None            # [replica][stage], made on first use
-        self.counters = dict.fromkeys((k for k, _ in SERVE_COUNTERS), 0)
+        self.admission_groups = 0       # slot forwards of the last
+        #                                 continuous run (0 for gang runs)
 
     @classmethod
-    def from_spec(cls, model: Model, spec: ExecutionSpec) -> "ServeEngine":
+    def from_spec(cls, model: Model, spec) -> "ServeEngine":
         """The engine of a compiled spec: its placement and serving
         sub-specs are the whole constructor."""
         return cls(model, batch=spec.serving.batch,
@@ -208,6 +282,9 @@ class ServeEngine:
                    execute=spec.serving.execute,
                    retries=spec.serving.retries,
                    backoff=spec.serving.backoff, slo=spec.serving.slo,
+                   scheduler=spec.serving.scheduler,
+                   steal_threshold=spec.serving.steal_threshold,
+                   autoscale=spec.serving.autoscale,
                    vmem_budget=spec.tiling.vmem_budget)
 
     def _plan_stages(self, cfg, dtype: str, batch: int):
@@ -296,6 +373,23 @@ class ServeEngine:
                               for m in range(M) for r in range(R)])
         return self._unpack_preds(flat.cpu().numpy())
 
+    def _slot_fn(self, v: int):
+        """The continuous scheduler's execution unit: ``imgs`` (batch, H,
+        W, C), a padded admission group as a host array -> its predictions
+        (batch,). Version ``v``'s compiled forward on the device: one copy
+        of the group to the device, the batch converted to the run dtype,
+        the fold over the groups (a single replica, whatever the
+        placement), and the argmax of the logits widened to fp32, as the
+        gang round takes it. Rows are independent in every mode, so each
+        prediction is the forward's for its image."""
+        model = self._versions[v]["model"]
+
+        def fn(imgs: np.ndarray) -> np.ndarray:
+            x = torch.from_numpy(imgs).to(self.device).to(model.in_dtype)
+            with torch.inference_mode():
+                return model(x).float().argmax(-1).cpu().numpy()
+        return fn
+
     # -- rolling hot swap ----------------------------------------------------
 
     def hot_swap(self, artifact, *, at: float = 0.0) -> int:
@@ -355,7 +449,9 @@ class ServeEngine:
     # -- the serving loop ----------------------------------------------------
 
     def serve(self, requests: List[Request], *,
-              faults: Optional[FaultSchedule] = None
+              faults: Optional[FaultSchedule] = None,
+              trace: Optional[TraceRecorder] = None,
+              metrics: Optional[MetricsRegistry] = None
               ) -> Tuple[List[Completion], FleetReport]:
         """Drain a request stream; returns (completions, fleet report).
 
@@ -365,9 +461,19 @@ class ServeEngine:
         service time. Fault and swap events landing inside a round hit it
         in flight. Invariant: every admitted request ends as exactly one
         completion or one admission rejection, even if the whole fleet
-        dies. The run's counters are in ``self.counters``."""
+        dies. ``trace``/``metrics`` receive the run's events and counters
+        (see the module docstring); a registry is per run, its counters
+        reconcile with this run's report. With ``scheduler="continuous"``
+        the call goes to
+        :class:`~repro_torch.serve.scheduler.ContinuousScheduler`."""
+        if self.scheduler == "continuous":
+            from repro_torch.serve.scheduler import ContinuousScheduler
+            return ContinuousScheduler(self).serve(
+                requests, faults=faults, trace=trace, metrics=metrics)
         R = self.replicas
-        n = self.counters = dict.fromkeys((k for k, _ in SERVE_COUNTERS), 0)
+        self.admission_groups = 0
+        trace, metrics, ctr, ctr0, hist = _serve_obs(
+            trace, metrics, R, scheduler="gang", clock=self.clock_mode)
         if faults is not None:
             faults.validate_for(R)
         router = self.router
@@ -418,15 +524,27 @@ class ServeEngine:
                     rid=req.rid, pred=-1, t_arrival=req.t_arrival,
                     t_done=t, replica=-1, status="failed",
                     attempts=a - 1))
-                n["failed"] += 1
+                ctr["failed"].inc()
+                trace.instant("failed", t, cat=CAT_REQUEST,
+                              args={"rid": req.rid, "attempts": a - 1})
                 return
-            n["retries"] += 1
+            ctr["retries"].inc()
+            trace.instant("retry", t, cat=CAT_REQUEST,
+                          args={"rid": req.rid, "attempt": a})
             delay = self.backoff * (2 ** (a - 1)) if self.backoff else 0.0
             heapq.heappush(retry_q, (t + delay, next(seq), req))
 
-        def dispatch(req):
-            if not router.dispatch(req, up):
-                n["rejected"] += 1
+        def note_dispatch(req, ok, t):
+            # the router decided: an enqueue lands on the chosen replica's
+            # track, an admission rejection is a fleet-level instant
+            if ok:
+                trace.instant("enqueue", t, cat=CAT_REQUEST,
+                              track=f"replica {router.last_replica}",
+                              args={"rid": req.rid})
+            else:
+                ctr["rejected"].inc()
+                trace.instant("reject", t, cat=CAT_REQUEST,
+                              args={"rid": req.rid})
 
         def start_next_swap(t):
             sw = self._pending_swap
@@ -437,7 +555,10 @@ class ServeEngine:
                     # its recovery lands: no drain needed
                     version[r] = sw["version"]
                     swapped.add(r)
-                    n["swapped"] += 1
+                    ctr["swapped"].inc()
+                    trace.instant("hot_swap", t,
+                                  args={"replica": r,
+                                        "version": sw["version"]})
                     continue
                 up[r] = False
                 for req in router.evacuate(r):
@@ -464,13 +585,17 @@ class ServeEngine:
                 if not up[r]:
                     return              # already down (restoring/swapping)
                 up[r] = False
-                n["failures"] += 1
+                ctr["failures"].inc()
+                trace.instant("fail", t_e, args={"replica": r})
                 fail_t[r] = t_e
                 if serving is not None and r not in serving["lost"]:
                     take = serving["take"].get(r) or ()
                     if take:            # the round in flight is lost
                         serving["lost"].add(r)
                         busy[r] += t_e - serving["t0"]
+                        trace.span("round", serving["t0"], t_e,
+                                   track=f"replica {r}",
+                                   args={"aborted": True})
                         for req in take:
                             readmit(req, t_e)
                 for req in router.evacuate(r):
@@ -481,14 +606,17 @@ class ServeEngine:
                 if sw is not None and sw.get("current") == r:
                     return              # the swap's restore owns r
                 up[r] = True
-                n["recoveries"] += 1
+                ctr["recoveries"].inc()
+                trace.instant("recover", t_e, args={"replica": r})
                 if r in fail_t:
                     ttr.append(t_e - fail_t.pop(r))
             elif kind == "swapped":
                 version[r] = sw["version"]
                 up[r] = True
                 swapped.add(r)
-                n["swapped"] += 1
+                ctr["swapped"].inc()
+                trace.instant("hot_swap", t_e,
+                              args={"replica": r, "version": sw["version"]})
                 fail_t.pop(r, None)
                 sw["current"] = None
                 start_next_swap(t_e)
@@ -501,9 +629,11 @@ class ServeEngine:
             maybe_start_swap(clock)
             if any(up):
                 while pending and pending[0].t_arrival <= clock:
-                    dispatch(pending.pop(0))
+                    req = pending.pop(0)
+                    note_dispatch(req, router.dispatch(req, up), clock)
                 while retry_q and retry_q[0][0] <= clock:
-                    dispatch(heapq.heappop(retry_q)[2])
+                    _, _, req = heapq.heappop(retry_q)
+                    note_dispatch(req, router.dispatch(req, up), clock)
             if not router.backlog():
                 if not pending and not retry_q:
                     break
@@ -523,12 +653,15 @@ class ServeEngine:
                     # a dead fleet with no recovery scheduled: fail every
                     # outstanding request explicitly, none stranded
                     for req in pending + [e[2] for e in retry_q]:
+                        t_f = max(clock, req.t_arrival)
                         done.append(Completion(
                             rid=req.rid, pred=-1, t_arrival=req.t_arrival,
-                            t_done=max(clock, req.t_arrival), replica=-1,
-                            status="failed",
+                            t_done=t_f, replica=-1, status="failed",
                             attempts=attempts.get(req.rid, 0)))
-                        n["failed"] += 1
+                        ctr["failed"].inc()
+                        trace.instant("failed", t_f, cat=CAT_REQUEST,
+                                      args={"rid": req.rid,
+                                            "dead_fleet": True})
                     pending, retry_q = [], []
                     break
                 clock = max(clock, min(cands))
@@ -561,9 +694,9 @@ class ServeEngine:
                          * cost_mult
                          if self.clock_mode == "modeled" else t_wall)
             t_end = clock + t_service
-            n["rounds"] += 1
+            ctr["rounds"].inc()
             if not all(up_at_drain):
-                n["degraded"] += 1
+                ctr["degraded"].inc()
             # fault/swap events landing inside (clock, t_end] hit the
             # round in flight: a failing replica's take is lost
             serving = {"t0": clock, "lost": set(),
@@ -584,13 +717,22 @@ class ServeEngine:
                         busy[r] += t_service
                 elif n_real:
                     busy[r] += t_service
+                if not take:            # an idle or down replica
+                    continue
                 v = version_at_drain[r]
+                trace.span("round", clock, t_end, track=f"replica {r}",
+                           args={"version": v, "n_real": n_real})
                 for req, pred in zip(take, preds[r][:n_real]):
                     done.append(Completion(
                         rid=req.rid, pred=int(pred),
                         t_arrival=req.t_arrival, t_done=t_end, replica=r,
                         version=v, attempts=attempts.get(req.rid, 0)))
-                    n["done"] += 1
+                    ctr["done"].inc()
+                    hist.observe(t_end - req.t_arrival)
+                    trace.span("request", clock, t_end,
+                               track=f"replica {r}", cat=CAT_REQUEST,
+                               args={"rid": req.rid, "version": v,
+                                     "attempts": attempts.get(req.rid, 0)})
             clock = t_end
 
         sw = self._pending_swap
@@ -600,18 +742,28 @@ class ServeEngine:
             for r in range(R):
                 if r not in swapped:
                     swapped.add(r)
-                    n["swapped"] += 1
+                    ctr["swapped"].inc()
+                    trace.instant("hot_swap", clock,
+                                  args={"replica": r,
+                                        "version": sw["version"]})
             self._adopt_version(sw["version"])
             self._pending_swap = None
+        # the report reads this run's deltas from the registry: one set of
+        # books for the counters, the snapshot and the report
+        n_of = {k: c.value - ctr0[k] for k, c in ctr.items()}
+        metrics.gauge("fleet_replicas_serving",
+                      "up replicas at run end").set(sum(up))
         rep = fleet_report(
             done, router.rejected, mode=self.mode, replicas=R,
             pp_stages=self.pp_stages, batch=self.batch,
-            clock=self.clock_mode, rounds=n["rounds"], busy_s=busy,
+            clock=self.clock_mode, rounds=n_of["rounds"], busy_s=busy,
             makespan_s=clock,
             bubble_fraction=(self.stage_plan.bubble(self.n_micro)
                              if self.stage_plan else 0.0),
-            n_retries=n["retries"], n_failures=n["failures"],
-            n_recoveries=n["recoveries"], degraded_rounds=n["degraded"],
-            time_to_recover_s=ttr, n_swapped=n["swapped"], slo_s=self.slo,
+            n_retries=n_of["retries"], n_failures=n_of["failures"],
+            n_recoveries=n_of["recoveries"],
+            degraded_rounds=n_of["degraded"], time_to_recover_s=ttr,
+            n_swapped=n_of["swapped"], slo_s=self.slo,
             device=str(self.device))
+        record_report(metrics, rep)
         return done, rep

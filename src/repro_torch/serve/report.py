@@ -1,11 +1,10 @@
 """Latency / throughput accounting for served runs.
 
-The port's copy of the JAX package's ``serve/report.py``, cut to the
-fields a gang run fills: nearest-rank percentiles (``rank(q) = ceil(q*n)
-- 1``, exact down to n=1), the hardened :func:`latency_report`, and the
-:class:`FleetReport` with its pipeline-bubble and fault/recovery
-accounting. The continuous scheduler's fields (occupancy, steals,
-scaling) come with ROADMAP.md Queue 1 slice 7.
+The port's copy of the JAX package's ``serve/report.py``: nearest-rank
+percentiles (``rank(q) = ceil(q*n) - 1``, exact down to n=1), the
+hardened :func:`latency_report`, and the :class:`FleetReport` with its
+pipeline-bubble, fault/recovery and continuous-scheduler (occupancy,
+steals, scaling) accounting.
 """
 from __future__ import annotations
 
@@ -49,19 +48,28 @@ class FleetReport:
     mode: str                          # "single" | "dp" | "pp" | "hybrid"
     replicas: int                      # replicas the run started with
     pp_stages: int
-    batch: int                         # micro-batch requests are padded to
+    batch: int                         # micro-batch (slot count a replica)
     clock: str                         # "measured" | "modeled"
-    scheduler: str = "gang"
+    scheduler: str = "gang"            # "gang" | "continuous"
     device: str = ""                   # where the forwards ran
     n_done: int = 0
     n_rejected: int = 0                # admission-control rejections
-    rounds: int = 0                    # gang rounds
+    rounds: int = 0                    # gang rounds / microbatch boundaries
     throughput: float = 0.0            # img/s
     p50_ms: float = float("nan")
     p95_ms: float = float("nan")
     makespan_s: float = 0.0
     utilization: List[float] = field(default_factory=list)  # per replica
     bubble_fraction: float = 0.0       # GPipe fill/drain share (pp modes)
+    # -- continuous-scheduler accounting ------------------------------------
+    occupancy: List[float] = field(default_factory=list)  # mean filled
+    #                                    slots / batch a replica
+    n_steals: int = 0                  # requests work-stolen across queues
+    n_scale_up: int = 0                # replicas the autoscaler spun up
+    n_scale_down: int = 0              # replicas it drained out
+    scale_events: List = field(default_factory=list)  # dicts: t/kind/
+    #                                    replica/reason, in decision order
+    replicas_final: int = 0            # active replicas when the run ended
     # -- fault / recovery accounting --------------------------------------
     n_failed: int = 0                  # retry budget exhausted -> "failed"
     n_retries: int = 0                 # re-dispatches charged to budgets
@@ -101,13 +109,23 @@ class FleetReport:
                      f"{ttr}")
         swap = (f" | hot-swap: {self.n_swapped} replicas rolled"
                 if self.n_swapped else "")
+        cb = ""
+        if self.scheduler == "continuous":
+            occ = (", occ " + "/".join(f"{o:.0%}" for o in self.occupancy)
+                   if self.occupancy else "")
+            scale = (f", scale +{self.n_scale_up}/-{self.n_scale_down} "
+                     f"-> {self.replicas_final} replicas"
+                     if (self.n_scale_up or self.n_scale_down) else "")
+            cb = f" | cb: {self.n_steals} steals{occ}{scale}"
+        unit = "rounds" if self.scheduler == "gang" else "boundaries"
 
         def ms(v):
             return "n/a" if math.isnan(v) else f"{v:.3f} ms"
         return (f"[{self.mode}/{self.scheduler}] {self.n_done} served in "
-                f"{self.rounds} rounds ({self.clock} clock, {self.device}): "
+                f"{self.rounds} {unit} ({self.clock} clock, {self.device}): "
                 f"{self.throughput:.1f} img/s, p50 {ms(self.p50_ms)}, "
-                f"p95 {ms(self.p95_ms)}{util}{rej}{bub}{slo}{chaos}{swap}")
+                f"p95 {ms(self.p95_ms)}{util}{rej}{bub}{slo}{cb}{chaos}"
+                f"{swap}")
 
 
 def fleet_report(done: List, rejected: List, *, mode: str, replicas: int,
@@ -118,7 +136,11 @@ def fleet_report(done: List, rejected: List, *, mode: str, replicas: int,
                  degraded_rounds: int = 0,
                  time_to_recover_s: Sequence[float] = (),
                  n_swapped: int = 0, slo_s: float = 0.0,
-                 device: str = "") -> FleetReport:
+                 device: str = "", scheduler: str = "gang",
+                 occupancy: Sequence[float] = (), n_steals: int = 0,
+                 n_scale_up: int = 0, n_scale_down: int = 0,
+                 scale_events: Sequence[dict] = (),
+                 replicas_final: int = 0) -> FleetReport:
     """Assemble the report from an engine run's accounting."""
     lat = latency_report(done)
     failed = [c for c in done if getattr(c, "status", "ok") == "failed"]
@@ -127,7 +149,7 @@ def fleet_report(done: List, rejected: List, *, mode: str, replicas: int,
                           and c.latency > slo_s) if slo_s > 0 else 0)
     return FleetReport(
         mode=mode, replicas=replicas, pp_stages=pp_stages, batch=batch,
-        clock=clock, device=device, n_done=lat["n"],
+        clock=clock, scheduler=scheduler, device=device, n_done=lat["n"],
         n_rejected=len(rejected), rounds=rounds,
         throughput=lat["n"] / makespan_s if makespan_s > 0 else 0.0,
         p50_ms=lat["p50_ms"], p95_ms=lat["p95_ms"], makespan_s=makespan_s,
@@ -137,4 +159,8 @@ def fleet_report(done: List, rejected: List, *, mode: str, replicas: int,
         n_retries=n_retries, n_failures=n_failures,
         n_recoveries=n_recoveries, degraded_rounds=degraded_rounds,
         time_to_recover_s=list(time_to_recover_s), n_swapped=n_swapped,
-        slo_s=slo_s, slo_violations=slo_violations)
+        slo_s=slo_s, slo_violations=slo_violations,
+        occupancy=list(occupancy), n_steals=n_steals,
+        n_scale_up=n_scale_up, n_scale_down=n_scale_down,
+        scale_events=list(scale_events),
+        replicas_final=replicas_final or replicas)

@@ -1,11 +1,11 @@
 """Request queue of the serving engine (numpy only).
 
-The port's copy of the JAX package's ``serve/router.py``, cut to what the
-gang scheduler uses: :class:`Request`, :class:`Completion`, the padding
-:class:`MicroBatcher` and the least-loaded :class:`Router` with admission
-control over the alive replicas, evacuation and gang drains. Work
-stealing (``Router.steal``, ``MicroBatcher.pop``/``steal_tail``) comes
-with the continuous scheduler (ROADMAP.md Queue 1 slice 7).
+The port's copy of the JAX package's ``serve/router.py``: :class:`Request`,
+:class:`Completion`, the padding :class:`MicroBatcher` and the
+least-loaded :class:`Router` with admission control over the alive
+replicas, evacuation, gang drains, and the continuous scheduler's slot
+fills (``MicroBatcher.pop``) and work stealing (``Router.steal``, which
+takes a queue's newest request).
 """
 from __future__ import annotations
 
@@ -84,6 +84,17 @@ class MicroBatcher:
         take, self._q = self._q, []
         return take
 
+    def pop(self, k: int) -> List[Request]:
+        """Pop up to ``k`` requests unpadded, oldest first: the continuous
+        scheduler fills free slots from the head of the queue."""
+        take, self._q = self._q[:k], self._q[k:]
+        return take
+
+    def steal_tail(self) -> Optional[Request]:
+        """Pop the newest queued request (or None): the one that would
+        wait behind the whole backlog, so a steal helps it most."""
+        return self._q.pop() if self._q else None
+
 
 class Router:
     """Least-loaded dispatch over N replica queues with admission control:
@@ -133,8 +144,14 @@ class Router:
         return self.queues[r].drain_all()
 
     def depths(self) -> List[int]:
-        """Queue depth a replica."""
+        """Queue depth a replica: the skew work stealing triggers on."""
         return [len(q) for q in self.queues]
+
+    def steal(self, donor: int) -> Optional[Request]:
+        """Take the newest request of ``donor``'s queue (None if empty).
+        The caller queues it on the thief and charges its retry budget, as
+        a failure's evacuation does."""
+        return self.queues[donor].steal_tail()
 
     def drain_round(self, alive: Optional[Sequence[bool]] = None):
         """Pop one padded micro-batch per replica, a gang round:

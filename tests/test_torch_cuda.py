@@ -24,6 +24,7 @@ against plain versions that compute in fp32 and round once to bf16, as
 the kernels do (conv_pipe's on the tensor cores: bf16 products, fp32
 sums).
 """
+import dataclasses
 import importlib
 import shutil
 import subprocess
@@ -1383,3 +1384,92 @@ def test_artifact_saved_on_the_card_reloads_equal(cuda, mode, tmp_path):
     for f in ("manifest.json", "plan_table.json"):
         assert (tmp_path / "a1" / f).read_bytes() == \
             (tmp_path / "a2" / f).read_bytes()
+
+
+# -- the continuous scheduler's slot forward on the card (slice 7) ---------
+
+# the launch counter of each AlexNet kernel a forward runs, by mode
+SLOT_COUNTERS = {"fp32": ("launches", "launches", "launches"),
+                 "bf16": ("launches_bf16", "launches_bf16", "launches_bf16"),
+                 "int8": ("launches_s8", "launches", "launches_s8")}
+
+
+def _slot_compile(cuda, mode):
+    from repro_torch.pipeline import (AutoscalePolicy, Placement, Serving)
+    return compile_cnn(get_config("alexnet").smoke(), ExecutionSpec(
+        precision=Precision(**FLEET_MODES[mode]),
+        placement=Placement(replicas=2),
+        serving=Serving(batch=8, clock="modeled", scheduler="continuous",
+                        retries=2, steal_threshold=1,
+                        autoscale=AutoscalePolicy(min_replicas=1,
+                                                  max_replicas=4))),
+        generator=torch.Generator().manual_seed(7), device=cuda)
+
+
+def _burst(cfg, n=45):
+    from repro_torch.launch.serve_cnn import synthetic_requests
+    reqs = synthetic_requests(n, cfg.input_hw, cfg.input_ch, 1e7)
+    for i in range(0, n, 5):
+        reqs[i].cost = 4.0
+    return reqs
+
+
+@pytest.mark.parametrize("mode", sorted(FLEET_MODES))
+def test_slot_forward_preds_equal_the_compiled_forward(cuda, mode):
+    """Version 0's slot forward (one copy of the padded group to the card,
+    the run dtype, argmax of the fp32-widened logits) gives the compiled
+    forward's predictions, padding rows included."""
+    c = _slot_compile(cuda, mode)
+    imgs = np.random.default_rng(8).standard_normal(
+        (8, 67, 67, 3)).astype(np.float32)
+    imgs[5:] = 0.0
+    got = c.engine._slot_fn(0)(imgs)
+    want = c.forward(imgs).float().argmax(-1).cpu().numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("mode", sorted(FLEET_MODES))
+def test_continuous_run_launches_one_forward_an_admission_group(cuda, mode):
+    """Steals, autoscaling and stragglers on the modelled clock with the
+    kernels on the card: the counters grow by exactly admission groups x
+    (5 conv, 2 lrn, 3 matmul), and every ok prediction is the forward's."""
+    from repro_torch.kernels import conv_pipe as cpm
+    from repro_torch.kernels import lrn_pwl as lpm
+    from repro_torch.kernels import matmul_pipe as mpm
+    c = _slot_compile(cuda, mode)
+    tr = c.engine.t_round_model
+    c.engine.autoscale = dataclasses.replace(c.engine.autoscale,
+                                             interval=tr / 2)
+    reqs = _burst(c.cfg)
+    mods = (cpm.conv_pipe, lpm.lrn_pwl, mpm.matmul_pipe)
+    for m, attr in zip(mods, SLOT_COUNTERS[mode]):
+        setattr(m, attr, 0)
+    rep = c.serve(reqs)
+    torch.cuda.synchronize()
+    got = [getattr(m, attr) for m, attr in zip(mods, SLOT_COUNTERS[mode])]
+    groups = c.engine.admission_groups
+    assert groups >= -(-len(reqs) // 8) and got == [5 * groups,
+                                                    2 * groups, 3 * groups]
+    assert rep.n_steals > 0
+    imgs = torch.from_numpy(np.stack([r.image for r in reqs])).to(cuda)
+    want = torch.cat([c.forward(imgs[i:i + 8]).float().argmax(-1)
+                      for i in range(0, len(reqs), 8)]).tolist()
+    done = sorted(rep.completions, key=lambda d: d.rid)
+    assert [d.rid for d in done] == list(range(len(reqs)))
+    assert all(d.pred == want[d.rid] for d in done if d.status == "ok")
+
+
+def test_modelled_trace_is_byte_identical_on_the_card(cuda):
+    """Two executed runs of one compile on the modelled clock write the
+    same trace and metrics bytes: the kernels' wall time never reaches the
+    clock."""
+    from repro_torch.obs import MetricsRegistry, TraceRecorder
+    c = _slot_compile(cuda, "fp32")
+    c.engine.autoscale = dataclasses.replace(
+        c.engine.autoscale, interval=c.engine.t_round_model / 2)
+    docs = []
+    for _ in range(2):
+        trace, metrics = TraceRecorder(), MetricsRegistry()
+        c.serve(_burst(c.cfg), trace=trace, metrics=metrics)
+        docs.append((trace.to_json(), metrics.to_json()))
+    assert docs[0] == docs[1] and '"steal"' in docs[0][0]

@@ -35,6 +35,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.config import SpecError
 from repro_torch.launch.serve_cnn import main, synthetic_requests
 from repro_torch.models.cnn import params_from_jax
+from repro_torch.obs import MetricsRegistry
 from repro_torch.pipeline import (ExecutionSpec, Placement, Precision,
                                   Serving, compile_cnn)
 from repro_torch.quant import qparams_from_jax
@@ -261,7 +262,8 @@ def test_modelled_fleet_equals_jax(models, mode, scenario):
                                  t_restore=eng._versions[1]["t_restore"])
         jeng._pending_swap["t_restore"] = eng._pending_swap["t_restore"]
     reqs, jreqs = _same_stream(n, rate=rate)
-    done, rep = eng.serve(reqs, faults=fs)
+    metrics = MetricsRegistry()
+    done, rep = eng.serve(reqs, faults=fs, metrics=metrics)
     jdone, jrep = jeng.serve(jreqs, faults=jfs)
     assert _completions(done) == _completions(jdone)
     np.testing.assert_allclose([c.t_done for c in done],
@@ -275,8 +277,8 @@ def test_modelled_fleet_equals_jax(models, mode, scenario):
     assert sorted([c.rid for c in done] + [r.rid for r in
                                            eng.router.rejected]) == \
         list(range(n))
-    assert eng.counters["done"] == rep.n_done
-    assert eng.counters["failed"] == rep.n_failed
+    assert metrics.value("serve_done_total") == rep.n_done
+    assert metrics.value("serve_failed_total") == rep.n_failed
     if scenario == "hot_swap":
         # one replica rolls before its first round: the fleet is down
         assert rep.n_swapped == R and {c.version for c in done} == (

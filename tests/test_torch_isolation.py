@@ -1,6 +1,8 @@
 """The port stands alone: no JAX, nothing of the JAX package and no
-``ml_dtypes`` (the card's machine has none) in ``src/repro_torch``,
-``chip_smoke.py`` or ``tile_sweep.py``, and no silent CPU fallback."""
+``ml_dtypes`` (the card's machine has none) in ``src/repro_torch`` (every
+subpackage, ``obs/`` and ``analysis/`` included), ``chip_smoke.py`` or
+``tile_sweep.py``; ``repro_torch.obs`` stands below the serving stack;
+and no silent CPU fallback."""
 import ast
 import os
 import shutil
@@ -49,6 +51,25 @@ def test_importing_the_port_leaves_jax_out():
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
             "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    run = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+
+
+@pytest.mark.parametrize("package,banned", [
+    ("repro_torch.obs", "repro_torch.serve"),
+    ("repro_torch.obs", "repro_torch.pipeline"),
+    ("repro_torch.obs.validate", "repro_torch.")],
+    ids=["obs_without_serve", "obs_without_pipeline", "validate_alone"])
+def test_obs_stands_below_the_serving_stack(package, banned):
+    """The serving loops import ``repro_torch.obs``, never the reverse:
+    ``obs`` imports nothing of ``repro_torch.serve`` (nor the pipeline),
+    and the validator imports nothing of the port but its own package."""
+    code = (f"import sys, {package}\n"
+            f"bad = sorted(m for m in sys.modules if m.startswith("
+            f"{banned!r}) and not m.startswith('repro_torch.obs'))\n"
+            f"assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     run = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)

@@ -1,8 +1,13 @@
 """Serving parity: the port's ``compile_cnn(...).serve`` against the JAX
 package's on the smoke AlexNet, the copied report helpers against the
-JAX ones, and the spec/compile refusals of what the port does not run.
-The modelled clock's parity with the JAX engine is in
-``tests/test_torch_dse.py``."""
+JAX ones, and the spec errors against JAX's. The modelled clock's parity with the JAX engine is in
+``tests/test_torch_dse.py``; what slice 7 lifted (the continuous
+scheduler, steals, autoscaling, traces, metrics, verification) is held
+against the JAX package here by knob, and in depth in
+``tests/test_torch_scheduler.py``, ``test_torch_obs.py`` and
+``test_torch_analysis.py``."""
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -19,8 +24,12 @@ from repro_torch.core.config import SpecError
 from repro_torch.launch.serve_cnn import (default_request_count, main,
                                           synthetic_requests)
 from repro_torch.models.cnn import params_from_jax
-from repro_torch.pipeline import (CompiledCNN, ExecutionSpec, Placement,
-                                  Precision, Serving, compile_cnn)
+from repro.obs import MetricsRegistry as JMetricsRegistry
+from repro.obs import TraceRecorder as JTraceRecorder
+from repro_torch.obs import MetricsRegistry, TraceRecorder
+from repro_torch.pipeline import (AutoscalePolicy, CompiledCNN,
+                                  ExecutionSpec, Placement, Precision,
+                                  Serving, compile_cnn)
 from repro_torch.serve import FaultSchedule, latency_report, nearest_rank
 from repro_torch.serve.router import Completion
 
@@ -107,23 +116,112 @@ def compiled():
     return compile_cnn(get_config("alexnet").smoke(), device="cpu")
 
 
-REFUSED = {
-    "continuous": lambda c: ExecutionSpec(
-        serving=Serving(scheduler="continuous")),
-    "autoscale": lambda c: ExecutionSpec(serving=Serving(autoscale={})),
-    "steal": lambda c: ExecutionSpec(serving=Serving(steal_threshold=2)),
-    "compile_trace": lambda c: compile_cnn(c.cfg, device="cpu",
-                                           trace=object()),
-    "trace": lambda c: c.serve([], trace=object()),
-    "metrics": lambda c: c.serve([], metrics=object()),
-    "verify": lambda c: c.verify(),
+@pytest.fixture(scope="module")
+def pair():
+    """The smoke AlexNet in both packages with JAX's weights, and 19
+    requests in each package's types."""
+    jcfg = jax_get_config("alexnet").smoke()
+    jparams = jax_init_cnn_params(jax.random.key(3), jcfg)
+    cfg = get_config("alexnet").smoke()
+    n = default_request_count(8)
+    return (jcfg, jparams, cfg, params_from_jax(jparams, "cpu"),
+            synthetic_requests(n, cfg.input_hw, cfg.input_ch, 200.0),
+            jax_requests(n, jcfg.input_hw, jcfg.input_ch, 200.0))
+
+
+def _modelled_pair(pair, **serving):
+    """Both packages' compiles on the modelled clock, the JAX engine's
+    round and restore times set to the port's (the cost models differ)."""
+    jcfg, jparams, cfg, params, _, _ = pair
+    c = compile_cnn(cfg, ExecutionSpec(serving=Serving(
+        batch=8, clock="modeled", **serving)), params, device="cpu")
+    jc = jpipe.compile_cnn(jcfg, jpipe.ExecutionSpec(
+        serving=jpipe.Serving(batch=8, clock="modeled", **serving),
+        use_pallas=False), jparams)
+    jc.engine._versions[0].update(t_round=c.engine.t_round_model,
+                                  t_restore=c.engine.t_restore_model)
+    return c, jc
+
+
+def _events(trace):
+    """The trace's events but the process name (the port names itself)."""
+    return [e for e in trace.to_chrome()["traceEvents"]
+            if e["name"] != "process_name"]
+
+
+def _preds(rep):
+    return {d.rid: d.pred for d in rep.completions}
+
+
+def _lifted_continuous(pair, **serving):
+    c, jc = _modelled_pair(pair, scheduler="continuous", **serving)
+    rep, jrep = c.serve(pair[4]), jc.serve(pair[5])
+    return (_preds(rep) == _preds(jrep) and rep.scheduler == "continuous"
+            and [(d.rid, d.t_done, d.replica, d.attempts)
+                 for d in rep.completions] ==
+            [(d.rid, d.t_done, d.replica, d.attempts)
+             for d in jrep.completions])
+
+
+def _lifted_compile_trace(pair):
+    jcfg, jparams, cfg, params, _, _ = pair
+    t, jt = TraceRecorder(), JTraceRecorder()
+    compile_cnn(cfg, ExecutionSpec(), params, device="cpu", trace=t)
+    jpipe.compile_cnn(jcfg, jpipe.ExecutionSpec(use_pallas=False), jparams,
+                      trace=jt)
+    shape = [(e["name"], e["cat"], e["ph"], sorted(e["args"]))
+             for e in _events(t) if e["ph"] != "M"]
+    return shape == [(e["name"], e["cat"], e["ph"], sorted(e["args"]))
+                     for e in _events(jt) if e["ph"] != "M"] == [
+        ("sweep", "compile", "X", ["conv_hits", "conv_sweeps", "gemm_hits",
+                                   "gemm_sweeps", "lookups"])]
+
+
+def _lifted_trace(pair):
+    c, jc = _modelled_pair(pair)
+    t, jt = TraceRecorder(), JTraceRecorder()
+    c.serve(pair[4], trace=t)
+    jc.serve(pair[5], trace=jt)
+    return (_events(t) == _events(jt)
+            and sorted(t.to_chrome()["otherData"]) ==
+            sorted(jt.to_chrome()["otherData"]))
+
+
+def _lifted_metrics(pair):
+    c, jc = _modelled_pair(pair, slo=1e-3)
+    m, jm = MetricsRegistry(), JMetricsRegistry()
+    rep, jrep = c.serve(pair[4], metrics=m), jc.serve(pair[5], metrics=jm)
+    return (m.to_json() == jm.to_json() and _preds(rep) == _preds(jrep)
+            and m.value("serve_done_total") == rep.n_done == 19)
+
+
+def _lifted_verify(pair):
+    jcfg, jparams, cfg, params, _, _ = pair
+    c = compile_cnn(cfg, ExecutionSpec(), params, device="cpu")
+    jc = jpipe.compile_cnn(jcfg, jpipe.ExecutionSpec(use_pallas=False),
+                           jparams)
+    return c.verify(strict=True) == [] == jc.verify(strict=True)
+
+
+# what the parent refused by naming ROADMAP.md Queue 1 slice 7, now run
+# and held against the JAX package: each knob -> a check of what it does
+LIFTED_OBS = {
+    "continuous": lambda p: _lifted_continuous(p),
+    "autoscale": lambda p: _lifted_continuous(
+        p, autoscale=AutoscalePolicy(min_replicas=1, max_replicas=2,
+                                     interval=1e-3)),
+    "steal": lambda p: _lifted_continuous(p, steal_threshold=1,
+                                          retries=1),
+    "compile_trace": _lifted_compile_trace,
+    "trace": _lifted_trace,
+    "metrics": _lifted_metrics,
+    "verify": _lifted_verify,
 }
 
 
-@pytest.mark.parametrize("knob", sorted(REFUSED))
-def test_refused_knobs_name_their_roadmap_item(compiled, knob):
-    with pytest.raises(SpecError, match=r"ROADMAP\.md Queue"):
-        REFUSED[knob](compiled)
+@pytest.mark.parametrize("knob", sorted(LIFTED_OBS))
+def test_lifted_obs_knobs_run_as_in_jax(pair, knob):
+    assert LIFTED_OBS[knob](pair)
 
 
 def _fleet(c, **placement):
@@ -230,3 +328,61 @@ def test_forward_stage_fold_equals_forward(compiled):
     for i in range(compiled.n_stages):
         h = compiled.forward_stage(i, h)
     torch.testing.assert_close(h, compiled.forward(x), rtol=0, atol=0)
+
+
+# -- the deprecated shims (slice 7) ---------------------------------------
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("quant", [False, True])
+def test_cnn_forward_shim_warns_and_equals_jax(pair, quant, fused):
+    """``models.cnn.cnn_forward`` (JAX's free function; ``use_pallas`` is
+    ``use_kernels``, off by default): JAX's oracle logits, fp32 within
+    1e-4 (``tests/test_kernels.py``'s tolerance), int8 bit for bit."""
+    from repro.models.cnn import cnn_forward as jax_cnn_forward
+    from repro.quant import calibrate_cnn as jax_calibrate_cnn
+    from repro_torch.models.cnn import cnn_forward
+    from repro_torch.quant import qparams_from_jax
+    jcfg, jparams, cfg, params, _, _ = pair
+    x = np.random.default_rng(9).standard_normal(
+        (4, cfg.input_hw, cfg.input_hw, cfg.input_ch)).astype(np.float32)
+    if quant:
+        jparams = jax_calibrate_cnn(jparams, jax.numpy.asarray(x), jcfg)
+        params = qparams_from_jax(jparams, "cpu")
+    want = np.asarray(jax_cnn_forward(jparams, jax.numpy.asarray(x), jcfg,
+                                      fused=fused))
+    with pytest.warns(DeprecationWarning, match="compile_cnn"):
+        got = cnn_forward(params, torch.from_numpy(x), cfg,
+                          fused=fused).numpy()
+    if quant:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_serve_shim_warns_and_serves_jaxs_predictions(pair, served):
+    from repro.launch.serve_cnn import serve as jax_serve
+    from repro_torch.launch.serve_cnn import serve
+    jcfg, jparams, cfg, params, reqs, jreqs = pair
+    with pytest.warns(DeprecationWarning, match="compile_cnn"):
+        done = serve(cfg, params, reqs, batch=8, use_kernels=False,
+                     device="cpu")
+    jdone = jax_serve(jcfg, jparams, jreqs, batch=8, use_pallas=False)
+    assert {c.rid: c.pred for c in done} == {c.rid: c.pred for c in jdone}
+    assert {c.rid: c.pred for c in done} == {
+        c.rid: c.pred for c in served[2].completions}
+
+
+def test_spec_from_config_and_resolve_config_warn_and_bridge():
+    from repro_torch.pipeline import resolve_config, spec_from_config
+    jcfg = jax_get_config("alexnet")
+    cfg = get_config("alexnet")
+    with pytest.warns(DeprecationWarning):
+        spec = spec_from_config(cfg, use_kernels=False)
+    jspec = jpipe.spec_from_config(jcfg, use_pallas=False)
+    for sub in ("precision", "placement", "serving"):
+        assert dataclasses.asdict(getattr(spec, sub)) == \
+            dataclasses.asdict(getattr(jspec, sub))
+    assert spec.tiling.autotune == jspec.tiling.autotune
+    assert spec.use_kernels is False
+    with pytest.warns(DeprecationWarning):
+        assert resolve_config(cfg, spec) is cfg
