@@ -161,6 +161,29 @@ Phases (any failure exits non-zero):
    ``smem_bytes`` past the budget is RPA301 or RPA302. Printed only: the
    host time of one admission group's forward and of the scheduler a
    request, and the modelled p50/p95 of continuous against gang.
+16. Slice 8a, the LM serving path (``ROADMAP.md`` Queue 1 slice 8a),
+   plain PyTorch on the card as JAX's LM is plain XLA: seeded random
+   weights, batch 4, 16 greedy tokens through ``launch.serve.generate``.
+   Qwen3-8B at full width and depth (36 layers, d_model 4096, 32/8 heads,
+   vocab 151936) in bf16 and in fp32 (TF32 off) on a 1152-token prompt
+   (the chunked attention with a ragged last KV chunk); zamba2-1.2b
+   (hybrid, 7 shared-attention applications, a remainder SSM chunk) and
+   xlstm-125m at full depth in bf16 and fp32 on 200-token prompts;
+   dbrx-132b (MoE) at full width cut to 2 of its 40 layers, bf16. Each
+   run: the prefill's last logits against ``lm.forward``'s last row and
+   one decode step against ``lm.forward`` on the prompt plus that token,
+   within 1e-3 x max|logit| in fp32 and 2e-2 in bf16, except where bf16
+   rounding alone moves the logits by more than that (Qwen3-8B and
+   zamba2, ``LM_RUNS``): there the bf16 decode must be no farther from
+   its fp32 twin's forward (the same seed) than its own forward is, plus
+   2e-2; dbrx's decode is held to shape and finiteness only, since its
+   capacity drops change with the tokens a group;
+   every generated id below the vocab, every logit finite. Printed: the
+   prefill time, the decode step time (CUDA events, the median of 15)
+   and tokens/s beside the weights' byte bound, the peak memory. Then
+   Qwen3-8B at full width cut to 2 layers, fp32: the card's forward
+   within 1e-3 x max|logit| of the CPU's on the same parameters. No
+   kernel launch counter moves across the phase.
 11. One JSON line ``{"kernels": [...]}`` (each kernel and mode; launches
    from phases 3, 3b, 6, 7 and 9; each CNN entry sums the times of one
    AlexNet and one VGG-16 forward's launches in its mode, with each
@@ -230,6 +253,29 @@ INT_MM_ROWS = 32               # torch._int_mm needs more than 16 rows
 # an LRN row's CUDA graph cycles through distinct input/output pairs of at
 # least this many bytes, so its activation cannot stay in the 50 MB L2
 ROTATION_BYTES = 64 << 20
+# phase 16, the LM serving path (slice 8a): (arch, dtype, prompt length,
+# layers kept or None for full depth, what gates the decode step). Batch
+# 4 and 16 generated tokens throughout; 1152 > 1024 takes the chunked
+# attention with a ragged last KV chunk. The decode gate: "forward", one
+# step against the forward on the prompt plus that token within
+# LM_RTOL; "fp32 twin", no farther from the fp32 forward of the same
+# weights before rounding (the fp32 run of the same arch and seed, which
+# follows) than the bf16 forward is, plus 2e-2: bf16 rounding alone moves
+# Qwen3-8B's and zamba2's random full-depth logits by 2.2 % and 5.3 % of
+# max|logit| (on an H100, 700 W), so their bf16 decode and forward read 2.0 %
+# and 2.6 % apart; None for dbrx-132b (2 of its 40 layers, 14.4 GiB in
+# bf16), whose decode changes the tokens a group and so the capacity
+# drops: shape and finiteness only.
+LM_BATCH, LM_GEN = 4, 16
+LM_RUNS = (("qwen3_8b", "bfloat16", 1152, None, "fp32 twin"),
+           ("qwen3_8b", "float32", 1152, None, "forward"),
+           ("zamba2_1p2b", "bfloat16", 200, None, "fp32 twin"),
+           ("zamba2_1p2b", "float32", 200, None, "forward"),
+           ("xlstm_125m", "bfloat16", 200, None, "forward"),
+           ("xlstm_125m", "float32", 200, None, "forward"),
+           ("dbrx_132b", "bfloat16", 200, 2, None))
+LM_RTOL = {"bfloat16": 2e-2, "float32": 1e-3}   # x max|logit|
+LM_CPU_TOKENS = (2, 64)        # the 2-layer card-vs-CPU forward's batch
 # a launch (ms) with the kernel each redesign replaced, at batch 8 on the
 # inputs of phases 2, 2b, 7 and 8, by kernel, model and layer, measured by
 # this script on the card named (PERF.md section 5): conv_pipe_bf16's FFMA
@@ -632,6 +678,185 @@ def slice7(*, cfg, compiled, qcompiled, vgg, vcfg, vparams, measured,
           f"{'/'.join(vgg)}: no finding; verify_artifact on phase 14's "
           f"{'/'.join(art_findings)}: no finding; smem_bytes past the "
           f"budget: {codes}")
+    return out
+
+
+def lm_serving(*, card: str, bw: float, launch_counts, seed: int = 0):
+    """Phase 16: the LM serving path at full width (``LM_RUNS``), through
+    ``launch.serve.generate``, each run gated against ``lm.forward`` on
+    the same card; then Qwen3-8B cut to 2 layers in fp32 against the same
+    parameters on the CPU. Launches no kernel of the port. Returns the
+    rows for ``chiprun_out/chip_smoke.json``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import lm
+    from repro_torch.train.steps import serve_decode, serve_prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    n0 = launch_counts()
+    out = {"runs": []}
+    twin = {}              # a bf16 run's decode, waiting for its fp32 twin
+
+    def worst(got, want):
+        """max|got - want| / max|want|, both widened to fp32."""
+        g, w = got.float(), want.float()
+        return ((g - w).abs().max() / w.abs().max()).item()
+
+    def timed(fn):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        r = fn()
+        e.record()
+        torch.cuda.synchronize()
+        return r, s.elapsed_time(e)
+
+    for arch, dtype, S, depth, decode_gate in LM_RUNS:
+        cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        rtol = LM_RTOL[dtype]
+        g = torch.Generator(dev).manual_seed(seed)
+        base = torch.cuda.memory_allocated()     # earlier phases' tensors
+        t0 = time.perf_counter()
+        params = lm.init_params(cfg, g, dev)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        n_params = lm.count_params(cfg)
+        w_bytes = sum(a.numel() * a.element_size()
+                      for _, a in lm.tree_leaves(params))
+        prompts = torch.randint(0, cfg.vocab, (LM_BATCH, S), generator=g,
+                                device=dev)
+        s_max = S + LM_GEN + 8
+        generate(params, prompts, cfg, 2, s_max)           # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        toks = generate(params, prompts, cfg, LM_GEN, s_max)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        # the pieces, timed with CUDA events: one prefill, then the decode
+        # steps of the same greedy run (each waits on the host's launches)
+        (ids, lp, cache), prefill_ms = timed(
+            lambda: serve_prefill(params, {"tokens": prompts}, cfg, s_max))
+        steps_ms, cur = [], ids
+        ld0 = None
+        for i in range(LM_GEN - 1):
+            (cur, ld, nxt_cache), ms = timed(
+                lambda: serve_decode(params, cur, cache, cfg))
+            if i == 0:
+                ld0 = ld
+            cache = nxt_cache
+            steps_ms.append(ms)
+        del cache, nxt_cache
+        step_ms = statistics.median(steps_ms)
+        check(torch.equal(toks[:, S:S + 1], ids),
+              f"{arch} {dtype}: generate's first token is not the prefill's")
+        check(bool((toks[:, S:] < cfg.vocab).all()),
+              f"{arch} {dtype}: a generated id is in the padded vocab")
+        # gates: the prefill's last logits against forward's last row, one
+        # decode step against forward on the prompt plus that token
+        fwd = lm.forward(params, prompts, cfg)
+        err_pf = worst(lp[:, 0], fwd[:, -1])
+        finite = bool(torch.isfinite(fwd).all() and torch.isfinite(lp).all()
+                      and torch.isfinite(ld0).all())
+        del fwd
+        fwd2 = lm.forward(params, torch.cat([prompts, ids], 1), cfg)
+        err_dec = worst(ld0[:, 0], fwd2[:, -1])
+        fwd_last = fwd2[:, -1].float()
+        finite = finite and bool(torch.isfinite(fwd2).all())
+        del fwd2
+        check(finite, f"{arch} {dtype}: a logit is not finite")
+        check(err_pf <= rtol, f"{arch} {dtype}: prefill vs forward "
+              f"{err_pf:.2e} x max|logit| > {rtol:.0e}")
+        check(ld0.shape == (LM_BATCH, 1, lm.vocab_padded(cfg)),
+              f"{arch} {dtype}: decode logits {tuple(ld0.shape)}")
+        if decode_gate == "forward":
+            check(err_dec <= rtol, f"{arch} {dtype}: decode vs forward "
+                  f"{err_dec:.2e} x max|logit| > {rtol:.0e}")
+        twin_err = None
+        if dtype == "bfloat16" and decode_gate:     # printed by its twin
+            twin[arch] = (prompts.cpu(), ids, ld0[:, 0].float().cpu(),
+                          fwd_last.cpu(), decode_gate == "fp32 twin")
+        elif arch in twin:
+            t_prompts, t_ids, t_dec, t_fwd, gated = twin.pop(arch)
+            check(torch.equal(t_prompts, prompts.cpu()),
+                  f"{arch}: the fp32 twin's prompts differ")
+            ref = lm.forward(params, torch.cat([prompts, t_ids], 1),
+                             cfg)[:, -1].cpu()
+            twin_err = (worst(t_fwd, ref), worst(t_dec, ref))
+            allow = twin_err[0] + LM_RTOL["bfloat16"]
+            print(f"[lm] {arch} bfloat16 against its fp32 twin: the forward "
+                  f"{twin_err[0]:.2e}, the decode {twin_err[1]:.2e} x "
+                  f"max|logit|" + (f" <= {allow:.2e}" if gated else
+                                   " (printed)"))
+            check(not gated or twin_err[1] <= allow,
+                  f"{arch} bfloat16: decode {twin_err[1]:.2e} from the "
+                  f"fp32 forward, past the bf16 forward's "
+                  f"{twin_err[0]:.2e} + 2e-2")
+        bound_ms = w_bytes / bw * 1e3
+        row = {"arch": arch, "dtype": dtype, "n_layers": cfg.n_layers,
+               "layers_of": get_config(arch).n_layers, "params": n_params,
+               "weight_bytes": w_bytes, "batch": LM_BATCH, "prompt": S,
+               "gen": LM_GEN, "init_s": t_init, "generate_s": t_gen,
+               "prefill_ms": prefill_ms,
+               "prefill_tok_s": LM_BATCH * S / prefill_ms * 1e3,
+               "decode_step_ms": step_ms, "decode_steps_ms": steps_ms,
+               "decode_tok_s": LM_BATCH / step_ms * 1e3,
+               "decode_bound_ms": bound_ms,
+               "peak_gib": (peak - base) / 2 ** 30,
+               "err_prefill": err_pf, "err_decode": err_dec,
+               "decode_gate": decode_gate, "rtol": rtol,
+               "bf16_vs_fp32_twin": twin_err}
+        out["runs"].append(row)
+        gate = ("not gated" if not decode_gate else
+                f"<= {rtol:.0e}" if decode_gate == "forward" else
+                "held against the fp32 twin below")
+        cut = ("" if depth is None else
+               f", depth cut to {cfg.n_layers} of {row['layers_of']} layers")
+        print(f"[lm] {arch} {dtype}: {n_params / 1e9:.2f} B params "
+              f"({w_bytes / 2 ** 30:.1f} GiB{cut}), B {LM_BATCH}, prompt {S}, "
+              f"{LM_GEN} tokens: generate {t_gen:.2f} s; prefill "
+              f"{prefill_ms:.1f} ms ({row['prefill_tok_s']:.0f} tok/s); "
+              f"decode step {step_ms:.2f} ms ({row['decode_tok_s']:.0f} "
+              f"tok/s) against the weights' byte bound {bound_ms:.2f} ms; "
+              f"peak {row['peak_gib']:.2f} GiB; prefill vs forward "
+              f"{err_pf:.1e}, decode vs forward {err_dec:.1e} x max|logit| "
+              f"({gate}) ({card})")
+        del params, toks, lp, ld0, ids, cur, fwd_last
+        torch.cuda.empty_cache()
+
+    # the card against the CPU: Qwen3-8B at full width, 2 layers, fp32
+    cfg = dataclasses.replace(get_config("qwen3_8b"), dtype="float32",
+                              n_layers=2)
+    g = torch.Generator(dev).manual_seed(seed + 1)
+    params = lm.init_params(cfg, g, dev)
+    toks = torch.randint(0, cfg.vocab, LM_CPU_TOKENS, generator=g,
+                         device=dev)
+    on_card = lm.forward(params, toks, cfg).cpu()
+    params = lm.tree_map(lambda a: a.cpu(), params)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    on_cpu = lm.forward(params, toks.cpu(), cfg)
+    t_cpu = time.perf_counter() - t0
+    err = worst(on_card, on_cpu)
+    print(f"[lm] qwen3_8b fp32, 2 of 36 layers at full width, "
+          f"{LM_CPU_TOKENS[0]} x {LM_CPU_TOKENS[1]} tokens: card vs CPU "
+          f"{err:.1e} x max|logit| <= {LM_RTOL['float32']:.0e} (the CPU "
+          f"forward {t_cpu:.1f} s)")
+    check(err <= LM_RTOL["float32"],
+          f"qwen3_8b 2 layers: card vs CPU {err:.2e} x max|logit|")
+    out["card_vs_cpu"] = {"n_layers": 2, "tokens": list(LM_CPU_TOKENS),
+                          "err": err, "cpu_s": t_cpu}
+    del params, on_card, on_cpu
+    check(not twin, f"bf16 runs without an fp32 twin: {sorted(twin)}")
+    n1 = launch_counts()
+    check(n1 == n0, f"the LM path launched a kernel: "
+          f"{ {k: n1[k] - n0[k] for k in n0 if n1[k] != n0[k]} }")
+    print("[lm] no kernel launch counter moved across the LM runs")
     return out
 
 
@@ -2122,6 +2347,10 @@ def main() -> int:
                     launch_counts=launch_counts, mopts=mopts)
     phases.done("15")
 
+    # -- 16. slice 8a: the LM serving path at full width ---------------------
+    lm_out = lm_serving(card=card, bw=bw, launch_counts=launch_counts)
+    phases.done("16")
+
     # -- 11. the kernels line -------------------------------------------------
     # CNN entries sum one AlexNet and one VGG-16 forward's launches in their
     # mode (fp32 phases 2, 3 and 7; int8 2b, 3b and 7; bf16 8 and 9), with
@@ -2210,7 +2439,7 @@ def main() -> int:
                    "redesign_sums": {f"{a} {k}": v
                                      for (a, k), v in sums.items()},
                    "plans": plans_out, "fleet": fleet_out,
-                   "artifacts": art_out, "slice7": s7_out,
+                   "artifacts": art_out, "slice7": s7_out, "lm": lm_out,
                    "phase_seconds": phases.seconds},
                   f, indent=1, sort_keys=True)
     print(json.dumps({"kernels": line}))

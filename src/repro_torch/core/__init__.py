@@ -1,7 +1,9 @@
 """Configuration records of the port."""
-from repro_torch.core.config import (FAMILIES, CNNConfig, ConvLayer,
-                                     ModelConfig, SpecError, flops_per_image,
-                                     fuse_groups)
+from repro_torch.core.config import (FAMILIES, SHAPES, CNNConfig, ConvLayer,
+                                     ModelConfig, ShapeSpec, SpecError,
+                                     applicable_shapes, flops_per_image,
+                                     fuse_groups, get_shape)
 
-__all__ = ["CNNConfig", "ConvLayer", "FAMILIES", "ModelConfig", "SpecError",
-           "flops_per_image", "fuse_groups"]
+__all__ = ["CNNConfig", "ConvLayer", "FAMILIES", "ModelConfig", "SHAPES",
+           "ShapeSpec", "SpecError", "applicable_shapes", "flops_per_image",
+           "fuse_groups", "get_shape"]

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.config import ModelConfig
-from repro_torch.models.layers import apply_rope, rms_norm
+from repro_torch.models.layers import apply_rope, dense_init, rms_norm
 from repro_torch.pipeline.compile import resolve_device
 
 NEG_INF = -1e30
@@ -37,31 +37,28 @@ def init_attn_params(cfg: ModelConfig, dtype: torch.dtype,
     :func:`params_from_jax`."""
     device = generator.device if device is None else device
     d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-
-    def dense(shape):
-        t = torch.randn(shape, generator=generator, device=generator.device)
-        return (t / math.sqrt(shape[0])).to(device=device, dtype=dtype)
-    p = {"wq": dense((d, hq * dh)), "wk": dense((d, hkv * dh)),
-         "wv": dense((d, hkv * dh)), "wo": dense((hq * dh, d))}
+    p = {name: dense_init(shape, dtype, generator, device)
+         for name, shape in (("wq", (d, hq * dh)), ("wk", (d, hkv * dh)),
+                             ("wv", (d, hkv * dh)), ("wo", (hq * dh, d)))}
     if cfg.qk_norm:
         p["q_norm"] = torch.ones(dh, dtype=dtype, device=device)
         p["k_norm"] = torch.ones(dh, dtype=dtype, device=device)
     return p
 
 
-def params_from_jax(p: Dict[str, np.ndarray], device) -> Params:
-    """The JAX layer's parameter dict (numpy, or anything ``np.asarray``
-    takes) as the port's, on ``device``, in the same dtype (bf16 goes
-    through fp32, which holds it exactly). No transposes."""
-    out = {}
-    for name, a in p.items():
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":
-            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
-        else:
-            t = torch.from_numpy(np.array(a))
-        out[name] = t.to(device)
-    return out
+def params_from_jax(p, device):
+    """The JAX package's parameters (a dict of numpy arrays, or anything
+    ``np.asarray`` takes, nested to any depth: a layer's dict or a whole
+    model's tree) as the port's, on ``device``, in the same dtypes (bf16
+    goes through fp32, which holds it exactly). No transposes."""
+    if isinstance(p, dict):
+        return {name: params_from_jax(a, device) for name, a in p.items()}
+    a = np.asarray(p)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device)
 
 
 def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -157,11 +154,15 @@ class KVCache(NamedTuple):
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, s_max: int,
-                  dtype: torch.dtype, device=None) -> KVCache:
-    """Zeroed caches of one layer on ``device``: the CUDA device by
-    default, which raises when there is none (pass ``device="cpu"``)."""
+                  dtype: torch.dtype, device=None,
+                  n_layers: Optional[int] = None) -> KVCache:
+    """Zeroed caches on ``device``: the CUDA device by default, which
+    raises when there is none (pass ``device="cpu"``). With ``n_layers``
+    they are stacked, ``(n_layers, batch, s_max, Hkv, dh)``, as the JAX
+    package's are."""
     device = resolve_device(device)
-    shape = (batch, s_max, cfg.n_kv_heads, cfg.d_head)
+    shape = ((n_layers,) if n_layers else ()) + (
+        batch, s_max, cfg.n_kv_heads, cfg.d_head)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 

@@ -1,9 +1,50 @@
 """Shared building blocks of the LM side, copies of the JAX package's
 ``models/layers.py``: statistics and rotary angles in fp32 whatever the
-activation dtype."""
+activation dtype. The JAX ``scan_or_unroll`` has no copy: the port's
+structural loops are Python loops."""
 from __future__ import annotations
 
+import math
+from typing import Sequence
+
 import torch
+import torch.nn.functional as F
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[name]
+
+
+# ---------------------------------------------------------------------------
+# Initializers (fan-in scaled normal), drawn from an explicit generator
+# ---------------------------------------------------------------------------
+
+def dense_init(shape: Sequence[int], dtype: torch.dtype,
+               generator: torch.Generator, device=None,
+               scale: float = 1.0) -> torch.Tensor:
+    """Normal / sqrt(fan_in) times ``scale``, drawn in fp32 on the
+    generator's device, then cast and moved to ``device``. ``fan_in`` is
+    ``shape[-2]`` (the JAX rule: a stacked ``(E, d, f)`` expert weight is
+    scaled by ``d``). On the ``meta`` device nothing is drawn."""
+    shape = tuple(shape)
+    device = generator.device if device is None else torch.device(device)
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    t = torch.randn(shape, generator=generator, device=generator.device)
+    return (t * (scale / math.sqrt(fan_in))).to(device=device, dtype=dtype)
+
+
+def embed_init(shape: Sequence[int], dtype: torch.dtype,
+               generator: torch.Generator, device=None) -> torch.Tensor:
+    """Normal times 0.02, drawn in fp32, then cast (nothing on ``meta``)."""
+    shape = tuple(shape)
+    device = generator.device if device is None else torch.device(device)
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    t = torch.randn(shape, generator=generator, device=generator.device)
+    return (t * 0.02).to(device=device, dtype=dtype)
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
@@ -14,19 +55,27 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     return (out * gamma.float()).to(x.dtype)
 
 
-def rope_freqs(d_head: int, theta: float) -> torch.Tensor:
+def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
+    """Made on ``device``: a copy from the host would wait for the stream
+    on every call."""
     half = d_head // 2
-    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32)
-                            / half))
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (..., seq, heads, d_head); positions: (..., seq) integers."""
-    freqs = rope_freqs(x.shape[-1], theta).to(x.device)         # (half,)
+    freqs = rope_freqs(x.shape[-1], theta, x.device)            # (half,)
     angles = positions[..., :, None].float() * freqs            # (..., S, half)
     cos = torch.cos(angles)[..., :, None, :]                    # (..., S, 1, half)
     sin = torch.sin(angles)[..., :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def swiglu(gate_up: torch.Tensor) -> torch.Tensor:
+    """Fused gate+up projection output -> SiLU(gate) * up."""
+    gate, up = gate_up.chunk(2, dim=-1)
+    return F.silu(gate) * up

@@ -1,0 +1,430 @@
+"""Unified LM: one functional model covering all ten assigned architectures.
+
+A copy of the JAX package's ``models/lm.py`` (its serving half) in plain
+PyTorch, as the JAX model is plain XLA: no kernel of the port runs here.
+
+Families:
+  dense / vlm / audio  -> pre-norm GQA transformer (qk_norm optional);
+                          vlm/audio prepend stubbed frontend embeddings.
+  moe                  -> transformer with capacity-dispatch MoE FFN
+                          (+ Arctic's parallel dense residual).
+  ssm (xLSTM)          -> alternating mLSTM / sLSTM pairs.
+  hybrid (Zamba2)      -> Mamba2 stack with ONE SHARED attention+MLP block
+                          applied every ``attn_every`` layers.
+
+Parameters are the JAX tree: nested dicts whose ``blocks`` leaves carry a
+leading layer axis (JAX's ``vmap`` of the block init), so
+:func:`params_from_jax` carries JAX's parameters across as they are. The
+layer loops are Python loops over that axis, and JAX's ``lax.cond`` on a
+static flag is a Python ``if`` on the layer index. Vocab is padded to a
+multiple of 256; the pad columns are masked out of the decode argmax
+(``train/steps.py``). The JAX sharding annotations are no-ops on one
+device and are dropped. Left for later slices: ``maybe_remat`` and
+``loss_fn`` (training), ``cache_logical_axes``, ``batch_logical_axes``
+and ``input_specs`` (sharding tooling).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core.config import ModelConfig
+from repro_torch.models import ssm as S
+from repro_torch.models.attention import (KVCache, _project_qkv, attn_decode,
+                                          attn_forward, init_attn_params,
+                                          init_kv_cache, params_from_jax)
+from repro_torch.models.layers import (dense_init, dtype_of, embed_init,
+                                       rms_norm)
+from repro_torch.models.mlp import (init_mlp_params, init_moe_params,
+                                    mlp_forward, moe_forward)
+from repro_torch.pipeline.compile import resolve_device
+
+__all__ = ["VOCAB_ALIGN", "DecodeCache", "count_params", "decode_step",
+           "forward", "init_decode_cache", "init_params",
+           "n_scan_steps", "n_shared_attn_apps", "params_from_jax",
+           "prefill", "tree_leaves", "tree_map", "vocab_padded"]
+
+VOCAB_ALIGN = 256
+TRANSFORMER_FAMILIES = ("dense", "vlm", "audio", "moe")
+
+Tree = Dict[str, Any]
+
+
+def vocab_padded(cfg: ModelConfig) -> int:
+    return -(-cfg.vocab // VOCAB_ALIGN) * VOCAB_ALIGN
+
+
+def tree_map(fn: Callable, tree: Tree) -> Tree:
+    """``fn`` on every tensor of a parameter tree (nested dicts)."""
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def tree_leaves(tree: Tree, path=()):
+    """(path of keys, tensor) for every leaf of a parameter tree."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from tree_leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def _layer(blocks: Tree, i: int) -> Tree:
+    """Layer ``i``'s parameters: every stacked leaf at index ``i``."""
+    return tree_map(lambda a: a[i], blocks)
+
+
+def _stack_states(states, kind):
+    """Per-layer recurrent states stacked field by field on a new axis 0."""
+    return kind(*map(torch.stack, zip(*states)))
+
+
+# ===========================================================================
+# Parameter initialization
+# ===========================================================================
+
+def _init_transformer_block(cfg: ModelConfig, dtype, g, device) -> Tree:
+    ones = lambda: torch.ones(cfg.d_model, dtype=dtype, device=device)
+    p = {"ln1": ones(), "attn": init_attn_params(cfg, dtype, g, device),
+         "ln2": ones()}
+    if cfg.is_moe:
+        p["moe"] = init_moe_params(cfg, dtype, g, device)
+    else:
+        p["mlp"] = init_mlp_params(cfg, dtype, g, device)
+    return p
+
+
+def _init_hybrid_block(cfg: ModelConfig, dtype, g, device) -> Tree:
+    return {"ln": torch.ones(cfg.d_model, dtype=dtype, device=device),
+            "mamba": S.init_mamba_params(cfg, dtype, g, device)}
+
+
+def _init_xlstm_pair(cfg: ModelConfig, dtype, g, device) -> Tree:
+    ones = lambda: torch.ones(cfg.d_model, dtype=dtype, device=device)
+    return {"ln_m": ones(), "mlstm": S.init_mlstm_params(cfg, dtype, g,
+                                                         device),
+            "ln_s": ones(), "slstm": S.init_slstm_params(cfg, dtype, g,
+                                                         device)}
+
+
+def n_scan_steps(cfg: ModelConfig) -> int:
+    if cfg.family == "ssm":
+        assert cfg.n_layers % 2 == 0, "xLSTM alternates in pairs"
+        return cfg.n_layers // 2
+    return cfg.n_layers
+
+
+def n_shared_attn_apps(cfg: ModelConfig) -> int:
+    if cfg.attn_every:
+        return len(range(0, cfg.n_layers, cfg.attn_every))
+    return 0
+
+
+def _stacked(n: int, make: Callable[[], Tree]) -> Tree:
+    """``n`` blocks' parameters stacked on a leading axis. Each block is
+    drawn (in fp32, then cast) on its own and copied into its slot, so the
+    fp32 draw of a whole stack is never live at once."""
+    first = make()
+    out = tree_map(lambda a: a.new_empty((n,) + a.shape), first)
+    for i in range(n):
+        block = first if i == 0 else make()
+        for path, leaf in tree_leaves(block):
+            dst = out
+            for k in path:
+                dst = dst[k]
+            dst[i].copy_(leaf)
+        del block
+    return out
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> Tree:
+    """Random parameters from ``generator``, on ``device`` (the CUDA
+    device by default, which raises when there is none), with the JAX
+    package's tree, shapes, dtypes and scales. torch's generator cannot
+    reproduce ``jax.random``: to compare with JAX, carry its parameters
+    across with :func:`params_from_jax`. On ``device="meta"`` nothing is
+    allocated (:func:`count_params`)."""
+    device = resolve_device(device)
+    dtype = dtype_of(cfg.dtype)
+    Vp = vocab_padded(cfg)
+    g = generator
+    params: Tree = {
+        "embed": embed_init((Vp, cfg.d_model), dtype, g, device),
+        "final_norm": torch.ones(cfg.d_model, dtype=dtype, device=device),
+        "lm_head": dense_init((cfg.d_model, Vp), dtype, g, device),
+    }
+    if cfg.frontend:
+        params["frontend_proj"] = dense_init((cfg.d_model, cfg.d_model),
+                                             dtype, g, device)
+    block_init = {
+        "dense": _init_transformer_block, "vlm": _init_transformer_block,
+        "audio": _init_transformer_block, "moe": _init_transformer_block,
+        "hybrid": _init_hybrid_block, "ssm": _init_xlstm_pair,
+    }[cfg.family]
+    params["blocks"] = _stacked(n_scan_steps(cfg),
+                                lambda: block_init(cfg, dtype, g, device))
+    if cfg.attn_every:  # Zamba2: the single shared attention+MLP block
+        ones = lambda: torch.ones(cfg.d_model, dtype=dtype, device=device)
+        params["shared"] = {
+            "ln1": ones(), "attn": init_attn_params(cfg, dtype, g, device),
+            "ln2": ones(), "mlp": init_mlp_params(cfg, dtype, g, device)}
+    return params
+
+
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Exact parameter count from the shapes on the ``meta`` device (no
+    memory allocated)."""
+    params = init_params(cfg, torch.Generator(), device="meta")
+    total = 0
+    for path, leaf in tree_leaves(params):
+        n = leaf.numel()
+        if active_only and any(k in ("moe_wi", "moe_wdown") for k in path):
+            n = n * cfg.top_k // cfg.n_experts
+        total += n
+    return total
+
+
+# ===========================================================================
+# Forward (prefill)
+# ===========================================================================
+
+def _embed_tokens(params: Tree, tokens: torch.Tensor,
+                  frontend_embed: Optional[torch.Tensor],
+                  cfg: ModelConfig) -> torch.Tensor:
+    x = params["embed"][tokens]
+    if cfg.frontend:
+        fe = frontend_embed.to(x.dtype) @ params["frontend_proj"]
+        x = torch.cat([fe, x], dim=1)
+    return x
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, device=device).expand(B, S)
+
+
+def _ffn(bp: Tree, inner: torch.Tensor, cfg: ModelConfig):
+    if cfg.is_moe:
+        return moe_forward(bp["moe"], inner, cfg)
+    return mlp_forward(bp["mlp"], inner), None
+
+
+def _transformer_block_fwd(bp: Tree, x, cfg: ModelConfig, positions):
+    x = x + attn_forward(bp["attn"], rms_norm(x, bp["ln1"], cfg.norm_eps),
+                         cfg, positions)
+    f, aux = _ffn(bp, rms_norm(x, bp["ln2"], cfg.norm_eps), cfg)
+    return x + f, aux
+
+
+def _shared_block_fwd(sp: Tree, x, cfg: ModelConfig, positions):
+    x = x + attn_forward(sp["attn"], rms_norm(x, sp["ln1"], cfg.norm_eps),
+                         cfg, positions)
+    return x + mlp_forward(sp["mlp"], rms_norm(x, sp["ln2"], cfg.norm_eps))
+
+
+def _xlstm_pair_fwd(bp: Tree, x, cfg: ModelConfig, mst=None, sst=None):
+    h, mst = S.mlstm_forward(bp["mlstm"],
+                             rms_norm(x, bp["ln_m"], cfg.norm_eps), cfg, mst)
+    x = x + h
+    h, sst = S.slstm_forward(bp["slstm"],
+                             rms_norm(x, bp["ln_s"], cfg.norm_eps), cfg, sst)
+    return x + h, mst, sst
+
+
+def forward(params: Tree, tokens: torch.Tensor, cfg: ModelConfig,
+            frontend_embed: Optional[torch.Tensor] = None,
+            return_aux: bool = False):
+    """Full-sequence forward -> logits (B, S_total, V_padded)[, aux]."""
+    x = _embed_tokens(params, tokens, frontend_embed, cfg)
+    B, Stot, _ = x.shape
+    positions = _positions(B, Stot, x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    blocks = params["blocks"]
+
+    if cfg.family in TRANSFORMER_FAMILIES:
+        auxs = []
+        for i in range(cfg.n_layers):
+            x, aux = _transformer_block_fwd(_layer(blocks, i), x, cfg,
+                                            positions)
+            auxs.append(aux_total if aux is None else aux)
+        aux_total = torch.stack(auxs).sum()
+
+    elif cfg.family == "hybrid":
+        for i in range(cfg.n_layers):
+            if i % cfg.attn_every == 0:
+                x = _shared_block_fwd(params["shared"], x, cfg, positions)
+            bp = _layer(blocks, i)
+            h, _ = S.mamba_forward(bp["mamba"],
+                                   rms_norm(x, bp["ln"], cfg.norm_eps), cfg)
+            x = x + h
+
+    elif cfg.family == "ssm":
+        for i in range(n_scan_steps(cfg)):
+            x, _, _ = _xlstm_pair_fwd(_layer(blocks, i), x, cfg)
+
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = x @ params["lm_head"]
+    if return_aux:
+        return logits, aux_total
+    return logits
+
+
+# ===========================================================================
+# Serving: prefill + decode with caches
+# ===========================================================================
+
+class DecodeCache(NamedTuple):
+    """Unified cache across families (unused fields are size-0 tensors)."""
+    kv: Any                 # KVCache, stacked (L, ...)  [transformer fams]
+    mamba: Any              # MambaState, stacked (L, ...) [hybrid]
+    mlstm: Any              # MLSTMState stacked (L/2,...) [ssm]
+    slstm: Any              # SLSTMState stacked (L/2,...) [ssm]
+    shared_kv: Any          # KVCache (A, ...) for the shared block [hybrid]
+    pos: torch.Tensor       # 0-d int32 on the device: tokens so far
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, s_max: int,
+                      device=None) -> DecodeCache:
+    """Zeroed caches on ``device`` (the CUDA device by default, which
+    raises when there is none)."""
+    device = resolve_device(device)
+    dtype = dtype_of(cfg.dtype)
+    L = cfg.n_layers
+    empty = torch.zeros(0, dtype=dtype, device=device)
+    kv = mamba = mlstm = slstm = shared = empty
+    if cfg.family in TRANSFORMER_FAMILIES:
+        kv = init_kv_cache(cfg, batch, s_max, dtype, device, n_layers=L)
+    elif cfg.family == "hybrid":
+        mamba = S.init_mamba_state(cfg, batch, dtype, device, n_layers=L)
+        shared = init_kv_cache(cfg, batch, s_max, dtype, device,
+                               n_layers=n_shared_attn_apps(cfg))
+    elif cfg.family == "ssm":
+        mlstm = S.init_mlstm_state(cfg, batch, device, n_layers=L // 2)
+        slstm = S.init_slstm_state(cfg, batch, device, n_layers=L // 2)
+    return DecodeCache(kv, mamba, mlstm, slstm, shared,
+                       torch.zeros((), dtype=torch.int32, device=device))
+
+
+def decode_step(params: Tree, tokens: torch.Tensor, cache: DecodeCache,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, DecodeCache]:
+    """One decode step: tokens (B, 1) -> (logits (B, 1, Vp), new cache).
+    Functional, as in JAX: the cache passed in is left as it was."""
+    x = params["embed"][tokens]
+    pos = cache.pos
+    blocks = params["blocks"]
+
+    if cfg.family in TRANSFORMER_FAMILIES:
+        ks, vs = torch.empty_like(cache.kv.k), torch.empty_like(cache.kv.v)
+        for i in range(cfg.n_layers):
+            bp = _layer(blocks, i)
+            h, new_kv = attn_decode(
+                bp["attn"], rms_norm(x, bp["ln1"], cfg.norm_eps), cfg,
+                KVCache(cache.kv.k[i], cache.kv.v[i]), pos)
+            ks[i], vs[i] = new_kv
+            x = x + h
+            f, _ = _ffn(bp, rms_norm(x, bp["ln2"], cfg.norm_eps), cfg)
+            x = x + f
+        cache = cache._replace(kv=KVCache(ks, vs))
+
+    elif cfg.family == "hybrid":
+        sp = params["shared"]
+        sh_k, sh_v = cache.shared_kv.k.clone(), cache.shared_kv.v.clone()
+        states = []
+        for i in range(cfg.n_layers):
+            if i % cfg.attn_every == 0:
+                a = i // cfg.attn_every          # this application's cache
+                h, new_kv = attn_decode(
+                    sp["attn"], rms_norm(x, sp["ln1"], cfg.norm_eps), cfg,
+                    KVCache(sh_k[a], sh_v[a]), pos)
+                x = x + h
+                x = x + mlp_forward(sp["mlp"],
+                                    rms_norm(x, sp["ln2"], cfg.norm_eps))
+                sh_k[a], sh_v[a] = new_kv
+            bp = _layer(blocks, i)
+            h, st = S.mamba_decode(
+                bp["mamba"], rms_norm(x, bp["ln"], cfg.norm_eps), cfg,
+                S.MambaState(cache.mamba.ssm[i], cache.mamba.conv[i]))
+            x = x + h
+            states.append(st)
+        cache = cache._replace(mamba=_stack_states(states, S.MambaState),
+                               shared_kv=KVCache(sh_k, sh_v))
+
+    elif cfg.family == "ssm":
+        msts, ssts = [], []
+        for i in range(n_scan_steps(cfg)):
+            x, mst, sst = _xlstm_pair_fwd(
+                _layer(blocks, i), x, cfg,
+                S.MLSTMState(*(a[i] for a in cache.mlstm)),
+                S.SLSTMState(*(a[i] for a in cache.slstm)))
+            msts.append(mst)
+            ssts.append(sst)
+        cache = cache._replace(mlstm=_stack_states(msts, S.MLSTMState),
+                               slstm=_stack_states(ssts, S.SLSTMState))
+
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = x @ params["lm_head"]
+    return logits, cache._replace(pos=pos + 1)
+
+
+def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig,
+            s_max: int, frontend_embed: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, DecodeCache]:
+    """Process a full prompt, build the decode cache, return last logits.
+
+    For transformer families the KV cache is populated (the K/V
+    projections run a second time for it, as in JAX); recurrent families
+    carry their final states."""
+    B = tokens.shape[0]
+    x = _embed_tokens(params, tokens, frontend_embed, cfg)
+    cache = init_decode_cache(cfg, B, s_max, x.device)
+    Stot = x.shape[1]
+    positions = _positions(B, Stot, x.device)
+    blocks = params["blocks"]
+
+    if cfg.family in TRANSFORMER_FAMILIES:
+        for i in range(cfg.n_layers):
+            bp = _layer(blocks, i)
+            normed = rms_norm(x, bp["ln1"], cfg.norm_eps)
+            h = attn_forward(bp["attn"], normed, cfg, positions)
+            _, k, v = _project_qkv(bp["attn"], normed, cfg, positions)
+            cache.kv.k[i, :, :Stot] = k
+            cache.kv.v[i, :, :Stot] = v
+            x = x + h
+            f, _ = _ffn(bp, rms_norm(x, bp["ln2"], cfg.norm_eps), cfg)
+            x = x + f
+
+    elif cfg.family == "hybrid":
+        sp = params["shared"]
+        states = []
+        for i in range(cfg.n_layers):
+            if i % cfg.attn_every == 0:
+                a = i // cfg.attn_every
+                normed = rms_norm(x, sp["ln1"], cfg.norm_eps)
+                h = attn_forward(sp["attn"], normed, cfg, positions)
+                _, k, v = _project_qkv(sp["attn"], normed, cfg, positions)
+                cache.shared_kv.k[a, :, :Stot] = k    # zero-padded to s_max
+                cache.shared_kv.v[a, :, :Stot] = v
+                x = x + h
+                x = x + mlp_forward(sp["mlp"],
+                                    rms_norm(x, sp["ln2"], cfg.norm_eps))
+            bp = _layer(blocks, i)
+            h, st = S.mamba_forward(
+                bp["mamba"], rms_norm(x, bp["ln"], cfg.norm_eps), cfg)
+            x = x + h
+            states.append(st)
+        cache = cache._replace(mamba=_stack_states(states, S.MambaState))
+
+    elif cfg.family == "ssm":
+        msts, ssts = [], []
+        for i in range(n_scan_steps(cfg)):
+            x, mst, sst = _xlstm_pair_fwd(_layer(blocks, i), x, cfg)
+            msts.append(mst)
+            ssts.append(sst)
+        cache = cache._replace(mlstm=_stack_states(msts, S.MLSTMState),
+                               slstm=_stack_states(ssts, S.SLSTMState))
+
+    x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    logits = x @ params["lm_head"]
+    return logits, cache._replace(
+        pos=torch.full((), Stot, dtype=torch.int32, device=x.device))

@@ -1,0 +1,153 @@
+"""Dense SwiGLU MLP and Mixture-of-Experts (capacity-based dispatch).
+
+A copy of the JAX package's ``models/mlp.py`` in plain PyTorch, as the
+JAX module is plain XLA (no kernel of the JAX package is on this path).
+
+Dispatch is GShard-style and capacity-bounded: each (token, choice) goes
+to its queue position in an (E, C, D) buffer a group; the expert GEMMs
+run as one batched product; results are combined back with the routing
+weights. Three places where torch differs from XLA and the code says so:
+
+* ``jax.lax.top_k`` keeps the lower expert first on equal gates;
+  ``torch.topk`` promises no order, so :func:`route_topk` takes the head
+  of a stable descending sort.
+* JAX's scatter drops a choice whose queue position is ``>= C``
+  (``mode="drop"``); torch indexing raises there, so dropped choices
+  write into one spare slot past the capacity that is cut off after.
+* The combine is a sum over the K choices of a token, in fp32, in choice
+  order (JAX's scatter-add into zeros); ``index_add_`` is not
+  deterministic on CUDA and is not used.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.config import ModelConfig
+from repro_torch.models.layers import dense_init, swiglu
+
+CAPACITY_FACTOR = 1.25
+
+Params = Dict[str, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# Dense SwiGLU
+# ---------------------------------------------------------------------------
+
+def init_mlp_params(cfg: ModelConfig, dtype: torch.dtype,
+                    generator: torch.Generator, device=None) -> Params:
+    return {
+        "wi": dense_init((cfg.d_model, 2 * cfg.d_ff), dtype, generator,
+                         device),
+        "wdown": dense_init((cfg.d_ff, cfg.d_model), dtype, generator,
+                            device),
+    }
+
+
+def mlp_forward(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return swiglu(x @ p["wi"]) @ p["wdown"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts
+# ---------------------------------------------------------------------------
+
+def init_moe_params(cfg: ModelConfig, dtype: torch.dtype,
+                    generator: torch.Generator, device=None) -> Params:
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    p = {
+        "router": dense_init((d, E), torch.float32, generator, device),
+        "moe_wi": dense_init((E, d, 2 * f), dtype, generator, device),
+        "moe_wdown": dense_init((E, f, d), dtype, generator, device),
+    }
+    if cfg.moe_dense_residual:       # Arctic: parallel dense path
+        p.update(init_mlp_params(cfg, dtype, generator, device))
+    return p
+
+
+def route_topk(logits: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routing. Returns (weights (T,k) fp32 summing to 1, idx (T,k)).
+
+    Equal gates keep the lower expert first, as ``jax.lax.top_k`` does: a
+    router of zeros picks experts 0..k-1."""
+    gates = torch.softmax(logits.float(), dim=-1)
+    w, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    w, idx = w[:, :k], idx[:, :k]
+    w = w / torch.clamp_min(w.sum(dim=-1, keepdim=True), 1e-9)
+    return w, idx
+
+
+def expert_capacity(n_tokens: int, cfg: ModelConfig,
+                    factor: float = CAPACITY_FACTOR) -> int:
+    c = int(n_tokens * cfg.top_k * factor / cfg.n_experts)
+    return max(8, -(-c // 8) * 8)                    # round up to 8
+
+
+def moe_dispatch_indices(idx: torch.Tensor, E: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Position of each (token, k) routing choice within its expert queue.
+
+    idx: (T, K) expert ids. Returns (e_flat (TK,), pos (TK,)): pos is the
+    arrival order among all choices routed to the same expert, an
+    exclusive running count of the one-hot over all T·K choices. JAX
+    blocks that count for its SPMD partitioner; the integers are the
+    same."""
+    e_flat = idx.reshape(-1)
+    oh = F.one_hot(e_flat, E)
+    pos = (oh.cumsum(0) - oh).gather(1, e_flat[:, None])[:, 0]
+    return e_flat, pos
+
+
+def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (output (B,S,D), the Switch load-balance aux loss, a 0-d
+    fp32 tensor; serving drops it)."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    T = B * S
+    G = cfg.moe_groups if T % max(cfg.moe_groups, 1) == 0 else 1
+    Tl = T // G
+    C = expert_capacity(Tl, cfg)
+    xt = x.reshape(T, D)
+    logits = xt.float() @ p["router"]                # (T, E) fp32
+    w, idx = route_topk(logits, K)                   # (T, K)
+
+    # group-local dispatch: capacity is enforced per group
+    xg = xt.reshape(G, Tl, D)
+    e_flat, pos = zip(*(moe_dispatch_indices(i, E)
+                        for i in idx.reshape(G, Tl, K)))
+    e_flat, pos = torch.stack(e_flat), torch.stack(pos)   # (G, Tl*K)
+    tok = torch.arange(Tl, device=x.device).repeat_interleave(K)
+    g_ix = torch.arange(G, device=x.device)[:, None]
+
+    # scatter: a dropped choice (pos >= C) lands in the spare slot C
+    buf = torch.zeros((G, E, C + 1, D), dtype=x.dtype, device=x.device)
+    buf[g_ix, e_flat, pos.clamp_max(C)] = xg[:, tok]
+    buf = buf[:, :, :C]                              # (G, E, C, D)
+
+    # expert GEMMs, one batched product each
+    h = swiglu(torch.einsum("gecd,edf->gecf", buf, p["moe_wi"]))
+    o = torch.einsum("gecf,efd->gecd", h, p["moe_wdown"])
+
+    # combine: gather each choice's expert output, weight, sum over K
+    gathered = o[g_ix, e_flat, pos.clamp_max(C - 1)]     # (G, TlK, D)
+    keep = (pos < C).float()[..., None]
+    wk = w.reshape(G, Tl * K)[..., None] * keep
+    v = (gathered.float() * wk).reshape(G, Tl, K, D)
+    out = v[:, :, 0]
+    for k in range(1, K):                            # JAX's scatter order
+        out = out + v[:, :, k]
+    out = out.reshape(B, S, D).to(x.dtype)
+
+    # Switch-style load-balance aux loss
+    gates = torch.softmax(logits, dim=-1)
+    density = F.one_hot(idx[:, 0], E).float().mean(dim=0)
+    aux = E * (density * gates.mean(dim=0)).sum()
+
+    if cfg.moe_dense_residual:
+        out = out + mlp_forward(p, x)
+    return out, aux

@@ -1473,3 +1473,77 @@ def test_modelled_trace_is_byte_identical_on_the_card(cuda):
         c.serve(_burst(c.cfg), trace=trace, metrics=metrics)
         docs.append((trace.to_json(), metrics.to_json()))
     assert docs[0] == docs[1] and '"steal"' in docs[0][0]
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path (slice 8a): plain PyTorch on the card, as the JAX LM
+# is plain XLA, so it launches none of the port's kernels
+# ---------------------------------------------------------------------------
+
+LM_FAMILIES = {"dense": "qwen3_8b", "vlm": "internvl2_26b",
+               "audio": "musicgen_medium", "moe": "dbrx_132b",
+               "hybrid": "zamba2_1p2b", "ssm": "xlstm_125m"}
+
+
+def _kernel_launches():
+    return {(f.__name__, a): getattr(f, a)
+            for f in (conv_pipe, lrn_pwl, matmul_pipe, flash_attention,
+                      decode_attention)
+            for a in ("launches", "launches_bf16", "launches_s8")
+            if hasattr(f, a)}
+
+
+def _cache_leaves(cache):
+    """A DecodeCache's tensors in field order."""
+    for field in cache:
+        if isinstance(field, torch.Tensor):
+            yield field
+        else:
+            yield from field
+
+
+@pytest.mark.parametrize("family", sorted(LM_FAMILIES))
+def test_lm_smoke_model_on_the_card_matches_the_cpu(cuda, family):
+    """Each family's smoke model, the same parameters on the card and on
+    the CPU (fp32, TF32 off): forward, prefill and one decode step within
+    1e-4 x max(1, max|cpu|), every cache leaf too; greedy generation gives
+    the CPU's tokens; no kernel launch counter moves."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import lm
+    cfg = get_config(LM_FAMILIES[family]).smoke()
+    p_cpu = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    p_gpu = lm.tree_map(lambda a: a.to(cuda), p_cpu)
+    rng = np.random.default_rng(0)
+    F = cfg.frontend_len if cfg.frontend else 0
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 20 - F)))
+    fe = (torch.from_numpy(rng.standard_normal((2, F, cfg.d_model))
+                           .astype(np.float32) * 0.02) if F else None)
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 1)))
+    n0 = _kernel_launches()
+
+    def run(p, dev):
+        mv = (lambda t: None if t is None else t.to(dev))
+        out = [lm.forward(p, mv(toks), cfg, mv(fe))]
+        lp, cache = lm.prefill(p, mv(toks), cfg, 32, mv(fe))
+        ld, cache2 = lm.decode_step(p, mv(nxt), cache, cfg)
+        return out + [lp, ld], [cache, cache2]
+
+    def close(got, want):
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        assert (got.cpu() - want).abs().max().item() <= tol
+
+    (outs_g, caches_g), (outs_c, caches_c) = run(p_gpu, cuda), run(p_cpu,
+                                                                  "cpu")
+    for g, c in zip(outs_g, outs_c):
+        close(g, c)
+    for cg, cc in zip(caches_g, caches_c):
+        for a, b in zip(_cache_leaves(cg), _cache_leaves(cc)):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            if b.numel():
+                close(a.float(), b.float())
+    scfg = dataclasses.replace(cfg, frontend=None, frontend_len=0)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 10)))
+    want = generate(p_cpu, prompts, scfg, 6, 24)
+    got = generate(p_gpu, prompts.to(cuda), scfg, 6, 24)
+    assert torch.equal(got.cpu(), want)
+    assert _kernel_launches() == n0
