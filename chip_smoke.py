@@ -184,6 +184,31 @@ Phases (any failure exits non-zero):
    Qwen3-8B at full width cut to 2 layers, fp32: the card's forward
    within 1e-3 x max|logit| of the CPU's on the same parameters. No
    kernel launch counter moves across the phase.
+17. Slice 8b, the LM training path (``ROADMAP.md`` Queue 1 slice 8b),
+   plain PyTorch on the card as JAX's ``train_step`` is plain XLA:
+   ``ResilientLoop`` without checkpoints, each config in its own dtype
+   (bf16 parameters, fp32 AdamW state) with its remat ("full"), seeded
+   random weights, the Markov token stream. Qwen3-8B at full width cut to
+   8 of its 36 layers, batch 2 x 4096 tokens (``train_4k`` cut from
+   batch 256), 6 steps; zamba2-1.2b (6 steps) and xlstm-125m (4) at full
+   width and depth, batch 4 x 512. Gates: no restart; every loss and
+   grad norm finite; the first loss within 0.1 of ln V + var / 2 (var the
+   variance of the fp32 forward's logits: random logits' expected loss)
+   and within 2e-2 relative of the fp32 forward's loss on the same
+   weights and batch; every random parameter leaf moved. Printed: the
+   step time (CUDA events, the median of the steps between the first and
+   the last), tokens/s, the products of step 1 by dtype (counted by a
+   dispatch mode) and their bound at the card's peaks, the share of it
+   reached, the peak memory, and from a ``torch.profiler`` trace of the
+   last step its kernels' time (the card's busy and idle share of the
+   untraced step), the GEMMs' and the top three kernels'. Then checkpoint and restore: xlstm-125m at full size,
+   8 steps with checkpoints every 4 and a fault at step 6: one restart,
+   the re-run steps' losses within 1e-3 of the first run's, the committed
+   step-8 checkpoint reloading ``torch.equal``, save and load GB/s. Then
+   one fp32 step of xlstm-125m at full width (2 layers, B 2 x S 128) on
+   the card against the CPU: loss within 1e-5 relative, each gradient
+   leaf within 1e-4 x its max, the update on the same gradients within
+   1e-5 x max|p| + 1e-6. No kernel launch counter moves.
 11. One JSON line ``{"kernels": [...]}`` (each kernel and mode; launches
    from phases 3, 3b, 6, 7 and 9; each CNN entry sums the times of one
    AlexNet and one VGG-16 forward's launches in its mode, with each
@@ -276,6 +301,36 @@ LM_RUNS = (("qwen3_8b", "bfloat16", 1152, None, "fp32 twin"),
            ("dbrx_132b", "bfloat16", 200, 2, None))
 LM_RTOL = {"bfloat16": 2e-2, "float32": 1e-3}   # x max|logit|
 LM_CPU_TOKENS = (2, 64)        # the 2-layer card-vs-CPU forward's batch
+# phase 17, the LM training path (slice 8b): (arch, layers kept or None for
+# full depth, batch, sequence, steps), each in the config's own dtype
+# (bf16 parameters, fp32 AdamW state) and remat ("full"), through
+# ResilientLoop without checkpoints. Qwen3-8B is cut to 8 of its 36
+# layers (2.79 B parameters at 12 bytes each: 33.5 GB; all 36 need 98 GB)
+# and train_4k's batch 256 to 2 at 4096 tokens. xlstm-125m takes 4 steps:
+# its step is 5-9 s of host launches (the sLSTM's 512 token steps a layer,
+# forward, recompute and backward), 15-20 s with the product count
+TRAIN_RUNS = (("qwen3_8b", 8, 2, 4096, 6),
+              ("zamba2_1p2b", None, 4, 512, 6),
+              ("xlstm_125m", None, 4, 512, 4))
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=6)
+# |first loss - (ln V + var / 2)|, var the variance of the fp32 forward's
+# logits over the real vocab: random logits of variance var give a loss
+# of ln V + var / 2 on average (ln V alone is the loss of equal logits)
+TRAIN_LN_V = 0.1
+TRAIN_FP32_RTOL = 2e-2         # first loss vs the fp32 forward's, relative
+# checkpoint and restore: xlstm-125m at full size, batch x sequence,
+# total steps, checkpoint period, the step whose start faults
+TRAIN_CKPT = ("xlstm_125m", 4, 64, 8, 4, 6)
+TRAIN_RERUN_RTOL = 1e-3        # re-run steps vs the uninterrupted losses
+# the card against the CPU: xlstm-125m at full width, fp32, TF32 off, cut
+# to 2 of its 12 layers (one mLSTM/sLSTM pair). The fp32 products sum in
+# another order on the card, and the random model's gradient grows with
+# depth (max|d embed| 0.41 at 2 layers, 2.3 at 4, 5.0 at 6 and 29 at 12,
+# B 2 x S 128 on the CPU): on an H100 the card's gradients read 4.8e-5 x
+# max from the CPU's at 2 layers and 1.3e-4 at 4, against 1e-4 (two
+# thread counts on the CPU: at most 2.0e-6 at 4 layers)
+TRAIN_CPU = ("xlstm_125m", 2, 2, 128)
+TRAIN_CPU_TOL = {"loss": 1e-5, "grad": 1e-4, "param": (1e-5, 1e-6)}
 # a launch (ms) with the kernel each redesign replaced, at batch 8 on the
 # inputs of phases 2, 2b, 7 and 8, by kernel, model and layer, measured by
 # this script on the card named (PERF.md section 5): conv_pipe_bf16's FFMA
@@ -857,6 +912,369 @@ def lm_serving(*, card: str, bw: float, launch_counts, seed: int = 0):
     check(n1 == n0, f"the LM path launched a kernel: "
           f"{ {k: n1[k] - n0[k] for k in n0 if n1[k] != n0[k]} }")
     print("[lm] no kernel launch counter moved across the LM runs")
+    return out
+
+
+def train_cfg(arch: str, depth=None, dtype=None):
+    """The config of a phase-17 run: ``arch`` at full width, ``depth``
+    layers (None: all), in ``dtype`` (None: the config's own)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    return cfg
+
+
+def product_counter():
+    """A dispatch mode (its ``ops``: operations by dtype) counting every
+    product the run dispatches (``mm``, ``addmm``, ``bmm``, ``baddbmm``:
+    2 x M x K x N, batches too) by its operands' dtype: forward, remat
+    recompute and backward alike. What the recompute does not run again
+    (the checkpoint stops once the saved tensors are rebuilt) is not
+    counted."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            if name in ("mm", "bmm", "addmm", "baddbmm"):
+                a = args[1] if name in ("addmm", "baddbmm") else args[0]
+                dt = str(a.dtype).removeprefix("torch.")
+                self.ops[dt] = self.ops.get(dt, 0) + 2 * a.numel() * \
+                    out.shape[-1]
+            return out
+    return Count()
+
+
+def lm_training(*, card: str, rates, launch_counts, seed: int = 0) -> dict:
+    """Phase 17: the LM training path at full width (``TRAIN_RUNS``)
+    through ``ResilientLoop``, each run's first loss held against ln V
+    and against an fp32 forward of the same weights and batch; then
+    checkpoint and restore under a fault (``TRAIN_CKPT``), and one fp32
+    step on the card against the CPU (``TRAIN_CPU``). ``rates`` maps a
+    product's dtype to the card's peak operations a second. Launches no
+    kernel of the port. Returns the record for ``chip_smoke.json``."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.ckpt.checkpoint import (load_checkpoint,
+                                             save_checkpoint, tree_flatten,
+                                             tree_unflatten)
+    from repro_torch.data.pipeline import DataConfig, token_batches
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update
+    from repro_torch.train.loop import LoopConfig, ResilientLoop
+    from repro_torch.train.steps import init_train_state, loss_and_grads
+
+    dev = torch.device("cuda")
+    n0 = launch_counts()
+    out = {"runs": []}
+
+    def batch_on(b, d):
+        return {k: torch.from_numpy(v).to(d) for k, v in b.items()}
+
+    def spy(loop, n_steps=None):
+        """Wrap the loop's step: CUDA events around each call, its grad
+        norm and the state it returns; with ``n_steps``, the products of
+        the first call (``product_counter``) and a ``torch.profiler``
+        trace of call ``n_steps``."""
+        rec = {"events": [], "gnorm": [], "state": None, "prof": None,
+               "counter": product_counter() if n_steps else None}
+        step = loop._step
+
+        def timed(state, batch):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            i = len(rec["events"]) + 1
+            s.record()
+            if n_steps and i == 1:
+                with rec["counter"]:
+                    r = step(state, batch)
+            elif n_steps and i == n_steps:
+                # the device's activity only: recording each host op
+                # would slow a host-paced step (xLSTM's) threefold
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    r = step(state, batch)
+                    torch.cuda.synchronize()
+                rec["prof"] = prof
+            else:
+                r = step(state, batch)
+            e.record()
+            rec["events"].append((s, e))
+            rec["gnorm"].append(r[1]["grad_norm"])
+            rec["state"] = r[0]
+            return r
+        loop._step = timed
+        return rec
+
+    def device_time(prof):
+        """(kernel ms, the products' kernels' ms, the top three kernels)
+        of a profiled step; None where the profiler saw no kernel."""
+        by_name = {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[ev.name] = (by_name.get(ev.name, 0.0)
+                                    + ev.time_range.elapsed_us() / 1e3)
+        if not by_name:
+            return None
+        gemm = sum(t for n, t in by_name.items() if any(
+            k in n.lower() for k in ("gemm", "nvjet", "xmma", "cutlass")))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+        return sum(by_name.values()), gemm, top
+
+    # -- (a), (b): full width through the loop, no checkpoints --------------
+    for arch, depth, B, S, n_steps in TRAIN_RUNS:
+        cfg = train_cfg(arch, depth)
+        dcfg = DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B,
+                          seed=seed)
+        ocfg = AdamWConfig(**TRAIN_OPT, state_dtype=cfg.opt_state_dtype)
+        # the loop's initial weights and first batch (the same seed), for
+        # the fp32 forward's loss and the check that the parameters moved
+        params = lm.init_params(cfg, torch.Generator(dev).manual_seed(seed),
+                                dev)
+        b0 = batch_on(next(token_batches(dcfg, cfg)), dev)
+        before = {p: a.flatten()[:4096].clone()
+                  for p, a in lm.tree_leaves(params)}
+        n_params = sum(a.numel() for _, a in lm.tree_leaves(params))
+        with torch.no_grad():
+            p32 = lm.tree_map(lambda a: a.float(), params)
+            del params
+            cfg32 = train_cfg(arch, depth, "float32")
+            logits = lm.forward(p32, b0["tokens"], cfg32)[..., :cfg.vocab]
+            var = logits.var(dim=-1).mean().item()
+            del logits
+            loss32 = lm.loss_fn(p32, b0, cfg32).item()
+        del p32
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loop = ResilientLoop(cfg, LoopConfig(total_steps=n_steps,
+                                             ckpt_dir=None, log_every=10 ** 9),
+                             dcfg, ocfg, device=dev)
+        rec = spy(loop, n_steps)
+        t0 = time.perf_counter()
+        res = loop.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        ms = [s.elapsed_time(e) for s, e in rec["events"]]
+        losses = [m["loss"] for m in res["metrics"]]
+        gnorms = [g.item() for g in rec["gnorm"]]
+        state = rec["state"]
+        # the first 4096 elements of each leaf: how many changed, and the
+        # random leaves none of whose sampled elements did (a bf16 gain of
+        # 1.0 cannot move: 6 steps of at most lr stay under half its ulp;
+        # nor can an embedding row that no token of the batch reads)
+        changed = {p: int((a.flatten()[:4096] != before[p]).sum())
+                   for p, a in lm.tree_leaves(state.params)}
+        moved = sum(changed.values())
+        sampled = sum(v.numel() for v in before.values())
+        still = [".".join(p) for p, v in before.items()
+                 if p != ("embed",) and bool((v != v[0]).any())
+                 and not changed[p]]
+        ops = dict(sorted(rec["counter"].ops.items()))
+        traced = device_time(rec["prof"])
+        del loop, rec, state, before
+        torch.cuda.empty_cache()
+        tag = f"{arch} {cfg.dtype}"
+        check(res["restarts"] == 0 and res["final_step"] == n_steps,
+              f"{tag}: {res['restarts']} restarts, final step "
+              f"{res['final_step']} (no fault was injected)")
+        check(all(map(math.isfinite, losses + gnorms)),
+              f"{tag}: a loss or grad norm is not finite: {losses} {gnorms}")
+        ln_v = math.log(cfg.vocab)
+        check(abs(losses[0] - ln_v - var / 2) <= TRAIN_LN_V,
+              f"{tag}: first loss {losses[0]:.4f} vs ln V + var / 2 = "
+              f"{ln_v:.4f} + {var / 2:.4f}")
+        err32 = abs(losses[0] - loss32) / loss32
+        check(err32 <= TRAIN_FP32_RTOL, f"{tag}: first loss {losses[0]:.5f} "
+              f"vs the fp32 forward's {loss32:.5f} ({err32:.2e})")
+        check(not still, f"{tag}: random leaves that did not move: {still}")
+        check(set(ops) <= set(rates), f"{tag}: products in {sorted(ops)}")
+        # the least time of the step's products: each dtype's operations
+        # at the card's peak rate for it, one after the other
+        bound_ms = sum(n / rates[dt] for dt, n in ops.items()) * 1e3
+        # steps 2 .. n-1: the first counts its products, the last is traced
+        step_ms = statistics.median(ms[1:-1])
+        if traced is None:
+            busy = "device time not measured (the profiler saw no kernel)"
+        else:
+            share = 100 * traced[0] / step_ms
+            busy = (f"traced step {n_steps}: kernels {traced[0]:.1f} ms "
+                    f"({share:.1f} % of the untraced step: the card idles "
+                    f"{100 - share:.1f} %), GEMM kernels {traced[1]:.1f} "
+                    f"ms, the top three " + "; ".join(
+                        f"{n[:60]} {t:.1f} ms" for n, t in traced[2]))
+        row = {"arch": arch, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+               "layers_of": train_cfg(arch).n_layers, "params": n_params,
+               "batch": B, "seq": S, "steps": n_steps, "losses": losses,
+               "grad_norms": gnorms, "loss_fp32_forward": loss32,
+               "logit_var": var,
+               "first_loss_vs_fp32": err32, "steps_ms": ms,
+               "step_ms": step_ms, "tok_s": B * S / step_ms * 1e3,
+               "moved": moved, "sampled": sampled,
+               "product_ops": ops, "bound_ms": bound_ms,
+               "bound_share": bound_ms / step_ms, "peak_gib": peak,
+               "loop_s": wall, "traced_kernel_ms": traced and traced[0],
+               "traced_gemm_ms": traced and traced[1],
+               "traced_top": traced and traced[2]}
+        out["runs"].append(row)
+        cut = ("" if depth is None else
+               f", depth cut to {cfg.n_layers} of {row['layers_of']} layers")
+        flops = ", ".join(f"{dt} {n / 1e12:.2f} TFLOP" for dt, n in
+                          ops.items())
+        print(f"[train] {tag}: {n_params / 1e9:.3f} B params{cut}, B {B} x "
+              f"S {S}, {n_steps} steps: loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f} (ln V + var / 2 = {ln_v:.4f} + "
+              f"{var / 2:.4f}; the fp32 forward "
+              f"{loss32:.4f}, {err32:.1e} apart); {moved} of {sampled} "
+              f"sampled parameters moved; step {step_ms:.1f} ms "
+              f"(median of steps 2-{n_steps - 1}, CUDA events; step 1 "
+              f"{ms[0]:.1f} ms with the product count, step {n_steps} "
+              f"{ms[-1]:.1f} ms traced), "
+              f"{row['tok_s']:.0f} tok/s; products a step {flops} -> bound "
+              f"{bound_ms:.1f} ms at the card's peaks, "
+              f"{100 * row['bound_share']:.1f} % of it reached; peak "
+              f"{peak:.2f} GiB; {busy} ({card})")
+
+    # -- (c) checkpoint and restore on the card, one fault ------------------
+    arch, B, S, n_steps, every, fault_at = TRAIN_CKPT
+    cfg = train_cfg(arch)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        pending = {fault_at}
+
+        def fault(step):
+            if step in pending:
+                pending.discard(step)
+                raise RuntimeError("injected device failure")
+        loop = ResilientLoop(
+            cfg, LoopConfig(total_steps=n_steps, ckpt_every=every,
+                            ckpt_dir=os.path.join(tmp, "run"),
+                            log_every=10 ** 9),
+            DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B,
+                       seed=seed),
+            AdamWConfig(**TRAIN_OPT, state_dtype=cfg.opt_state_dtype),
+            fault_hook=fault, device=dev)
+        rec = spy(loop)
+        res = loop.run()
+        log = res["metrics"]
+        want_steps = (list(range(1, fault_at + 1))
+                      + list(range(fault_at - fault_at % every + 1,
+                                   n_steps + 1)))
+        check(res["restarts"] == 1 and res["final_step"] == n_steps,
+              f"restore: {res['restarts']} restarts (1 fault injected), "
+              f"final step {res['final_step']}")
+        check([m["step"] for m in log] == want_steps,
+              f"restore: steps {[m['step'] for m in log]}")
+        first = {m["step"]: m["loss"] for m in log[:fault_at]}
+        rerun = log[fault_at:fault_at + fault_at % every]
+        rerr = [abs(m["loss"] - first[m["step"]]) / first[m["step"]]
+                for m in rerun]
+        check(max(rerr) <= TRAIN_RERUN_RTOL,
+              f"restore: re-run losses {rerr} apart from the first run's")
+        final = rec["state"]
+        reloaded, step = load_checkpoint(os.path.join(tmp, "run"), final)
+        check(step == n_steps and all(
+            torch.equal(a, b) for a, b in zip(tree_flatten(reloaded)[0],
+                                              tree_flatten(final)[0])),
+            f"restore: the committed step-{step} checkpoint does not "
+            f"reload equal")
+        del reloaded
+        nbytes = sum(a.numel() * a.element_size()
+                     for a in tree_flatten(final)[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(tmp, "timed"), n_steps, final)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again, _ = load_checkpoint(os.path.join(tmp, "timed"), final)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        check(all(torch.equal(a, b) for a, b in zip(
+            tree_flatten(again)[0], tree_flatten(final)[0])),
+            "restore: the timed checkpoint does not reload equal")
+        del again, final, loop, rec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["restore"] = {"arch": arch, "batch": B, "seq": S, "steps": n_steps,
+                      "ckpt_every": every, "fault_at": fault_at,
+                      "restarts": res["restarts"],
+                      "log": log, "rerun_rel_err": rerr,
+                      "rerun_bit_equal": max(rerr) == 0.0,
+                      "ckpt_bytes": nbytes, "save_s": t_save,
+                      "load_s": t_load}
+    print(f"[train] restore: {arch} {cfg.dtype}, B {B} x S {S}, "
+          f"{n_steps} steps, checkpoints every {every}, a fault at step "
+          f"{fault_at}: {res['restarts']} restart, steps "
+          f"{[m['step'] for m in log]}; the re-run steps "
+          f"{[m['step'] for m in rerun]} {rerr} from the first run's losses "
+          f"(<= {TRAIN_RERUN_RTOL:.0e}); step {n_steps} reloads equal; "
+          f"a checkpoint of {nbytes / 1e9:.2f} GB saves in {t_save:.2f} s "
+          f"({nbytes / 1e9 / t_save:.2f} GB/s) and loads onto the card in "
+          f"{t_load:.2f} s ({nbytes / 1e9 / t_load:.2f} GB/s)")
+
+    # -- (d) one fp32 step on the card against the CPU -----------------------
+    arch, depth, B, S = TRAIN_CPU
+    cfg = train_cfg(arch, depth, "float32")
+    ocfg = AdamWConfig(**TRAIN_OPT)
+    st = init_train_state(cfg, torch.Generator(dev).manual_seed(seed),
+                          ocfg, dev)
+    st_cpu = tree_unflatten(st, [a.cpu() for a in tree_flatten(st)[0]])
+    b = next(token_batches(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                      global_batch=B, seed=seed), cfg))
+    loss_g, grads_g = loss_and_grads(st.params, batch_on(b, dev), cfg)
+    t0 = time.perf_counter()
+    loss_c, grads_c = loss_and_grads(st_cpu.params, batch_on(b, "cpu"), cfg)
+    t_cpu = time.perf_counter() - t0
+    tol = TRAIN_CPU_TOL
+    err_loss = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
+    err_grad = max(((a.cpu() - c).abs().max() / c.abs().max()).item()
+                   for (_, a), (_, c) in zip(lm.tree_leaves(grads_g),
+                                             lm.tree_leaves(grads_c)))
+    # the update on the same gradients: Adam's first step moves each
+    # parameter by about lr x sign(g), so gradients 1e-4 apart flip it
+    # where g is near 0 (two CPU runs that differ in their thread count
+    # land 1e-4 apart in the parameters); the card updates with the CPU's
+    grads_on = lm.tree_map(lambda a: a.to(dev), grads_c)
+    p_g, _, _ = adamw_update(grads_on, st.opt, st.params, ocfg)
+    p_c, _, _ = adamw_update(grads_c, st_cpu.opt, st_cpu.params, ocfg)
+    err_param = max(((a.cpu() - c).abs().max()
+                     / (tol["param"][0] * c.abs().max() + tol["param"][1])
+                     ).item() for (_, a), (_, c) in zip(lm.tree_leaves(p_g),
+                                                         lm.tree_leaves(p_c)))
+    print(f"[train] card vs CPU: {arch} fp32, {cfg.n_layers} of "
+          f"{train_cfg(arch).n_layers} layers at full width, B {B} x S {S}: "
+          f"loss {err_loss:.1e} apart (<= {tol['loss']:.0e}), the worst "
+          f"gradient leaf {err_grad:.1e} x its max (<= {tol['grad']:.0e}); "
+          f"the update on the CPU's gradients {err_param:.2f} of its "
+          f"allowance {tol['param'][0]:.0e} x max|p| + {tol['param'][1]:.0e}"
+          f" (the CPU's loss and gradient {t_cpu:.1f} s)")
+    check(err_loss <= tol["loss"], f"card vs CPU: loss {err_loss:.2e}")
+    check(err_grad <= tol["grad"], f"card vs CPU: gradient {err_grad:.2e}")
+    check(err_param <= 1.0, f"card vs CPU: parameters {err_param:.2f} of "
+          f"the allowance")
+    out["card_vs_cpu"] = {"arch": arch, "n_layers": cfg.n_layers,
+                          "batch": B, "seq": S, "loss_rel_err": err_loss,
+                          "grad_rel_err": err_grad,
+                          "param_err_of_allowance": err_param,
+                          "cpu_s": t_cpu}
+    del st, st_cpu, grads_g, grads_c, grads_on, p_g, p_c
+    torch.cuda.empty_cache()
+    n1 = launch_counts()
+    check(n1 == n0, f"the training path launched a kernel: "
+          f"{ {k: n1[k] - n0[k] for k in n0 if n1[k] != n0[k]} }")
+    print("[train] no kernel launch counter moved across the training runs")
     return out
 
 
@@ -2351,6 +2769,12 @@ def main() -> int:
     lm_out = lm_serving(card=card, bw=bw, launch_counts=launch_counts)
     phases.done("16")
 
+    # -- 17. slice 8b: the LM training path at full width --------------------
+    train_out = lm_training(card=card, launch_counts=launch_counts,
+                            rates={"bfloat16": bf16_rate,
+                                   "float32": fp32_rate})
+    phases.done("17")
+
     # -- 11. the kernels line -------------------------------------------------
     # CNN entries sum one AlexNet and one VGG-16 forward's launches in their
     # mode (fp32 phases 2, 3 and 7; int8 2b, 3b and 7; bf16 8 and 9), with
@@ -2440,6 +2864,7 @@ def main() -> int:
                                      for (a, k), v in sums.items()},
                    "plans": plans_out, "fleet": fleet_out,
                    "artifacts": art_out, "slice7": s7_out, "lm": lm_out,
+                   "train": train_out,
                    "phase_seconds": phases.seconds},
                   f, indent=1, sort_keys=True)
     print(json.dumps({"kernels": line}))

@@ -1,7 +1,9 @@
-"""Crash-safe directory commits (the protocol the serving artifact is
-written under). The rest of the JAX package's ``ckpt/`` (training
-checkpoints) comes with ROADMAP.md Queue 1 slice 8."""
-from repro_torch.ckpt.checkpoint import (CheckpointError, clean_stale_tmp,
-                                         commit_dir)
+"""Training checkpoints and crash-safe directory commits (the protocol
+the serving artifact is written under too): the JAX package's ``ckpt/``."""
+from repro_torch.ckpt.checkpoint import (CheckpointError, CheckpointManager,
+                                         clean_stale_tmp, commit_dir,
+                                         latest_step, load_checkpoint,
+                                         save_checkpoint)
 
-__all__ = ["CheckpointError", "clean_stale_tmp", "commit_dir"]
+__all__ = ["CheckpointError", "CheckpointManager", "clean_stale_tmp",
+           "commit_dir", "latest_step", "load_checkpoint", "save_checkpoint"]

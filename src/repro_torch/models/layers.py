@@ -1,11 +1,11 @@
 """Shared building blocks of the LM side, copies of the JAX package's
-``models/layers.py``: statistics and rotary angles in fp32 whatever the
-activation dtype. The JAX ``scan_or_unroll`` has no copy: the port's
-structural loops are Python loops."""
+``models/layers.py``: statistics, rotary angles and the cross entropy in
+fp32 whatever the activation dtype. The JAX ``scan_or_unroll`` has no
+copy: the port's structural loops are Python loops."""
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -79,3 +79,30 @@ def swiglu(gate_up: torch.Tensor) -> torch.Tensor:
     """Fused gate+up projection output -> SiLU(gate) * up."""
     gate, up = gate_up.chunk(2, dim=-1)
     return F.silu(gate) * up
+
+
+# ---------------------------------------------------------------------------
+# Cross entropy (fp32 math)
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token NLL. logits (..., V) any dtype; labels (...) integers.
+
+    In fp32, with the row max detached (JAX's ``stop_gradient``). The gold
+    logit is a ``gather`` of the shifted logits: JAX's ``iota == label``
+    masked sum adds that one element to zeros, so both give the same value
+    and the same gradient, and the gather builds no vocabulary-sized int
+    and fp32 temporaries (5 GB each at Qwen3-8B's 152,064 padded columns
+    and 8192 tokens).
+    """
+    logits = logits.float()
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    shifted = logits - m
+    lse = torch.log(torch.exp(shifted).sum(dim=-1))
+    gold = torch.gather(shifted, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return nll.mean()

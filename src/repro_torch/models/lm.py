@@ -1,7 +1,7 @@
 """Unified LM: one functional model covering all ten assigned architectures.
 
-A copy of the JAX package's ``models/lm.py`` (its serving half) in plain
-PyTorch, as the JAX model is plain XLA: no kernel of the port runs here.
+A copy of the JAX package's ``models/lm.py`` in plain PyTorch, as the JAX
+model is plain XLA: no kernel of the port runs here.
 
 Families:
   dense / vlm / audio  -> pre-norm GQA transformer (qk_norm optional);
@@ -17,33 +17,37 @@ leading layer axis (JAX's ``vmap`` of the block init), so
 :func:`params_from_jax` carries JAX's parameters across as they are. The
 layer loops are Python loops over that axis, and JAX's ``lax.cond`` on a
 static flag is a Python ``if`` on the layer index. Vocab is padded to a
-multiple of 256; the pad columns are masked out of the decode argmax
-(``train/steps.py``). The JAX sharding annotations are no-ops on one
-device and are dropped. Left for later slices: ``maybe_remat`` and
-``loss_fn`` (training), ``cache_logical_axes``, ``batch_logical_axes``
-and ``input_specs`` (sharding tooling).
+multiple of 256; the pad columns are masked out of the loss
+(:func:`loss_fn`) and the decode argmax (``train/steps.py``). Training
+differentiates :func:`loss_fn` with autograd; :func:`maybe_remat` is
+JAX's per-layer ``jax.checkpoint`` as ``torch.utils.checkpoint``. The JAX
+sharding annotations are no-ops on one device and are dropped, and so are
+``cache_logical_axes``, ``batch_logical_axes`` and ``input_specs``
+(sharding tooling, ROADMAP.md Queue 1 slice 8c).
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.models import ssm as S
 from repro_torch.models.attention import (KVCache, _project_qkv, attn_decode,
                                           attn_forward, init_attn_params,
                                           init_kv_cache, params_from_jax)
-from repro_torch.models.layers import (dense_init, dtype_of, embed_init,
-                                       rms_norm)
+from repro_torch.models.layers import (cross_entropy, dense_init, dtype_of,
+                                       embed_init, rms_norm)
 from repro_torch.models.mlp import (init_mlp_params, init_moe_params,
                                     mlp_forward, moe_forward)
 from repro_torch.pipeline.compile import resolve_device
 
 __all__ = ["VOCAB_ALIGN", "DecodeCache", "count_params", "decode_step",
-           "forward", "init_decode_cache", "init_params",
-           "n_scan_steps", "n_shared_attn_apps", "params_from_jax",
-           "prefill", "tree_leaves", "tree_map", "vocab_padded"]
+           "forward", "init_decode_cache", "init_params", "loss_fn",
+           "maybe_remat", "n_scan_steps", "n_shared_attn_apps",
+           "pad_mask", "params_from_jax", "prefill", "tree_leaves",
+           "tree_map", "vocab_padded"]
 
 VOCAB_ALIGN = 256
 TRANSFORMER_FAMILIES = ("dense", "vlm", "audio", "moe")
@@ -55,10 +59,48 @@ def vocab_padded(cfg: ModelConfig) -> int:
     return -(-cfg.vocab // VOCAB_ALIGN) * VOCAB_ALIGN
 
 
-def tree_map(fn: Callable, tree: Tree) -> Tree:
-    """``fn`` on every tensor of a parameter tree (nested dicts)."""
-    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
+def pad_mask(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """-1e30 on the padded vocab columns, 0 elsewhere, in the logits'
+    dtype (JAX's weakly typed mask keeps bf16 logits bf16)."""
+    pad = torch.arange(logits.shape[-1], device=logits.device) >= cfg.vocab
+    return torch.where(pad, -1e30, 0.0).to(logits.dtype)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat ``"dots"``: keep the outputs
+    of the products without batch dimensions (``mm``/``addmm``, what
+    JAX's ``dots_with_no_batch_dims_saveable`` keeps), recompute the rest
+    (the batched ``bmm`` of the attention scores and the scans too)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return _ckpt.create_selective_checkpoint_contexts(_save_products)
+
+
+def maybe_remat(body: Callable, cfg: ModelConfig) -> Callable:
+    """Per-layer activation checkpointing with a configurable policy.
+
+    "full": recompute the whole layer in the backward pass (least memory,
+    most recompute). "dots": keep the matmul outputs and recompute the
+    rest. Values are unchanged either way: the recompute runs the same
+    operations on the same inputs."""
+    if not cfg.remat:
+        return body
+    kw = {"context_fn": _dots_context} if cfg.remat_policy == "dots" else {}
+
+    def run(*args):
+        return _ckpt.checkpoint(body, *args, use_reentrant=False, **kw)
+    return run
+
+
+def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
+    """``fn`` on every tensor of a parameter tree (nested dicts), and on
+    the tensors at the same paths of the trees in ``rest``."""
+    return {k: tree_map(fn, v, *(r[k] for r in rest)) if isinstance(v, dict)
+            else fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
 
 
 def tree_leaves(tree: Tree, path=()):
@@ -73,6 +115,16 @@ def tree_leaves(tree: Tree, path=()):
 def _layer(blocks: Tree, i: int) -> Tree:
     """Layer ``i``'s parameters: every stacked leaf at index ``i``."""
     return tree_map(lambda a: a[i], blocks)
+
+
+def _layers(blocks: Tree, n: int):
+    """The ``n`` layers' parameters, each stacked leaf unbound once. Under
+    autograd each index ``a[i]`` of :func:`_layer` would write a
+    zero-filled gradient the size of the whole stack, L times the stacked
+    gradient's bytes; an unbind's backward stacks the layers' gradients
+    once. The views hold the values indexing gives."""
+    parts = tree_map(lambda a: a.unbind(0), blocks)
+    return [tree_map(lambda t: t[i], parts) for i in range(n)]
 
 
 def _stack_states(states, kind):
@@ -187,7 +239,7 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
 
 
 # ===========================================================================
-# Forward (prefill)
+# Forward (train / prefill)
 # ===========================================================================
 
 def _embed_tokens(params: Tree, tokens: torch.Tensor,
@@ -240,34 +292,57 @@ def forward(params: Tree, tokens: torch.Tensor, cfg: ModelConfig,
     B, Stot, _ = x.shape
     positions = _positions(B, Stot, x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    blocks = params["blocks"]
+    layers = _layers(params["blocks"], n_scan_steps(cfg))
 
     if cfg.family in TRANSFORMER_FAMILIES:
+        def body(x, bp):
+            x, aux = _transformer_block_fwd(bp, x, cfg, positions)
+            return x, aux_total if aux is None else aux
+        body = maybe_remat(body, cfg)
         auxs = []
-        for i in range(cfg.n_layers):
-            x, aux = _transformer_block_fwd(_layer(blocks, i), x, cfg,
-                                            positions)
-            auxs.append(aux_total if aux is None else aux)
+        for bp in layers:
+            x, aux = body(x, bp)
+            auxs.append(aux)
         aux_total = torch.stack(auxs).sum()
 
     elif cfg.family == "hybrid":
-        for i in range(cfg.n_layers):
-            if i % cfg.attn_every == 0:
-                x = _shared_block_fwd(params["shared"], x, cfg, positions)
-            bp = _layer(blocks, i)
+        sp = params["shared"]
+
+        def body(x, bp, shared):
+            if shared:
+                x = _shared_block_fwd(sp, x, cfg, positions)
             h, _ = S.mamba_forward(bp["mamba"],
                                    rms_norm(x, bp["ln"], cfg.norm_eps), cfg)
-            x = x + h
+            return x + h
+        body = maybe_remat(body, cfg)
+        for i, bp in enumerate(layers):
+            x = body(x, bp, i % cfg.attn_every == 0)
 
     elif cfg.family == "ssm":
-        for i in range(n_scan_steps(cfg)):
-            x, _, _ = _xlstm_pair_fwd(_layer(blocks, i), x, cfg)
+        def body(x, bp):
+            return _xlstm_pair_fwd(bp, x, cfg)[0]
+        body = maybe_remat(body, cfg)
+        for bp in layers:
+            x = body(x, bp)
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = x @ params["lm_head"]
     if return_aux:
         return logits, aux_total
     return logits
+
+
+def loss_fn(params: Tree, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            aux_weight: float = 0.01) -> torch.Tensor:
+    """Mean next-token NLL over the real vocab, plus ``aux_weight`` x the
+    MoE load-balancing loss; the logits are cut to the token positions
+    when the config has a frontend."""
+    logits, aux = forward(params, batch["tokens"], cfg,
+                          batch.get("frontend_embed"), return_aux=True)
+    if cfg.frontend:                    # loss only over the token positions
+        logits = logits[:, cfg.frontend_len:]
+    loss = cross_entropy(logits + pad_mask(logits, cfg), batch["labels"])
+    return loss + aux_weight * aux
 
 
 # ===========================================================================

@@ -7,9 +7,10 @@ state is carried, the work within a chunk is dense products, and the
 Python loop over the tokens as JAX's ``lax.scan`` is a loop.
 
 All recurrences run in fp32 whatever the activation dtype. Where a
-chunk's decay or log-weight is ``inf`` or ``-inf`` above the diagonal,
-it is masked with ``torch.where``, never by a product with the mask,
-which would turn ``inf * 0`` into NaN.
+chunk's decay or log-weight could be ``inf`` or ``-inf`` above the
+diagonal, its argument is masked with ``torch.where`` before the
+``exp``, never the result by a product with the mask, which would turn
+``inf * 0`` into NaN in the forward or the backward.
 """
 from __future__ import annotations
 
@@ -159,9 +160,14 @@ def mamba_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
         s_in = torch.cumsum(dta, dim=1)              # inclusive cumsum
         # inter-chunk: y_i += C_i . (state * exp(s_i))
         y_inter = torch.einsum("bqn,bhpn,bqh->bqhp", cq, st, torch.exp(s_in))
-        # intra-chunk: decay(i,j) = exp(s_i - s_j), i >= j
-        dec = torch.exp(s_in[:, :, None, :] - s_in[:, None, :, :])
-        dec = torch.where(mask, dec, 0.0)                          # (B,Q,Q,h)
+        # intra-chunk: decay(i,j) = exp(s_i - s_j), i >= j, else 0. Above
+        # the diagonal the argument is positive and overflows at full
+        # width (up to 137 in a 128-token chunk of zamba2-1.2b at init):
+        # masked after the exp, as JAX does, exp's backward would multiply
+        # the zero gradient there by inf (NaN). Masking the argument first
+        # gives the same forward values and a finite backward.
+        seg = s_in[:, :, None, :] - s_in[:, None, :, :]
+        dec = torch.exp(torch.where(mask, seg, -math.inf))         # (B,Q,Q,h)
         cb = torch.einsum("bqn,bjn->bqj", cq, bq)                  # (B,Q,Q)
         w_ij = cb[:, :, :, None] * dec * dq[:, None, :, :]
         y_intra = torch.einsum("bqjh,bjhp->bqhp", w_ij, xq)

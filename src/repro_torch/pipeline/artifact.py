@@ -34,7 +34,8 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.ckpt.checkpoint import CheckpointError, commit_dir
+from repro_torch.ckpt.checkpoint import (CheckpointError, Leaf, commit_dir,
+                                         host_leaf, leaf_tensor, save_leaf)
 from repro_torch.core.config import CNNConfig, ConvLayer
 from repro_torch.pipeline.plan_table import PlanTable
 from repro_torch.pipeline.spec import (AutoscalePolicy, ExecutionSpec,
@@ -50,8 +51,6 @@ _CFG_FIELDS = ("name", "input_hw", "input_ch", "n_classes", "use_lrn")
 _JAX_CFG_KNOBS = ("vec_size", "cu_num", "dtype", "quant", "calib", "oh_blk",
                   "autotune", "vmem_budget", "b_blk", "serve_batch",
                   "replicas", "pp_stages", "serve_microbatches", "max_queue")
-# the bytes np.save writes before a bfloat16 leaf's data
-_BF16_DESCR = "<V2"
 
 
 # -- config / spec <-> plain dicts ------------------------------------------
@@ -120,17 +119,6 @@ def spec_from_dict(d: dict) -> ExecutionSpec:
 
 # -- params <-> leaf files ---------------------------------------------------
 
-Leaf = Tuple[np.ndarray, str]           # (host array, manifest dtype)
-
-
-def _host(t: torch.Tensor) -> Leaf:
-    t = t.detach().cpu().contiguous()
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy(), "bfloat16"
-    a = t.numpy()
-    return a, str(a.dtype)
-
-
 def _params_manifest(params) -> Tuple[dict, List[Leaf]]:
     """Flatten fp32/bf16 params (a per-layer ``{"w", "b"}`` list) or a
     :class:`QuantizedCNNParams` into (manifest dict, ordered leaves), in
@@ -139,7 +127,7 @@ def _params_manifest(params) -> Tuple[dict, List[Leaf]]:
     leaves: List[Leaf] = []
 
     def push(t) -> int:
-        leaves.append(_host(t))
+        leaves.append(host_leaf(t))
         return len(leaves) - 1
 
     if isinstance(params, QuantizedCNNParams):
@@ -166,18 +154,6 @@ def _params_manifest(params) -> Tuple[dict, List[Leaf]]:
     return man, leaves
 
 
-def _save_leaf(path: Path, leaf: Leaf) -> None:
-    a, dtype = leaf
-    if dtype != "bfloat16":
-        np.save(path, a)
-        return
-    with open(path, "wb") as f:
-        np.lib.format.write_array_header_1_0(
-            f, {"descr": _BF16_DESCR, "fortran_order": False,
-                "shape": a.shape})
-        f.write(a.tobytes())
-
-
 def _load_leaf(root: Path, i: int, meta: dict) -> torch.Tensor:
     try:
         a = np.load(root / f"leaf_{i}.npy")
@@ -185,16 +161,12 @@ def _load_leaf(root: Path, i: int, meta: dict) -> torch.Tensor:
         raise CheckpointError(
             f"artifact {root}: leaf {i} (leaf_{i}.npy) is unreadable: "
             f"truncated or corrupt write? ({type(e).__name__}: {e})") from e
-    bf16_bits = meta["dtype"] == "bfloat16" and a.dtype.itemsize == 2 \
-        and a.dtype.kind in "Vui"
-    if list(a.shape) != meta["shape"] or not (
-            bf16_bits or str(a.dtype) == meta["dtype"]):
+    t = leaf_tensor(a, meta["dtype"])
+    if list(a.shape) != meta["shape"] or t is None:
         raise CheckpointError(
             f"artifact {root}: leaf {i} is {a.dtype}{tuple(a.shape)} but "
             f"the manifest says {meta['dtype']}{tuple(meta['shape'])}")
-    if bf16_bits:
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(a)
+    return t
 
 
 def _params_from_manifest(root: Path, man: dict
@@ -227,7 +199,7 @@ def save_artifact(path: str, *, cfg: CNNConfig, spec: ExecutionSpec,
 
     def write(tmp: Path) -> None:
         for i, leaf in enumerate(leaves):
-            _save_leaf(tmp / f"leaf_{i}.npy", leaf)
+            save_leaf(tmp / f"leaf_{i}.npy", leaf)
         (tmp / "plan_table.json").write_text(plan_table.to_json())
         (tmp / "manifest.json").write_text(
             json.dumps(manifest, sort_keys=True, indent=1) + "\n")

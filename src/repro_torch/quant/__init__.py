@@ -1,8 +1,9 @@
 """Fixed-point (int8) inference of the port -- the paper's precision trade.
 
-A copy of the JAX package's ``quant`` package (its int8 half):
+A copy of the JAX package's ``quant`` package:
 
-* :mod:`.core` -- symmetric quantize / dequantize / fake-quant;
+* :mod:`.core` -- symmetric quantize / dequantize / fake-quant, and the
+  block-granular variants of the gradient compression;
 * :mod:`.observers` -- calibration range observers;
 * :mod:`.calibrate` -- activation calibration + per-channel weight
   quantization -> :class:`QuantizedCNNParams`;
@@ -13,8 +14,8 @@ from repro_torch.quant.calibrate import (QuantizedCNNParams, QuantLayer,
                                          calibrate_cnn, group_forward_ref,
                                          qparams_from_jax)
 from repro_torch.quant.core import (QMAX, abs_max_scale, dequantize,
-                                    fake_quant, quantize,
-                                    quantize_channelwise)
+                                    dequantize_blocks, fake_quant, quantize,
+                                    quantize_blocks, quantize_channelwise)
 from repro_torch.quant.observers import (AbsMaxObserver,
                                          MovingAverageAbsMaxObserver,
                                          make_observer)
@@ -22,6 +23,6 @@ from repro_torch.quant.observers import (AbsMaxObserver,
 __all__ = [
     "QMAX", "AbsMaxObserver", "MovingAverageAbsMaxObserver", "QuantLayer",
     "QuantizedCNNParams", "abs_max_scale", "calibrate_cnn", "dequantize",
-    "fake_quant", "group_forward_ref", "make_observer", "qparams_from_jax",
-    "quantize", "quantize_channelwise",
+    "dequantize_blocks", "fake_quant", "group_forward_ref", "make_observer",
+    "qparams_from_jax", "quantize", "quantize_blocks", "quantize_channelwise",
 ]

@@ -1,8 +1,8 @@
 """Symmetric int8 quantization primitives of the port.
 
-A copy of the JAX package's ``quant/core.py`` (the int8 half; the
-block-granular variants serve only the gradient compression of the LM
-side and come with it). Scheme: symmetric (zero point 0),
+A copy of the JAX package's ``quant/core.py``: the int8 primitives of the
+CNN path, and the block-granular variants the gradient compression
+(``optim/compress.py``) sends. Scheme: symmetric (zero point 0),
 round-half-to-even, clip to [-127, 127], so zero padding contributes
 exactly zero to an int32 accumulator.
 
@@ -15,6 +15,7 @@ int8 codes at rounding ties. The kernels' epilogues divide with
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -75,3 +76,28 @@ def quantize_channelwise(w: torch.Tensor, axis: int = -1
     red = tuple(a for a in range(w.dim()) if a != axis)
     scale = abs_max_scale(w, axis=red, keepdims=True)
     return quantize(w, scale), scale.reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# block-granular variants (the gradient-compression payload format)
+# ---------------------------------------------------------------------------
+
+def quantize_blocks(x: torch.Tensor, block: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flatten to (n_blocks, block) and quantize with one scale per block.
+
+    Zero-pads the tail block; returns ``(q (n_blocks, block) int8,
+    scale (n_blocks, 1) fp32)``, the payload format of the compressed
+    gradient all-reduce (``optim.compress``)."""
+    flat = x.reshape(-1)
+    flat = torch.nn.functional.pad(flat, (0, (-flat.shape[0]) % block))
+    blocks = flat.reshape(-1, block)
+    scale = abs_max_scale(blocks, axis=1, keepdims=True)
+    return quantize(blocks, scale), scale
+
+
+def dequantize_blocks(q: torch.Tensor, scale: torch.Tensor,
+                      shape) -> torch.Tensor:
+    """Inverse of :func:`quantize_blocks` (drops the tail padding)."""
+    n = math.prod(shape)
+    return dequantize(q, scale).reshape(-1)[:n].reshape(shape)

@@ -1,1 +1,1 @@
-"""Step functions of the port (the serving half so far)."""
+"""Training steps and the resilient loop of the port."""

@@ -1547,3 +1547,92 @@ def test_lm_smoke_model_on_the_card_matches_the_cpu(cuda, family):
     got = generate(p_gpu, prompts.to(cuda), scfg, 6, 24)
     assert torch.equal(got.cpu(), want)
     assert _kernel_launches() == n0
+
+
+# ---------------------------------------------------------------------------
+# The LM training path (slice 8b) on the card: plain PyTorch, as JAX's
+# train_step is plain XLA, so it launches none of the port's kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("family", sorted(LM_FAMILIES))
+def test_lm_train_step_on_the_card_matches_the_cpu(cuda, family):
+    """One ``train_step`` of each family's smoke model (fp32, TF32 off)
+    from the same state on the card and on the CPU: the loss, every
+    gradient leaf and every new parameter and moment within 1e-4 x
+    max(1, max|cpu|) (a parameter moves by lr x sign(g) on Adam's first
+    step: lr 1e-4 keeps a sign flip at g near 0 inside that); no kernel
+    launch counter moves."""
+    from repro_torch.ckpt.checkpoint import tree_flatten, tree_unflatten
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import steps
+    cfg = get_config(LM_FAMILIES[family]).smoke()
+    ocfg = AdamWConfig(lr=1e-4, warmup_steps=0)
+    rng = np.random.default_rng(1)
+    F = cfg.frontend_len if cfg.frontend else 0
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 24)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab, (2, 24)).astype(np.int32)}
+    if F:
+        batch["frontend_embed"] = (rng.standard_normal(
+            (2, F, cfg.d_model)) * 0.02).astype(np.float32)
+    n0 = _kernel_launches()
+
+    def run(dev):
+        st = steps.init_train_state(cfg, torch.Generator().manual_seed(0),
+                                    ocfg, "cpu")
+        st = tree_unflatten(st, [a.to(dev) for a in tree_flatten(st)[0]])
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        loss, grads = steps.loss_and_grads(st.params, b, cfg)
+        new, metrics = steps.train_step(st, b, cfg, ocfg)
+        return loss, grads, new, metrics
+
+    def close(got, want):
+        tol = 1e-4 * max(1.0, want.abs().max().item())
+        assert (got.cpu().float() - want.float()).abs().max().item() <= tol
+
+    lg, gg, sg, mg = run(cuda)
+    lc, gc, sc, mc = run("cpu")
+    close(lg, lc)
+    close(mg["grad_norm"], mc["grad_norm"])
+    for (_, a), (_, b) in zip(lm.tree_leaves(gg), lm.tree_leaves(gc)):
+        close(a, b)
+    for a, b in zip(tree_flatten(sg)[0], tree_flatten(sc)[0]):
+        close(a, b)
+    assert _kernel_launches() == n0
+
+
+def test_lm_loss_falls_on_the_card(cuda, tmp_path):
+    """JAX's own training check on the card: 30 smoke steps on the Markov
+    stream lower the loss by at least 0.3, and no kernel is launched."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import LoopConfig, ResilientLoop
+    cfg = get_config("qwen3_8b").smoke()
+    n0 = _kernel_launches()
+    out = ResilientLoop(
+        cfg, LoopConfig(total_steps=30, ckpt_every=100,
+                        ckpt_dir=str(tmp_path), log_every=100),
+        DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=8),
+        ocfg=AdamWConfig(lr=2e-3, warmup_steps=5, total_steps=100),
+        device=cuda).run()
+    losses = [m["loss"] for m in out["metrics"]]
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.3, losses
+    assert _kernel_launches() == n0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_checkpoint_from_the_card_reloads_equal(cuda, tmp_path, dtype):
+    """A train state on the card, written and read back onto the card:
+    every leaf ``torch.equal`` in its dtype and on the card."""
+    from repro_torch.ckpt.checkpoint import (load_checkpoint,
+                                             save_checkpoint, tree_flatten)
+    from repro_torch.train import steps
+    cfg = dataclasses.replace(get_config("zamba2_1p2b").smoke(), dtype=dtype)
+    st = steps.init_train_state(cfg, torch.Generator(cuda).manual_seed(0))
+    save_checkpoint(str(tmp_path), 3, st)
+    like = steps.init_train_state(cfg, torch.Generator(cuda).manual_seed(1))
+    got, step = load_checkpoint(str(tmp_path), like)
+    assert step == 3
+    for a, b in zip(tree_flatten(got)[0], tree_flatten(st)[0]):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b)
