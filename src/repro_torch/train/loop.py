@@ -12,8 +12,12 @@
 The step runs eagerly where JAX jits it. Unlike the JAX loop, whose jitted
 step bakes in the zero residual it held when traced, the compressed step
 carries the compression residual from step to step, as
-``optim/compress.py`` says it does. A restart restores on the same device:
-nothing moves to the CPU.
+``optim/compress.py`` says it does. Each checkpoint of a compressed run
+also commits the residual the next step consumes, in a directory of its
+own (``<ckpt_dir>/residual/step_<N>/``, pruned with the state's), so the
+state's ``step_<N>/`` files stay JAX's and a restart resumes the run it
+interrupted; a restore that finds no residual carries zeros, as JAX's loop
+does. A restart restores on the same device: nothing moves to the CPU.
 """
 from __future__ import annotations
 
@@ -35,6 +39,8 @@ from repro_torch.optim.compress import compress_grads, init_compression
 from repro_torch.pipeline.compile import resolve_device
 from repro_torch.train.steps import (TrainState, init_train_state,
                                      loss_and_grads, train_step)
+
+RESIDUAL_DIR = "residual"       # under ckpt_dir: the compression residuals
 
 
 @dataclasses.dataclass
@@ -66,12 +72,23 @@ class ResilientLoop:
         self.device = resolve_device(device)
         self.manager = (None if loop_cfg.ckpt_dir is None else
                         CheckpointManager(loop_cfg.ckpt_dir, loop_cfg.keep))
+        self.residual_manager = (
+            None if self.manager is None or not loop_cfg.compress_grads
+            else CheckpointManager(self.residual_dir, loop_cfg.keep))
         self.metrics_log: list = []
         self.straggler_events: list = []
         self.restarts = 0
         self._step = (self._compressed_step if loop_cfg.compress_grads
                       else lambda state, batch: train_step(
                           state, batch, cfg, self.ocfg))
+
+    @property
+    def residual_dir(self) -> Optional[str]:
+        """Where a compressed run's residuals are committed, a
+        ``step_<N>`` directory beside each of the state's."""
+        if self.loop_cfg.ckpt_dir is None:
+            return None
+        return os.path.join(self.loop_cfg.ckpt_dir, RESIDUAL_DIR)
 
     def _compressed_step(self, state: TrainState, batch):
         loss, grads = loss_and_grads(state.params, batch, self.cfg)
@@ -90,15 +107,30 @@ class ResilientLoop:
         if ckpt_dir is not None and latest_step(ckpt_dir) is not None:
             state, start = load_checkpoint(ckpt_dir, state)
             print(f"[loop] restored checkpoint at step {start}")
+            if self.residual_manager is not None:
+                self._restore_residual(start)
         return state, start
+
+    def _restore_residual(self, step: int) -> None:
+        """The residual committed with checkpoint ``step``, or the zeros
+        already in place when there is none."""
+        root = os.path.join(self.residual_dir, f"step_{step:08d}")
+        if os.path.exists(os.path.join(root, "_COMMITTED")):
+            self._comp_state, _ = load_checkpoint(
+                self.residual_dir, self._comp_state, step=step)
+        else:
+            print(f"[loop] no residual at step {step}: zeros")
 
     def _save(self, step: int, state: TrainState) -> None:
         if self.manager is not None:
             self.manager.save_async(step, state)
+        if self.residual_manager is not None:
+            self.residual_manager.save_async(step, self._comp_state)
 
     def _wait(self) -> None:
-        if self.manager is not None:
-            self.manager.wait()
+        for m in (self.manager, self.residual_manager):
+            if m is not None:
+                m.wait()
 
     def _batches(self, step: int):
         for batch in token_batches(self.data_cfg, self.cfg, start_step=step):

@@ -397,6 +397,83 @@ def test_compressed_loop_carries_its_residual(tmp_path):
     assert abs(jl[3] - ref[3]) > abs(got[3] - ref[3])
 
 
+# -- the compressed loop's restart (the residual committed with the state) ------
+
+def _compressed_loop(ckpt_dir, total_steps=8, fault=None, ckpt_every=4,
+                     keep=2):
+    cfg = small_cfg()
+    return ResilientLoop(
+        cfg, LoopConfig(total_steps=total_steps, ckpt_every=ckpt_every,
+                        ckpt_dir=str(ckpt_dir), keep=keep, log_every=100,
+                        compress_grads=True),
+        DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=2),
+        ocfg=OCFG, fault_hook=None if fault is None else _fault_at(fault),
+        device="cpu")
+
+
+def test_compressed_restart_resumes_the_run(tmp_path):
+    """8 compressed steps, checkpoints every 4, a fault at step 6: the
+    re-run steps' losses equal the uninterrupted run's bit for bit (the
+    residual of step 4 is restored with the state), as the uncompressed
+    loop's do; the state's checkpoint holds the state's leaves only."""
+    want = _compressed_loop(tmp_path / "whole").run()
+    got = _compressed_loop(tmp_path / "faulted", fault=6).run()
+    assert got["restarts"] == 1 and got["final_step"] == 8
+    assert [m["step"] for m in got["metrics"]] == [1, 2, 3, 4, 5, 6,
+                                                   5, 6, 7, 8]
+    by_step = {m["step"]: m["loss"] for m in want["metrics"]}
+    assert [m["loss"] for m in got["metrics"]] == \
+        [by_step[m["step"]] for m in got["metrics"]]
+    plain = tmp_path / "plain"
+    save_checkpoint(str(plain), 8, _state())
+    for run in ("whole", "faulted"):
+        root = tmp_path / run
+        assert latest_step(str(root)) == 8
+        assert sorted(p.name for p in (root / "step_00000008").iterdir()) \
+            == sorted(p.name for p in (plain / "step_00000008").iterdir())
+        assert json.loads((root / "step_00000008" / "manifest.json")
+                          .read_text())["treedef"] == json.loads(
+            (plain / "step_00000008" / "manifest.json").read_text())[
+            "treedef"]
+        assert (root / "residual" / "step_00000008" / "_COMMITTED").exists()
+
+
+def test_compressed_restore_without_a_residual_carries_zeros(tmp_path,
+                                                             capsys):
+    """A checkpoint with no residual beside it (written by an uncompressed
+    run, or by JAX) restores with the zero residual JAX's loop carries;
+    one with a residual restores that residual exactly."""
+    loop = _compressed_loop(tmp_path, total_steps=4)
+    loop.run()
+    saved = [e.clone() for _, e in lm.tree_leaves(loop._comp_state.error)]
+    assert any(bool(e.abs().max() > 0) for e in saved)
+
+    again = _compressed_loop(tmp_path, total_steps=4)
+    _, start = again._init_state()
+    assert start == 4
+    for (_, e), s in zip(lm.tree_leaves(again._comp_state.error), saved):
+        assert torch.equal(e, s)
+
+    shutil.rmtree(tmp_path / "residual")
+    bare = _compressed_loop(tmp_path, total_steps=4)
+    _, start = bare._init_state()
+    assert start == 4
+    assert all(not bool(e.any())
+               for _, e in lm.tree_leaves(bare._comp_state.error))
+    assert "[loop] no residual at step 4: zeros" in capsys.readouterr().out
+
+
+def test_residuals_are_pruned_with_the_checkpoints(tmp_path):
+    """``keep`` prunes the residual directories in step with the state's,
+    and ``latest_step`` never counts the residual directory."""
+    _compressed_loop(tmp_path, total_steps=10, ckpt_every=2, keep=2).run()
+    state_steps = sorted(p.name for p in tmp_path.iterdir()
+                         if p.name.startswith("step_"))
+    res_steps = sorted(p.name for p in (tmp_path / "residual").iterdir())
+    assert state_steps == res_steps == ["step_00000008", "step_00000010"]
+    assert latest_step(str(tmp_path)) == 10
+
+
 # -- the CLI and the device -------------------------------------------------------
 
 def test_cli_runs_on_the_cpu(tmp_path, capsys):
