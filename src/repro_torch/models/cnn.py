@@ -340,3 +340,10 @@ class QuantCNN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.forward_groups(x, self.groups)
+
+
+def classification_flops(cfg: CNNConfig) -> int:
+    """Operations of one image's forward (2 a multiply-accumulate), the
+    paper's GOPS numerator: ``core.config.flops_per_image``."""
+    from repro_torch.core.config import flops_per_image
+    return flops_per_image(cfg)

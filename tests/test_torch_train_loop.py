@@ -411,7 +411,18 @@ def _compressed_loop(ckpt_dir, total_steps=8, fault=None, ckpt_every=4,
         device="cpu")
 
 
-def test_compressed_restart_resumes_the_run(tmp_path):
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: the CPU's threaded reductions may sum in
+    another order from run to run (seen at B 8 x 64), which would hide
+    what a bit-for-bit restart check is after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_compressed_restart_resumes_the_run(tmp_path, one_thread):
     """8 compressed steps, checkpoints every 4, a fault at step 6: the
     re-run steps' losses equal the uninterrupted run's bit for bit (the
     residual of step 4 is restored with the state), as the uncompressed
