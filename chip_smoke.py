@@ -209,6 +209,25 @@ Phases (any failure exits non-zero):
    the card against the CPU: loss within 1e-5 relative, each gradient
    leaf within 1e-4 x its max, the update on the same gradients within
    1e-5 x max|p| + 1e-6. No kernel launch counter moves.
+18. Slice 7b (``ROADMAP.md`` Queue 1): the lint of the whole port
+   (``python -m repro_torch.analysis --lint`` in process, against
+   ``src/repro_torch/analysis/baseline.json``) must end with 0 findings
+   and 0 baselined. Then the paper's claim on the card: each of VGG-16's
+   five conv+pool groups (conv1_2 ... conv5_3 + pool) at batch 8, in fp32,
+   bf16 and int8 with the weights of phases 7 and 8, on the input the
+   forward gives it, runs fused (one ``conv_pipe`` launch with the pool,
+   the compiled plan's tile) and unfused (the same ``conv_pipe`` at the
+   same (tp, tn) without the pool, then ``kernels/ref.pool_ref``); the two
+   outputs must be ``torch.equal``. Printed: both times, as timed and in a
+   CUDA graph, beside ``core/pipeline.bandwidth_model``'s fused and
+   unfused bytes for the group at the mode's width and the bytes saved
+   over the card's memory rate. Then the nine examples
+   (``repro_torch.examples``), each ``main`` in process on the card, each
+   exiting 0 with its seconds printed: ``alexnet_inference --full --batch
+   8`` must move the launch counters by conv_pipe 5, lrn_pwl 2 and
+   matmul_pipe 3 a forward and nothing else; ``train_resilient
+   --compress`` (a fault at step 25, checkpoints every 10) must log the
+   re-run steps' losses bit-equal to an uninterrupted compressed run's.
 11. One JSON line ``{"kernels": [...]}`` (each kernel and mode; launches
    from phases 3, 3b, 6, 7 and 9; each CNN entry sums the times of one
    AlexNet and one VGG-16 forward's launches in its mode, with each
@@ -1275,6 +1294,217 @@ def lm_training(*, card: str, rates, launch_counts, seed: int = 0) -> dict:
     check(n1 == n0, f"the training path launched a kernel: "
           f"{ {k: n1[k] - n0[k] for k in n0 if n1[k] != n0[k]} }")
     print("[train] no kernel launch counter moved across the training runs")
+    return out
+
+
+# phase 18, slice 7b: VGG-16's conv+pool groups run fused and unfused
+FUSION_GROUPS = ("conv1_2", "conv2_2", "conv3_3", "conv4_3", "conv5_3")
+FUSION_MODES = ("fp32", "bf16", "int8")
+# the examples on the card: (module, arguments); alexnet_inference's
+# launches are counted, train_resilient --compress is held against an
+# uninterrupted compressed run of the same steps
+EXAMPLES = (("quickstart", []),
+            ("alexnet_inference", ["--full", "--batch", "8"]),
+            ("serve_batched", []),
+            ("serve_batched", ["--arch", "alexnet"]),
+            ("serve_fleet", []),
+            ("fleet_failover", []),
+            ("serve_elastic", []),
+            ("observe_fleet", []),
+            ("measure_drift", []),
+            ("train_resilient", ["--compress"]),
+            ("train_resilient", ["--compress", "--fail-at", "-1"]))
+
+
+def slice7b(*, card: str, bw: float, vcfg, vgg: dict, reset_launches,
+            launch_counts) -> dict:
+    """Phase 18. ``vgg`` maps each mode to phase 7's or 8's VGG-16
+    compile and its batch. Returns the phase's record."""
+    import contextlib
+    import importlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.analysis.__main__ import main as analysis_main
+    from repro_torch.core.pipeline import bandwidth_model
+    from repro_torch.examples.alexnet_inference import TIMED_FORWARDS
+    from repro_torch.kernels.conv_pipe import conv_pipe
+    from repro_torch.kernels.ref import pool_ref
+    from repro_torch.models.cnn import fuse_plan
+
+    out = {"card": card}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slice7b_")
+    try:
+        # -- the lint of the whole port, on the card's machine ---------------
+        report = os.path.join(tmp, "analysis.json")
+        t0 = time.perf_counter()
+        rc = analysis_main([
+            "--lint", "--root", os.path.join(ROOT, "src", "repro_torch"),
+            "--repo-root", ROOT, "--baseline",
+            os.path.join(ROOT, "src", "repro_torch", "analysis",
+                         "baseline.json"), "--json", report])
+        doc = json.load(open(report))
+        print(f"[slice7b] lint: exit {rc}, {doc['lint']['files_scanned']} "
+              f"files, {doc['n_findings']} findings, {doc['n_baselined']} "
+              f"baselined ({time.perf_counter() - t0:.2f} s)")
+        check(rc == 0 and doc["n_findings"] == 0 and doc["n_baselined"] == 0,
+              f"the lint of the port found {doc['findings']}")
+        out["lint"] = {"rc": rc, "files": doc["lint"]["files_scanned"],
+                       "findings": doc["n_findings"],
+                       "baselined": doc["n_baselined"]}
+
+        # -- the fused cascade against conv, then pool ------------------------
+        plan = fuse_plan(vcfg)
+        groups = [g for g in plan
+                  if vcfg.layers[g[0]].kind == "conv" and len(g) == 2]
+        check(len(groups) == len(FUSION_GROUPS),
+              f"VGG-16 has {len(groups)} conv+pool groups")
+        label = dict(zip(groups, FUSION_GROUPS))
+        width = {"fp32": 4, "bf16": 2, "int8": 1}
+        fused_st = {m: bandwidth_model(vcfg, BATCH, fused=True,
+                                       dtype_bytes=width[m])
+                    for m in FUSION_MODES}
+        unf_st = {m: bandwidth_model(vcfg, BATCH, fused=False,
+                                     dtype_bytes=width[m])
+                  for m in FUSION_MODES}
+        rows = []
+        for mode in FUSION_MODES:
+            c, x = vgg[mode]
+            model = c.model
+            inputs = {}
+            h = x
+            with torch.inference_mode():
+                for g in plan:                  # each group's input
+                    if g in label:
+                        inputs[g] = h
+                    h = model.forward_groups(h, [g])
+                for g in groups:
+                    l, pool = vcfg.layers[g[0]], vcfg.layers[g[1]]
+                    h = inputs[g]
+                    if mode == "int8":
+                        ql = c.params.layers[g[0]]
+                        w, b = ql.w_q, ql.b
+                        q = dict(scale=ql.scale, out_scale=ql.y_scale)
+                    else:
+                        p = c.params[g[0]]
+                        w, b, q = p["w"], p["b"], {}
+                    tile = c.group_plans[g].tile
+                    kw = dict(stride=l.stride, pad=l.pad, relu=l.relu,
+                              groups=l.groups, **q)
+
+                    def fused(h=h, w=w, b=b, kw=kw, tile=tile, pool=pool):
+                        return conv_pipe(h, w, b, pool=pool.pool,
+                                         pool_k=pool.kernel,
+                                         pool_s=pool.stride, tile=tile, **kw)
+
+                    def unfused(h=h, w=w, b=b, kw=kw, tile=tile, pool=pool):
+                        y = conv_pipe(h, w, b, tile=(tile[0], tile[1], 1, 1),
+                                      **kw)
+                        return pool_ref(y, pool.pool, pool.kernel,
+                                        pool.stride)
+                    a, u = fused(), unfused()
+                    torch.cuda.synchronize()
+                    same = torch.equal(a, u)
+                    i = plan.index(g)
+                    fb = fused_st[mode][i].total
+                    ub = unf_st[mode][g[0]].total + unf_st[mode][g[1]].total
+                    row = {"group": f"{label[g]}+pool", "mode": mode,
+                           "tile": list(tile), "shape": list(h.shape),
+                           "equal": same, "fused_bytes": fb,
+                           "unfused_bytes": ub,
+                           "saved_ms": (ub - fb) / bw * 1e3,
+                           "fused_ms": time_ms(fused),
+                           "unfused_ms": time_ms(unfused),
+                           "fused_graph_ms": graph_ms(fused),
+                           "unfused_graph_ms": graph_ms(unfused)}
+                    rows.append(row)
+                    gain = row["unfused_graph_ms"] - row["fused_graph_ms"]
+                    print(f"[fusion] vgg16 {row['group']:<13} {mode}: tile "
+                          f"{tile[0]}x{tile[1]}, fused {row['fused_ms']:.4f}"
+                          f" ms (graph {row['fused_graph_ms']:.4f}), conv "
+                          f"then pool_ref {row['unfused_ms']:.4f} ms (graph "
+                          f"{row['unfused_graph_ms']:.4f}); the graphs "
+                          f"differ by {gain:.4f} ms, "
+                          f"{100 * gain / row['unfused_graph_ms']:.1f} % of "
+                          f"the unfused; bandwidth_model fused {fb} B, "
+                          f"unfused {ub} B, saved {ub - fb} B = "
+                          f"{row['saved_ms']:.4f} ms at {bw / 1e12:.2f} TB/s;"
+                          f" torch.equal {same} ({card})")
+                    check(same, f"fusion {row['group']} {mode}: the fused "
+                          f"launch differs from conv then pool_ref")
+                    del a, u
+            del inputs, h
+            torch.cuda.empty_cache()
+        out["fusion"] = rows
+        print("[fusion] dram bytes by counter: not measured (ncu does not "
+              "run on the card's machine)")
+
+        # -- the examples on the card ------------------------------------------
+        ex = []
+        losses = {}
+        for i, (name, argv) in enumerate(EXAMPLES):
+            mod = importlib.import_module(f"repro_torch.examples.{name}")
+            args = list(argv)
+            d = os.path.join(tmp, f"ex{i}_{name}")
+            if name in ("quickstart", "fleet_failover", "observe_fleet",
+                        "measure_drift", "train_resilient"):
+                args += ["--out", d]
+            buf = io.StringIO()
+            reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = mod.main(args)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = launch_counts()
+            text = buf.getvalue()
+            os.makedirs(os.path.join(ROOT, "chiprun_out", "examples"),
+                        exist_ok=True)
+            with open(os.path.join(ROOT, "chiprun_out", "examples",
+                                   f"{i:02d}_{name}.txt"), "w") as f:
+                f.write(text)
+            print(f"[example] {name} {' '.join(argv)}: exit {rc} in "
+                  f"{dt:.1f} s; {text.strip().splitlines()[-1]}")
+            check(rc == 0, f"example {name} {argv} exited {rc}")
+            rec = {"name": name, "argv": argv, "rc": rc, "s": dt}
+            if name == "alexnet_inference":
+                n = 1 + TIMED_FORWARDS
+                want = {k: 0 for k in counts}
+                want.update(conv_pipe=5 * n, lrn_pwl=2 * n,
+                            matmul_pipe=3 * n)
+                for line in text.splitlines():
+                    if "ms/image" in line or "FPGA" in line:
+                        print(f"[example]   {line}")
+                print(f"[example]   launches over {n} forwards: "
+                      f"{ {k: v for k, v in counts.items() if v} }")
+                check(counts == want, f"alexnet_inference launched {counts}"
+                      f", not 5/2/3 a forward over {n} forwards")
+                rec["launches"] = counts
+            if name == "train_resilient":
+                with open(os.path.join(d, "losses.json")) as f:
+                    losses["-1" in argv] = json.load(f)
+            ex.append(rec)
+        faulted, whole = losses[False], losses[True]
+        by_step = {m["step"]: m["loss"] for m in whole}
+        steps = [m["step"] for m in faulted]
+        rerun = [m for k, m in enumerate(faulted)
+                 if m["step"] in steps[:k]]
+        differ = [(m["step"], m["loss"], by_step[m["step"]])
+                  for m in faulted if m["loss"] != by_step[m["step"]]]
+        print(f"[example] train_resilient --compress: {len(faulted)} logged "
+              f"steps with {len(rerun)} re-run after the restore; "
+              f"{len(differ)} losses differ from the uninterrupted "
+              f"compressed run's (bit-equal required): {differ[:4]}")
+        check(len(rerun) > 0, "train_resilient re-ran no step")
+        check(not differ, "the compressed restart's losses differ from the "
+              "uninterrupted run's")
+        out["examples"] = ex
+        out["restart"] = {"logged": len(faulted), "rerun": len(rerun),
+                          "differ": len(differ)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -2775,6 +3005,13 @@ def main() -> int:
                                    "float32": fp32_rate})
     phases.done("17")
 
+    # -- 18. slice 7b: the lint, the fused cascade, the examples -------------
+    s7b_out = slice7b(card=card, bw=bw, vcfg=vcfg, vgg={
+        "fp32": (vcompiled, x_vgg), "int8": (vqcompiled, x_vgg),
+        "bf16": (bf16["vgg16"]["compiled"], bf16["vgg16"]["x"])},
+        reset_launches=reset_launches, launch_counts=launch_counts)
+    phases.done("18")
+
     # -- 11. the kernels line -------------------------------------------------
     # CNN entries sum one AlexNet and one VGG-16 forward's launches in their
     # mode (fp32 phases 2, 3 and 7; int8 2b, 3b and 7; bf16 8 and 9), with
@@ -2864,7 +3101,7 @@ def main() -> int:
                                      for (a, k), v in sums.items()},
                    "plans": plans_out, "fleet": fleet_out,
                    "artifacts": art_out, "slice7": s7_out, "lm": lm_out,
-                   "train": train_out,
+                   "train": train_out, "slice7b": s7b_out,
                    "phase_seconds": phases.seconds},
                   f, indent=1, sort_keys=True)
     print(json.dumps({"kernels": line}))

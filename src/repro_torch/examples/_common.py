@@ -5,9 +5,8 @@ from __future__ import annotations
 import argparse
 import subprocess
 import tempfile
-import torch
 
-from repro_torch.pipeline.compile import resolve_device
+import torch
 
 
 def add_device_arg(ap: argparse.ArgumentParser, out: bool = False) -> None:
@@ -18,10 +17,6 @@ def add_device_arg(ap: argparse.ArgumentParser, out: bool = False) -> None:
         ap.add_argument("--out", default=None,
                         help="directory for the outputs (default: a new "
                              "temporary one)")
-
-
-def device(args) -> torch.device:
-    return resolve_device(args.device)
 
 
 def where(dev: torch.device) -> str:
@@ -49,7 +44,3 @@ def out_dir(args, name: str) -> str:
     if args.out is not None:
         return args.out
     return tempfile.mkdtemp(prefix=f"repro_torch_{name}_")
-
-
-def generator(dev: torch.device, seed: int = 0) -> torch.Generator:
-    return torch.Generator(dev).manual_seed(seed)

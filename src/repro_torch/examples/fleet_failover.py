@@ -35,6 +35,7 @@ from repro_torch.launch.serve_cnn import synthetic_requests
 from repro_torch.models.cnn import init_cnn_params
 from repro_torch.pipeline import (CompiledCNN, ExecutionSpec, Placement,
                                   Precision, Serving, compile_cnn)
+from repro_torch.pipeline.compile import resolve_device
 from repro_torch.quant import calibrate_cnn
 from repro_torch.serve import FaultSchedule
 
@@ -46,8 +47,8 @@ def main(argv=None) -> int:
                                       "fleet_failover", description=__doc__)
     _common.add_device_arg(ap, out=True)
     args = ap.parse_args(argv)
-    dev = _common.device(args)
-    g = _common.generator(dev)
+    dev = resolve_device(args.device)
+    g = torch.Generator(dev).manual_seed(0)
 
     cfg = get_config("alexnet").smoke()
     params = init_cnn_params(cfg, generator=g, device=dev)

@@ -38,6 +38,8 @@ import json
 import sys
 from pathlib import Path
 
+import torch
+
 from repro_torch.configs import get_config
 from repro_torch.examples import _common
 from repro_torch.kernels import autotune
@@ -45,6 +47,7 @@ from repro_torch.obs import (MeasureOptions, MetricsRegistry, TraceRecorder,
                              drift_report, record_drift, refine_plan,
                              validate_drift)
 from repro_torch.pipeline import ExecutionSpec, Serving, compile_cnn
+from repro_torch.pipeline.compile import resolve_device
 
 BATCH = 2
 
@@ -74,7 +77,7 @@ def measured_compile(cfg, dev, outdir=None):
     autotune.reset_measure_stats()
     compiled = compile_cnn(cfg, spec, measure=True, measure_opts=opts,
                            trace=trace, device=dev,
-                           generator=_common.generator(dev))
+                           generator=torch.Generator(dev).manual_seed(0))
     stats = autotune.measure_stats()
     table = compiled.plan_table
     report = drift_report(table)
@@ -89,7 +92,7 @@ def measured_compile(cfg, dev, outdir=None):
     autotune.reset_measure_stats()
     warm = compile_cnn(cfg, spec, plans=table, measure=True,
                        measure_opts=opts, device=dev,
-                       generator=_common.generator(dev))
+                       generator=torch.Generator(dev).manual_seed(0))
     assert sum(autotune.measure_stats().values()) == 0
     assert warm.plan_table.to_json() == table.to_json()
 
@@ -112,7 +115,7 @@ def main(argv=None) -> int:
                                       "measure_drift", description=__doc__)
     _common.add_device_arg(ap, out=True)
     args = ap.parse_args(argv)
-    dev = _common.device(args)
+    dev = resolve_device(args.device)
     outdir = _common.out_dir(args, "measure_drift")
     cfg = get_config("alexnet").smoke()
     where = _common.where(dev)

@@ -34,6 +34,7 @@ from repro_torch.examples.serve_elastic import (BATCH, bursty_requests,
                                                 full_alexnet, phases_for)
 from repro_torch.obs import (MetricsRegistry, TraceRecorder, reconcile,
                              validate_metrics, validate_trace)
+from repro_torch.pipeline.compile import resolve_device
 from repro_torch.serve import (AutoscalePolicy, FaultSchedule, ServeEngine,
                                total_cost)
 
@@ -81,7 +82,7 @@ def main(argv=None) -> int:
                                       "observe_fleet", description=__doc__)
     _common.add_device_arg(ap, out=True)
     args = ap.parse_args(argv)
-    dev = _common.device(args)
+    dev = resolve_device(args.device)
     outdir = _common.out_dir(args, "observe_fleet")
 
     cfg, model = full_alexnet(dev)

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import shutil
 import sys
 import warnings
 
@@ -25,6 +26,7 @@ from repro_torch.examples import _common
 from repro_torch.kernels import autotune
 from repro_torch.models.cnn import cnn_forward, init_cnn_params
 from repro_torch.pipeline import ExecutionSpec, Serving, compile_cnn
+from repro_torch.pipeline.compile import resolve_device
 from repro_torch.train.steps import (init_train_state, serve_decode,
                                      serve_prefill, train_step)
 
@@ -34,8 +36,8 @@ def main(argv=None) -> int:
                                       "quickstart", description=__doc__)
     _common.add_device_arg(ap, out=True)
     args = ap.parse_args(argv)
-    dev = _common.device(args)
-    g = _common.generator(dev)
+    dev = resolve_device(args.device)
+    g = torch.Generator(dev).manual_seed(0)
 
     # ------------------------------------------------------------ CNN side
     print("== PipeCNN compile-once pipeline (AlexNet, reduced) ==")
@@ -75,6 +77,8 @@ def main(argv=None) -> int:
           f"{st['conv_sweeps'] + st['gemm_sweeps']} DSE sweeps, "
           f"{st['conv_hits'] + st['gemm_hits']} cache hits")
     assert st["conv_sweeps"] + st["gemm_sweeps"] == 0
+    if args.out is None:
+        shutil.rmtree(out)
 
     # ------------------------------------------------------------- LM side
     print("\n== LM framework (qwen3 family, smoke scale) ==")

@@ -28,6 +28,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.config import CNNConfig
 from repro_torch.examples import _common
 from repro_torch.models import lm
+from repro_torch.pipeline.compile import resolve_device
 from repro_torch.train.steps import serve_decode, serve_prefill
 
 
@@ -65,8 +66,8 @@ def main(argv=None) -> int:
     ap.add_argument("--gen", type=int, default=32)
     _common.add_device_arg(ap)
     args = ap.parse_args(argv)
-    dev = _common.device(args)
-    g = _common.generator(dev)
+    dev = resolve_device(args.device)
+    g = torch.Generator(dev).manual_seed(0)
 
     cfg = get_config(args.arch).smoke()
     if isinstance(cfg, CNNConfig):

@@ -30,10 +30,12 @@ import math
 import sys
 
 import numpy as np
+import torch
 
 from repro_torch.configs import get_config
 from repro_torch.examples import _common
 from repro_torch.models.cnn import CNN, init_cnn_params
+from repro_torch.pipeline.compile import resolve_device
 from repro_torch.serve import AutoscalePolicy, Request, ServeEngine, total_cost
 
 BATCH = 8
@@ -65,7 +67,7 @@ def full_alexnet(dev):
     """The full AlexNet on ``dev``: the H100 cost model of its groups
     prices the slots, and its weights' bytes price a restore."""
     cfg = get_config("alexnet")
-    params = init_cnn_params(cfg, generator=_common.generator(dev),
+    params = init_cnn_params(cfg, generator=torch.Generator(dev).manual_seed(0),
                              device=dev)
     return cfg, CNN(cfg, params)
 
@@ -75,7 +77,7 @@ def main(argv=None) -> int:
                                       "serve_elastic", description=__doc__)
     _common.add_device_arg(ap)
     args = ap.parse_args(argv)
-    dev = _common.device(args)
+    dev = resolve_device(args.device)
 
     cfg, model = full_alexnet(dev)
     tr = total_cost(cfg, BATCH)              # one modelled pipeline round

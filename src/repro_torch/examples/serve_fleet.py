@@ -23,12 +23,15 @@ from __future__ import annotations
 import argparse
 import sys
 
+import torch
+
 from repro_torch.configs import get_config
 from repro_torch.examples import _common
 from repro_torch.launch.serve_cnn import (default_request_count,
                                           synthetic_requests)
 from repro_torch.models.cnn import init_cnn_params
 from repro_torch.pipeline import ExecutionSpec, Placement, Serving, compile_cnn
+from repro_torch.pipeline.compile import resolve_device
 
 BATCH = 8
 
@@ -49,10 +52,10 @@ def main(argv=None) -> int:
                                       "serve_fleet", description=__doc__)
     _common.add_device_arg(ap)
     args = ap.parse_args(argv)
-    dev = _common.device(args)
+    dev = resolve_device(args.device)
 
     cfg = get_config("alexnet").smoke()
-    params = init_cnn_params(cfg, generator=_common.generator(dev),
+    params = init_cnn_params(cfg, generator=torch.Generator(dev).manual_seed(0),
                              device=dev)
     n_req = default_request_count(BATCH, replicas=4)
     # a bursty arrival rate: queues build up, so the modes differ (the

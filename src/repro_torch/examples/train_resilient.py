@@ -26,6 +26,7 @@ from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.examples import _common
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.pipeline.compile import resolve_device
 from repro_torch.train.loop import LoopConfig, ResilientLoop
 
 
@@ -40,7 +41,7 @@ def main(argv=None) -> int:
     ap.add_argument("--compress", action="store_true")
     _common.add_device_arg(ap, out=True)
     args = ap.parse_args(argv)
-    dev = _common.device(args)
+    dev = resolve_device(args.device)
 
     cfg = get_config(args.arch).smoke()
     fail_once = {args.fail_at} if 0 <= args.fail_at < args.steps else set()
