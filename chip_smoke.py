@@ -221,7 +221,9 @@ Phases (any failure exits non-zero):
    outputs must be ``torch.equal``. Printed: both times, as timed and in a
    CUDA graph, beside ``core/pipeline.bandwidth_model``'s fused and
    unfused bytes for the group at the mode's width and the bytes saved
-   over the card's memory rate. Then the nine examples
+   over the card's memory rate; and the same conv then the library's
+   ``F.max_pool2d`` (timed only, where it takes the mode's type). Then
+   the nine examples
    (``repro_torch.examples``), each ``main`` in process on the card, each
    exiting 0 with its seconds printed: ``alexnet_inference --full --batch
    8`` must move the launch counters by conv_pipe 5, lrn_pwl 2 and
@@ -1327,6 +1329,7 @@ def slice7b(*, card: str, bw: float, vcfg, vgg: dict, reset_launches,
     import tempfile
 
     import torch
+    import torch.nn.functional as F
     from repro_torch.analysis.__main__ import main as analysis_main
     from repro_torch.core.pipeline import bandwidth_model
     from repro_torch.examples.alexnet_inference import TIMED_FORWARDS
@@ -1404,9 +1407,29 @@ def slice7b(*, card: str, bw: float, vcfg, vgg: dict, reset_launches,
                                       **kw)
                         return pool_ref(y, pool.pool, pool.kernel,
                                         pool.stride)
+
+                    # the same conv, then the library's pool (timed only;
+                    # the port never calls it): NHWC is channels_last NCHW
+                    def unfused_lib(h=h, w=w, b=b, kw=kw, tile=tile,
+                                    pool=pool):
+                        y = conv_pipe(h, w, b, tile=(tile[0], tile[1], 1, 1),
+                                      **kw)
+                        return F.max_pool2d(y.permute(0, 3, 1, 2),
+                                            pool.kernel, pool.stride
+                                            ).permute(0, 2, 3, 1)
                     a, u = fused(), unfused()
                     torch.cuda.synchronize()
                     same = torch.equal(a, u)
+                    check(pool.pool == "max", f"{label[g]}: {pool.pool} pool")
+                    try:
+                        lib_same = torch.equal(a, unfused_lib())
+                        lib_ms = time_ms(unfused_lib)
+                        lib_graph = graph_ms(unfused_lib)
+                    except RuntimeError as e:  # no int8 max-pool to call
+                        if mode != "int8":
+                            raise
+                        lib_same = lib_ms = lib_graph = None
+                        lib_none = f"{type(e).__name__}: {str(e)[:80]}"
                     i = plan.index(g)
                     fb = fused_st[mode][i].total
                     ub = unf_st[mode][g[0]].total + unf_st[mode][g[1]].total
@@ -1418,7 +1441,10 @@ def slice7b(*, card: str, bw: float, vcfg, vgg: dict, reset_launches,
                            "fused_ms": time_ms(fused),
                            "unfused_ms": time_ms(unfused),
                            "fused_graph_ms": graph_ms(fused),
-                           "unfused_graph_ms": graph_ms(unfused)}
+                           "unfused_graph_ms": graph_ms(unfused),
+                           "unfused_lib_ms": lib_ms,
+                           "unfused_lib_graph_ms": lib_graph,
+                           "lib_equal": lib_same}
                     rows.append(row)
                     gain = row["unfused_graph_ms"] - row["fused_graph_ms"]
                     print(f"[fusion] vgg16 {row['group']:<13} {mode}: tile "
@@ -1432,6 +1458,16 @@ def slice7b(*, card: str, bw: float, vcfg, vgg: dict, reset_launches,
                           f"unfused {ub} B, saved {ub - fb} B = "
                           f"{row['saved_ms']:.4f} ms at {bw / 1e12:.2f} TB/s;"
                           f" torch.equal {same} ({card})")
+                    if lib_graph is None:
+                        print(f"[fusion]   conv then F.max_pool2d: none at "
+                              f"{mode} ({lib_none})")
+                    else:
+                        lgain = lib_graph - row["fused_graph_ms"]
+                        print(f"[fusion]   conv then F.max_pool2d "
+                              f"{lib_ms:.4f} ms (graph {lib_graph:.4f}); the "
+                              f"graphs differ by {lgain:.4f} ms, "
+                              f"{100 * lgain / lib_graph:.1f} % of the "
+                              f"library-pooled; torch.equal {lib_same}")
                     check(same, f"fusion {row['group']} {mode}: the fused "
                           f"launch differs from conv then pool_ref")
                     del a, u

@@ -192,16 +192,20 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: Any) -> Path:
     return _write(ckpt_dir, step, *_host_tree(tree))
 
 
-def latest_step(ckpt_dir: str) -> Optional[int]:
+def committed_steps(ckpt_dir: str) -> List[int]:
+    """The committed steps under ``ckpt_dir``, in order."""
     root = Path(ckpt_dir)
     if not root.exists():
-        return None
+        return []
+    return sorted(int(d.name.split("_")[1]) for d in root.iterdir()
+                  if d.name.startswith("step_")
+                  and (d / "_COMMITTED").exists())
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
     clean_stale_tmp(ckpt_dir)
-    steps = []
-    for d in root.iterdir():
-        if d.name.startswith("step_") and (d / "_COMMITTED").exists():
-            steps.append(int(d.name.split("_")[1]))
-    return max(steps) if steps else None
+    steps = committed_steps(ckpt_dir)
+    return steps[-1] if steps else None
 
 
 def load_checkpoint(ckpt_dir: str, like: Any, step: Optional[int] = None,
@@ -276,16 +280,25 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
-    def save_async(self, step: int, tree: Any) -> None:
+    def save_async(self, step: int, tree: Any,
+                   first: Optional[Tuple[str, Any]] = None) -> None:
         """Copy ``tree`` to the host now (the caller may then change it in
-        place), and write it on a background thread."""
+        place), and write it on a background thread.
+
+        ``first``, a ``(ckpt_dir, tree)`` pair, is copied now too, and the
+        same thread commits it at ``step`` (and prunes its directory to
+        ``keep``) before it writes ``tree``: whoever finds ``tree``'s step
+        committed finds ``first``'s too.
+        """
         self.wait()
-        leaves, treedef = _host_tree(tree)
+        jobs = [] if first is None else [(first[0], *_host_tree(first[1]))]
+        jobs.append((self.dir, *_host_tree(tree)))
 
         def work():
             try:
-                _write(self.dir, step, leaves, treedef)
-                self._gc()
+                for d, leaves, treedef in jobs:
+                    _write(d, step, leaves, treedef)
+                    _prune(d, self.keep)
             except BaseException as e:  # surfaced on next wait()
                 self._error = e
 
@@ -300,10 +313,8 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
-    def _gc(self) -> None:
-        root = Path(self.dir)
-        steps = sorted(
-            int(d.name.split("_")[1]) for d in root.iterdir()
-            if d.name.startswith("step_") and (d / "_COMMITTED").exists())
-        for s in steps[:-self.keep]:
-            shutil.rmtree(root / f"step_{s:08d}", ignore_errors=True)
+
+def _prune(ckpt_dir: str, keep: int) -> None:
+    """Remove all but the newest ``keep`` committed steps."""
+    for s in committed_steps(ckpt_dir)[:-keep]:
+        shutil.rmtree(Path(ckpt_dir) / f"step_{s:08d}", ignore_errors=True)

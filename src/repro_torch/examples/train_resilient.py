@@ -2,7 +2,7 @@
 
 * the Markov-stream data pipeline (host-sharded, deterministic),
 * AdamW with a cosine schedule and gradient clipping,
-* asynchronous checkpoints every ``--ckpt-every`` steps,
+* asynchronous checkpoints every 10 steps,
 * an injected failure mid-run -> automatic restore and continue,
 * optional int8 error-feedback gradient compression (``--compress``),
   whose residual is checkpointed with the state, so the re-run steps
@@ -37,7 +37,6 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--fail-at", type=int, default=25,
                     help="the step whose start fails once (-1: none)")
-    ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--compress", action="store_true")
     _common.add_device_arg(ap, out=True)
     args = ap.parse_args(argv)
@@ -57,7 +56,7 @@ def main(argv=None) -> int:
     shutil.rmtree(ckpt_dir, ignore_errors=True)     # a fresh run
     loop = ResilientLoop(
         cfg,
-        LoopConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
+        LoopConfig(total_steps=args.steps, ckpt_every=10,
                    ckpt_dir=ckpt_dir, log_every=10,
                    compress_grads=args.compress),
         DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=8),

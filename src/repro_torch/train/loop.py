@@ -16,8 +16,11 @@ carries the compression residual from step to step, as
 also commits the residual the next step consumes, in a directory of its
 own (``<ckpt_dir>/residual/step_<N>/``, pruned with the state's), so the
 state's ``step_<N>/`` files stay JAX's and a restart resumes the run it
-interrupted; a restore that finds no residual carries zeros, as JAX's loop
-does. A restart restores on the same device: nothing moves to the CPU.
+interrupted. The residual is committed before the state, on the same
+thread, so a process killed between the two leaves no state without its
+residual; a restore takes the newest step that has both, and carries
+zeros, as JAX's loop does, only where no residual was ever written. A
+restart restores on the same device: nothing moves to the CPU.
 """
 from __future__ import annotations
 
@@ -30,8 +33,8 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.ckpt.checkpoint import (CheckpointManager, latest_step,
-                                         load_checkpoint)
+from repro_torch.ckpt.checkpoint import (CheckpointManager, committed_steps,
+                                         latest_step, load_checkpoint)
 from repro_torch.core.config import ModelConfig
 from repro_torch.data.pipeline import DataConfig, token_batches
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
@@ -72,9 +75,6 @@ class ResilientLoop:
         self.device = resolve_device(device)
         self.manager = (None if loop_cfg.ckpt_dir is None else
                         CheckpointManager(loop_cfg.ckpt_dir, loop_cfg.keep))
-        self.residual_manager = (
-            None if self.manager is None or not loop_cfg.compress_grads
-            else CheckpointManager(self.residual_dir, loop_cfg.keep))
         self.metrics_log: list = []
         self.straggler_events: list = []
         self.restarts = 0
@@ -85,8 +85,9 @@ class ResilientLoop:
     @property
     def residual_dir(self) -> Optional[str]:
         """Where a compressed run's residuals are committed, a
-        ``step_<N>`` directory beside each of the state's."""
-        if self.loop_cfg.ckpt_dir is None:
+        ``step_<N>`` directory beside each of the state's (None when the
+        run is uncompressed or writes no checkpoints)."""
+        if self.loop_cfg.ckpt_dir is None or not self.loop_cfg.compress_grads:
             return None
         return os.path.join(self.loop_cfg.ckpt_dir, RESIDUAL_DIR)
 
@@ -102,35 +103,48 @@ class ResilientLoop:
         state = init_train_state(self.cfg, g, self.ocfg, self.device)
         if self.loop_cfg.compress_grads:
             self._comp_state = init_compression(state.params)
-        start = 0
-        ckpt_dir = self.loop_cfg.ckpt_dir
-        if ckpt_dir is not None and latest_step(ckpt_dir) is not None:
-            state, start = load_checkpoint(ckpt_dir, state)
+        start = self._resume_step()
+        if start is not None:
+            state, start = load_checkpoint(self.loop_cfg.ckpt_dir, state,
+                                           step=start)
             print(f"[loop] restored checkpoint at step {start}")
-            if self.residual_manager is not None:
+            if self.residual_dir is not None:
                 self._restore_residual(start)
-        return state, start
+        return state, (start or 0)
+
+    def _resume_step(self) -> Optional[int]:
+        """The checkpoint to restore: the latest committed one, or, for a
+        compressed run with residuals on disk, the latest with its
+        residual committed too: a state whose residual was lost is passed
+        over for an older step that resumes the run exactly."""
+        if self.loop_cfg.ckpt_dir is None:
+            return None
+        last = latest_step(self.loop_cfg.ckpt_dir)
+        if last is None or self.residual_dir is None:
+            return last
+        both = (set(committed_steps(self.loop_cfg.ckpt_dir))
+                & set(committed_steps(self.residual_dir)))
+        return max(both) if both else last
 
     def _restore_residual(self, step: int) -> None:
         """The residual committed with checkpoint ``step``, or the zeros
         already in place when there is none."""
-        root = os.path.join(self.residual_dir, f"step_{step:08d}")
-        if os.path.exists(os.path.join(root, "_COMMITTED")):
+        if step in committed_steps(self.residual_dir):
             self._comp_state, _ = load_checkpoint(
                 self.residual_dir, self._comp_state, step=step)
         else:
             print(f"[loop] no residual at step {step}: zeros")
 
     def _save(self, step: int, state: TrainState) -> None:
-        if self.manager is not None:
-            self.manager.save_async(step, state)
-        if self.residual_manager is not None:
-            self.residual_manager.save_async(step, self._comp_state)
+        if self.manager is None:
+            return
+        first = (None if self.residual_dir is None
+                 else (self.residual_dir, self._comp_state))
+        self.manager.save_async(step, state, first=first)
 
     def _wait(self) -> None:
-        for m in (self.manager, self.residual_manager):
-            if m is not None:
-                m.wait()
+        if self.manager is not None:
+            self.manager.wait()
 
     def _batches(self, step: int):
         for batch in token_batches(self.data_cfg, self.cfg, start_step=step):

@@ -11,8 +11,9 @@ restarts and log under a fault at step 6. The compressed loop carries
 its residual: its losses are JAX's functions called step by step within
 1e-4 relative (JAX's own loop, whose jitted step keeps the zero residual
 it was traced with, agrees only for the first two losses). A compressed
-run checkpoints its residual beside the state, so a restart after a fault
-repeats the uninterrupted run's losses bit for bit.
+run checkpoints its residual beside the state (the residual first), so a
+restart after a fault, or a resume whose newest residual was lost, repeats
+the uninterrupted run's losses bit for bit.
 """
 import dataclasses
 import json
@@ -32,6 +33,7 @@ from repro.optim import adamw as jadamw
 from repro.optim import compress as jcompress
 from repro.train import loop as jloop
 from repro.train import steps as jsteps
+from repro_torch.ckpt import checkpoint as ckpt_module
 from repro_torch.ckpt.checkpoint import (CheckpointError, CheckpointManager,
                                          clean_stale_tmp, latest_step,
                                          load_checkpoint, save_checkpoint,
@@ -424,31 +426,89 @@ def one_thread():
     torch.set_num_threads(n)
 
 
+def _run_keeping_states(loop):
+    """``loop.run()``, and the state each step returned."""
+    states, step = [], loop._step
+
+    def spy(state, batch):
+        out = step(state, batch)
+        states.append(out[0])
+        return out
+
+    loop._step = spy
+    return loop.run(), states
+
+
+def _same_losses(got, want):
+    by_step = {m["step"]: m["loss"] for m in want["metrics"]}
+    return [m["loss"] for m in got["metrics"]] == \
+        [by_step[m["step"]] for m in got["metrics"]]
+
+
 def test_compressed_restart_resumes_the_run(tmp_path, one_thread):
     """8 compressed steps, checkpoints every 4, a fault at step 6: the
     re-run steps' losses equal the uninterrupted run's bit for bit (the
     residual of step 4 is restored with the state), as the uncompressed
-    loop's do; the state's checkpoint holds the state's leaves only."""
+    loop's do; the state's checkpoint is, byte for byte, what
+    ``save_checkpoint`` (JAX's bytes) writes for the loop's final state."""
     want = _compressed_loop(tmp_path / "whole").run()
-    got = _compressed_loop(tmp_path / "faulted", fault=6).run()
+    got, states = _run_keeping_states(
+        _compressed_loop(tmp_path / "faulted", fault=6))
     assert got["restarts"] == 1 and got["final_step"] == 8
     assert [m["step"] for m in got["metrics"]] == [1, 2, 3, 4, 5, 6,
                                                    5, 6, 7, 8]
-    by_step = {m["step"]: m["loss"] for m in want["metrics"]}
-    assert [m["loss"] for m in got["metrics"]] == \
-        [by_step[m["step"]] for m in got["metrics"]]
+    assert _same_losses(got, want)
     plain = tmp_path / "plain"
-    save_checkpoint(str(plain), 8, _state())
+    save_checkpoint(str(plain), 8, states[-1])
+    want_files = sorted((plain / "step_00000008").iterdir())
     for run in ("whole", "faulted"):
         root = tmp_path / run
         assert latest_step(str(root)) == 8
-        assert sorted(p.name for p in (root / "step_00000008").iterdir()) \
-            == sorted(p.name for p in (plain / "step_00000008").iterdir())
-        assert json.loads((root / "step_00000008" / "manifest.json")
-                          .read_text())["treedef"] == json.loads(
-            (plain / "step_00000008" / "manifest.json").read_text())[
-            "treedef"]
+        got_files = sorted((root / "step_00000008").iterdir())
+        assert [f.name for f in got_files] == [f.name for f in want_files]
+        for g, w in zip(got_files, want_files):
+            assert g.read_bytes() == w.read_bytes(), (run, g.name)
         assert (root / "residual" / "step_00000008" / "_COMMITTED").exists()
+
+
+def test_lost_latest_residual_resumes_from_the_step_before(tmp_path,
+                                                          one_thread):
+    """A compressed run's newest state without its residual is passed
+    over: the restore takes the newest step with both, and the resumed
+    run's losses equal an uninterrupted run's bit for bit."""
+    want = _compressed_loop(tmp_path / "whole", total_steps=12).run()
+    _compressed_loop(tmp_path / "cut", total_steps=8).run()
+    shutil.rmtree(tmp_path / "cut" / "residual" / "step_00000008")
+    assert latest_step(str(tmp_path / "cut")) == 8
+    got = _compressed_loop(tmp_path / "cut", total_steps=12).run()
+    assert [m["step"] for m in got["metrics"]] == list(range(5, 13))
+    assert _same_losses(got, want)
+
+
+def test_residual_is_committed_before_the_state(tmp_path, monkeypatch):
+    """One thread commits the residual, then the state: a save that dies
+    writing the residual leaves that step's state uncommitted, so no
+    restore pairs a state with a missing residual."""
+    loop = _compressed_loop(tmp_path)
+    state, _ = loop._init_state()
+    written = []
+    write = ckpt_module._write
+
+    def failing(d, step, leaves, treedef):
+        written.append((d, step))
+        if d == loop.residual_dir and step == 8:
+            raise OSError("disk full")
+        return write(d, step, leaves, treedef)
+
+    monkeypatch.setattr(ckpt_module, "_write", failing)
+    loop._save(4, state)
+    loop._wait()
+    loop._save(8, state)
+    with pytest.raises(OSError, match="disk full"):
+        loop._wait()
+    assert written == [(loop.residual_dir, 4), (str(tmp_path), 4),
+                       (loop.residual_dir, 8)]
+    assert latest_step(str(tmp_path)) == 4
 
 
 def test_compressed_restore_without_a_residual_carries_zeros(tmp_path,
