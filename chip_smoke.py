@@ -230,6 +230,24 @@ Phases (any failure exits non-zero):
    matmul_pipe 3 a forward and nothing else; ``train_resilient
    --compress`` (a fault at step 25, checkpoints every 10) must log the
    re-run steps' losses bit-equal to an uninterrupted compressed run's.
+19. Slice 8c (``ROADMAP.md`` Queue 1): the dry run of five full-width
+   cells (``DRYRUN_CELLS``: qwen3-8b ``train_4k`` on the 16x16 and
+   2x16x16 meshes and ``decode_32k``, dbrx-132b ``train_4k``, zamba2-1.2b
+   ``long_500k``), each traced on fake tensors in a process of its own,
+   all started at the phase's start and read at its end; each report
+   printed (argument and peak bytes, products, bytes, collectives by kind,
+   the three roofline terms, the trace's seconds). The dry run of phase
+   17's cell (Qwen3-8B, 8 layers, B 2 x 4096, bf16, fp32 AdamW) on a
+   (1, 1) mesh: the same state and batch built on the card must allocate
+   the argument bytes it predicts within 512 B a leaf; one ``train_step``'s
+   peak is printed beside the traced peak, and the 36-layer and pod16x16
+   argument bytes beside the card's memory. The sequence-parallel decode
+   (``parallel/collectives.py``): the partials of 16 slices of an 8 x
+   32768-slot cache (8 KV heads x 128, pos 32767, fp32) and their combine
+   within 1e-4 x max|out| of one ``decode_attention`` call over the whole
+   cache (a comparison launch). ``pipeline_forward``: 4 stages of
+   tanh(h @ W) at width 4096, 8 microbatches on stage streams, within
+   1e-4 of the sequential loop (TF32 off), both timed.
 11. One JSON line ``{"kernels": [...]}`` (each kernel and mode; launches
    from phases 3, 3b, 6, 7 and 9; each CNN entry sums the times of one
    AlexNet and one VGG-16 forward's launches in its mode, with each
@@ -343,6 +361,28 @@ TRAIN_FP32_RTOL = 2e-2         # first loss vs the fp32 forward's, relative
 # total steps, checkpoint period, the step whose start faults
 TRAIN_CKPT = ("xlstm_125m", 4, 64, 8, 4, 6)
 TRAIN_RERUN_RTOL = 1e-3        # re-run steps vs the uninterrupted losses
+# phase 19, slice 8c: the dry-run cells at full width, each traced in a
+# process of its own on a fake mesh (arch, shape, multi-pod, layers kept
+# or None for all), all started together
+DRYRUN_CELLS = (("qwen3_8b", "train_4k", False, None),
+                ("qwen3_8b", "train_4k", True, None),
+                ("qwen3_8b", "decode_32k", False, None),
+                ("dbrx_132b", "train_4k", False, None),
+                ("zamba2_1p2b", "long_500k", False, None))
+# the dry run against the card's memory: phase 17's Qwen3-8B cell (layers,
+# batch, sequence) on a (1, 1) mesh; argument bytes within this many
+# bytes a leaf (the caching allocator rounds each block up to 512 B)
+DRYRUN_MEMORY = ("qwen3_8b", 8, 2, 4096)
+DRYRUN_LEAF_SLACK = 512
+# the sequence-parallel decode combine at Qwen3-8B's KV geometry: batch,
+# cache slots, KV heads, head dim, slices, pos; within this x max|out| of
+# the decode_attention kernel over the whole cache
+SP_DECODE = (8, 32768, 8, 128, 16, 32767)
+SP_RTOL = 1e-4
+# pipeline_forward on stage streams: stages, width, microbatches, rows a
+# microbatch; against the sequential loop, fp32, TF32 off
+PIPE = (4, 4096, 8, 64)
+PIPE_ATOL = 1e-4
 # the card against the CPU: xlstm-125m at full width, fp32, TF32 off, cut
 # to 2 of its 12 layers (one mLSTM/sLSTM pair). The fp32 products sum in
 # another order on the card, and the random model's gradient grows with
@@ -948,32 +988,6 @@ def train_cfg(arch: str, depth=None, dtype=None):
     return cfg
 
 
-def product_counter():
-    """A dispatch mode (its ``ops``: operations by dtype) counting every
-    product the run dispatches (``mm``, ``addmm``, ``bmm``, ``baddbmm``:
-    2 x M x K x N, batches too) by its operands' dtype: forward, remat
-    recompute and backward alike. What the recompute does not run again
-    (the checkpoint stops once the saved tensors are rebuilt) is not
-    counted."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class Count(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.ops = {}
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            name = func.overloadpacket.__name__
-            if name in ("mm", "bmm", "addmm", "baddbmm"):
-                a = args[1] if name in ("addmm", "baddbmm") else args[0]
-                dt = str(a.dtype).removeprefix("torch.")
-                self.ops[dt] = self.ops.get(dt, 0) + 2 * a.numel() * \
-                    out.shape[-1]
-            return out
-    return Count()
-
-
 def lm_training(*, card: str, rates, launch_counts, seed: int = 0) -> dict:
     """Phase 17: the LM training path at full width (``TRAIN_RUNS``)
     through ``ResilientLoop``, each run's first loss held against ln V
@@ -990,6 +1004,7 @@ def lm_training(*, card: str, rates, launch_counts, seed: int = 0) -> dict:
     from repro_torch.ckpt.checkpoint import (load_checkpoint,
                                              save_checkpoint, tree_flatten,
                                              tree_unflatten)
+    from repro_torch.core.roofline import TraceCounter
     from repro_torch.data.pipeline import DataConfig, token_batches
     from repro_torch.models import lm
     from repro_torch.optim.adamw import AdamWConfig, adamw_update
@@ -1006,10 +1021,11 @@ def lm_training(*, card: str, rates, launch_counts, seed: int = 0) -> dict:
     def spy(loop, n_steps=None):
         """Wrap the loop's step: CUDA events around each call, its grad
         norm and the state it returns; with ``n_steps``, the products of
-        the first call (``product_counter``) and a ``torch.profiler``
+        the first call (a ``TraceCounter``, whose byte and live-storage
+        sums that call also pays) and a ``torch.profiler``
         trace of call ``n_steps``."""
         rec = {"events": [], "gnorm": [], "state": None, "prof": None,
-               "counter": product_counter() if n_steps else None}
+               "counter": TraceCounter() if n_steps else None}
         step = loop._step
 
         def timed(state, batch):
@@ -1541,6 +1557,220 @@ def slice7b(*, card: str, bw: float, vcfg, vgg: dict, reset_launches,
                           "differ": len(differ)}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+_CELL = """
+import json, sys
+from repro_torch.launch.dryrun import run_cell
+arch, shape, multi_pod, layers = sys.argv[1:5]
+r = run_cell(arch, shape, multi_pod == "1", verbose=False,
+             cfg_over=None if layers == "-" else {"n_layers": int(layers)})
+print(json.dumps(r))
+"""
+
+_MEMORY = """
+import dataclasses, json, sys
+from repro_torch.configs import get_config
+from repro_torch.core.config import ShapeSpec, get_shape
+from repro_torch.launch.dryrun import cell_rules, trace_cell
+from repro_torch.launch.mesh import make_mesh, make_production_mesh, teardown
+arch, layers, batch, seq = sys.argv[1], *map(int, sys.argv[2:5])
+cfg, shape = get_config(arch), ShapeSpec("train_4k", seq, batch, "train")
+mesh = make_mesh((1, 1), ("data", "model"))
+rules = cell_rules(mesh, shape)
+c, args = trace_cell(dataclasses.replace(cfg, n_layers=layers), shape, mesh,
+                     rules)
+_, args_full = trace_cell(cfg, shape, mesh, rules, run=False)
+teardown()
+mesh = make_production_mesh()
+_, args_pod = trace_cell(cfg, get_shape("train_4k"), mesh,
+                         cell_rules(mesh, get_shape("train_4k")), run=False)
+teardown()
+print(json.dumps({"args": args, "peak": c.peak, "ops": c.ops,
+                  "args_full": args_full, "args_pod16x16": args_pod}))
+"""
+
+
+def _python(code: str, *argv: str) -> subprocess.Popen:
+    """A ``python -c code argv...`` process with the checkout's ``src`` on
+    its path, its output piped."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.Popen([sys.executable, "-c", code, *argv], cwd=ROOT,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _result(proc: subprocess.Popen, what: str, timeout: float) -> dict:
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SystemExit(f"chip_smoke: FAILED: {what} ran past {timeout} s")
+    check(proc.returncode == 0,
+          f"{what} exited {proc.returncode}: {stderr[-2000:]}")
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+def slice8c(*, card: str, seed: int = 0) -> dict:
+    """Phase 19 (``ROADMAP.md`` Queue 1 slice 8c): (a) the dry-run cells
+    (``DRYRUN_CELLS``), each in its own process, started once (c) and (d)
+    are timed and read last; (b) the dry run of phase 17's cell on a (1, 1) mesh against the
+    card's memory: the argument bytes predicted must be what the state
+    and batch allocate, within ``DRYRUN_LEAF_SLACK`` a leaf, and the
+    traced peak is printed beside one ``train_step``'s; (c) the
+    sequence-parallel decode's partials over ``SP_DECODE``'s slices of one
+    cache and their combine against the ``decode_attention`` kernel over
+    the whole cache; (d) ``pipeline_forward`` on stage streams against the
+    sequential loop. Launches the decode kernel once, to compare."""
+    import math
+
+    import torch
+    from repro_torch.ckpt.checkpoint import tree_flatten
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.parallel.collectives import (sp_decode_combine,
+                                                  sp_decode_partial)
+    from repro_torch.parallel.pipeline_par import pipeline_forward
+    from repro_torch.train.steps import init_train_state, train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    out = {"card": card}
+    t0 = time.perf_counter()
+
+    # -- (c) the sequence-parallel combine against the decode kernel -------
+    B, S, H, D, P, pos = SP_DECODE
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kc, vc = (torch.randn(B, S, H, D, generator=g, device=dev)
+              for _ in range(2))
+    q = torch.randn(B, H, 1, D, generator=g, device=dev)
+    nk, nv = (torch.randn(B, H, D, generator=g, device=dev) for _ in range(2))
+    want, _, _ = decode_attention(q, kc, vc, nk, nv, pos)   # writes slot pos
+    n = S // P
+
+    def sp():
+        return sp_decode_combine([sp_decode_partial(
+            q[:, :, 0], kc[:, i * n:(i + 1) * n], vc[:, i * n:(i + 1) * n],
+            pos, i * n) for i in range(P)])
+    got = sp()
+    err = (got - want[:, :, 0]).abs().max().item()
+    tol = SP_RTOL * want.abs().max().item()
+    sp_ms = time_ms(sp, iters=5)
+    print(f"[sp_decode] {P} slices of {n} slots (B {B}, {H} heads x {D}, "
+          f"pos {pos}, fp32): partials + combine {sp_ms:.3f} ms; "
+          f"max|combine - decode_attention| {err:.3e} (allowed {tol:.3e})")
+    check(err <= tol, f"the sequence-parallel combine is {err:.3e} from the "
+          f"decode kernel (allowed {tol:.3e})")
+    out["sp_decode"] = {"slices": P, "max_abs_err": err, "tol": tol,
+                        "ms": sp_ms}
+    del kc, vc, q, nk, nv, want, got
+
+    # -- (d) pipeline_forward on stage streams -----------------------------
+    n_st, W, M, rows = PIPE
+    ws = torch.randn(n_st, W, W, generator=g, device=dev) / math.sqrt(W)
+    x = torch.randn(M * rows, W, generator=g, device=dev)
+    streams = [torch.cuda.Stream() for _ in range(n_st)]
+
+    def stage(w, h):
+        return torch.tanh(h @ w)
+
+    def sequential():
+        h = x
+        for w in ws:
+            h = stage(w, h)
+        return h
+    pipe = pipeline_forward(stage, ws, x, M, streams=streams)
+    ref = sequential()
+    torch.cuda.synchronize()
+    perr = (pipe - ref).abs().max().item()
+    pipe_ms = time_ms(lambda: pipeline_forward(stage, ws, x, M,
+                                               streams=streams), iters=5)
+    seq_ms = time_ms(sequential, iters=5)
+    print(f"[pipeline] {n_st} stages of tanh(h @ W) at width {W}, {M} "
+          f"microbatches of {rows} rows on stage streams: "
+          f"max|pipeline - sequential| {perr:.3e} (allowed {PIPE_ATOL}); "
+          f"{pipe_ms:.3f} ms beside the loop's {seq_ms:.3f} ms")
+    check(perr <= PIPE_ATOL, f"pipeline_forward is {perr:.3e} from the loop")
+    out["pipeline"] = {"max_abs_err": perr, "ms": pipe_ms,
+                       "sequential_ms": seq_ms}
+    del ws, x, pipe, ref
+
+    # the dry-run processes start only now: (c) and (d) are host-paced and
+    # were timed on an otherwise idle host
+    t_start = time.perf_counter()
+    cells = [(c, _python(_CELL, c[0], c[1], "1" if c[2] else "0",
+                         "-" if c[3] is None else str(c[3])))
+             for c in DRYRUN_CELLS]
+    arch, layers, batch, seq = DRYRUN_MEMORY
+    memory = _python(_MEMORY, arch, str(layers), str(batch), str(seq))
+
+    # -- (b) the dry run against the card's memory -------------------------
+    pred = _result(memory, "the (1, 1) dry run", 300)
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    m0 = torch.cuda.memory_allocated()
+    state = init_train_state(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), device=dev)
+    batch_t = {k: torch.randint(0, cfg.vocab, (batch, seq), generator=g,
+                                device=dev, dtype=torch.int32)
+               for k in ("tokens", "labels")}
+    torch.cuda.synchronize()
+    args = torch.cuda.memory_allocated() - m0
+    leaves = len(tree_flatten(state)[0]) + len(batch_t)
+    print(f"[dryrun memory] {arch} {layers} layers, B {batch} x {seq}, "
+          f"{cfg.dtype}, {cfg.opt_state_dtype} AdamW on (1, 1): arguments "
+          f"{pred['args']} B predicted, {args} B allocated ({leaves} leaves, "
+          f"{args - pred['args']:+d} B)")
+    check(abs(args - pred["args"]) <= DRYRUN_LEAF_SLACK * leaves,
+          f"the state and batch allocate {args} B, the dry run predicted "
+          f"{pred['args']} B")
+    torch.cuda.reset_peak_memory_stats()
+    _, metrics = train_step(state, batch_t, cfg)
+    loss = metrics["loss"].item()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - m0
+    held = abs(peak - pred["peak"]) <= 0.03 * pred["peak"]
+    print(f"[dryrun memory] one train_step (loss {loss:.4f}): peak "
+          f"{peak / 2**30:.3f} GiB above the card's baseline, traced "
+          f"{pred['peak'] / 2**30:.3f} GiB ({peak / pred['peak'] - 1:+.2%}; "
+          f"prediction within 3 %: {'held' if held else 'missed'})")
+    print(f"[dryrun memory] all {get_config(arch).n_layers} layers' "
+          f"arguments: {pred['args_full'] / 1e9:.2f} GB on (1, 1) (the "
+          f"card holds {torch.cuda.get_device_properties(0).total_memory / 1e9:.1f}"
+          f" GB), {pred['args_pod16x16'] / 1e9:.3f} GB a device on pod16x16 "
+          f"at train_4k's batch 256")
+    check(math.isfinite(loss), f"the train_step's loss is {loss}")
+    out["memory"] = dict(pred, allocated=args, leaves=leaves, peak_measured=
+                         peak, peak_held=held, loss=loss)
+    del state, batch_t, metrics
+    torch.cuda.empty_cache()
+
+    # -- (a) the dry-run cells ----------------------------------------------
+    out["cells"] = []
+    for (arch_c, shape_c, mp, lay), proc in cells:
+        mesh = "pod2x16x16" if mp else "pod16x16"
+        what = f"the dry run of {arch_c} x {shape_c} x {mesh}"
+        r = _result(proc, what,
+                    max(10.0, 110.0 - (time.perf_counter() - t_start)))
+        check(r["peak_bytes_per_device"] >= r["argument_bytes_per_device"] > 0
+              and r["flops_per_device"] > 0, f"{what}: an empty report")
+        print(f"[dryrun] {arch_c} x {shape_c} x {mesh}"
+              f"{'' if lay is None else f' ({lay} layers)'}: args "
+              f"{r['argument_bytes_per_device'] / 2**30:.3f} GiB, peak "
+              f"{r['peak_bytes_per_device'] / 2**30:.2f} GiB, flops "
+              f"{r['flops_per_device']:.3e}, bytes {r['bytes_per_device']:.3e}"
+              f", collectives {r['collective_bytes_per_device']:.3e} B "
+              f"{json.dumps({k: v for k, v in r['coll_breakdown'].items() if v})}"
+              f"; T_comp {r['t_compute'] * 1e3:.2f} ms, T_mem "
+              f"{r['t_memory'] * 1e3:.2f} ms, T_coll "
+              f"{r['t_collective'] * 1e3:.2f} ms, {r['bottleneck']}-bound, "
+              f"useful {r['useful_flops_ratio']:.2%}; traced in "
+              f"{r['trace_s']} s")
+        out["cells"].append(dict(r, layers=lay))
+    out["seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -3048,6 +3278,10 @@ def main() -> int:
         reset_launches=reset_launches, launch_counts=launch_counts)
     phases.done("18")
 
+    # -- 19. slice 8c: the dry run, the collectives, pipeline_forward --------
+    s8c_out = slice8c(card=card)
+    phases.done("19")
+
     # -- 11. the kernels line -------------------------------------------------
     # CNN entries sum one AlexNet and one VGG-16 forward's launches in their
     # mode (fp32 phases 2, 3 and 7; int8 2b, 3b and 7; bf16 8 and 9), with
@@ -3138,6 +3372,7 @@ def main() -> int:
                    "plans": plans_out, "fleet": fleet_out,
                    "artifacts": art_out, "slice7": s7_out, "lm": lm_out,
                    "train": train_out, "slice7b": s7b_out,
+                   "slice8c": s8c_out,
                    "phase_seconds": phases.seconds},
                   f, indent=1, sort_keys=True)
     print(json.dumps({"kernels": line}))

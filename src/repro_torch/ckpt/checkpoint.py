@@ -214,12 +214,13 @@ def load_checkpoint(ckpt_dir: str, like: Any, step: Optional[int] = None,
 
     ``like`` supplies the structure and each leaf's dtype and device (its
     values are ignored); a leaf is cast to its ``like`` leaf's dtype, as
-    in JAX. ``shardings`` must be None: there is one device (placement
-    comes with ROADMAP.md Queue 1 slice 8c).
+    in JAX. ``shardings`` (optional) is a tree of the same structure whose
+    leaves are ``parallel.sharding.NamedSharding``s (a mesh and its
+    placements; ``param_shardings`` builds one for parameters): each leaf
+    is loaded whole and placed with ``distribute_tensor`` on the mesh's
+    device type, JAX's ``device_put`` under a ``NamedSharding``. The
+    mesh's process group must be running.
     """
-    if shardings is not None:
-        raise ValueError("load_checkpoint: shardings are not supported on "
-                         "one device (pass None)")
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -227,13 +228,25 @@ def load_checkpoint(ckpt_dir: str, like: Any, step: Optional[int] = None,
     root = Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((root / "manifest.json").read_text())
     refs, _ = tree_flatten(like)
+    places = [None] * len(refs)
+    if shardings is not None:
+        places, _ = tree_flatten(shardings)
+        if len(places) != len(refs):
+            raise ValueError(f"load_checkpoint: {len(places)} shardings for "
+                             f"{len(refs)} leaves")
+        bad = [type(p).__name__ for p in places
+               if not (hasattr(p, "mesh") and hasattr(p, "placements"))]
+        if bad:
+            raise ValueError(f"load_checkpoint: shardings leaves must be "
+                             f"NamedShardings, not {sorted(set(bad))}")
     if manifest["n_leaves"] != len(refs):
         raise CheckpointError(
             f"checkpoint {root} (step {step}) has "
             f"{manifest['n_leaves']} leaves but the model expects "
             f"{len(refs)} — restoring into a different architecture?")
     loaded = []
-    for i, (ref, meta) in enumerate(zip(refs, manifest["leaves"])):
+    for i, (ref, meta, place) in enumerate(zip(refs, manifest["leaves"],
+                                               places)):
         try:
             a = np.load(root / f"leaf_{i}.npy")
         except Exception as e:          # truncated/corrupt/missing array
@@ -251,7 +264,13 @@ def load_checkpoint(ckpt_dir: str, like: Any, step: Optional[int] = None,
                 f"checkpoint {root} (step {step}): leaf {i} has shape "
                 f"{tuple(got.shape)} but the model expects "
                 f"{tuple(ref.shape)}")
-        loaded.append(got.to(device=ref.device, dtype=ref.dtype))
+        if place is None:
+            loaded.append(got.to(device=ref.device, dtype=ref.dtype))
+            continue
+        from torch.distributed.tensor import distribute_tensor
+        loaded.append(distribute_tensor(
+            got.to(device=place.mesh.device_type, dtype=ref.dtype),
+            place.mesh, place.placements))
     return tree_unflatten(like, loaded), step
 
 

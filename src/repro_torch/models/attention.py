@@ -9,7 +9,16 @@ behind :func:`repro_torch.kernels.ops.attention` and
 
 Weights are stored FLAT, (D, Hq*dh) etc., as in the JAX package, so
 :func:`params_from_jax` needs no transpose. The JAX layer's sharding
-annotations are dropped: on one device they are no-ops.
+annotations (``parallel.sharding.shard``) sit where JAX has them and act
+only inside the dry run's ``sharding_ctx``. Each split of a flat head
+dimension goes through ``sharding.unflatten``: where GQA's 8 KV heads (or
+the 4-head groups of 32 query heads) do not divide TP = 16, DTensor
+cannot view a shard that holds part of a head and gathers the dimension
+first, the collective GSPMD inserts unasked. The attention core runs
+``sharding.per_shard`` over the batch and KV-head dims (K and V cut as the
+query groups are), and decode's query is cut as the cache is
+(``sharding.align``): GSPMD reshards one side of a product on its own,
+DTensor refuses.
 """
 from __future__ import annotations
 
@@ -21,6 +30,8 @@ import torch
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
+from repro_torch.parallel.sharding import (align, full, per_shard, shard,
+                                           unflatten)
 from repro_torch.pipeline.compile import resolve_device
 
 NEG_INF = -1e30
@@ -66,31 +77,39 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """x (B,S,D) -> q (B,S,Hq,dh), k/v (B,S,Hkv,dh), rope + qk_norm applied."""
     B, S, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = (x @ p["wq"]).reshape(B, S, hq, dh)
-    k = (x @ p["wk"]).reshape(B, S, hkv, dh)
-    v = (x @ p["wv"]).reshape(B, S, hkv, dh)
+    q = unflatten(x @ p["wq"], 2, (hq, dh))
+    k = unflatten(x @ p["wk"], 2, (hkv, dh))
+    v = unflatten(x @ p["wv"], 2, (hkv, dh))
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard(q, "batch", "seq", "heads", None)
+    k = shard(k, "batch", "seq", None, None)
+    v = shard(v, "batch", "seq", None, None)
     return q, k, v
 
 
 def _sdpa_naive(q, k, v, cfg: ModelConfig, causal: bool = True):
     """Reference full-matrix attention (smoke tests / oracle)."""
-    B, Sq, hq, dh = q.shape
-    Sk, hkv = k.shape[1], k.shape[2]
-    qg = q.reshape(B, Sq, hkv, hq // hkv, dh)
+    hkv = k.shape[2]
+    return per_shard(_naive, unflatten(q, 2, (hkv, q.shape[2] // hkv)), k, v,
+                     dims=(0, 2), shape=q.shape, causal=causal)
+
+
+def _naive(qg, k, v, causal: bool):
+    B, Sq, hkv, g, dh = qg.shape
+    Sk = k.shape[1]
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
                      k.float()) / math.sqrt(dh)
     if causal:
         mask = torch.ones((Sq, Sk), dtype=torch.bool,
-                          device=q.device).tril(Sk - Sq)
+                          device=qg.device).tril(Sk - Sq)
         s = s.masked_fill(~mask, NEG_INF)
     pattn = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", pattn, v.float())
-    return o.reshape(B, Sq, hq, dh).to(q.dtype)
+    return o.reshape(B, Sq, hkv * g, dh).to(qg.dtype)
 
 
 def _sdpa_chunked(q, k, v, cfg: ModelConfig):
@@ -98,28 +117,34 @@ def _sdpa_chunked(q, k, v, cfg: ModelConfig):
 
     Never materializes (Sq x Sk); per-step live memory is O(Sq * chunk).
     """
-    B, Sq, hq, dh = q.shape
-    Sk, hkv = k.shape[1], k.shape[2]
-    g = hq // hkv
-    C = min(cfg.attn_chunk, Sk)
+    hkv = k.shape[2]
+    return per_shard(_chunked, unflatten(q, 2, (hkv, q.shape[2] // hkv)),
+                     k, v, dims=(0, 2), shape=q.shape,
+                     chunk=min(cfg.attn_chunk, k.shape[1]))
+
+
+def _chunked(qg, k, v, chunk: int):
+    B, Sq, hkv, g, dh = qg.shape
+    Sk = k.shape[1]
+    C = chunk
     if Sk % C:      # pad KV to a chunk multiple; causal mask hides the pad
         pad = C - Sk % C
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
         Sk += pad
 
-    qg = q.reshape(B, Sq, hkv, g, dh).float()
-    q_pos = torch.arange(Sq, device=q.device)
+    dtype, qg = qg.dtype, qg.float()
+    q_pos = torch.arange(Sq, device=qg.device)
     m = torch.full((B, hkv, g, Sq), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((B, hkv, g, Sq), dtype=torch.float32, device=q.device)
+                   device=qg.device)
+    l = torch.zeros((B, hkv, g, Sq), dtype=torch.float32, device=qg.device)
     acc = torch.zeros((B, hkv, g, Sq, dh), dtype=torch.float32,
-                      device=q.device)
+                      device=qg.device)
     for j in range(Sk // C):
         kj, vj = k[:, j * C:(j + 1) * C], v[:, j * C:(j + 1) * C]
         s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kj.float())
         s = s / math.sqrt(dh)
-        k_pos = j * C + torch.arange(C, device=q.device)
+        k_pos = j * C + torch.arange(C, device=qg.device)
         mask = q_pos[:, None] >= k_pos[None, :]            # causal
         s = s.masked_fill(~mask, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
@@ -130,7 +155,7 @@ def _sdpa_chunked(q, k, v, cfg: ModelConfig):
             "bhgqk,bkhd->bhgqd", p.to(vj.dtype).float(), vj.float())
         m = m_new
     o = acc / torch.clamp_min(l, 1e-30)[..., None]
-    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, hq, dh).to(q.dtype)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, hkv * g, dh).to(dtype)
 
 
 def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -144,6 +169,7 @@ def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
         o = _sdpa_naive(q, k, v, cfg)
     else:
         o = _sdpa_chunked(q, k, v, cfg)
+    o = shard(o, "batch", "seq", "heads", None)
     return o.reshape(B, S, cfg.n_heads * cfg.d_head) @ p["wo"]
 
 
@@ -163,8 +189,9 @@ def init_kv_cache(cfg: ModelConfig, batch: int, s_max: int,
     device = resolve_device(device)
     shape = ((n_layers,) if n_layers else ()) + (
         batch, s_max, cfg.n_kv_heads, cfg.d_head)
-    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device))
+    axes = (("layers",) if n_layers else ()) + ("batch", "kvseq", None, None)
+    return KVCache(full(shape, 0, dtype, device, *axes),
+                   full(shape, 0, dtype, device, *axes))
 
 
 def attn_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -183,9 +210,11 @@ def attn_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
     at_pos = (slots == pos_t)[None, :, None, None]
     ck = torch.where(at_pos, k.to(cache.k.dtype), cache.k)
     cv = torch.where(at_pos, v.to(cache.v.dtype), cache.v)
+    ck = shard(ck, "batch", "kvseq", None, None)
+    cv = shard(cv, "batch", "kvseq", None, None)
 
     g = hq // hkv
-    qg = q.reshape(B, hkv, g, dh)
+    qg = align(unflatten(q[:, 0], 1, (hkv, g)), ck, 1, 2)
     s = torch.einsum("bhgd,bkhd->bhgk", qg.float(),
                      ck.float()) / math.sqrt(dh)
     valid = (slots <= pos_t)[None, None, None, :]

@@ -10,6 +10,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.sharding import shard, take_last
+
 
 def dtype_of(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -94,14 +96,18 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     masked sum adds that one element to zeros, so both give the same value
     and the same gradient, and the gather builds no vocabulary-sized int
     and fp32 temporaries (5 GB each at Qwen3-8B's 152,064 padded columns
-    and 8192 tokens).
+    and 8192 tokens). On vocab-sharded logits (the dry run) the gather is
+    ``sharding.take_last``'s, JAX's local pick and one all-reduce.
     """
     logits = logits.float()
     m = logits.amax(dim=-1, keepdim=True).detach()
-    shifted = logits - m
+    # the dry run: the shifted logits and each token's loss, and their
+    # gradients, cut as JAX's are (DTensor would cut the gradients' sequence
+    # dim over "model", and every product behind them after it)
+    shifted = shard(logits - m, "batch", "seq", "vocab")
     lse = torch.log(torch.exp(shifted).sum(dim=-1))
-    gold = torch.gather(shifted, -1, labels.long()[..., None])[..., 0]
-    nll = lse - gold
+    gold = take_last(shifted, labels)
+    nll = shard(lse - gold, "batch", "seq")
     if mask is not None:
         mask = mask.float()
         return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)

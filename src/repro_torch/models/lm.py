@@ -20,16 +20,19 @@ static flag is a Python ``if`` on the layer index. Vocab is padded to a
 multiple of 256; the pad columns are masked out of the loss
 (:func:`loss_fn`) and the decode argmax (``train/steps.py``). Training
 differentiates :func:`loss_fn` with autograd; :func:`maybe_remat` is
-JAX's per-layer ``jax.checkpoint`` as ``torch.utils.checkpoint``. The JAX
-sharding annotations are no-ops on one device and are dropped, and so are
-``cache_logical_axes``, ``batch_logical_axes`` and ``input_specs``
-(sharding tooling, ROADMAP.md Queue 1 slice 8c).
+JAX's per-layer ``jax.checkpoint`` as ``torch.utils.checkpoint``. JAX's
+sharding annotations (``parallel.sharding.shard``) sit where JAX has them;
+they act only on DTensors inside ``sharding_ctx`` (the dry run) and are
+no-ops otherwise. :func:`cache_logical_axes`, :func:`batch_logical_axes`
+and :func:`input_specs` (``meta`` tensors for JAX's ``ShapeDtypeStruct``)
+feed the dry run.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.core.config import ModelConfig
@@ -41,10 +44,12 @@ from repro_torch.models.layers import (cross_entropy, dense_init, dtype_of,
                                        embed_init, rms_norm)
 from repro_torch.models.mlp import (init_mlp_params, init_moe_params,
                                     mlp_forward, moe_forward)
+from repro_torch.parallel.sharding import put_prefix, shard, unshard
 from repro_torch.pipeline.compile import resolve_device
 
-__all__ = ["VOCAB_ALIGN", "DecodeCache", "count_params", "decode_step",
-           "forward", "init_decode_cache", "init_params", "loss_fn",
+__all__ = ["VOCAB_ALIGN", "DecodeCache", "batch_logical_axes",
+           "cache_logical_axes", "count_params", "decode_step", "forward",
+           "init_decode_cache", "init_params", "input_specs", "loss_fn",
            "maybe_remat", "n_scan_steps", "n_shared_attn_apps",
            "pad_mask", "params_from_jax", "prefill", "tree_leaves",
            "tree_map", "vocab_padded"]
@@ -113,8 +118,9 @@ def tree_leaves(tree: Tree, path=()):
 
 
 def _layer(blocks: Tree, i: int) -> Tree:
-    """Layer ``i``'s parameters: every stacked leaf at index ``i``."""
-    return tree_map(lambda a: a[i], blocks)
+    """Layer ``i``'s parameters: every stacked leaf at index ``i``
+    (gathered over the FSDP axes in the dry run: ``sharding.unshard``)."""
+    return unshard(tree_map(lambda a: a[i], blocks))
 
 
 def _layers(blocks: Tree, n: int):
@@ -245,11 +251,11 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
 def _embed_tokens(params: Tree, tokens: torch.Tensor,
                   frontend_embed: Optional[torch.Tensor],
                   cfg: ModelConfig) -> torch.Tensor:
-    x = params["embed"][tokens]
+    x = F.embedding(tokens, unshard(params["embed"]))
     if cfg.frontend:
-        fe = frontend_embed.to(x.dtype) @ params["frontend_proj"]
+        fe = frontend_embed.to(x.dtype) @ unshard(params["frontend_proj"])
         x = torch.cat([fe, x], dim=1)
-    return x
+    return shard(x, "batch", "seq", "embed")
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
@@ -266,7 +272,7 @@ def _transformer_block_fwd(bp: Tree, x, cfg: ModelConfig, positions):
     x = x + attn_forward(bp["attn"], rms_norm(x, bp["ln1"], cfg.norm_eps),
                          cfg, positions)
     f, aux = _ffn(bp, rms_norm(x, bp["ln2"], cfg.norm_eps), cfg)
-    return x + f, aux
+    return shard(x + f, "batch", "seq", "embed"), aux
 
 
 def _shared_block_fwd(sp: Tree, x, cfg: ModelConfig, positions):
@@ -296,7 +302,7 @@ def forward(params: Tree, tokens: torch.Tensor, cfg: ModelConfig,
 
     if cfg.family in TRANSFORMER_FAMILIES:
         def body(x, bp):
-            x, aux = _transformer_block_fwd(bp, x, cfg, positions)
+            x, aux = _transformer_block_fwd(unshard(bp), x, cfg, positions)
             return x, aux_total if aux is None else aux
         body = maybe_remat(body, cfg)
         auxs = []
@@ -309,24 +315,26 @@ def forward(params: Tree, tokens: torch.Tensor, cfg: ModelConfig,
         sp = params["shared"]
 
         def body(x, bp, shared):
+            bp = unshard(bp)
             if shared:
-                x = _shared_block_fwd(sp, x, cfg, positions)
+                x = _shared_block_fwd(unshard(sp), x, cfg, positions)
             h, _ = S.mamba_forward(bp["mamba"],
                                    rms_norm(x, bp["ln"], cfg.norm_eps), cfg)
-            return x + h
+            return shard(x + h, "batch", "seq", "embed")
         body = maybe_remat(body, cfg)
         for i, bp in enumerate(layers):
             x = body(x, bp, i % cfg.attn_every == 0)
 
     elif cfg.family == "ssm":
         def body(x, bp):
-            return _xlstm_pair_fwd(bp, x, cfg)[0]
+            return shard(_xlstm_pair_fwd(unshard(bp), x, cfg)[0],
+                         "batch", "seq", "embed")
         body = maybe_remat(body, cfg)
         for bp in layers:
             x = body(x, bp)
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = x @ params["lm_head"]
+    logits = shard(x @ unshard(params["lm_head"]), "batch", "seq", "vocab")
     if return_aux:
         return logits, aux_total
     return logits
@@ -385,7 +393,8 @@ def decode_step(params: Tree, tokens: torch.Tensor, cache: DecodeCache,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, DecodeCache]:
     """One decode step: tokens (B, 1) -> (logits (B, 1, Vp), new cache).
     Functional, as in JAX: the cache passed in is left as it was."""
-    x = params["embed"][tokens]
+    x = shard(F.embedding(tokens, unshard(params["embed"])),
+              "batch", "seq", "embed")
     pos = cache.pos
     blocks = params["blocks"]
 
@@ -403,7 +412,7 @@ def decode_step(params: Tree, tokens: torch.Tensor, cache: DecodeCache,
         cache = cache._replace(kv=KVCache(ks, vs))
 
     elif cfg.family == "hybrid":
-        sp = params["shared"]
+        sp = unshard(params["shared"])
         sh_k, sh_v = cache.shared_kv.k.clone(), cache.shared_kv.v.clone()
         states = []
         for i in range(cfg.n_layers):
@@ -438,7 +447,7 @@ def decode_step(params: Tree, tokens: torch.Tensor, cache: DecodeCache,
                                slstm=_stack_states(ssts, S.SLSTMState))
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = x @ params["lm_head"]
+    logits = x @ unshard(params["lm_head"])
     return logits, cache._replace(pos=pos + 1)
 
 
@@ -463,14 +472,14 @@ def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig,
             normed = rms_norm(x, bp["ln1"], cfg.norm_eps)
             h = attn_forward(bp["attn"], normed, cfg, positions)
             _, k, v = _project_qkv(bp["attn"], normed, cfg, positions)
-            cache.kv.k[i, :, :Stot] = k
-            cache.kv.v[i, :, :Stot] = v
+            put_prefix(cache.kv.k, i, k)
+            put_prefix(cache.kv.v, i, v)
             x = x + h
             f, _ = _ffn(bp, rms_norm(x, bp["ln2"], cfg.norm_eps), cfg)
             x = x + f
 
     elif cfg.family == "hybrid":
-        sp = params["shared"]
+        sp = unshard(params["shared"])
         states = []
         for i in range(cfg.n_layers):
             if i % cfg.attn_every == 0:
@@ -478,8 +487,8 @@ def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig,
                 normed = rms_norm(x, sp["ln1"], cfg.norm_eps)
                 h = attn_forward(sp["attn"], normed, cfg, positions)
                 _, k, v = _project_qkv(sp["attn"], normed, cfg, positions)
-                cache.shared_kv.k[a, :, :Stot] = k    # zero-padded to s_max
-                cache.shared_kv.v[a, :, :Stot] = v
+                put_prefix(cache.shared_kv.k, a, k)   # zero-padded to s_max
+                put_prefix(cache.shared_kv.v, a, v)
                 x = x + h
                 x = x + mlp_forward(sp["mlp"],
                                     rms_norm(x, sp["ln2"], cfg.norm_eps))
@@ -500,6 +509,67 @@ def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig,
                                slstm=_stack_states(ssts, S.SLSTMState))
 
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    logits = x @ params["lm_head"]
+    logits = x @ unshard(params["lm_head"])
     return logits, cache._replace(
         pos=torch.full((), Stot, dtype=torch.int32, device=x.device))
+
+
+def cache_logical_axes(cfg: ModelConfig) -> DecodeCache:
+    """DecodeCache-shaped tree of logical-axis tuples (for shardings).
+
+    Mirrors init_decode_cache's structure exactly; leaves are tuples of
+    logical axis names consumed by parallel.sharding.spec_for.
+    """
+    kv_ax = KVCache(("layers", "batch", "kvseq", None, None),
+                    ("layers", "batch", "kvseq", None, None))
+    none = ()
+    kv = mamba = mlstm = slstm = shared = none
+    if cfg.family in TRANSFORMER_FAMILIES:
+        kv = kv_ax
+    elif cfg.family == "hybrid":
+        mamba = S.MambaState(("layers", "batch", "heads", None, None),
+                             ("layers", "batch", None, "ffn"))
+        shared = kv_ax
+    elif cfg.family == "ssm":
+        mlstm = S.MLSTMState(("layers", "batch", "heads", None, None),
+                             ("layers", "batch", "heads", None),
+                             ("layers", "batch", "heads"))
+        slstm = S.SLSTMState(*(("layers", "batch", "heads", None),) * 4)
+    return DecodeCache(kv, mamba, mlstm, slstm, shared, ())
+
+
+def batch_logical_axes(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
+    """Logical axes for the input batch dict of a given step kind."""
+    tok = ("batch", None)
+    if kind == "train":
+        ax = {"tokens": tok, "labels": tok}
+    elif kind == "prefill":
+        ax = {"tokens": tok}
+    else:
+        return {"tokens": tok, "cache": cache_logical_axes(cfg)}
+    if cfg.frontend:
+        ax["frontend_embed"] = ("batch", None, None)
+    return ax
+
+
+def input_specs(cfg: ModelConfig, shape) -> Dict[str, Any]:
+    """``meta`` tensors standing in for every model input of this cell
+    (JAX's ``ShapeDtypeStruct``s): its shapes and dtypes, nothing
+    allocated. ``shape`` is a ``core.config.ShapeSpec``."""
+    B, Sq = shape.global_batch, shape.seq_len
+    meta = torch.device("meta")
+    F = cfg.frontend_len if cfg.frontend else 0
+
+    def tokens(n):
+        return torch.empty((B, n), dtype=torch.int32, device=meta)
+
+    if shape.kind == "decode":      # one new token against a cache of Sq
+        return {"tokens": tokens(1),
+                "cache": init_decode_cache(cfg, B, Sq, meta)}
+    specs = {"tokens": tokens(Sq - F)}
+    if shape.kind == "train":
+        specs["labels"] = tokens(Sq - F)
+    if F:
+        specs["frontend_embed"] = torch.empty(
+            (B, F, cfg.d_model), dtype=dtype_of(cfg.dtype), device=meta)
+    return specs

@@ -17,6 +17,9 @@ weights. Three places where torch differs from XLA and the code says so:
 * The combine is a sum over the K choices of a token, in fp32, in choice
   order (JAX's scatter-add into zeros); ``index_add_`` is not
   deterministic on CUDA and is not used.
+
+JAX's sharding annotations (``parallel.sharding.shard``) sit where JAX has
+them and act only inside the dry run's ``sharding_ctx``.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.models.layers import dense_init, swiglu
+from repro_torch.parallel.sharding import per_shard, shard, unflatten
 
 CAPACITY_FACTOR = 1.25
 
@@ -48,7 +52,14 @@ def init_mlp_params(cfg: ModelConfig, dtype: torch.dtype,
 
 
 def mlp_forward(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return swiglu(x @ p["wi"]) @ p["wdown"]
+    # the input whole over "model" and the product cut on "ffn" (the dry
+    # run): DTensor lays out a product by its inputs alone, and its
+    # gradient by whatever reaches it (the swiglu split's is gathered),
+    # where GSPMD propagates the ffn cut both ways
+    x = shard(x, "batch", "seq", "embed")
+    h = shard(x @ p["wi"], "batch", "seq", "ffn")
+    h = shard(swiglu(h), "batch", "seq", "ffn")
+    return h @ p["wdown"]
 
 
 # ---------------------------------------------------------------------------
@@ -102,6 +113,27 @@ def moe_dispatch_indices(idx: torch.Tensor, E: int
     return e_flat, pos
 
 
+def _dispatch(xg: torch.Tensor, idx: torch.Tensor, E: int, C: int):
+    """Groups' tokens xg (G, Tl, D) into their experts' queues by idx (G,
+    Tl, K) -> (buf (G, E, C, D), e_flat, pos (G, Tl*K)). A dropped choice
+    (pos >= C) lands in a spare slot C, cut off after."""
+    G, Tl, D = xg.shape
+    e_flat, pos = zip(*(moe_dispatch_indices(i, E) for i in idx))
+    e_flat, pos = torch.stack(e_flat), torch.stack(pos)
+    tok = torch.arange(Tl, device=xg.device).repeat_interleave(idx.shape[-1])
+    g_ix = torch.arange(G, device=xg.device)[:, None]
+    buf = torch.zeros((G, E, C + 1, D), dtype=xg.dtype, device=xg.device)
+    buf[g_ix, e_flat, pos.clamp_max(C)] = xg[:, tok]
+    return buf[:, :, :C], e_flat, pos
+
+
+def _gather(o: torch.Tensor, e_flat: torch.Tensor, pos: torch.Tensor,
+            C: int) -> torch.Tensor:
+    """Each choice's expert output (G, Tl*K, D) from o (G, E, C, D)."""
+    g_ix = torch.arange(o.shape[0], device=o.device)[:, None]
+    return o[g_ix, e_flat, pos.clamp_max(C - 1)]
+
+
 def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output (B,S,D), the Switch load-balance aux loss, a 0-d
@@ -116,27 +148,27 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
     logits = xt.float() @ p["router"]                # (T, E) fp32
     w, idx = route_topk(logits, K)                   # (T, K)
 
-    # group-local dispatch: capacity is enforced per group
-    xg = xt.reshape(G, Tl, D)
-    e_flat, pos = zip(*(moe_dispatch_indices(i, E)
-                        for i in idx.reshape(G, Tl, K)))
-    e_flat, pos = torch.stack(e_flat), torch.stack(pos)   # (G, Tl*K)
-    tok = torch.arange(Tl, device=x.device).repeat_interleave(K)
-    g_ix = torch.arange(G, device=x.device)[:, None]
-
-    # scatter: a dropped choice (pos >= C) lands in the spare slot C
-    buf = torch.zeros((G, E, C + 1, D), dtype=x.dtype, device=x.device)
-    buf[g_ix, e_flat, pos.clamp_max(C)] = xg[:, tok]
-    buf = buf[:, :, :C]                              # (G, E, C, D)
+    # group-local dispatch: capacity is enforced per group (in the dry run
+    # each rank dispatches the groups it holds: DTensor has no index_put
+    # rule in every torch release)
+    xg = shard(xt.reshape(G, Tl, D), "batch", None, None)
+    buf, e_flat, pos = per_shard(
+        _dispatch, xg, unflatten(idx, 0, (G, Tl)), dims=(0,),
+        shape=((G, E, C, D), (G, Tl * K), (G, Tl * K)), E=E, C=C)
+    buf = shard(buf, "batch", "experts", None, None)
 
     # expert GEMMs, one batched product each
-    h = swiglu(torch.einsum("gecd,edf->gecf", buf, p["moe_wi"]))
-    o = torch.einsum("gecf,efd->gecd", h, p["moe_wdown"])
+    h = shard(torch.einsum("gecd,edf->gecf", buf, p["moe_wi"]),
+              "batch", "experts", None, None)
+    h = swiglu(h)
+    o = shard(torch.einsum("gecf,efd->gecd", h, p["moe_wdown"]),
+              "batch", "experts", None, None)
 
     # combine: gather each choice's expert output, weight, sum over K
-    gathered = o[g_ix, e_flat, pos.clamp_max(C - 1)]     # (G, TlK, D)
+    gathered = per_shard(_gather, o, e_flat, pos, dims=(0,),
+                         shape=(G, Tl * K, D), C=C)       # (G, TlK, D)
     keep = (pos < C).float()[..., None]
-    wk = w.reshape(G, Tl * K)[..., None] * keep
+    wk = unflatten(w, 0, (G, Tl)).reshape(G, Tl * K)[..., None] * keep
     v = (gathered.float() * wk).reshape(G, Tl, K, D)
     out = v[:, :, 0]
     for k in range(1, K):                            # JAX's scatter order

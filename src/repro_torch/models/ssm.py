@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.models.layers import dense_init, rms_norm, swiglu
+from repro_torch.parallel.sharding import per_shard, unflatten
 
 Params = Dict[str, torch.Tensor]
 
@@ -130,7 +131,6 @@ def mamba_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
         y1, state = mamba_forward(p, x[:, s0:], cfg, state)
         return torch.cat([y0, y1], dim=1), state
     d_inner, nh, P, N = mamba_dims(cfg)
-    NC = S // Q
 
     h = x @ p["in_proj"]
     z, xbc, dt_pre = _split_in_proj(h, cfg)
@@ -147,12 +147,24 @@ def mamba_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     Cm = Cmat.float()
 
     # --- chunked SSD scan: carry the (B, nh, P, N) state across chunks ---
+    y, st = per_shard(_ssd_scan, xh, Bm, Cm, dt, state.ssm, dims=(0,),
+                      shape=(xh.shape, state.ssm.shape), A=A, Q=Q)
+    y = y + xh * p["D"][None, None, :, None]         # skip connection
+    y = y.reshape(Bsz, S, d_inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["ssm_norm"], cfg.norm_eps)
+    return y @ p["out_proj"], MambaState(st, conv_state)
+
+
+def _ssd_scan(xh, Bm, Cm, dt, st, A, Q: int):
+    """The chunked SSD scan over (B, S, nh, P) inputs -> (y, final state)."""
+    Bsz, S, nh, P = xh.shape
+    N = Bm.shape[-1]
+    NC = S // Q
     xc = xh.reshape(Bsz, NC, Q, nh, P)
     Bc = Bm.reshape(Bsz, NC, Q, N)
     Cc = Cm.reshape(Bsz, NC, Q, N)
     dtc = dt.reshape(Bsz, NC, Q, nh)
-    mask = _causal_mask(Q, x.device)[None, :, :, None]
-    st = state.ssm
+    mask = _causal_mask(Q, xh.device)[None, :, :, None]
     ys = []
     for c in range(NC):
         xq, bq, cq, dq = xc[:, c], Bc[:, c], Cc[:, c], dtc[:, c]
@@ -176,11 +188,7 @@ def mamba_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
         st = st * torch.exp(s_in[:, -1, :])[:, :, None, None] + torch.einsum(
             "bqh,bqhp,bqn->bhpn", tail * dq, xq, bq)
         ys.append(y_inter + y_intra)
-    y = torch.stack(ys, dim=1).reshape(Bsz, S, nh, P)
-    y = y + xh * p["D"][None, None, :, None]         # skip connection
-    y = y.reshape(Bsz, S, d_inner).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["ssm_norm"], cfg.norm_eps)
-    return y @ p["out_proj"], MambaState(st, conv_state)
+    return torch.stack(ys, dim=1).reshape(Bsz, S, nh, P), st
 
 
 def mamba_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -281,23 +289,35 @@ def mlstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
         y0, state = mlstm_forward(p, x[:, :s0], cfg, state)
         y1, state = mlstm_forward(p, x[:, s0:], cfg, state)
         return torch.cat([y0, y1], dim=1), state
-    NC = S // Q
     up = x @ p["w_up"]
     xin, z = up.chunk(2, dim=-1)
-    qkv = (xin @ p["wqkv"]).reshape(Bsz, S, 3, nh, P).float()
+    qkv = unflatten(xin @ p["wqkv"], 2, (3, nh, P)).float()
     q, k, v = qkv[:, :, 0], qkv[:, :, 1] / math.sqrt(P), qkv[:, :, 2]
     gates = (xin @ p["w_gates"]).float() + p["gate_b"]
-    gates = gates.reshape(Bsz, S, 2, nh)
+    gates = unflatten(gates, 2, (2, nh))
     i_pre, f_pre = gates[:, :, 0], gates[:, :, 1]          # (B,S,nh)
 
     if state is None:
         state = init_mlstm_state(cfg, Bsz, x.device)
+    y, *st = per_shard(_mlstm_scan, q, k, v, i_pre, f_pre, *state,
+                       dims=(0,), shape=(q.shape,) + tuple(
+                           a.shape for a in state), Q=Q)
+    y = y.reshape(Bsz, S, d_inner).to(x.dtype)
+    y = rms_norm(y, p["mem_norm"], cfg.norm_eps) * F.silu(z)
+    return y @ p["wdown"], MLSTMState(*st)
+
+
+def _mlstm_scan(q, k, v, i_pre, f_pre, C, n, m, Q: int):
+    """The chunkwise mLSTM over (B, S, nh, P) inputs from the state
+    (C, n, m) -> (y (B, S, nh, P), C, n, m)."""
+    Bsz, S = q.shape[:2]
+    NC = S // Q
 
     def ch(a):                                             # (B, NC, Q, ...)
         return a.reshape(Bsz, NC, Q, *a.shape[2:])
     qc, kc, vc, ic, fc = map(ch, (q, k, v, i_pre, f_pre))
-    mask = _causal_mask(Q, x.device)[None, :, :, None]
-    st = state
+    mask = _causal_mask(Q, q.device)[None, :, :, None]
+    st = MLSTMState(C, n, m)
     ys = []
     for c in range(NC):
         qj, kj, vj, ij, fj = qc[:, c], kc[:, c], vc[:, c], ic[:, c], fc[:, c]
@@ -327,9 +347,7 @@ def mlstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
             torch.einsum("bjh,bjhp,bjhq->bhpq", w_st, kj, vj)
         n = st.n * carry[..., None] + torch.einsum("bjh,bjhp->bhp", w_st, kj)
         st = MLSTMState(C, n, m_new)
-    y = torch.stack(ys, dim=1).reshape(Bsz, S, d_inner).to(x.dtype)
-    y = rms_norm(y, p["mem_norm"], cfg.norm_eps) * F.silu(z)
-    return y @ p["wdown"], st
+    return (torch.stack(ys, dim=1).reshape(q.shape), *st)
 
 
 def mlstm_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -396,7 +414,7 @@ def slstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     d_inner, nh, P = xlstm_dims(cfg)
     gx = (x @ p["w_gates"]).float() + p["gate_b"]
     # (B,S,4*d_inner) -> (B,S,nh,4P): per-head gate grouping
-    gx = gx.reshape(Bsz, S, 4, nh, P).permute(0, 1, 3, 2, 4)
+    gx = unflatten(gx, 2, (4, nh, P)).permute(0, 1, 3, 2, 4)
     gx = gx.reshape(Bsz, S, nh, 4 * P)
     if state is None:
         state = init_slstm_state(cfg, Bsz, x.device)

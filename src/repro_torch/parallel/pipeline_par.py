@@ -20,12 +20,13 @@ ticks run in order, one after another.
 
 :func:`gpipe_schedule` is the schedule of JAX's
 ``pipeline_forward_stages``; the serving engine splits a replica's rows
-into the microbatches it takes. ``pipeline_forward`` (uniform stages over
-stacked parameters) belongs to LM training, ROADMAP.md Queue 1 slice 8.
+into the microbatches it takes. :func:`pipeline_forward` is JAX's
+uniform-stage entry point over stage-stacked parameters, on the same
+schedule.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 
@@ -74,3 +75,43 @@ def gpipe_schedule(stage_fn: Callable[[int, torch.Tensor], torch.Tensor],
         h[m].record_stream(entry)
     return h
 
+
+
+def _stage(tree: Any, s: int) -> Any:
+    """Stage ``s``'s slice of a stage-stacked tensor or dict of them."""
+    if isinstance(tree, dict):
+        return {k: _stage(v, s) for k, v in tree.items()}
+    return tree[s]
+
+
+def _n_stages(tree: Any) -> int:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.shape[0]
+
+
+def pipeline_forward(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
+                     params_stacked: Any, x: torch.Tensor,
+                     n_microbatches: int = 4, *,
+                     streams: Optional[Sequence[torch.cuda.Stream]] = None
+                     ) -> torch.Tensor:
+    """Run x through S uniform pipeline stages.
+
+    ``stage_fn(stage_params, h) -> h`` applies one stage's layers;
+    ``params_stacked`` is a tensor or a dict tree whose leaves lead with
+    the stage axis S (stage s's parameters are every leaf at s). x (B,
+    ...) is cut into ``n_microbatches`` along dim 0, which must divide B.
+    The microbatches cross the stages in :func:`gpipe_schedule`'s
+    fill-drain ticks, stage s on ``streams[s]`` where given. Returns the
+    last stage's output, (B, ...)."""
+    B = x.shape[0]
+    if B % n_microbatches:
+        raise ValueError(f"pipeline_forward: batch {B} is not a multiple of "
+                         f"{n_microbatches} microbatches")
+    S = _n_stages(params_stacked)
+    stages = [_stage(params_stacked, s) for s in range(S)]
+    micro = list(x.reshape(n_microbatches, B // n_microbatches,
+                           *x.shape[1:]).unbind(0))
+    out = gpipe_schedule(lambda s, h: stage_fn(stages[s], h), micro, S,
+                         streams=streams)
+    return torch.cat(out)

@@ -1,0 +1,446 @@
+"""Logical-axis sharding: models annotate tensors with logical names
+("batch", "seq", "heads", ...) and this module maps them onto the mesh
+axes of a ``DeviceMesh``, with automatic divisibility fallback.
+
+A copy of the JAX package's ``parallel/sharding.py`` over DTensor. A
+sharding is JAX's ``PartitionSpec`` as a plain tuple, one entry a tensor
+dimension: ``None``, a mesh axis name, or a tuple of names (the dimension
+cut over several axes, major to minor). :func:`placements` turns it into
+DTensor's ``Shard``/``Replicate`` placements, one a mesh dimension.
+
+Why auto-drop: argument shardings must divide the dimension exactly.
+Several configs have awkward dims (InternVL2's vocab is 92,553, long_500k
+has batch 1, GQA kv_heads=8 never divide TP=16). ``spec_for`` drops mesh
+axes that do not divide, so one rule set serves every (arch x shape x
+mesh) cell.
+
+Models call :func:`shard`, a no-op outside :func:`sharding_ctx` and on a
+tensor that is not a DTensor: the port's own runs on one card never see
+it. Inside, it redistributes to the spec, as JAX's
+``with_sharding_constraint`` does; where GSPMD reshapes a tensor whose
+shards do not hold whole pieces of the new dimension, DTensor refuses, and
+:func:`unflatten` gathers that dimension first (the collective GSPMD
+inserts without saying so).
+"""
+from __future__ import annotations
+
+import math
+import threading
+from contextlib import contextmanager
+from dataclasses import dataclass
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
+
+import torch
+
+AxisRule = Union[None, str, Tuple[str, ...]]
+Spec = Tuple[AxisRule, ...]
+
+__all__ = ["DEFAULT_RULES", "align", "AxisRule", "batch_sharding",
+           "current_mesh", "full", "mesh_shape", "named", "NamedSharding",
+           "param_shardings", "param_spec", "per_shard", "placements",
+           "put_prefix",
+           "shard", "sharding_ctx", "Spec", "spec_for", "take_last",
+           "unflatten", "unshard"]
+
+# Default logical-axis -> mesh-axis rules (single pod). launch/mesh.py
+# extends "batch" with the "pod" axis for the multi-pod mesh.
+DEFAULT_RULES: Dict[str, AxisRule] = {
+    "batch": ("data",),
+    "seq": None,
+    "kvseq": ("model",),       # SP decode: KV-cache sequence over TP axis
+    "heads": ("model",),
+    "embed": None,
+    "ffn": ("model",),
+    "vocab": ("model",),
+    "experts": ("model",),
+    "fsdp": ("data",),         # ZeRO-3 param axis
+    "tp": ("model",),          # tensor-parallel param axis
+    "layers": None,
+    "state": None,
+}
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """JAX's ``NamedSharding``: a mesh and a spec, with the spec's DTensor
+    placements (``distribute_tensor(t, s.mesh, s.placements)``)."""
+    mesh: Any
+    spec: Spec
+    placements: tuple
+
+
+class _Ctx(threading.local):
+    mesh = None
+    rules: Optional[Dict[str, AxisRule]] = None
+
+
+_CTX = _Ctx()
+
+
+@contextmanager
+def sharding_ctx(mesh, rules: Optional[Dict[str, AxisRule]] = None):
+    prev = (_CTX.mesh, _CTX.rules)
+    merged = dict(DEFAULT_RULES)
+    if rules:
+        merged.update(rules)
+    _CTX.mesh, _CTX.rules = mesh, merged
+    try:
+        yield
+    finally:
+        _CTX.mesh, _CTX.rules = prev
+
+
+def current_mesh():
+    return _CTX.mesh
+
+
+def mesh_shape(mesh) -> Dict[str, int]:
+    """Axis name -> size: a ``DeviceMesh``'s, or a mesh whose ``shape`` is
+    already that mapping (JAX's ``Mesh.shape``)."""
+    if isinstance(mesh.shape, Mapping):
+        return dict(mesh.shape)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def spec_for(shape: Sequence[int], logical: Sequence[Optional[str]],
+             mesh, rules: Dict[str, AxisRule],
+             allow_uneven: bool = False) -> Spec:
+    """The spec of ``shape`` under ``logical``, dropping axes that don't
+    divide the dim."""
+    sizes = mesh_shape(mesh)
+    entries = []
+    used: set = set()                     # a mesh axis may appear only once
+    for dim, name in zip(shape, logical):
+        rule = rules.get(name) if name else None
+        if rule is None:
+            entries.append(None)
+            continue
+        axes = (rule,) if isinstance(rule, str) else tuple(rule)
+        # keep the largest prefix of unused mesh axes that divides this dim
+        kept = []
+        prod = 1
+        for a in axes:
+            if a not in sizes or a in used:
+                continue
+            nxt = prod * sizes[a]
+            if allow_uneven or dim % nxt == 0:
+                kept.append(a)
+                prod = nxt
+        used.update(kept)
+        entries.append(tuple(kept) if len(kept) > 1
+                       else (kept[0] if kept else None))
+    return tuple(entries)
+
+
+def placements(spec: Spec, mesh) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh``, one a mesh dimension:
+    ``Shard(d)`` where tensor dim ``d`` names the axis, else
+    ``Replicate()``. A dim cut over several axes is cut over the first
+    named, then each piece over the next: JAX's major-to-minor order,
+    which DTensor gives only when the axes come in the mesh's order."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        axes = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry!r} is not in the mesh's "
+                             f"axis order {names}")
+        for i in idx:
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+_DTENSOR = None          # DTensor's class, imported at the first ask
+
+
+def _is_dtensor(x) -> bool:
+    global _DTENSOR
+    if _DTENSOR is None:
+        from torch.distributed.tensor import DTensor
+        _DTENSOR = DTensor
+    return isinstance(x, _DTENSOR)
+
+
+class _Constrain(torch.autograd.Function):
+    """A redistribute whose gradient is redistributed to the same
+    placements: JAX's sharding constraint holds the cotangent too, where
+    DTensor's own backward would hand back the input's layout (a
+    replicated loss gradient would then stay replicated, whole batches on
+    every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, want):
+        ctx.want = want
+        return x.redistribute(x.device_mesh, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.want), None
+
+
+def shard(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
+    """Constrain an intermediate, and its gradient, to its logical
+    sharding: a redistribute inside :func:`sharding_ctx` (uneven shards
+    allowed, as in JAX), a no-op outside it or on a tensor that is not a
+    DTensor."""
+    mesh, rules = _CTX.mesh, _CTX.rules
+    if mesh is None or not _is_dtensor(x) or x.ndim != len(logical):
+        return x
+    spec = spec_for(x.shape, logical, mesh, rules, allow_uneven=True)
+    # a dim of one, cut, leaves every rank but one with nothing, which
+    # DTensor's products refuse; rank 0 holds all of it either way
+    want = placements(tuple(None if n == 1 else e
+                            for n, e in zip(x.shape, spec)), mesh)
+    if not x.requires_grad:
+        return x if tuple(x.placements) == want else x.redistribute(mesh,
+                                                                     want)
+    return _Constrain.apply(x, want)
+
+
+def unshard(tree, logical: str = "fsdp"):
+    """``tree`` (a tensor or nested dicts of them) with every DTensor leaf
+    gathered over the mesh axes of the ``logical`` rule: ZeRO-3's gather of
+    a layer's weights where it runs, which GSPMD inserts and DTensor does
+    not (its product rule would rather cut the activations along the
+    weight's sharded contraction dim and compute full-batch partial sums
+    on every rank). A no-op outside :func:`sharding_ctx`."""
+    mesh, rules = _CTX.mesh, _CTX.rules
+    if mesh is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: unshard(v, logical) for k, v in tree.items()}
+    if not _is_dtensor(tree):
+        return tree
+    from torch.distributed.tensor import Replicate
+    rule = rules.get(logical) or ()
+    axes = (rule,) if isinstance(rule, str) else tuple(rule)
+    want = tuple(Replicate() if name in axes else p for name, p in
+                 zip(tree.device_mesh.mesh_dim_names, tree.placements))
+    if want == tuple(tree.placements):
+        return tree
+    return tree.redistribute(tree.device_mesh, want)
+
+
+def unflatten(x: torch.Tensor, dim: int, sizes: Sequence[int]
+              ) -> torch.Tensor:
+    """``x.unflatten(dim, sizes)``. On a DTensor whose mesh axes on
+    ``dim`` do not divide ``sizes[0]`` (a shard would hold part of a
+    head), ``dim`` is gathered first: DTensor cannot view it, GSPMD
+    gathers it silently."""
+    if _is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+        dim = dim % x.ndim
+        n = math.prod(m for m, p in zip(x.device_mesh.shape, x.placements)
+                      if p == Shard(dim))
+        if sizes[0] % n:
+            x = x.redistribute(x.device_mesh, [
+                Replicate() if p == Shard(dim) else p
+                for p in x.placements])
+    return x.unflatten(dim, sizes)
+
+
+def align(x: torch.Tensor, ref: torch.Tensor, dim: int,
+          ref_dim: Optional[int] = None) -> torch.Tensor:
+    """``x`` with its dim ``dim`` cut over the mesh axes that cut ``ref``'s
+    dim ``ref_dim`` (default ``dim``), and over no other: the two sides of
+    a product alike, where GSPMD reshards the other side silently and
+    DTensor refuses. A no-op unless both are DTensors."""
+    if not (_is_dtensor(x) and _is_dtensor(ref)):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    d, rd = Shard(dim % x.ndim), Shard((dim if ref_dim is None
+                                        else ref_dim) % ref.ndim)
+    want = tuple(d if rp == rd else (Replicate() if xp == d else xp)
+                 for xp, rp in zip(x.placements, ref.placements))
+    if want == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def per_shard(fn, ref: torch.Tensor, *args: torch.Tensor,
+              dims: Sequence[int], shape, **kw):
+    """``fn(ref, *args, **kw)``. On a DTensor, shard by shard: ``ref`` is
+    kept cut on ``dims`` only (a dim cut elsewhere is gathered), each of
+    ``args`` is cut as ``ref`` is, each tensor of ``kw`` is whole on every
+    rank, ``fn`` runs on the local tensors, and its result (a tensor of
+    global ``shape``, or a tuple of them and a tuple of shapes) is cut as
+    ``ref`` (``fn`` keeps the dims in ``dims`` where they were); a whole
+    tensor's gradient is summed over the ranks that split the work. For work
+    independent along ``dims``, such as the attention core over the batch
+    and KV heads or a scan over the batch, where DTensor's batched product
+    refuses two cut dims merged into one (GSPMD tiles them)."""
+    if not _is_dtensor(ref):
+        return fn(ref, *args, **kw)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = ref.device_mesh
+    want = tuple(p if isinstance(p, Shard) and p.dim in dims
+                 else Replicate() for p in ref.placements)
+    whole = (Replicate(),) * mesh.ndim
+    # a whole tensor's gradient: each rank's share of it along the mesh
+    # dims that cut the work, the same on every rank along the others
+    summed = tuple(Partial() if isinstance(p, Shard) else Replicate()
+                   for p in want)
+
+    def local(a, placed, grad=None):  # a plain tensor is whole everywhere
+        if not _is_dtensor(a):
+            a = DTensor.from_local(a, mesh, whole, run_check=False)
+        return a.redistribute(mesh, placed).to_local(grad_placements=grad)
+    kw = {k: local(v, whole, summed) if isinstance(v, torch.Tensor) else v
+          for k, v in kw.items()}
+    out = fn(local(ref, want), *(local(a, want) for a in args), **kw)
+
+    def wrap(t, shp):
+        stride = [1] * len(shp)
+        for i in range(len(shp) - 2, -1, -1):
+            stride[i] = stride[i + 1] * shp[i + 1]
+        return DTensor.from_local(t.contiguous(), mesh, want, run_check=False,
+                                  shape=torch.Size(shp), stride=tuple(stride))
+    if isinstance(out, tuple):
+        return tuple(map(wrap, out, shape))
+    return wrap(out, shape)
+
+
+def take_last(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``torch.gather(x, -1, index[..., None])[..., 0]``. On a DTensor cut
+    along its last dim, each shard picks the indices it holds (zero
+    elsewhere) and a sum over those mesh axes gives the rest: JAX's
+    masked sum, one small all-reduce and the last dim never gathered.
+    DTensor's own gather rule fails on that layout."""
+    if _is_dtensor(x):
+        from torch.distributed.tensor import DTensor, Partial, Replicate, \
+            Shard
+        last = Shard(x.ndim - 1)
+        if last in x.placements:
+            mesh = x.device_mesh
+            off, n = 0, x.shape[-1]        # this rank's range, chunk-wise
+            for size, c, p in zip(mesh.shape, mesh.get_coordinate(),
+                                  x.placements):
+                if p == last:
+                    step = -(-n // size)
+                    lo = min(c * step, n)
+                    off, n = off + lo, min(lo + step, n) - lo
+            idx = index.redistribute(mesh, [Replicate() if p == last else p
+                                            for p in x.placements])
+            i = idx.to_local().long() - off
+            held = (i >= 0) & (i < n)
+            got = torch.gather(x.to_local(), -1,
+                               i.clamp(0, max(n - 1, 0))[..., None])
+            got = torch.where(held, got[..., 0], 0.0)
+            return DTensor.from_local(
+                got, mesh, [Partial() if p == last else p
+                            for p in x.placements], run_check=False)
+    return torch.gather(x, -1, index.long()[..., None])[..., 0]
+
+
+def put_prefix(buf: torch.Tensor, i: int, value: torch.Tensor) -> None:
+    """``buf[i, :, :n] = value`` in place, ``n = value.shape[1]``: a
+    layer's prompt K or V into its cache. On a DTensor whose dim 2 (the
+    cache's slots) is cut, DTensor writes a slice of that dim into a
+    gathered copy and drops the write; so the row ``buf[i]`` is rebuilt
+    whole (``value``, then the row's own slots from ``n``), laid out as
+    the row is, and written along the uncut dim 0."""
+    n = value.shape[1]
+    if not _is_dtensor(buf):
+        buf[i, :, :n] = value
+        return
+    row = buf[i]
+    new = torch.cat([value.to(row.dtype), row[:, n:]], dim=1)
+    buf[i] = new.redistribute(row.device_mesh, row.placements)
+
+
+def full(shape: Sequence[int], fill_value: float, dtype: torch.dtype,
+         device, *logical: Optional[str]) -> torch.Tensor:
+    """``torch.full``; inside :func:`sharding_ctx`, a DTensor laid out as
+    ``logical`` (argument-grade, as :func:`named`), each shard made on its
+    own: a buffer a model fills in place or carries through a loop (the
+    prefill's KV cache, the online softmax's running statistics), which
+    JAX's GSPMD lays out by propagation."""
+    mesh, rules = _CTX.mesh, _CTX.rules
+    if mesh is None:
+        return torch.full(tuple(shape), fill_value, dtype=dtype,
+                          device=device)
+    from torch.distributed import tensor as dt
+    return dt.full(tuple(shape), fill_value, dtype=dtype, device_mesh=mesh,
+                   placements=placements(
+                       spec_for(shape, logical, mesh, rules), mesh))
+
+
+def named(mesh, rules: Dict[str, AxisRule], shape: Sequence[int],
+          *logical: Optional[str]) -> NamedSharding:
+    """Argument-grade sharding (strict divisibility)."""
+    spec = spec_for(shape, logical, mesh, rules)
+    return NamedSharding(mesh, spec, placements(spec, mesh))
+
+
+def batch_sharding(mesh, shape: Sequence[int],
+                   rules: Optional[Dict[str, AxisRule]] = None
+                   ) -> NamedSharding:
+    """Argument sharding for a batch-leading tensor via the "batch"
+    rule: one replica's micro-batch on each shard of the "data" axis;
+    non-batch dims stay unsharded, and a batch the data axis does not
+    divide falls back to replicated (``spec_for`` auto-drop)."""
+    logical = ("batch",) + (None,) * (len(shape) - 1)
+    return named(mesh, rules or DEFAULT_RULES, shape, *logical)
+
+
+# ---------------------------------------------------------------------------
+# Parameter shardings: leaf-name -> logical axes per dimension
+# ---------------------------------------------------------------------------
+
+# Matched against the *last* key of the tree path. A leading "layers" axis
+# (stacked blocks) is detected by rank mismatch and left unsharded.
+_PARAM_AXES: Dict[str, Tuple[Optional[str], ...]] = {
+    # embeddings / head
+    "embed": ("vocab", "fsdp"),
+    "lm_head": ("fsdp", "vocab"),
+    "frontend_proj": ("fsdp", "tp"),
+    # attention (flat head dims)
+    "wq": ("fsdp", "tp"),
+    "wk": ("fsdp", "tp"),
+    "wv": ("fsdp", "tp"),
+    "wo": ("tp", "fsdp"),
+    # dense mlp
+    "wi": ("fsdp", "tp"),
+    "wdown": ("tp", "fsdp"),
+    # MoE
+    "router": (None, None),
+    "moe_wi": ("experts", "fsdp", "tp"),
+    "moe_wdown": ("experts", "tp", "fsdp"),
+    # mamba2
+    "in_proj": ("fsdp", "tp"),
+    "out_proj": ("tp", "fsdp"),
+    "conv_w": (None, "tp"),
+    # xlstm
+    "wqkv": ("fsdp", "tp"),
+    "w_up": ("fsdp", "tp"),
+    "w_gates": ("fsdp", "tp"),
+    "r_gates": (None, "tp"),
+}
+
+
+def param_spec(path: Sequence[str], leaf) -> Tuple[Optional[str], ...]:
+    """Logical axes for one parameter leaf; ``path`` is the leaf's key
+    tuple (``lm.tree_leaves``)."""
+    key = next((k for k in reversed(path) if isinstance(k, str)), None)
+    axes = _PARAM_AXES.get(key)
+    if axes is None:
+        return (None,) * leaf.ndim               # norms, biases, scalars
+    if leaf.ndim == len(axes) + 1:               # stacked: leading L axis
+        return ("layers",) + axes
+    if leaf.ndim != len(axes):
+        return (None,) * leaf.ndim
+    return axes
+
+
+def param_shardings(mesh, rules: Dict[str, AxisRule], params):
+    """A :class:`NamedSharding` for every leaf of a parameter tree (nested
+    dicts of tensors, or of anything with ``shape`` and ``ndim``), in its
+    tree."""
+    def walk(tree, path):
+        return {k: walk(v, path + (k,)) if isinstance(v, dict)
+                else named(mesh, rules, v.shape, *param_spec(path + (k,), v))
+                for k, v in tree.items()}
+    return walk(params, ())

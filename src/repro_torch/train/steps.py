@@ -16,6 +16,7 @@ from repro_torch.core.config import ModelConfig
 from repro_torch.models import lm
 from repro_torch.optim.adamw import (AdamWConfig, AdamWState, adamw_update,
                                      init_adamw)
+from repro_torch.parallel.sharding import shard
 from repro_torch.pipeline.compile import resolve_device
 
 
@@ -76,7 +77,10 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
 
 def _greedy(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Argmax over the real vocab (``lm.pad_mask`` added, in the logits'
-    dtype). Ties take the first maximum, as in JAX."""
+    dtype). Ties take the first maximum, as in JAX. A vocab-sharded row
+    (the dry run) is gathered first: DTensor has no argmax over a cut
+    dim."""
+    logits = shard(logits, "batch", "seq", None)
     return torch.argmax(logits + lm.pad_mask(logits, cfg), dim=-1)
 
 

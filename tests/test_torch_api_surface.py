@@ -184,3 +184,62 @@ def test_compiled_cnn_runtime_surface():
                    "roofline_breakdown", "verify"):
         assert callable(getattr(pipeline.CompiledCNN, method, None)), \
             f"CompiledCNN.{method} missing"
+
+
+# -- slice 8c: the sharding and dry-run modules against their JAX twins ------
+# (the JAX modules are read by AST, not imported: repro.launch.dryrun
+# forces 512 host devices when imported)
+
+def _public(path):
+    tree = ast.parse(path.read_text())
+    names = set()
+    for n in tree.body:
+        if isinstance(n, (ast.FunctionDef, ast.ClassDef)):
+            names.add(n.name)
+        elif isinstance(n, ast.Assign):
+            names.update(t.id for t in n.targets if isinstance(t, ast.Name))
+    return {n for n in names if not n.startswith("_")}
+
+
+# module -> (JAX names left out, port-only names), each named for a reason
+SLICE_8C = {
+    # the port's DTensor layer: the NamedSharding record, the spec tuple,
+    # placements and the explicit redistributes DTensor needs where GSPMD
+    # reshards on its own (align, full, per_shard, put_prefix, take_last,
+    # unflatten, unshard)
+    "parallel/sharding": (set(), {
+        "NamedSharding", "Spec", "align", "full", "mesh_shape", "per_shard",
+        "placements", "put_prefix", "take_last", "unflatten", "unshard"}),
+    # compat_make_mesh is JAX's AxisType shim; make_mesh is its twin over
+    # the fake process group, teardown frees a process's one default group
+    "launch/mesh": ({"compat_make_mesh"}, {"make_mesh", "teardown"}),
+    # run_cell_scaled (and --scaled/--unroll) extrapolates XLA's
+    # once-counted scan bodies; the port's trace runs every layer
+    "launch/dryrun": ({"run_cell_scaled"}, {"cell_rules", "trace_cell"}),
+    "launch/hillclimb": (set(), set()),
+    # the partial and its one-process combine, for one card
+    "parallel/collectives": (set(), {"sp_decode_combine",
+                                     "sp_decode_partial"}),
+    # the TPU v5e constants and the XLA readers have no meaning on the
+    # card; the port's rates, its profile and the trace counter
+    "core/roofline": (
+        {"HBM_BW", "ICI_BW", "MXU_DIM", "PEAK_FLOPS", "PEAK_OPS_INT8",
+         "VMEM_BYTES", "analyze_compiled", "collective_bytes_from_hlo",
+         "cost_analysis_dict", "mxu_utilization", "peak_ops"},
+        {"COLLECTIVES", "DeviceProfile", "H100", "KINDS", "MEM_BW",
+         "NVLINK_BW", "PRODUCTS", "TraceCounter", "analyze_trace",
+         "device_profile", "profile_for"}),
+    # the heterogeneous-stage entry point is the serving engine's
+    # gpipe_schedule
+    "parallel/pipeline_par": ({"pipeline_forward_stages"},
+                              {"gpipe_schedule"}),
+}
+
+
+@pytest.mark.parametrize("module", sorted(SLICE_8C))
+def test_slice8c_module_differs_from_jax_only_by_name(module):
+    jax_names = _public(REPO / "src" / "repro" / f"{module}.py")
+    port_names = _public(REPO / "src" / "repro_torch" / f"{module}.py")
+    left_out, port_only = SLICE_8C[module]
+    assert jax_names - port_names == left_out
+    assert port_names - jax_names == port_only

@@ -137,6 +137,9 @@ def test_bf16_checkpoint_round_trips_as_raw_bits(tmp_path):
 
 
 def test_shardings_are_refused(tmp_path):
+    """A shardings tree whose leaves are not NamedShardings (here the
+    state's tensors) is refused; NamedShardings place the leaves
+    (tests/test_torch_collectives.py)."""
     ts = _state()
     save_checkpoint(str(tmp_path), 1, ts)
     with pytest.raises(ValueError, match="shardings"):
