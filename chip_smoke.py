@@ -236,7 +236,10 @@ Phases (any failure exits non-zero):
    ``long_500k``), each traced on fake tensors in a process of its own,
    all started at the phase's start and read at its end; each report
    printed (argument and peak bytes, products, bytes, collectives by kind,
-   the three roofline terms, the trace's seconds). The dry run of phase
+   the three roofline terms, the trace's seconds), and its products a
+   device by dtype and useful share beside this script's reading before
+   the attention core and the SSM scans were cut over "model"
+   (``DRYRUN_BEFORE``). The dry run of phase
    17's cell (Qwen3-8B, 8 layers, B 2 x 4096, bf16, fp32 AdamW) on a
    (1, 1) mesh: the same state and batch built on the card must allocate
    the argument bytes it predicts within 512 B a leaf; one ``train_step``'s
@@ -369,6 +372,24 @@ DRYRUN_CELLS = (("qwen3_8b", "train_4k", False, None),
                 ("qwen3_8b", "decode_32k", False, None),
                 ("dbrx_132b", "train_4k", False, None),
                 ("zamba2_1p2b", "long_500k", False, None))
+# each cell's products a device by dtype and useful share as this script
+# read them on the card's machine before the attention core and the SSM
+# scans ran on each rank's own heads (PERF.md section 6), printed
+# beside this run's
+DRYRUN_BEFORE = {
+    "qwen3_8b/train_4k/pod16x16": (
+        {"bfloat16": 228062763417600, "float32": 633318697598976},
+        0.2509511740953898),
+    "qwen3_8b/train_4k/pod2x16x16": (
+        {"bfloat16": 114031381708800, "float32": 316659348799488},
+        0.2509511740953898),
+    "qwen3_8b/decode_32k/pod16x16": (
+        {"bfloat16": 7568621568, "float32": 9663676416}, 1.0361624647263297),
+    "dbrx_132b/train_4k/pod16x16": (
+        {"bfloat16": 20911371130503168, "float32": 1057592746967040},
+        0.04192362371892698),
+    "zamba2_1p2b/long_500k/pod16x16": (
+        {"bfloat16": 188317696, "float32": 1880293376}, 0.06119315550100662)}
 # the dry run against the card's memory: phase 17's Qwen3-8B cell (layers,
 # batch, sequence) on a (1, 1) mesh; argument bytes within this many
 # bytes a leaf (the caching allocator rounds each block up to 512 B)
@@ -1769,7 +1790,14 @@ def slice8c(*, card: str, seed: int = 0) -> dict:
               f"{r['t_collective'] * 1e3:.2f} ms, {r['bottleneck']}-bound, "
               f"useful {r['useful_flops_ratio']:.2%}; traced in "
               f"{r['trace_s']} s")
-        out["cells"].append(dict(r, layers=lay))
+        ops0, useful0 = DRYRUN_BEFORE[f"{arch_c}/{shape_c}/{mesh}"]
+        print(f"[dryrun] {arch_c} x {shape_c} x {mesh}: products a device "
+              + ", ".join(f"{k} {v:.4e} (before {ops0.get(k, 0):.4e})"
+                          for k, v in sorted(r["flops_by_dtype"].items()))
+              + f"; useful {r['useful_flops_ratio']:.2%} (before "
+              f"{useful0:.2%})")
+        out["cells"].append(dict(r, layers=lay, before={
+            "flops_by_dtype": ops0, "useful_flops_ratio": useful0}))
     out["seconds"] = time.perf_counter() - t0
     return out
 

@@ -11,14 +11,17 @@ Weights are stored FLAT, (D, Hq*dh) etc., as in the JAX package, so
 :func:`params_from_jax` needs no transpose. The JAX layer's sharding
 annotations (``parallel.sharding.shard``) sit where JAX has them and act
 only inside the dry run's ``sharding_ctx``. Each split of a flat head
-dimension goes through ``sharding.unflatten``: where GQA's 8 KV heads (or
-the 4-head groups of 32 query heads) do not divide TP = 16, DTensor
-cannot view a shard that holds part of a head and gathers the dimension
-first, the collective GSPMD inserts unasked. The attention core runs
-``sharding.per_shard`` over the batch and KV-head dims (K and V cut as the
-query groups are), and decode's query is cut as the cache is
-(``sharding.align``): GSPMD reshards one side of a product on its own,
-DTensor refuses.
+dimension goes through ``sharding.unflatten``: where GQA's 8 KV heads do
+not divide TP = 16, DTensor cannot view a shard that holds part of a head
+and gathers the dimension first, the collective GSPMD inserts unasked.
+The attention core runs ``sharding.per_shard`` over the batch and the
+query heads, as JAX's query is cut, with K and V cut on the batch only:
+each rank maps its own heads ``lo .. lo+n-1`` to their KV heads
+``(lo + i) // g``, in (KV head, group) blocks where its range holds whole
+groups and head by head where it does not (DTensor cannot view a cut head
+dim as (KV head, group); GSPMD tiles it). Decode's query is cut as the
+cache is (``sharding.align``): GSPMD reshards one side of a product on
+its own, DTensor refuses.
 """
 from __future__ import annotations
 
@@ -30,8 +33,8 @@ import torch
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
-from repro_torch.parallel.sharding import (align, full, per_shard, shard,
-                                           unflatten)
+from repro_torch.parallel.sharding import (align, flatten, full, per_shard,
+                                           shard, unflatten)
 from repro_torch.pipeline.compile import resolve_device
 
 NEG_INF = -1e30
@@ -93,9 +96,24 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 def _sdpa_naive(q, k, v, cfg: ModelConfig, causal: bool = True):
     """Reference full-matrix attention (smoke tests / oracle)."""
-    hkv = k.shape[2]
-    return per_shard(_naive, unflatten(q, 2, (hkv, q.shape[2] // hkv)), k, v,
-                     dims=(0, 2), shape=q.shape, causal=causal)
+    return per_shard(_own_heads, q, k, v, dims=(0, 2), shape=q.shape,
+                     arg_dims=((0, None), (0, None)), offsets=True,
+                     core=_naive, g=q.shape[2] // k.shape[2], causal=causal)
+
+
+def _own_heads(q, k, v, offsets, core, g: int, **kw):
+    """``core`` on query heads ``lo .. lo+n-1`` (q (B, S, n, dh), ``lo``
+    the head offset) against whole K and V (B, S, Hkv, dh), as (KV head,
+    group) blocks where the range holds whole groups of ``g``, else one
+    KV head a query head (a range that straddles groups, or lies inside
+    one) -> (B, S, n, dh)."""
+    lo, n = offsets[1], q.shape[2]
+    if lo % g == 0 and n % g == 0:
+        h0, h1 = lo // g, (lo + n) // g
+        return core(q.unflatten(2, (n // g, g)), k[:, :, h0:h1],
+                    v[:, :, h0:h1], **kw)
+    kv = torch.arange(lo, lo + n, device=q.device) // g
+    return core(q.unsqueeze(3), k[:, :, kv], v[:, :, kv], **kw)
 
 
 def _naive(qg, k, v, causal: bool):
@@ -117,9 +135,9 @@ def _sdpa_chunked(q, k, v, cfg: ModelConfig):
 
     Never materializes (Sq x Sk); per-step live memory is O(Sq * chunk).
     """
-    hkv = k.shape[2]
-    return per_shard(_chunked, unflatten(q, 2, (hkv, q.shape[2] // hkv)),
-                     k, v, dims=(0, 2), shape=q.shape,
+    return per_shard(_own_heads, q, k, v, dims=(0, 2), shape=q.shape,
+                     arg_dims=((0, None), (0, None)), offsets=True,
+                     core=_chunked, g=q.shape[2] // k.shape[2],
                      chunk=min(cfg.attn_chunk, k.shape[1]))
 
 
@@ -170,7 +188,7 @@ def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     else:
         o = _sdpa_chunked(q, k, v, cfg)
     o = shard(o, "batch", "seq", "heads", None)
-    return o.reshape(B, S, cfg.n_heads * cfg.d_head) @ p["wo"]
+    return flatten(o, 2, 3) @ p["wo"]
 
 
 class KVCache(NamedTuple):

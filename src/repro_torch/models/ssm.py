@@ -22,7 +22,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.models.layers import dense_init, rms_norm, swiglu
-from repro_torch.parallel.sharding import per_shard, unflatten
+from repro_torch.parallel.sharding import (flatten, per_shard, shard,
+                                           unflatten)
 
 Params = Dict[str, torch.Tensor]
 
@@ -142,15 +143,22 @@ def mamba_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
     dt = _softplus(dt_pre.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])                                     # (nh,)
-    xh = xs.reshape(Bsz, S, nh, P).float()
+    # the heads cut over "model", as GSPMD carries the in-projection's cut
+    # into the scan (the port names the cut JAX leaves to propagation)
+    xh = shard(xs.reshape(Bsz, S, nh, P).float(), "batch", "seq", "heads",
+               None)
     Bm = Bmat.float()                                              # (B,S,N)
     Cm = Cmat.float()
 
-    # --- chunked SSD scan: carry the (B, nh, P, N) state across chunks ---
-    y, st = per_shard(_ssd_scan, xh, Bm, Cm, dt, state.ssm, dims=(0,),
-                      shape=(xh.shape, state.ssm.shape), A=A, Q=Q)
+    # --- chunked SSD scan: carry the (B, nh, P, N) state across chunks,
+    # each rank its own heads (B and C are shared by all heads) ---
+    y, st = per_shard(_ssd_scan, xh, Bm, Cm, dt, state.ssm, A, dims=(0, 2),
+                      shape=(xh.shape, state.ssm.shape),
+                      arg_dims=((0, None), (0, None), (0, 2), (0, 1),
+                                (None, 0)),
+                      out_dims=((0, 2), (0, 1)), Q=Q)
     y = y + xh * p["D"][None, None, :, None]         # skip connection
-    y = y.reshape(Bsz, S, d_inner).to(x.dtype)
+    y = flatten(y, 2, 3).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["ssm_norm"], cfg.norm_eps)
     return y @ p["out_proj"], MambaState(st, conv_state)
 
@@ -282,7 +290,7 @@ def mlstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     matrix memory crosses chunk boundaries as the carried state. It
     matches :func:`_mlstm_step` step by step (tested)."""
     Bsz, S, _ = x.shape
-    d_inner, nh, P = xlstm_dims(cfg)
+    _, nh, P = xlstm_dims(cfg)
     Q = min(cfg.ssm_chunk, S)
     if S % Q:                        # remainder chunk, state carried exactly
         s0 = (S // Q) * Q
@@ -299,10 +307,16 @@ def mlstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
     if state is None:
         state = init_mlstm_state(cfg, Bsz, x.device)
+    # each rank its own heads (ceil chunks: xlstm's 4 on TP 16 fall on
+    # the first 4 ranks; GSPMD also cuts P there, which DTensor cannot
+    # on the same mesh axis)
+    q = shard(q, "batch", "seq", "heads", None)
     y, *st = per_shard(_mlstm_scan, q, k, v, i_pre, f_pre, *state,
-                       dims=(0,), shape=(q.shape,) + tuple(
-                           a.shape for a in state), Q=Q)
-    y = y.reshape(Bsz, S, d_inner).to(x.dtype)
+                       dims=(0, 2), shape=(q.shape,) + tuple(
+                           a.shape for a in state),
+                       arg_dims=((0, 2),) * 4 + ((0, 1),) * 3,
+                       out_dims=((0, 2),) + ((0, 1),) * 3, Q=Q)
+    y = flatten(y, 2, 3).to(x.dtype)
     y = rms_norm(y, p["mem_norm"], cfg.norm_eps) * F.silu(z)
     return y @ p["wdown"], MLSTMState(*st)
 

@@ -19,8 +19,8 @@ tensor that is not a DTensor: the port's own runs on one card never see
 it. Inside, it redistributes to the spec, as JAX's
 ``with_sharding_constraint`` does; where GSPMD reshapes a tensor whose
 shards do not hold whole pieces of the new dimension, DTensor refuses, and
-:func:`unflatten` gathers that dimension first (the collective GSPMD
-inserts without saying so).
+:func:`unflatten` (or :func:`flatten`) gathers that dimension first (the
+collective GSPMD inserts without saying so).
 """
 from __future__ import annotations
 
@@ -36,11 +36,10 @@ AxisRule = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[AxisRule, ...]
 
 __all__ = ["DEFAULT_RULES", "align", "AxisRule", "batch_sharding",
-           "current_mesh", "full", "mesh_shape", "named", "NamedSharding",
-           "param_shardings", "param_spec", "per_shard", "placements",
-           "put_prefix",
-           "shard", "sharding_ctx", "Spec", "spec_for", "take_last",
-           "unflatten", "unshard"]
+           "current_mesh", "flatten", "full", "mesh_shape", "named",
+           "NamedSharding", "param_shardings", "param_spec", "per_shard",
+           "placements", "put_prefix", "shard", "sharding_ctx", "Spec",
+           "spec_for", "take_last", "unflatten", "unshard"]
 
 # Default logical-axis -> mesh-axis rules (single pod). launch/mesh.py
 # extends "batch" with the "pod" axis for the multi-pod mesh.
@@ -231,15 +230,57 @@ def unflatten(x: torch.Tensor, dim: int, sizes: Sequence[int]
     head), ``dim`` is gathered first: DTensor cannot view it, GSPMD
     gathers it silently."""
     if _is_dtensor(x):
-        from torch.distributed.tensor import Replicate, Shard
         dim = dim % x.ndim
-        n = math.prod(m for m, p in zip(x.device_mesh.shape, x.placements)
-                      if p == Shard(dim))
-        if sizes[0] % n:
-            x = x.redistribute(x.device_mesh, [
-                Replicate() if p == Shard(dim) else p
-                for p in x.placements])
+        if sizes[0] % _ways(x, dim):
+            return _viewed(x, dim, lambda t: t.unflatten(dim, sizes))
     return x.unflatten(dim, sizes)
+
+
+def flatten(x: torch.Tensor, start: int, end: int) -> torch.Tensor:
+    """``x.flatten(start, end)``. On a DTensor whose dim ``start`` is cut
+    unevenly (its mesh axes do not divide it: Arctic's 56 query heads on
+    TP = 16), ``start`` is gathered first: DTensor views only an even cut,
+    GSPMD pads."""
+    if _is_dtensor(x):
+        start = start % x.ndim
+        if x.shape[start] % _ways(x, start):
+            return _viewed(x, start, lambda t: t.flatten(start, end))
+    return x.flatten(start, end)
+
+
+def _ways(x: torch.Tensor, dim: int) -> int:
+    """How many pieces the mesh axes cut DTensor ``x``'s dim ``dim`` into."""
+    from torch.distributed.tensor import Shard
+    return math.prod(m for m, p in zip(x.device_mesh.shape, x.placements)
+                     if p == Shard(dim))
+
+
+class _Hold(_Constrain):
+    """A view's output, whose cotangent is laid out as the output before
+    the view's backward, which would otherwise meet it cut as the layers
+    downstream cut it, and in one dense piece a rank: gathering an uneven
+    cut can hand back a strided slice of the padded buffer (torch 2.11),
+    which the view's backward cannot view."""
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+        g = g.redistribute(g.device_mesh, ctx.want)
+        local = g.to_local()
+        if not local.is_contiguous():
+            g = DTensor.from_local(local.contiguous(), g.device_mesh,
+                                   g.placements, run_check=False,
+                                   shape=g.shape, stride=g.stride())
+        return g, None
+
+
+def _viewed(x: torch.Tensor, dim: int, view) -> torch.Tensor:
+    """``view(x)`` with ``dim`` gathered first (:class:`_Hold` keeps its
+    cotangent viewable)."""
+    from torch.distributed.tensor import Replicate, Shard
+    y = view(x.redistribute(x.device_mesh, [
+        Replicate() if p == Shard(dim) else p for p in x.placements]))
+    return _Hold.apply(y, tuple(y.placements)) if y.requires_grad else y
 
 
 def align(x: torch.Tensor, ref: torch.Tensor, dim: int,
@@ -260,47 +301,85 @@ def align(x: torch.Tensor, ref: torch.Tensor, dim: int,
     return x.redistribute(x.device_mesh, want)
 
 
+def _local_range(n: int, dim: int, mesh, placed) -> Tuple[int, int]:
+    """(start, length) of this rank's piece of a dim of ``n`` that
+    ``placed`` cuts: DTensor's ceil-sized chunks, over each mesh dim that
+    cuts ``dim`` in mesh order (the last ranks may hold fewer, or none)."""
+    from torch.distributed.tensor import Shard
+    off = 0
+    for size, c, p in zip(mesh.shape, mesh.get_coordinate(), placed):
+        if p == Shard(dim):
+            step = -(-n // size)
+            lo = min(c * step, n)
+            off, n = off + lo, min(lo + step, n) - lo
+    return off, n
+
+
 def per_shard(fn, ref: torch.Tensor, *args: torch.Tensor,
-              dims: Sequence[int], shape, **kw):
+              dims: Sequence[int], shape, arg_dims=None, out_dims=None,
+              offsets: bool = False, **kw):
     """``fn(ref, *args, **kw)``. On a DTensor, shard by shard: ``ref`` is
-    kept cut on ``dims`` only (a dim cut elsewhere is gathered), each of
-    ``args`` is cut as ``ref`` is, each tensor of ``kw`` is whole on every
-    rank, ``fn`` runs on the local tensors, and its result (a tensor of
-    global ``shape``, or a tuple of them and a tuple of shapes) is cut as
-    ``ref`` (``fn`` keeps the dims in ``dims`` where they were); a whole
-    tensor's gradient is summed over the ranks that split the work. For work
-    independent along ``dims``, such as the attention core over the batch
-    and KV heads or a scan over the batch, where DTensor's batched product
-    refuses two cut dims merged into one (GSPMD tiles them)."""
+    kept cut on ``dims`` only (a dim cut elsewhere is gathered), and ``fn``
+    runs on the local tensors. Each of ``args`` says how it is cut in
+    ``arg_dims``, one tuple an arg aligned with ``dims``: its dim cut as
+    ``ref``'s ``dims[i]``, or None where it is whole (the Mamba ``B``/``C``
+    have no head dim; K and V are whole over the query heads); by default
+    each is cut as ``ref``. Each tensor of ``kw`` is whole on every rank.
+    The result (a tensor of global ``shape``, or a tuple of them and a
+    tuple of shapes) is cut as ``out_dims`` says (default: as ``ref``).
+    A tensor whole over a mesh dim that cuts the work gets its gradient
+    summed over it. With ``offsets``, ``fn`` also gets ``offsets=``: this
+    rank's start along each of ``dims`` (0 off a mesh).
+
+    For work independent along ``dims``, such as the attention core over
+    the batch and the query heads or a scan over the batch and its heads,
+    where DTensor's batched product refuses two cut dims merged into one
+    and cannot view a cut head dim as (KV head, group) (GSPMD tiles
+    both)."""
+    if offsets:
+        kw["offsets"] = (0,) * len(dims)
     if not _is_dtensor(ref):
         return fn(ref, *args, **kw)
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = ref.device_mesh
-    want = tuple(p if isinstance(p, Shard) and p.dim in dims
-                 else Replicate() for p in ref.placements)
-    whole = (Replicate(),) * mesh.ndim
-    # a whole tensor's gradient: each rank's share of it along the mesh
-    # dims that cut the work, the same on every rank along the others
-    summed = tuple(Partial() if isinstance(p, Shard) else Replicate()
-                   for p in want)
+    dims = tuple(dims)
+    # which of ``dims`` each mesh dim cuts (None: it cuts no work)
+    cuts = [dims.index(p.dim) if isinstance(p, Shard) and p.dim in dims
+            else None for p in ref.placements]
+    whole = (None,) * len(dims)
 
-    def local(a, placed, grad=None):  # a plain tensor is whole everywhere
+    def placed(at):             # a tensor whose dims[i] is its dim at[i]
+        return tuple(Replicate() if i is None or at[i] is None
+                     else Shard(at[i]) for i in cuts)
+
+    def summed(at):             # its gradient: whole where work is cut
+        return tuple(Partial() if i is not None and at[i] is None else p
+                     for i, p in zip(cuts, placed(at)))
+
+    def local(a, at):           # a plain tensor is whole everywhere
         if not _is_dtensor(a):
-            a = DTensor.from_local(a, mesh, whole, run_check=False)
-        return a.redistribute(mesh, placed).to_local(grad_placements=grad)
-    kw = {k: local(v, whole, summed) if isinstance(v, torch.Tensor) else v
+            a = DTensor.from_local(a, mesh, placed(whole), run_check=False)
+        return a.redistribute(mesh, placed(at)).to_local(
+            grad_placements=summed(at))
+    want = placed(dims)
+    if offsets:
+        kw["offsets"] = tuple(_local_range(ref.shape[d], d, mesh, want)[0]
+                              for d in dims)
+    kw = {k: local(v, whole) if isinstance(v, torch.Tensor) else v
           for k, v in kw.items()}
-    out = fn(local(ref, want), *(local(a, want) for a in args), **kw)
+    arg_dims = arg_dims or (dims,) * len(args)
+    out = fn(local(ref, dims), *map(local, args, arg_dims), **kw)
 
-    def wrap(t, shp):
+    def wrap(t, shp, at):
         stride = [1] * len(shp)
         for i in range(len(shp) - 2, -1, -1):
             stride[i] = stride[i + 1] * shp[i + 1]
-        return DTensor.from_local(t.contiguous(), mesh, want, run_check=False,
-                                  shape=torch.Size(shp), stride=tuple(stride))
+        return DTensor.from_local(t.contiguous(), mesh, placed(at),
+                                  run_check=False, shape=torch.Size(shp),
+                                  stride=tuple(stride))
     if isinstance(out, tuple):
-        return tuple(map(wrap, out, shape))
-    return wrap(out, shape)
+        return tuple(map(wrap, out, shape, out_dims or (dims,) * len(out)))
+    return wrap(out, shape, out_dims or dims)
 
 
 def take_last(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
@@ -315,13 +394,8 @@ def take_last(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
         last = Shard(x.ndim - 1)
         if last in x.placements:
             mesh = x.device_mesh
-            off, n = 0, x.shape[-1]        # this rank's range, chunk-wise
-            for size, c, p in zip(mesh.shape, mesh.get_coordinate(),
-                                  x.placements):
-                if p == last:
-                    step = -(-n // size)
-                    lo = min(c * step, n)
-                    off, n = off + lo, min(lo + step, n) - lo
+            off, n = _local_range(x.shape[-1], x.ndim - 1, mesh,
+                                  x.placements)
             idx = index.redistribute(mesh, [Replicate() if p == last else p
                                             for p in x.placements])
             i = idx.to_local().long() - off

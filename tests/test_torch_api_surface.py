@@ -205,11 +205,13 @@ def _public(path):
 SLICE_8C = {
     # the port's DTensor layer: the NamedSharding record, the spec tuple,
     # placements and the explicit redistributes DTensor needs where GSPMD
-    # reshards on its own (align, full, per_shard, put_prefix, take_last,
-    # unflatten, unshard)
+    # reshards on its own (align, flatten, full, per_shard with its
+    # per-argument cuts and offsets, put_prefix, take_last, unflatten,
+    # unshard)
     "parallel/sharding": (set(), {
-        "NamedSharding", "Spec", "align", "full", "mesh_shape", "per_shard",
-        "placements", "put_prefix", "take_last", "unflatten", "unshard"}),
+        "NamedSharding", "Spec", "align", "flatten", "full", "mesh_shape",
+        "per_shard", "placements", "put_prefix", "take_last", "unflatten",
+        "unshard"}),
     # compat_make_mesh is JAX's AxisType shim; make_mesh is its twin over
     # the fake process group, teardown frees a process's one default group
     "launch/mesh": ({"compat_make_mesh"}, {"make_mesh", "teardown"}),

@@ -5,8 +5,10 @@ it on fake tensors over a ``fake`` process group. Both need a process of
 their own (JAX fixes its device count when it starts, a process holds one
 default group), so each side runs in one subprocess and the tests compare
 what they print: the smoke cell's argument bytes a device (exact, equal to
-XLA's ``memory_analysis``), ``model_flops_for`` of every cell (equal), the
-collective counter on a product DTensor must gather, and the CLIs.
+XLA's ``memory_analysis``), the work each rank's attention core and SSM
+scans do (the batch x heads they run, equal to the batch extent of XLA's
+batched dot), ``model_flops_for`` of every cell (equal), the collective
+counter on a product DTensor must gather, and the CLIs.
 ``repro.launch.dryrun`` is imported only in the subprocess: it forces 512
 devices when imported.
 """
@@ -44,14 +46,38 @@ def _run(code: str, *args, timeout=600) -> dict:
     return json.loads(res.stdout.strip().splitlines()[-1])
 
 
+# the cells whose cores are held against JAX's: (arch, mesh), each train
+# and prefill at batch 8 x 32. xlstm also on (2, 2), where GSPMD cuts the
+# mLSTM's heads as the port does (on (2, 4) it computes each on two ranks)
+CORE_CELLS = (("qwen3_8b", (2, 4)), ("zamba2_1p2b", (2, 4)),
+              ("xlstm_125m", (2, 4)), ("xlstm_125m", (2, 2)))
+CORE_KINDS = ("train", "prefill")
+# each core's forward product in JAX's HLO (its einsum, in the dot's
+# op_name) and the port's function that runs it on a rank's shard
+CORES = {"attention": ("bqhgd,bkhd->bhgqk", "attention", ("_naive",
+                                                         "_chunked")),
+         "ssd": ("bqjh,bjhp->bqhp", "ssm", ("_ssd_scan",)),
+         "mlstm": ("bihp,bjhp->bijh", "ssm", ("_mlstm_scan",))}
+
+
+def _cell_key(arch, mesh, kind):
+    return f"{arch}/{mesh[0]}x{mesh[1]}/{kind}"
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_side() -> dict:
     """JAX on 8 forced devices: the qwen3-8b smoke cell of each kind on a
-    (2, 4) mesh (``memory_analysis`` and the HLO collectives), and
-    ``model_flops_for`` of every full-size cell."""
+    (2, 4) mesh (``memory_analysis`` and the HLO collectives), each core's
+    batch extent in the ``CORE_CELLS`` (read from the HLO right after
+    XLA's SPMD partitioner, where each dot has its local shape and still
+    its einsum's name), and ``model_flops_for`` of every full-size
+    cell."""
     return _run(f"""
-        import os
-        os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+        import math, os, re, shutil, tempfile
+        dump = tempfile.mkdtemp()
+        os.environ["XLA_FLAGS"] = (
+            "--xla_force_host_platform_device_count=8 --xla_dump_to=" + dump
+            + " --xla_dump_hlo_pass_re=spmd-partitioning")
         import json, jax
         jax.devices()              # 8 devices, before dryrun asks for 512
         from repro.configs import ARCH_IDS, get_config
@@ -60,20 +86,55 @@ def _jax_side() -> dict:
         from repro.launch import dryrun as D
         from repro.launch.mesh import compat_make_mesh, rules_for_mesh
         from repro.parallel.sharding import DEFAULT_RULES, sharding_ctx
-        out = {{"smoke": {{}}, "flops": {{}}}}
-        cfg = get_config("qwen3_8b").smoke()
-        mesh = compat_make_mesh((2, 4), ("data", "model"))
-        rules = dict(DEFAULT_RULES, **rules_for_mesh(mesh))
-        for kind in {KINDS!r}:
+        DOT = re.compile(r"= \\w+\\[([\\d,]*)\\]\\S* dot\\(.*?"
+                         r"lhs_batch_dims=\\{{([\\d,]*)\\}}.*?"
+                         r'op_name="([^"]*)"')
+        CORES = {{k: v[0] for k, v in {CORES!r}.items()}}
+
+        def compile_cell(cfg, mesh, kind):
+            rules = dict(DEFAULT_RULES, **rules_for_mesh(mesh))
             shape = ShapeSpec("smoke", 32, 8, kind)
+            seen = set(os.listdir(dump))
             with sharding_ctx(mesh, rules):
                 fn, args, donate = D.build_cell(cfg, shape, mesh, rules)
                 with mesh:
                     c = jax.jit(fn, donate_argnums=donate).lower(
                         *args).compile()
+            new, = [f for f in set(os.listdir(dump)) - seen
+                    if f.endswith(".txt") and ".after_spmd-partitioning." in f]
+            cores = {{}}
+            with open(os.path.join(dump, new)) as f:
+                for line in f:
+                    m = DOT.search(line)
+                    if not m or "transpose(" in m.group(3):  # forward only
+                        continue
+                    for core, einsum in CORES.items():
+                        if einsum + "/" in m.group(3):
+                            dims = [int(d) for d in m.group(1).split(",")]
+                            n = len(m.group(2).split(","))
+                            cores.setdefault(core, set()).add(
+                                math.prod(dims[:n]))
+            return c, {{k: sorted(v) for k, v in cores.items()}}
+
+        out = {{"smoke": {{}}, "cores": {{}}, "flops": {{}}}}
+        cfg = get_config("qwen3_8b").smoke()
+        mesh = compat_make_mesh((2, 4), ("data", "model"))
+        for kind in {KINDS!r}:
+            c, cores = compile_cell(cfg, mesh, kind)
             out["smoke"][kind] = {{
                 "args": int(c.memory_analysis().argument_size_in_bytes),
                 "coll": R.collective_bytes_from_hlo(c.as_text())}}
+            if kind in {CORE_KINDS!r}:
+                out["cores"]["qwen3_8b/2x4/" + kind] = cores
+        for arch, shape in {CORE_CELLS!r}:
+            if arch == "qwen3_8b":
+                continue
+            mesh = compat_make_mesh(shape, ("data", "model"))
+            for kind in {CORE_KINDS!r}:
+                key = f"{{arch}}/{{shape[0]}}x{{shape[1]}}/{{kind}}"
+                out["cores"][key] = compile_cell(
+                    get_config(arch).smoke(), mesh, kind)[1]
+        shutil.rmtree(dump)
         for a in ARCH_IDS:
             for s in applicable_shapes(get_config(a)):
                 out["flops"][a + "/" + s.name] = D.model_flops_for(
@@ -84,8 +145,10 @@ def _jax_side() -> dict:
 
 @functools.lru_cache(maxsize=None)
 def _port_side() -> dict:
-    """The port on a fake (2, 4) mesh: the same smoke cells traced, and a
-    ``Shard(0)`` x ``Shard(1)`` product on a fake 1-D mesh of 4."""
+    """The port on a fake (2, 4) mesh: the same smoke cells traced (and
+    the ``CORE_CELLS``, each core's function wrapped to record the batch x
+    heads of rank 0's shard), and a ``Shard(0)`` x ``Shard(1)`` product on
+    a fake 1-D mesh of 4."""
     return _run(f"""
         import json, torch
         from torch._subclasses.fake_tensor import FakeTensorMode
@@ -96,7 +159,26 @@ def _port_side() -> dict:
         from repro_torch.core.roofline import TraceCounter
         from repro_torch.launch import dryrun as D
         from repro_torch.launch.mesh import make_mesh, smoke_mesh, teardown
-        out = {{"smoke": {{}}}}
+        from repro_torch.models import attention, ssm
+        out = {{"smoke": {{}}, "cores": {{}}}}
+        seen = {{}}
+
+        def record(core, fn):      # a (B, S, heads..., width) first input
+            def run(x, *a, **k):
+                seen.setdefault(core, set()).add(
+                    x.numel() // (x.shape[1] * x.shape[-1]))
+                return fn(x, *a, **k)
+            return run
+        for core, (_, mod, names) in {CORES!r}.items():
+            mod = attention if mod == "attention" else ssm
+            for name in names:
+                setattr(mod, name, record(core, getattr(mod, name)))
+
+        def cores():
+            got = {{k: sorted(v) for k, v in seen.items()}}
+            seen.clear()
+            return got
+
         cfg = get_config("qwen3_8b").smoke()
         mesh = make_mesh((2, 4), ("data", "model"))
         for kind in {KINDS!r}:
@@ -105,6 +187,19 @@ def _port_side() -> dict:
                                         D.cell_rules(mesh, shape))
             out["smoke"][kind] = {{"args": arg_bytes, "coll": c.coll,
                                   "ops": c.ops, "peak": c.peak}}
+            out["cores"]["qwen3_8b/2x4/" + kind] = cores()
+        for arch, shp in {CORE_CELLS!r}:
+            if arch == "qwen3_8b":
+                continue
+            if tuple(mesh.shape) != tuple(shp):
+                teardown()
+                mesh = make_mesh(shp, ("data", "model"))
+            for kind in {CORE_KINDS!r}:
+                shape = ShapeSpec("smoke", 32, 8, kind)
+                D.trace_cell(get_config(arch).smoke(), shape, mesh,
+                             D.cell_rules(mesh, shape))
+                out["cores"][f"{{arch}}/{{shp[0]}}x{{shp[1]}}/{{kind}}"] = \
+                    cores()
         teardown()
         mesh = make_mesh((4,), ("model",))
         with FakeTensorMode():
@@ -121,6 +216,33 @@ def _port_side() -> dict:
         out["smoke_mesh"] = [list(m.mesh_dim_names), list(m.shape)]
         print(json.dumps(out))
     """)
+
+
+CORE_IDS = [_cell_key(a, m, k) for a, m in CORE_CELLS for k in CORE_KINDS]
+
+
+@pytest.mark.parametrize("cell", CORE_IDS)
+def test_cores_cut_over_model_as_jax_cuts_them(cell):
+    """On rank 0 of the port's trace each attention core and SSM scan
+    runs the batch x heads that XLA's batched dot of the same core runs
+    on a device (its batch dims: the batch, and the query heads or SSM
+    heads): the query heads cut over "model" as JAX's query is, the SSD
+    and mLSTM heads as GSPMD carries the projections' cut into the scans,
+    one query head a rank here (so JAX's batch dims hold no group
+    dim). One exception, the mLSTM on (2, 4): GSPMD computes each of its
+    4 heads on two of the 4 model ranks (2 heads a rank, as the gate
+    projection's (2, heads) view carries its cut), where the port's
+    "heads" rule gives each rank its own head: half JAX's work."""
+    port = _port_side()["cores"][cell]
+    jax_ = _jax_side()["cores"][cell]
+    assert set(port) == set(jax_) and port, (port, jax_)
+    print(f"\n[cores] {cell}: port {port}; JAX {jax_}")
+    for core in port:
+        if cell.startswith("xlstm_125m/2x4/") and core == "mlstm":
+            # batch 4 a rank x 1 head, against JAX's 4 x 2
+            assert port[core] == [4] and jax_[core] == [8]
+        else:
+            assert port[core] == jax_[core], core
 
 
 @pytest.mark.parametrize("kind", KINDS)

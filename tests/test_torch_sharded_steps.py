@@ -10,8 +10,11 @@ redistributes (``unflatten``, ``align``, ``per_shard``, ``take_last``,
 ``unshard``, ``full``, ``put_prefix`` and ``shard``'s cotangent) compute
 real numbers, so a wrong offset, layout or gradient shows. Meshes: (2, 1)
 cuts the batch, (1, 2) the heads, the vocab, the ffn and the experts,
-(2, 2) both, and (1, 4) GQA's 2 KV heads four ways (``unflatten`` gathers
-them). Each smoke config, fp32, batch 4 x 32 tokens.
+(2, 2) both, and (1, 4) the query heads and the SSM heads four ways
+(GQA's 2 KV heads stay whole: ``unflatten`` gathers them), one a rank,
+and in two test-only variants unevenly: ``qwen3_gqa6`` across the KV
+groups, ``xlstm_h2`` with ranks that hold no head. Each smoke config,
+fp32, batch 4 x 32 tokens.
 
 Tolerances (fp32; sums in another order): the forward's logits, the
 prefill's last logits and one decode step's logits within 1e-5 x
@@ -23,6 +26,7 @@ step moves an element by lr x sign(g), so a gradient element near zero
 may flip sides under a new summation order).
 """
 import functools
+import json
 import os
 import socket
 import subprocess
@@ -39,12 +43,20 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 RUNS = {(2, 1): ("qwen3_8b", "dbrx_132b", "zamba2_1p2b", "xlstm_125m"),
         (1, 2): ("qwen3_8b", "dbrx_132b", "zamba2_1p2b", "xlstm_125m"),
         (2, 2): ("dbrx_132b",),
-        (1, 4): ("qwen3_8b",)}
+        (1, 4): ("qwen3_8b", "zamba2_1p2b", "xlstm_125m", "qwen3_gqa6",
+                 "xlstm_h2")}
+# test-only configs: a smoke config with fields replaced. qwen3_gqa6 has 6
+# query heads over 2 KV heads (groups of 3): on 4 model ranks the heads
+# fall in ceil chunks of 2, so rank 0's lie inside a group, rank 1's
+# straddle two, and rank 3 holds none. xlstm_h2's 2 heads leave ranks 2
+# and 3 no mLSTM head, as xlstm-125m's 4 do 12 of TP 16's ranks
+VARIANTS = {"qwen3_gqa6": ("qwen3_8b", {"n_heads": 6, "n_kv_heads": 2}),
+            "xlstm_h2": ("xlstm_125m", {"n_heads": 2, "n_kv_heads": 2})}
 CASES = [(m, a) for m, archs in RUNS.items() for a in archs]
 OUT_RTOL, SUM_RTOL = 1e-5, 1e-4
 
 _WORKER = textwrap.dedent("""
-    import sys
+    import dataclasses, json, sys
     import numpy as np, torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -59,6 +71,7 @@ _WORKER = textwrap.dedent("""
                                                param_shardings, sharding_ctx)
     from repro_torch.train.steps import (loss_and_grads, serve_decode,
                                          serve_prefill)
+    VARIANTS = json.loads(sys.argv[7])
 
     torch.set_num_threads(1)
     rank, world, url, out = (int(sys.argv[1]), int(sys.argv[2]),
@@ -86,13 +99,16 @@ _WORKER = textwrap.dedent("""
             a.clone(), s.mesh, s.placements), tree, shardings)
 
     def step(params, batch, opt, dec_tok):
+        # the serving steps first: adamw_update writes the parameters in
+        # place, and its first step may move an element the two runs
+        # round to either side of zero by 2 x lr apart
         with torch.no_grad():
             logits = lm.forward(params, batch["tokens"], cfg)
-        loss, grads = loss_and_grads(params, batch, cfg)
-        _, opt, metrics = adamw_update(grads, opt, params, OCFG)
         _, last, cache = serve_prefill(params, {"tokens": batch["tokens"]},
                                        cfg, S_MAX)
         _, dec, _ = serve_decode(params, dec_tok, cache, cfg)
+        loss, grads = loss_and_grads(params, batch, cfg)
+        _, opt, metrics = adamw_update(grads, opt, params, OCFG)
         return {"logits": [logits], "last": [last], "cache": leaves(cache),
                 "decode": [dec], "loss": [loss], "grads": leaves(grads),
                 "m": leaves(opt.m), "v": leaves(opt.v),
@@ -100,7 +116,8 @@ _WORKER = textwrap.dedent("""
 
     res = {}
     for arch in sys.argv[6].split(","):
-        cfg = get_config(arch).smoke()
+        name, over = VARIANTS.get(arch, (arch, {}))
+        cfg = dataclasses.replace(get_config(name).smoke(), **over)
         params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
         rng = np.random.RandomState(0)
         batch = {k: torch.from_numpy(rng.randint(0, cfg.vocab, (B, S))
@@ -154,7 +171,8 @@ def _run(mesh):
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
         [sys.executable, "-c", _WORKER, str(r), str(world), url, str(out),
-         f"{mesh[0]}x{mesh[1]}", ",".join(RUNS[mesh])], env=env,
+         f"{mesh[0]}x{mesh[1]}", ",".join(RUNS[mesh]),
+         json.dumps(VARIANTS)], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for r in range(world)]
     try:
