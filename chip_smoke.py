@@ -234,12 +234,17 @@ Phases (any failure exits non-zero):
    cells (``DRYRUN_CELLS``: qwen3-8b ``train_4k`` on the 16x16 and
    2x16x16 meshes and ``decode_32k``, dbrx-132b ``train_4k``, zamba2-1.2b
    ``long_500k``), each traced on fake tensors in a process of its own,
-   all started at the phase's start and read at its end; each report
+   all started at the phase's start and read at its end, with the hill
+   climb's two sequence-parallel iterations (``DRYRUN_SEQ``: qwen3-8b
+   ``it3_dots_seqshard``, dbrx-132b ``it3_local_cap_dots_seqshard``,
+   ``train_4k`` at full width under the card machine's torch); each report
    printed (argument and peak bytes, products, bytes, collectives by kind,
-   the three roofline terms, the trace's seconds), and its products a
-   device by dtype and useful share beside this script's reading before
-   the attention core and the SSM scans were cut over "model"
-   (``DRYRUN_BEFORE``). The dry run of phase
+   the three roofline terms, the trace's seconds), and each cell's
+   products a device by dtype, useful share, argument and peak bytes and
+   collectives by kind with T_coll beside PR 28's tree's reading on the
+   card's machine (``DRYRUN_BEFORE``, ``COLL_BEFORE``); xlstm-125m's
+   prefill on pod16x16 (``DRYRUN_P_CUT``), whose rank 0 must run its
+   mLSTM scan on 1 head x 48 of P's 192. The dry run of phase
    17's cell (Qwen3-8B, 8 layers, B 2 x 4096, bf16, fp32 AdamW) on a
    (1, 1) mesh: the same state and batch built on the card must allocate
    the argument bytes it predicts within 512 B a leaf; one ``train_step``'s
@@ -372,24 +377,51 @@ DRYRUN_CELLS = (("qwen3_8b", "train_4k", False, None),
                 ("qwen3_8b", "decode_32k", False, None),
                 ("dbrx_132b", "train_4k", False, None),
                 ("zamba2_1p2b", "long_500k", False, None))
-# each cell's products a device by dtype and useful share as this script
-# read them on the card's machine before the attention core and the SSM
-# scans ran on each rank's own heads (PERF.md section 6), printed
-# beside this run's
+# each cell as PR 28's tree read it on the card's machine (torch 2.11,
+# `python -m repro_torch.launch.dryrun` from a `git archive` checkout):
+# products a device by dtype, useful share, argument and peak bytes a
+# device, printed beside this run's
 DRYRUN_BEFORE = {
     "qwen3_8b/train_4k/pod16x16": (
-        {"bfloat16": 228062763417600, "float32": 633318697598976},
-        0.2509511740953898),
+        {"bfloat16": 228062763417600, "float32": 39582418599936},
+        0.8076539519846427, 323586052, 40760962592),
     "qwen3_8b/train_4k/pod2x16x16": (
-        {"bfloat16": 114031381708800, "float32": 316659348799488},
-        0.2509511740953898),
+        {"bfloat16": 114031381708800, "float32": 19791209299968},
+        0.8076539519846427, 323323908, 21091511840),
     "qwen3_8b/decode_32k/pod16x16": (
-        {"bfloat16": 7568621568, "float32": 9663676416}, 1.0361624647263297),
+        {"bfloat16": 7568621568, "float32": 9663676416}, 1.0361624647263297,
+        2480531492, 5245401124),
     "dbrx_132b/train_4k/pod16x16": (
-        {"bfloat16": 20911371130503168, "float32": 1057592746967040},
-        0.04192362371892698),
+        {"bfloat16": 20911371130503168, "float32": 68032281968640},
+        0.04390108512553003, 5193003012, 404857864256),
     "zamba2_1p2b/long_500k/pod16x16": (
-        {"bfloat16": 188317696, "float32": 1880293376}, 0.06119315550100662)}
+        {"bfloat16": 188317696, "float32": 1880293376}, 0.06119315550100662,
+        130036904, 1206759080)}
+# and its collective bytes a device by kind (all-gather, all-reduce,
+# reduce-scatter, all-to-all, collective-permute), from the same run
+COLL_BEFORE = {
+    "qwen3_8b/train_4k/pod16x16": (23127883776, 107380803592, 2191785984,
+                                   0, 0),
+    "qwen3_8b/train_4k/pod2x16x16": (11652268032, 55001724936, 2191785984,
+                                     0, 0),
+    "qwen3_8b/decode_32k/pod16x16": (140751360, 4784128, 2359296, 0, 0),
+    "dbrx_132b/train_4k/pod16x16": (680700739584, 109042032136, 1750597632,
+                                    0, 0),
+    "zamba2_1p2b/long_500k/pod16x16": (3914116752, 217240, 28672, 0, 0)}
+# the hill climb's sequence-parallel iterations (launch/hillclimb.py's
+# PLANS: cell, iteration), each traced at full width in a process of its
+# own beside the cells above; on PR 28's tree both failed under torch 2.11
+DRYRUN_SEQ = (("qwen3_8b_train", "it3_dots_seqshard"),
+              ("dbrx_train", "it3_local_cap_dots_seqshard"))
+# the mLSTM's joint (head, P) cut at full width: xlstm-125m's prefill on
+# pod16x16 (arch, batch, sequence; the sequence cut from 32768 to keep
+# the sLSTM's token loop short); rank 0's scan must run 1 head and P's
+# 192 / (16 ranks / 4 heads) = 48, as JAX's 2-layer compile on (2, 16)
+# reads
+DRYRUN_P_CUT = ("xlstm_125m", 16, 256)
+# the dry-run processes' results are read within this many seconds of
+# their start
+DRYRUN_WAIT_S = 240.0
 # the dry run against the card's memory: phase 17's Qwen3-8B cell (layers,
 # batch, sequence) on a (1, 1) mesh; argument bytes within this many
 # bytes a leaf (the caching allocator rounds each block up to 512 B)
@@ -1590,6 +1622,42 @@ r = run_cell(arch, shape, multi_pod == "1", verbose=False,
 print(json.dumps(r))
 """
 
+_SEQ_CELL = """
+import json, sys
+from repro_torch.launch.dryrun import run_cell
+from repro_torch.launch.hillclimb import PLANS
+cell, name = sys.argv[1:3]
+arch, shape, iters = PLANS[cell]
+_, _, cfg_over, rules_over = next(i for i in iters if i[0] == name)
+r = run_cell(arch, shape, False, verbose=False, cfg_over=cfg_over,
+             rules_over=rules_over)
+print(json.dumps(r))
+"""
+
+_P_CUT = """
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.core.config import ShapeSpec
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_production_mesh, teardown
+from repro_torch.models import ssm
+seen, scan = set(), ssm._mlstm_scan
+
+
+def record(q, k, v, *a, **kw):      # (batch, tokens, heads, v's P)
+    seen.add(tuple(q.shape[:-1]) + tuple(v.shape[-1:]))
+    return scan(q, k, v, *a, **kw)
+
+
+ssm._mlstm_scan = record
+arch, batch, seq = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+mesh = make_production_mesh()
+shape = ShapeSpec("p_cut", seq, batch, "prefill")
+c, _ = D.trace_cell(get_config(arch), shape, mesh, D.cell_rules(mesh, shape))
+teardown()
+print(json.dumps({"scan": sorted(seen), "coll": c.coll}))
+"""
+
 _MEMORY = """
 import dataclasses, json, sys
 from repro_torch.configs import get_config
@@ -1636,9 +1704,11 @@ def _result(proc: subprocess.Popen, what: str, timeout: float) -> dict:
 
 def slice8c(*, card: str, seed: int = 0) -> dict:
     """Phase 19 (``ROADMAP.md`` Queue 1 slice 8c): (a) the dry-run cells
-    (``DRYRUN_CELLS``), each in its own process, started once (c) and (d)
-    are timed and read last; (b) the dry run of phase 17's cell on a (1, 1) mesh against the
-    card's memory: the argument bytes predicted must be what the state
+    (``DRYRUN_CELLS``, each beside PR 28's ``DRYRUN_BEFORE`` and
+    ``COLL_BEFORE``) and the hill climb's sequence-parallel iterations
+    (``DRYRUN_SEQ``), each in its own process, started once (c) and (d)
+    are timed and read last; (b) the dry run of phase 17's cell on a
+    (1, 1) mesh against the card's memory: the argument bytes predicted must be what the state
     and batch allocate, within ``DRYRUN_LEAF_SLACK`` a leaf, and the
     traced peak is printed beside one ``train_step``'s; (c) the
     sequence-parallel decode's partials over ``SP_DECODE``'s slices of one
@@ -1650,6 +1720,7 @@ def slice8c(*, card: str, seed: int = 0) -> dict:
     import torch
     from repro_torch.ckpt.checkpoint import tree_flatten
     from repro_torch.configs import get_config
+    from repro_torch.core.roofline import KINDS, NVLINK_BW
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.parallel.collectives import (sp_decode_combine,
                                                   sp_decode_partial)
@@ -1724,6 +1795,8 @@ def slice8c(*, card: str, seed: int = 0) -> dict:
     cells = [(c, _python(_CELL, c[0], c[1], "1" if c[2] else "0",
                          "-" if c[3] is None else str(c[3])))
              for c in DRYRUN_CELLS]
+    seq_cells = [(c, _python(_SEQ_CELL, *c)) for c in DRYRUN_SEQ]
+    p_cut = _python(_P_CUT, *map(str, DRYRUN_P_CUT))
     arch, layers, batch, seq = DRYRUN_MEMORY
     memory = _python(_MEMORY, arch, str(layers), str(batch), str(seq))
 
@@ -1770,16 +1843,12 @@ def slice8c(*, card: str, seed: int = 0) -> dict:
     torch.cuda.empty_cache()
 
     # -- (a) the dry-run cells ----------------------------------------------
-    out["cells"] = []
-    for (arch_c, shape_c, mp, lay), proc in cells:
-        mesh = "pod2x16x16" if mp else "pod16x16"
-        what = f"the dry run of {arch_c} x {shape_c} x {mesh}"
-        r = _result(proc, what,
-                    max(10.0, 110.0 - (time.perf_counter() - t_start)))
+    where = f"the card machine's CPU, torch {torch.__version__}"
+
+    def report(what, r):
         check(r["peak_bytes_per_device"] >= r["argument_bytes_per_device"] > 0
               and r["flops_per_device"] > 0, f"{what}: an empty report")
-        print(f"[dryrun] {arch_c} x {shape_c} x {mesh}"
-              f"{'' if lay is None else f' ({lay} layers)'}: args "
+        print(f"[dryrun] {what} ({where}): args "
               f"{r['argument_bytes_per_device'] / 2**30:.3f} GiB, peak "
               f"{r['peak_bytes_per_device'] / 2**30:.2f} GiB, flops "
               f"{r['flops_per_device']:.3e}, bytes {r['bytes_per_device']:.3e}"
@@ -1790,14 +1859,52 @@ def slice8c(*, card: str, seed: int = 0) -> dict:
               f"{r['t_collective'] * 1e3:.2f} ms, {r['bottleneck']}-bound, "
               f"useful {r['useful_flops_ratio']:.2%}; traced in "
               f"{r['trace_s']} s")
-        ops0, useful0 = DRYRUN_BEFORE[f"{arch_c}/{shape_c}/{mesh}"]
-        print(f"[dryrun] {arch_c} x {shape_c} x {mesh}: products a device "
-              + ", ".join(f"{k} {v:.4e} (before {ops0.get(k, 0):.4e})"
+
+    def wait():
+        return max(10.0, DRYRUN_WAIT_S - (time.perf_counter() - t_start))
+    out["cells"] = []
+    for (arch_c, shape_c, mp, lay), proc in cells:
+        mesh = "pod2x16x16" if mp else "pod16x16"
+        what = (f"{arch_c} x {shape_c} x {mesh}"
+                + ("" if lay is None else f" ({lay} layers)"))
+        r = _result(proc, f"the dry run of {what}", wait())
+        report(what, r)
+        key = f"{arch_c}/{shape_c}/{mesh}"
+        ops0, useful0, args0, peak0 = DRYRUN_BEFORE[key]
+        coll0 = dict(zip(KINDS, COLL_BEFORE[key]))
+        print(f"[dryrun] {what}: products a device "
+              + ", ".join(f"{k} {v:.4e} (PR 28 {ops0.get(k, 0):.4e})"
                           for k, v in sorted(r["flops_by_dtype"].items()))
-              + f"; useful {r['useful_flops_ratio']:.2%} (before "
-              f"{useful0:.2%})")
+              + f"; useful {r['useful_flops_ratio']:.2%} (PR 28 "
+              f"{useful0:.2%}); args {r['argument_bytes_per_device']} B (PR "
+              f"28 {args0}); peak {r['peak_bytes_per_device']} B (PR 28 "
+              f"{peak0})")
+        print(f"[dryrun] {what}: collectives a device by kind "
+              + ", ".join(f"{k} {r['coll_breakdown'].get(k, 0):.4e} (PR 28 "
+                          f"{v:.4e})" for k, v in coll0.items())
+              + f"; T_coll {r['t_collective'] * 1e3:.2f} ms (PR 28 "
+              f"{sum(coll0.values()) / NVLINK_BW * 1e3:.2f} ms)")
         out["cells"].append(dict(r, layers=lay, before={
-            "flops_by_dtype": ops0, "useful_flops_ratio": useful0}))
+            "flops_by_dtype": ops0, "useful_flops_ratio": useful0,
+            "argument_bytes_per_device": args0,
+            "peak_bytes_per_device": peak0, "coll_breakdown": coll0}))
+    out["seq_cells"] = []
+    for (cell, name), proc in seq_cells:
+        what = f"hill climb {cell} / {name}"
+        r = _result(proc, f"the dry run of {what}", wait())
+        report(what, r)
+        out["seq_cells"].append(dict(r, cell=cell, iteration=name))
+    arch, batch, seq = DRYRUN_P_CUT
+    r = _result(p_cut, f"the dry run of {arch}'s mLSTM cut", wait())
+    cfg = get_config(arch)
+    want = cfg.d_model // cfg.n_heads // (16 // cfg.n_heads)
+    print(f"[dryrun] {arch} prefill B {batch} x {seq} on pod16x16 ({where}):"
+          f" rank 0's mLSTM scan runs q {r['scan']} (batch, tokens, heads, "
+          f"P): 1 head x {want} of {cfg.d_model // cfg.n_heads} expected")
+    check(r["scan"] and all(q[2:] == [1, want] for q in r["scan"]),
+          f"{arch}'s mLSTM scan on rank 0 runs {r['scan']}, not 1 head x "
+          f"{want} of P")
+    out["p_cut"] = r
     out["seconds"] = time.perf_counter() - t0
     return out
 

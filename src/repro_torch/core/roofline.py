@@ -35,13 +35,14 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import re
 import weakref
 from dataclasses import dataclass, replace
 from typing import Dict, Optional, Tuple
 
 __all__ = ["COLLECTIVES", "DeviceProfile", "H100", "KINDS", "MEM_BW",
            "NVLINK_BW",
-           "RooflineReport", "TraceCounter", "analyze_trace",
+           "RooflineReport", "TraceCounter", "analyze_trace", "call_site",
            "device_profile", "pipeline_bubble_fraction", "profile_for",
            "time_bounds"]
 
@@ -195,6 +196,49 @@ def _nbytes(t) -> int:
     return t.numel() * t.element_size()
 
 
+# the port's own plumbing, never a collective's site
+_PLUMBING = ("core/roofline.py", "parallel/sharding.py")
+_FRAME = re.compile(r'File "([^"]+)", line (\d+), in (\S+)')
+
+
+def call_site() -> str:
+    """Where the running op was asked for: the innermost frame of the
+    port's model code (``path:line function``, the path from the package's
+    root), outside :mod:`~repro_torch.parallel.sharding` and this module,
+    then the sharding helper it went through, if any (``< shard``). In a
+    backward, ``grad of`` the forward's site, from the autograd node's
+    traceback (kept only under anomaly mode; without it, the site that
+    called ``backward``)."""
+    import sys
+
+    import torch
+    frames = []                          # (path, line, function), innermost
+    node = torch._C._current_autograd_node()
+    tb = node.metadata.get("traceback_") if node is not None else None
+    if tb:
+        frames = [(m.group(1), int(m.group(2)), m.group(3)) for m in
+                  map(_FRAME.search, reversed(tb)) if m]
+    else:
+        f = sys._getframe(1)
+        while f is not None:
+            frames.append((f.f_code.co_filename, f.f_lineno,
+                           f.f_code.co_name))
+            f = f.f_back
+    helper = ""
+    for path, line, fn in frames:
+        path = path.replace("\\", "/")
+        if "/repro_torch/" not in path:
+            continue
+        rel = path.rsplit("/repro_torch/", 1)[1]
+        if rel in _PLUMBING:
+            if rel == "parallel/sharding.py":
+                helper = fn              # the outermost: the one called
+            continue
+        site = f"{rel}:{line} {fn}" + (f" < {helper}" if helper else "")
+        return ("grad of " if tb else "") + site
+    return "?"
+
+
 class TraceCounter:
     """A dispatch mode counting what one rank runs, op by op:
 
@@ -209,13 +253,18 @@ class TraceCounter:
       :data:`COLLECTIVES`);
     * ``peak``: the high-water mark of live bytes, a storage counted from
       the op that makes it until its last tensor dies, plus what
-      :meth:`track` registered as live before the run (the arguments).
+      :meth:`track` registered as live before the run (the arguments);
+    * ``sites`` (with ``sites=True``): each collective's bytes by kind
+      under the model code that issued it (:func:`call_site`); a
+      backward's collective under its forward's site, read from the
+      autograd node's traceback, so run the step under
+      ``torch.autograd.detect_anomaly(check_nan=False)``.
 
     On a DTensor the mode steps aside (returns ``NotImplemented``), so it
     sees the rank's local tensors and the collectives a redistribute
     issues: per-device numbers."""
 
-    def __init__(self):
+    def __init__(self, sites: bool = False):
         from torch.utils._python_dispatch import TorchDispatchMode
         counter = self
 
@@ -231,6 +280,8 @@ class TraceCounter:
         self.live = 0
         self.peak = 0
         self.paused = False      # ops run, uncounted (DTensor's own probes)
+        self.sites: Optional[Dict[str, Dict[str, int]]] = {} if sites \
+            else None
         self._seen = set()
 
     def __enter__(self):
@@ -272,9 +323,12 @@ class TraceCounter:
         if func.namespace in ("_c10d_functional", "c10d_functional"):
             if name != "wait_tensor":
                 kind = COLLECTIVES.get(name, name)
-                self.coll[kind] = self.coll.get(kind, 0) + sum(
-                    _nbytes(t) for t in _tensors(args[0]))
+                n = sum(_nbytes(t) for t in _tensors(args[0]))
+                self.coll[kind] = self.coll.get(kind, 0) + n
                 self.coll_count[kind] = self.coll_count.get(kind, 0) + 1
+                if self.sites is not None:
+                    at = self.sites.setdefault(call_site(), {})
+                    at[kind] = at.get(kind, 0) + n
             return out
         if name in PRODUCTS:
             a = args[1] if name in ("addmm", "baddbmm") else args[0]

@@ -245,14 +245,18 @@ def _dtensor_internals(counter: R.TraceCounter):
 
 
 def trace_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, rules,
-               run: bool = True) -> Tuple[R.TraceCounter, int]:
+               run: bool = True, sites: bool = False
+               ) -> Tuple[R.TraceCounter, int]:
     """Run the cell's step once on rank 0 of ``mesh`` under fake tensors:
     (its :class:`~repro_torch.core.roofline.TraceCounter`, the argument
     bytes a device). With ``run=False`` only the arguments are built (the
-    counter holds them as live bytes)."""
+    counter holds them as live bytes); with ``sites``, the counter's
+    ``sites`` name each collective's call site, a backward's too (the
+    step runs under autograd's anomaly mode, which keeps each node's
+    forward traceback)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor.experimental import implicit_replication
-    counter = R.TraceCounter()
+    counter = R.TraceCounter(sites=sites)
     with FakeTensorMode(), sharding_ctx(mesh, rules), \
             implicit_replication(), _dtensor_internals(counter):
         fn, args = build_cell(cfg, shape, mesh, rules)
@@ -261,7 +265,8 @@ def trace_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, rules,
         arg_bytes = sum(t.numel() * t.element_size() for t in local)
         del local
         if run:
-            with counter:
+            with counter, torch.autograd.set_detect_anomaly(
+                    sites, check_nan=False):
                 fn(*args)
     return counter, arg_bytes
 

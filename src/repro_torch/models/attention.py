@@ -14,8 +14,10 @@ only inside the dry run's ``sharding_ctx``. Each split of a flat head
 dimension goes through ``sharding.unflatten``: where GQA's 8 KV heads do
 not divide TP = 16, DTensor cannot view a shard that holds part of a head
 and gathers the dimension first, the collective GSPMD inserts unasked.
-The attention core runs ``sharding.per_shard`` over the batch and the
-query heads, as JAX's query is cut, with K and V cut on the batch only:
+The attention core runs ``sharding.per_shard`` over the batch, the
+queries and the query heads, as JAX's query is cut (its sequence where
+the "seq" rule cuts it, each rank masking from its own first query), with
+K and V cut on the batch only:
 each rank maps its own heads ``lo .. lo+n-1`` to their KV heads
 ``(lo + i) // g``, in (KV head, group) blocks where its range holds whole
 groups and head by head where it does not (DTensor cannot view a cut head
@@ -33,8 +35,8 @@ import torch
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
-from repro_torch.parallel.sharding import (align, flatten, full, per_shard,
-                                           shard, unflatten)
+from repro_torch.parallel.sharding import (align, flatten, full, matmul,
+                                           per_shard, shard, unflatten)
 from repro_torch.pipeline.compile import resolve_device
 
 NEG_INF = -1e30
@@ -80,9 +82,9 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """x (B,S,D) -> q (B,S,Hq,dh), k/v (B,S,Hkv,dh), rope + qk_norm applied."""
     B, S, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = unflatten(x @ p["wq"], 2, (hq, dh))
-    k = unflatten(x @ p["wk"], 2, (hkv, dh))
-    v = unflatten(x @ p["wv"], 2, (hkv, dh))
+    q = unflatten(matmul(x, p["wq"]), 2, (hq, dh))
+    k = unflatten(matmul(x, p["wk"]), 2, (hkv, dh))
+    v = unflatten(matmul(x, p["wv"]), 2, (hkv, dh))
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -96,34 +98,39 @@ def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 def _sdpa_naive(q, k, v, cfg: ModelConfig, causal: bool = True):
     """Reference full-matrix attention (smoke tests / oracle)."""
-    return per_shard(_own_heads, q, k, v, dims=(0, 2), shape=q.shape,
-                     arg_dims=((0, None), (0, None)), offsets=True,
-                     core=_naive, g=q.shape[2] // k.shape[2], causal=causal)
+    return per_shard(_own_heads, q, k, v, dims=(0, 1, 2), shape=q.shape,
+                     arg_dims=((0, None, None),) * 2, offsets=True,
+                     core=_naive, g=q.shape[2] // k.shape[2], causal=causal,
+                     q_len=q.shape[1])
 
 
 def _own_heads(q, k, v, offsets, core, g: int, **kw):
-    """``core`` on query heads ``lo .. lo+n-1`` (q (B, S, n, dh), ``lo``
-    the head offset) against whole K and V (B, S, Hkv, dh), as (KV head,
-    group) blocks where the range holds whole groups of ``g``, else one
-    KV head a query head (a range that straddles groups, or lies inside
-    one) -> (B, S, n, dh)."""
-    lo, n = offsets[1], q.shape[2]
+    """``core`` on this rank's queries ``q0 ..`` and query heads ``lo ..
+    lo+n-1`` (q (B, Sq, n, dh), ``offsets`` its starts along the batch,
+    the sequence and the heads) against whole K and V (B, Sk, Hkv, dh), as
+    (KV head, group) blocks where the range holds whole groups of ``g``,
+    else one KV head a query head (a range that straddles groups, or lies
+    inside one) -> (B, Sq, n, dh)."""
+    q0, lo, n = offsets[1], offsets[2], q.shape[2]
     if lo % g == 0 and n % g == 0:
         h0, h1 = lo // g, (lo + n) // g
         return core(q.unflatten(2, (n // g, g)), k[:, :, h0:h1],
-                    v[:, :, h0:h1], **kw)
+                    v[:, :, h0:h1], q0=q0, **kw)
     kv = torch.arange(lo, lo + n, device=q.device) // g
-    return core(q.unsqueeze(3), k[:, :, kv], v[:, :, kv], **kw)
+    return core(q.unsqueeze(3), k[:, :, kv], v[:, :, kv], q0=q0, **kw)
 
 
-def _naive(qg, k, v, causal: bool):
+def _naive(qg, k, v, causal: bool, q0: int = 0,
+           q_len: Optional[int] = None):
+    """Queries ``q0 ..`` of ``q_len`` (default: all of them, the last
+    ``Sq`` of the ``Sk`` positions)."""
     B, Sq, hkv, g, dh = qg.shape
     Sk = k.shape[1]
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
                      k.float()) / math.sqrt(dh)
     if causal:
-        mask = torch.ones((Sq, Sk), dtype=torch.bool,
-                          device=qg.device).tril(Sk - Sq)
+        mask = torch.ones((Sq, Sk), dtype=torch.bool, device=qg.device
+                          ).tril(q0 + Sk - (q_len or Sq))
         s = s.masked_fill(~mask, NEG_INF)
     pattn = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", pattn, v.float())
@@ -135,13 +142,14 @@ def _sdpa_chunked(q, k, v, cfg: ModelConfig):
 
     Never materializes (Sq x Sk); per-step live memory is O(Sq * chunk).
     """
-    return per_shard(_own_heads, q, k, v, dims=(0, 2), shape=q.shape,
-                     arg_dims=((0, None), (0, None)), offsets=True,
+    return per_shard(_own_heads, q, k, v, dims=(0, 1, 2), shape=q.shape,
+                     arg_dims=((0, None, None),) * 2, offsets=True,
                      core=_chunked, g=q.shape[2] // k.shape[2],
                      chunk=min(cfg.attn_chunk, k.shape[1]))
 
 
-def _chunked(qg, k, v, chunk: int):
+def _chunked(qg, k, v, chunk: int, q0: int = 0):
+    """Queries ``q0 .. q0+Sq-1`` of as many as there are keys."""
     B, Sq, hkv, g, dh = qg.shape
     Sk = k.shape[1]
     C = chunk
@@ -152,7 +160,7 @@ def _chunked(qg, k, v, chunk: int):
         Sk += pad
 
     dtype, qg = qg.dtype, qg.float()
-    q_pos = torch.arange(Sq, device=qg.device)
+    q_pos = torch.arange(q0, q0 + Sq, device=qg.device)
     m = torch.full((B, hkv, g, Sq), NEG_INF, dtype=torch.float32,
                    device=qg.device)
     l = torch.zeros((B, hkv, g, Sq), dtype=torch.float32, device=qg.device)
@@ -177,8 +185,12 @@ def _chunked(qg, k, v, chunk: int):
 
 
 def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence causal attention (training / prefill)."""
+                 positions: Optional[torch.Tensor] = None,
+                 return_kv: bool = False):
+    """Full-sequence causal attention (training / prefill). With
+    ``return_kv``, (output, k, v): the prefill's cache takes the K and V
+    the attention used, where JAX projects them a second time and XLA
+    merges the two."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
@@ -188,7 +200,8 @@ def attn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     else:
         o = _sdpa_chunked(q, k, v, cfg)
     o = shard(o, "batch", "seq", "heads", None)
-    return flatten(o, 2, 3) @ p["wo"]
+    out = matmul(flatten(o, 2, 3), p["wo"])
+    return (out, k, v) if return_kv else out
 
 
 class KVCache(NamedTuple):
@@ -241,4 +254,4 @@ def attn_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
     o = torch.einsum("bhgk,bkhd->bhgd", pattn.to(cv.dtype).float(),
                      cv.float())
     o = o.reshape(B, 1, hq * dh).to(x.dtype)
-    return o @ p["wo"], KVCache(ck, cv)
+    return matmul(o, p["wo"]), KVCache(ck, cv)

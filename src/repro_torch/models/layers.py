@@ -10,7 +10,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from repro_torch.parallel.sharding import shard, take_last
+from repro_torch.parallel.sharding import chunk, shard, take_last
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -79,7 +79,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def swiglu(gate_up: torch.Tensor) -> torch.Tensor:
     """Fused gate+up projection output -> SiLU(gate) * up."""
-    gate, up = gate_up.chunk(2, dim=-1)
+    gate, up = chunk(gate_up, 2, -1)
     return F.silu(gate) * up
 
 
@@ -103,11 +103,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     m = logits.amax(dim=-1, keepdim=True).detach()
     # the dry run: the shifted logits and each token's loss, and their
     # gradients, cut as JAX's are (DTensor would cut the gradients' sequence
-    # dim over "model", and every product behind them after it)
+    # dim over "model", and every product behind them after it); each
+    # token's two sums over the cut vocab all-reduced where they are made,
+    # as GSPMD does (DTensor would reduce-scatter them onto the sequence)
     shifted = shard(logits - m, "batch", "seq", "vocab")
-    lse = torch.log(torch.exp(shifted).sum(dim=-1))
-    gold = take_last(shifted, labels)
-    nll = shard(lse - gold, "batch", "seq")
+    lse = torch.log(shard(torch.exp(shifted).sum(dim=-1), "batch", "seq"))
+    gold = shard(take_last(shifted, labels), "batch", "seq")
+    nll = lse - gold
     if mask is not None:
         mask = mask.float()
         return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)

@@ -37,14 +37,14 @@ from torch.utils import checkpoint as _ckpt
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.models import ssm as S
-from repro_torch.models.attention import (KVCache, _project_qkv, attn_decode,
-                                          attn_forward, init_attn_params,
-                                          init_kv_cache, params_from_jax)
+from repro_torch.models.attention import (KVCache, attn_decode, attn_forward,
+                                          init_attn_params, init_kv_cache,
+                                          params_from_jax)
 from repro_torch.models.layers import (cross_entropy, dense_init, dtype_of,
                                        embed_init, rms_norm)
 from repro_torch.models.mlp import (init_mlp_params, init_moe_params,
                                     mlp_forward, moe_forward)
-from repro_torch.parallel.sharding import put_prefix, shard, unshard
+from repro_torch.parallel.sharding import matmul, put_prefix, shard, unshard
 from repro_torch.pipeline.compile import resolve_device
 
 __all__ = ["VOCAB_ALIGN", "DecodeCache", "batch_logical_axes",
@@ -253,7 +253,8 @@ def _embed_tokens(params: Tree, tokens: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
     x = F.embedding(tokens, unshard(params["embed"]))
     if cfg.frontend:
-        fe = frontend_embed.to(x.dtype) @ unshard(params["frontend_proj"])
+        fe = matmul(frontend_embed.to(x.dtype),
+                    unshard(params["frontend_proj"]))
         x = torch.cat([fe, x], dim=1)
     return shard(x, "batch", "seq", "embed")
 
@@ -334,7 +335,8 @@ def forward(params: Tree, tokens: torch.Tensor, cfg: ModelConfig,
             x = body(x, bp)
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = shard(x @ unshard(params["lm_head"]), "batch", "seq", "vocab")
+    logits = shard(matmul(x, unshard(params["lm_head"])), "batch", "seq",
+                   "vocab")
     if return_aux:
         return logits, aux_total
     return logits
@@ -447,7 +449,7 @@ def decode_step(params: Tree, tokens: torch.Tensor, cache: DecodeCache,
                                slstm=_stack_states(ssts, S.SLSTMState))
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = x @ unshard(params["lm_head"])
+    logits = matmul(x, unshard(params["lm_head"]))
     return logits, cache._replace(pos=pos + 1)
 
 
@@ -456,9 +458,9 @@ def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig,
             ) -> Tuple[torch.Tensor, DecodeCache]:
     """Process a full prompt, build the decode cache, return last logits.
 
-    For transformer families the KV cache is populated (the K/V
-    projections run a second time for it, as in JAX); recurrent families
-    carry their final states."""
+    For transformer families the KV cache is populated with the K and V
+    the attention projected (JAX projects them a second time, which XLA
+    merges); recurrent families carry their final states."""
     B = tokens.shape[0]
     x = _embed_tokens(params, tokens, frontend_embed, cfg)
     cache = init_decode_cache(cfg, B, s_max, x.device)
@@ -470,8 +472,8 @@ def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig,
         for i in range(cfg.n_layers):
             bp = _layer(blocks, i)
             normed = rms_norm(x, bp["ln1"], cfg.norm_eps)
-            h = attn_forward(bp["attn"], normed, cfg, positions)
-            _, k, v = _project_qkv(bp["attn"], normed, cfg, positions)
+            h, k, v = attn_forward(bp["attn"], normed, cfg, positions,
+                                   return_kv=True)
             put_prefix(cache.kv.k, i, k)
             put_prefix(cache.kv.v, i, v)
             x = x + h
@@ -485,8 +487,8 @@ def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig,
             if i % cfg.attn_every == 0:
                 a = i // cfg.attn_every
                 normed = rms_norm(x, sp["ln1"], cfg.norm_eps)
-                h = attn_forward(sp["attn"], normed, cfg, positions)
-                _, k, v = _project_qkv(sp["attn"], normed, cfg, positions)
+                h, k, v = attn_forward(sp["attn"], normed, cfg, positions,
+                                       return_kv=True)
                 put_prefix(cache.shared_kv.k, a, k)   # zero-padded to s_max
                 put_prefix(cache.shared_kv.v, a, v)
                 x = x + h
@@ -509,7 +511,7 @@ def prefill(params: Tree, tokens: torch.Tensor, cfg: ModelConfig,
                                slstm=_stack_states(ssts, S.SLSTMState))
 
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    logits = x @ unshard(params["lm_head"])
+    logits = matmul(x, unshard(params["lm_head"]))
     return logits, cache._replace(
         pos=torch.full((), Stot, dtype=torch.int32, device=x.device))
 

@@ -30,7 +30,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.models.layers import dense_init, swiglu
-from repro_torch.parallel.sharding import per_shard, shard, unflatten
+from repro_torch.parallel.sharding import (flatten, full, matmul,
+                                           per_shard, shard, unflatten)
 
 CAPACITY_FACTOR = 1.25
 
@@ -57,9 +58,9 @@ def mlp_forward(p: Params, x: torch.Tensor) -> torch.Tensor:
     # gradient by whatever reaches it (the swiglu split's is gathered),
     # where GSPMD propagates the ffn cut both ways
     x = shard(x, "batch", "seq", "embed")
-    h = shard(x @ p["wi"], "batch", "seq", "ffn")
+    h = shard(matmul(x, p["wi"]), "batch", "seq", "ffn")
     h = shard(swiglu(h), "batch", "seq", "ffn")
-    return h @ p["wdown"]
+    return matmul(h, p["wdown"])
 
 
 # ---------------------------------------------------------------------------
@@ -113,25 +114,46 @@ def moe_dispatch_indices(idx: torch.Tensor, E: int
     return e_flat, pos
 
 
-def _dispatch(xg: torch.Tensor, idx: torch.Tensor, E: int, C: int):
+def _dispatch(experts: torch.Tensor, xg: torch.Tensor, idx: torch.Tensor,
+              E: int, C: int, offsets=(0, 0)):
     """Groups' tokens xg (G, Tl, D) into their experts' queues by idx (G,
-    Tl, K) -> (buf (G, E, C, D), e_flat, pos (G, Tl*K)). A dropped choice
-    (pos >= C) lands in a spare slot C, cut off after."""
+    Tl, K): the queues of experts ``e0 .. e0+El-1`` (``offsets[1]`` and
+    ``experts``' (G, El): a rank's own, as GSPMD scatters them; all E off
+    a mesh) -> (buf (G, El, C, D), e_flat, pos (G, Tl*K)). A dropped
+    choice (pos >= C), or one for another rank's expert, lands in a spare
+    slot C, cut off after."""
     G, Tl, D = xg.shape
     e_flat, pos = zip(*(moe_dispatch_indices(i, E) for i in idx))
     e_flat, pos = torch.stack(e_flat), torch.stack(pos)
-    tok = torch.arange(Tl, device=xg.device).repeat_interleave(idx.shape[-1])
-    g_ix = torch.arange(G, device=xg.device)[:, None]
-    buf = torch.zeros((G, E, C + 1, D), dtype=xg.dtype, device=xg.device)
-    buf[g_ix, e_flat, pos.clamp_max(C)] = xg[:, tok]
+    e0, El = offsets[1], experts.shape[1]
+    buf = torch.zeros((G, El, C + 1, D), dtype=xg.dtype, device=xg.device)
+    if El:
+        tok = torch.arange(Tl, device=xg.device).repeat_interleave(
+            idx.shape[-1])
+        g_ix = torch.arange(G, device=xg.device)[:, None]
+        slot, e = pos.clamp_max(C), e_flat - e0
+        if El < E:
+            mine = (e >= 0) & (e < El)
+            slot, e = torch.where(mine, slot, C), torch.where(mine, e, 0)
+        buf[g_ix, e, slot] = xg[:, tok]
     return buf[:, :, :C], e_flat, pos
 
 
 def _gather(o: torch.Tensor, e_flat: torch.Tensor, pos: torch.Tensor,
-            C: int) -> torch.Tensor:
-    """Each choice's expert output (G, Tl*K, D) from o (G, E, C, D)."""
+            E: int, C: int, offsets=(0, 0)) -> torch.Tensor:
+    """Each choice's expert output (G, Tl*K, D) from o (G, El, C, D),
+    experts ``e0 ..`` (``offsets[1]``; all E off a mesh). A choice for
+    another rank's expert reads zero: the ranks' shares sum to the whole,
+    GSPMD's masked gather."""
+    e0, El = offsets[1], o.shape[1]
+    if El == 0:
+        return o.new_zeros(e_flat.shape + o.shape[-1:])
     g_ix = torch.arange(o.shape[0], device=o.device)[:, None]
-    return o[g_ix, e_flat, pos.clamp_max(C - 1)]
+    e = e_flat - e0
+    got = o[g_ix, e.clamp(0, El - 1), pos.clamp_max(C - 1)]
+    if El == E:
+        return got
+    return torch.where(((e >= 0) & (e < El))[..., None], got, 0)
 
 
 def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
@@ -144,17 +166,21 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
     G = cfg.moe_groups if T % max(cfg.moe_groups, 1) == 0 else 1
     Tl = T // G
     C = expert_capacity(Tl, cfg)
-    xt = x.reshape(T, D)
+    xt = flatten(x, 0, 1)                            # (T, D)
     logits = xt.float() @ p["router"]                # (T, E) fp32
     w, idx = route_topk(logits, K)                   # (T, K)
 
-    # group-local dispatch: capacity is enforced per group (in the dry run
-    # each rank dispatches the groups it holds: DTensor has no index_put
-    # rule in every torch release)
+    # group-local dispatch: capacity is enforced per group; in the dry run
+    # each rank scatters the groups it holds into its own experts' queues,
+    # as GSPMD does (DTensor has no index_put rule in every torch release)
     xg = shard(xt.reshape(G, Tl, D), "batch", None, None)
+    experts = shard(full((G, E), 0, x.dtype, x.device, "batch", "experts"),
+                    "batch", "experts")
     buf, e_flat, pos = per_shard(
-        _dispatch, xg, unflatten(idx, 0, (G, Tl)), dims=(0,),
-        shape=((G, E, C, D), (G, Tl * K), (G, Tl * K)), E=E, C=C)
+        _dispatch, experts, xg, unflatten(idx, 0, (G, Tl)), dims=(0, 1),
+        shape=((G, E, C, D), (G, Tl * K), (G, Tl * K)),
+        arg_dims=((0, None),) * 2, out_dims=((0, 1), (0, None), (0, None)),
+        offsets=True, E=E, C=C)
     buf = shard(buf, "batch", "experts", None, None)
 
     # expert GEMMs, one batched product each
@@ -164,16 +190,22 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
     o = shard(torch.einsum("gecf,efd->gecd", h, p["moe_wdown"]),
               "batch", "experts", None, None)
 
-    # combine: gather each choice's expert output, weight, sum over K
-    gathered = per_shard(_gather, o, e_flat, pos, dims=(0,),
-                         shape=(G, Tl * K, D), C=C)       # (G, TlK, D)
+    # combine: gather each choice's expert output, weight, sum over K; in
+    # the dry run each rank reads its own experts' rows and one all-reduce
+    # sums the shares, as GSPMD does
+    gathered = shard(per_shard(
+        _gather, o, e_flat, pos, dims=(0, 1), shape=(G, Tl * K, D),
+        arg_dims=((0, None),) * 2, out_dims=(0, "sum"), offsets=True, E=E,
+        C=C), "batch", None, None)                       # (G, TlK, D)
     keep = (pos < C).float()[..., None]
     wk = unflatten(w, 0, (G, Tl)).reshape(G, Tl * K)[..., None] * keep
     v = (gathered.float() * wk).reshape(G, Tl, K, D)
     out = v[:, :, 0]
     for k in range(1, K):                            # JAX's scatter order
         out = out + v[:, :, k]
-    out = out.reshape(B, S, D).to(x.dtype)
+    # its gradient too whole over the sequence before the view's backward
+    # merges (B, S) (torch 2.11 refuses a cut S there)
+    out = shard(out.reshape(B, S, D), "batch", None, "embed").to(x.dtype)
 
     # Switch-style load-balance aux loss
     gates = torch.softmax(logits, dim=-1)

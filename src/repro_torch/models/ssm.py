@@ -22,8 +22,10 @@ import torch.nn.functional as F
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.models.layers import dense_init, rms_norm, swiglu
-from repro_torch.parallel.sharding import (flatten, per_shard, shard,
-                                           unflatten)
+from repro_torch.parallel.sharding import (chunk, flatten, full,
+                                           group_gather, group_sum, matmul,
+                                           parts_group, per_shard, pieces,
+                                           shard, unflatten)
 
 Params = Dict[str, torch.Tensor]
 
@@ -133,7 +135,7 @@ def mamba_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
         return torch.cat([y0, y1], dim=1), state
     d_inner, nh, P, N = mamba_dims(cfg)
 
-    h = x @ p["in_proj"]
+    h = matmul(x, p["in_proj"])
     z, xbc, dt_pre = _split_in_proj(h, cfg)
     if state is None:
         state = init_mamba_state(cfg, Bsz, x.dtype, x.device)
@@ -160,7 +162,7 @@ def mamba_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     y = y + xh * p["D"][None, None, :, None]         # skip connection
     y = flatten(y, 2, 3).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["ssm_norm"], cfg.norm_eps)
-    return y @ p["out_proj"], MambaState(st, conv_state)
+    return matmul(y, p["out_proj"]), MambaState(st, conv_state)
 
 
 def _ssd_scan(xh, Bm, Cm, dt, st, A, Q: int):
@@ -204,7 +206,7 @@ def mamba_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """Single-token recurrent step. x (B,1,D)."""
     Bsz = x.shape[0]
     d_inner, nh, P, N = mamba_dims(cfg)
-    h = x @ p["in_proj"]
+    h = matmul(x, p["in_proj"])
     z, xbc, dt_pre = _split_in_proj(h, cfg)
     xbc, conv_state = causal_conv1d(xbc, p["conv_w"], p["conv_b"],
                                     state.conv)
@@ -220,7 +222,7 @@ def mamba_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
     y = y + xh * p["D"][None, :, None]
     y = y.reshape(Bsz, 1, d_inner).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["ssm_norm"], cfg.norm_eps)
-    return y @ p["out_proj"], MambaState(st, conv_state)
+    return matmul(y, p["out_proj"]), MambaState(st, conv_state)
 
 
 # ===========================================================================
@@ -297,39 +299,83 @@ def mlstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
         y0, state = mlstm_forward(p, x[:, :s0], cfg, state)
         y1, state = mlstm_forward(p, x[:, s0:], cfg, state)
         return torch.cat([y0, y1], dim=1), state
-    up = x @ p["w_up"]
-    xin, z = up.chunk(2, dim=-1)
-    qkv = unflatten(xin @ p["wqkv"], 2, (3, nh, P)).float()
+    xin, z = chunk(matmul(x, p["w_up"]), 2, -1)
+    qkv = unflatten(matmul(xin, p["wqkv"]), 2, (3, nh, P)).float()
     q, k, v = qkv[:, :, 0], qkv[:, :, 1] / math.sqrt(P), qkv[:, :, 2]
-    gates = (xin @ p["w_gates"]).float() + p["gate_b"]
+    gates = matmul(xin, p["w_gates"]).float() + p["gate_b"]
     gates = unflatten(gates, 2, (2, nh))
     i_pre, f_pre = gates[:, :, 0], gates[:, :, 1]          # (B,S,nh)
 
     if state is None:
         state = init_mlstm_state(cfg, Bsz, x.device)
-    # each rank its own heads (ceil chunks: xlstm's 4 on TP 16 fall on
-    # the first 4 ranks; GSPMD also cuts P there, which DTensor cannot
-    # on the same mesh axis)
-    q = shard(q, "batch", "seq", "heads", None)
-    y, *st = per_shard(_mlstm_scan, q, k, v, i_pre, f_pre, *state,
-                       dims=(0, 2), shape=(q.shape,) + tuple(
-                           a.shape for a in state),
-                       arg_dims=((0, 2),) * 4 + ((0, 1),) * 3,
-                       out_dims=((0, 2),) + ((0, 1),) * 3, Q=Q)
-    y = flatten(y, 2, 3).to(x.dtype)
+    shapes = (q.shape,) + tuple(a.shape for a in state)
+    parts = pieces(q, nh, "heads")
+    if parts > 1 and P % parts == 0:
+        # fewer heads than the "heads" rule's ranks: each rank its piece of
+        # the flattened (head, P), as GSPMD cuts it (xlstm-125m's 4 heads
+        # on TP 16: 1 head x 48 of 192 a rank), from whole q, k, v and
+        # states; ``piece`` carries the cut (B, nh * P)
+        piece = full((Bsz, nh * P), 0, torch.float32, x.device, "batch",
+                     "heads")
+        group, mesh_dim = parts_group(piece, 1, parts)
+        y, *st = per_shard(
+            _mlstm_parts, piece, q, k, v, i_pre, f_pre, *state,
+            dims=(0, 1), shape=((Bsz, S, nh * P),) + shapes[1:],
+            arg_dims=((0, None),) * 8, out_dims=((0, 2),) + ((0, None),) * 3,
+            offsets=True, P=P, Q=Q, group=group, mesh_dim=mesh_dim)
+        y = y.to(x.dtype)
+    else:
+        # each rank its own heads (ceil chunks: xlstm's 4 on TP 8 fall on
+        # the first 4 ranks)
+        q = shard(q, "batch", "seq", "heads", None)
+        y, *st = per_shard(_mlstm_scan, q, k, v, i_pre, f_pre, *state,
+                           dims=(0, 2), shape=shapes,
+                           arg_dims=((0, 2),) * 4 + ((0, 1),) * 3,
+                           out_dims=((0, 2),) + ((0, 1),) * 3, Q=Q)
+        y = flatten(y, 2, 3).to(x.dtype)
     y = rms_norm(y, p["mem_norm"], cfg.norm_eps) * F.silu(z)
-    return y @ p["wdown"], MLSTMState(*st)
+    return matmul(y, p["wdown"]), MLSTMState(*st)
 
 
-def _mlstm_scan(q, k, v, i_pre, f_pre, C, n, m, Q: int):
+def _mlstm_parts(piece, q, k, v, i_pre, f_pre, C, n, m, offsets, P: int,
+                 Q: int, group, mesh_dim):
+    """A rank's piece of the mLSTM: the ``piece.shape[1]`` columns of the
+    flattened (head, P) from ``offsets[1]``, of whole q, k, v (B, S, nh,
+    P), gates and states. The scan sums q.k over the ``group`` that
+    shares the head and gathers q and k there for the state's terms; the
+    final states are gathered whole over ``mesh_dim`` -> (y (B, S, pl),
+    C, n, m)."""
+    h, p0 = divmod(offsets[1], P)
+    part = slice(p0, p0 + piece.shape[1])
+    y, Cl, nl, ml = _mlstm_scan(
+        q[:, :, h:h + 1], k[:, :, h:h + 1], v[:, :, h:h + 1, part],
+        i_pre[:, :, h:h + 1], f_pre[:, :, h:h + 1], C[:, h:h + 1, :, part],
+        n[:, h:h + 1], m[:, h:h + 1], Q=Q, group=group, part=part)
+    ranks = P // piece.shape[1]                  # ranks a head
+    nh = C.shape[1]
+    # every rank's piece, in rank order: rank r holds head r // ranks, the
+    # columns (r % ranks) * pl of its C, and its head's whole n and m
+    Cg = group_gather(Cl[None], 0, mesh_dim)     # (nh ranks, B, 1, P, pl)
+    Cg = Cg.reshape(nh, ranks, *Cl.shape).permute(2, 0, 4, 1, 3, 5)
+    ng, mg = (group_gather(a[None], 0, mesh_dim)[::ranks, :, 0].movedim(0, 1)
+              for a in (nl, ml))
+    return y[:, :, 0], Cg.reshape(C.shape), ng, mg
+
+
+def _mlstm_scan(q, k, v, i_pre, f_pre, C, n, m, Q: int, group=None,
+                part=None):
     """The chunkwise mLSTM over (B, S, nh, P) inputs from the state
-    (C, n, m) -> (y (B, S, nh, P), C, n, m)."""
+    (C, n, m) -> (y (B, S, nh, P), C, n, m). With a ``group`` of ranks
+    that share the heads, v, C and y are this rank's ``part`` of P (C's
+    columns), and each q.k is this part's partial sum, summed over the
+    group."""
     Bsz, S = q.shape[:2]
     NC = S // Q
 
     def ch(a):                                             # (B, NC, Q, ...)
         return a.reshape(Bsz, NC, Q, *a.shape[2:])
     qc, kc, vc, ic, fc = map(ch, (q, k, v, i_pre, f_pre))
+    part = slice(None) if part is None else part
     mask = _causal_mask(Q, q.device)[None, :, :, None]
     st = MLSTMState(C, n, m)
     ys = []
@@ -344,7 +390,8 @@ def _mlstm_scan(q, k, v, i_pre, f_pre, C, n, m, Q: int):
         m_intra = D.amax(dim=2)                            # (B,Q,nh)
         m_inter = st.m[:, None, :] + b                     # (B,Q,nh)
         m_i = torch.clamp_min(torch.maximum(m_intra, m_inter), -1e30)
-        Sij = torch.einsum("bihp,bjhp->bijh", qj, kj) * torch.exp(
+        Sij = group_sum(torch.einsum("bihp,bjhp->bijh", qj[..., part],
+                                     kj[..., part]), group) * torch.exp(
             D - m_i[:, :, None, :])
         inter_scale = torch.exp(m_inter - m_i)             # (B,Q,nh)
         num = torch.einsum("bijh,bjhp->bihp", Sij, vj) + \
@@ -361,7 +408,7 @@ def _mlstm_scan(q, k, v, i_pre, f_pre, C, n, m, Q: int):
             torch.einsum("bjh,bjhp,bjhq->bhpq", w_st, kj, vj)
         n = st.n * carry[..., None] + torch.einsum("bjh,bjhp->bhp", w_st, kj)
         st = MLSTMState(C, n, m_new)
-    return (torch.stack(ys, dim=1).reshape(q.shape), *st)
+    return (torch.stack(ys, dim=1).reshape(v.shape), *st)
 
 
 def mlstm_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -426,7 +473,7 @@ def slstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """The sLSTM recurrence, one step a token (S steps, as JAX's scan)."""
     Bsz, S, _ = x.shape
     d_inner, nh, P = xlstm_dims(cfg)
-    gx = (x @ p["w_gates"]).float() + p["gate_b"]
+    gx = matmul(x, p["w_gates"]).float() + p["gate_b"]
     # (B,S,4*d_inner) -> (B,S,nh,4P): per-head gate grouping
     gx = unflatten(gx, 2, (4, nh, P)).permute(0, 1, 3, 2, 4)
     gx = gx.reshape(Bsz, S, nh, 4 * P)
@@ -438,7 +485,7 @@ def slstm_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
         hs.append(state.h)
     h = torch.stack(hs, dim=1).reshape(Bsz, S, d_inner).to(x.dtype)
     h = rms_norm(h, p["mem_norm"], cfg.norm_eps)
-    return swiglu(h @ p["w_up"]) @ p["wdown"], state
+    return matmul(swiglu(matmul(h, p["w_up"])), p["wdown"]), state
 
 
 def slstm_decode(p: Params, x: torch.Tensor, cfg: ModelConfig,

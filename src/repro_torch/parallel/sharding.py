@@ -35,11 +35,12 @@ import torch
 AxisRule = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[AxisRule, ...]
 
-__all__ = ["DEFAULT_RULES", "align", "AxisRule", "batch_sharding",
-           "current_mesh", "flatten", "full", "mesh_shape", "named",
-           "NamedSharding", "param_shardings", "param_spec", "per_shard",
-           "placements", "put_prefix", "shard", "sharding_ctx", "Spec",
-           "spec_for", "take_last", "unflatten", "unshard"]
+__all__ = ["DEFAULT_RULES", "align", "AxisRule", "batch_sharding", "chunk",
+           "current_mesh", "flatten", "full", "group_gather", "group_sum",
+           "matmul", "mesh_shape", "named", "NamedSharding",
+           "param_shardings", "param_spec", "parts_group", "per_shard",
+           "pieces", "placements", "put_prefix", "shard", "sharding_ctx",
+           "Spec", "spec_for", "take_last", "unflatten", "unshard"]
 
 # Default logical-axis -> mesh-axis rules (single pod). launch/mesh.py
 # extends "batch" with the "pod" axis for the multi-pod mesh.
@@ -232,19 +233,24 @@ def unflatten(x: torch.Tensor, dim: int, sizes: Sequence[int]
     if _is_dtensor(x):
         dim = dim % x.ndim
         if sizes[0] % _ways(x, dim):
-            return _viewed(x, dim, lambda t: t.unflatten(dim, sizes))
+            return _viewed(x, [dim], lambda t: t.unflatten(dim, sizes))
     return x.unflatten(dim, sizes)
 
 
 def flatten(x: torch.Tensor, start: int, end: int) -> torch.Tensor:
-    """``x.flatten(start, end)``. On a DTensor whose dim ``start`` is cut
+    """``x.flatten(start, end)``. On a DTensor, the dims it merges are
+    gathered first where DTensor cannot view them cut: ``start`` cut
     unevenly (its mesh axes do not divide it: Arctic's 56 query heads on
-    TP = 16), ``start`` is gathered first: DTensor views only an even cut,
-    GSPMD pads."""
+    TP = 16; GSPMD pads), and any later dim cut at all (the MoE's tokens,
+    (B, S) with the sequence cut over "model": torch 2.11 refuses, and
+    XLA's HLO gathers S there)."""
     if _is_dtensor(x):
-        start = start % x.ndim
+        start, end = start % x.ndim, end % x.ndim
+        cut = [d for d in range(start + 1, end + 1) if _ways(x, d) > 1]
         if x.shape[start] % _ways(x, start):
-            return _viewed(x, start, lambda t: t.flatten(start, end))
+            cut.insert(0, start)
+        if cut:
+            return _viewed(x, cut, lambda t: t.flatten(start, end))
     return x.flatten(start, end)
 
 
@@ -274,12 +280,13 @@ class _Hold(_Constrain):
         return g, None
 
 
-def _viewed(x: torch.Tensor, dim: int, view) -> torch.Tensor:
-    """``view(x)`` with ``dim`` gathered first (:class:`_Hold` keeps its
+def _viewed(x: torch.Tensor, dims: Sequence[int], view) -> torch.Tensor:
+    """``view(x)`` with ``dims`` gathered first (:class:`_Hold` keeps its
     cotangent viewable)."""
     from torch.distributed.tensor import Replicate, Shard
     y = view(x.redistribute(x.device_mesh, [
-        Replicate() if p == Shard(dim) else p for p in x.placements]))
+        Replicate() if isinstance(p, Shard) and p.dim in dims else p
+        for p in x.placements]))
     return _Hold.apply(y, tuple(y.placements)) if y.requires_grad else y
 
 
@@ -299,6 +306,229 @@ def align(x: torch.Tensor, ref: torch.Tensor, dim: int,
     if want == tuple(x.placements):
         return x
     return x.redistribute(x.device_mesh, want)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (a weight ``w`` of two dims) as GSPMD partitions it, on
+    each rank's local tensors:
+
+    * where a row dim of ``x`` is cut over a mesh axis that also cuts
+      ``w`` (the sequence cut over "model" against the "tp" columns or
+      rows), ``w`` is gathered over that axis and ``x`` keeps its cut:
+      GSPMD's choice on the smoke cells (XLA's HLO gathers ``wq``, ``wi``,
+      ``wo`` and ``wdown`` whole over "model" and runs every product on
+      the rank's own tokens), where DTensor's product refuses the layout
+      (torch 2.11 flattens (B, S) with S cut);
+    * a contraction cut over a mesh axis gives a partial sum, all-reduced
+      at the product as GSPMD does; left partial, DTensor reduces it later
+      onto a cut dim and gathers it again;
+    * ``w``'s cut columns stay cut, and ``x`` is gathered where its last
+      dim is cut over the same axis (the mLSTM's ``xin`` before ``wqkv``,
+      as XLA's HLO gathers it);
+    * a partial ``x`` (the decode's attention output, summed over the
+      cache's cut slots) is all-reduced first, as GSPMD does, not
+      reduce-scattered onto the contraction.
+
+    Each local tensor's gradient is declared as the local product makes
+    it: partial where this rank summed only its own rows or columns.
+    On plain tensors, ``x @ w``."""
+    if not (_is_dtensor(x) and _is_dtensor(w)):
+        return x @ w
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh, last, whole = x.device_mesh, x.ndim - 1, Replicate()
+    if any(isinstance(p, Partial) for p in x.placements):
+        x = x.redistribute(mesh, [whole if isinstance(p, Partial) else p
+                                  for p in x.placements])
+    # a mesh dim's placements of x, w and y, then of x's and w's gradients
+    plan = []
+    for px, pw in zip(x.placements, w.placements):
+        sx = px.dim % x.ndim if isinstance(px, Shard) else None
+        sw = pw.dim % 2 if isinstance(pw, Shard) else None
+        if sx is not None and sx < last:           # x's rows: w whole
+            plan.append((px, whole, px, px, Partial()))
+        elif sw == 1:                              # w's columns: x whole
+            plan.append((whole, pw, Shard(last), Partial(), pw))
+        elif sx == last or sw == 0:                # the contraction: partial
+            cut = (Shard(last), Shard(0))
+            plan.append(cut + (Partial(),) + cut)
+        else:
+            plan.append((whole,) * 5)
+    xp, wp, yp, xg, wg = zip(*plan)
+    if tuple(xp) != tuple(x.placements):
+        x = x.redistribute(mesh, xp)
+    if tuple(wp) != tuple(w.placements):
+        w = w.redistribute(mesh, wp)
+    shape = x.shape[:-1] + w.shape[-1:]
+    y = DTensor.from_local(
+        x.to_local(grad_placements=xg) @ w.to_local(grad_placements=wg),
+        mesh, yp, run_check=False, shape=shape,
+        stride=_contiguous_stride(shape))
+    if any(isinstance(p, Partial) for p in yp):
+        y = y.redistribute(mesh, [whole if isinstance(p, Partial) else p
+                                  for p in yp])
+    return y
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride = [1] * len(shape)
+    for i in range(len(shape) - 2, -1, -1):
+        stride[i] = stride[i + 1] * shape[i + 1]
+    return tuple(stride)
+
+
+class _Relayout(torch.autograd.Function):
+    """One all-to-all over a mesh ``group`` that moves pieces of dim 0 of
+    the local tensors: this rank sends its rows in ``order`` (None: as
+    they are), ``split_in`` to each rank in turn, and receives
+    ``split_out`` from each; the backward sends every piece back."""
+
+    @staticmethod
+    def forward(ctx, t, group, order, split_in, split_out):
+        from torch.distributed import _functional_collectives as fc
+        ctx.group, ctx.order, ctx.splits = group, order, (split_in,
+                                                          split_out)
+        if order is not None:
+            t = t[order]
+        return fc.wait_tensor(fc.all_to_all_single(
+            t.contiguous(), split_out, split_in, group))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed import _functional_collectives as fc
+        split_in, split_out = ctx.splits
+        back = fc.wait_tensor(fc.all_to_all_single(
+            g.contiguous(), split_in, split_out, ctx.group))
+        if ctx.order is not None:
+            out = torch.empty_like(back)
+            out[ctx.order] = back
+            back = out
+        return back, None, None, None, None
+
+
+def chunk(x: torch.Tensor, parts: int, dim: int = -1):
+    """``x.chunk(parts, dim)``. On a DTensor whose ``dim`` is cut evenly
+    over one mesh dim (of n ranks, each chunk a multiple of n), each chunk
+    comes out cut over that mesh dim as ``x`` was, the pieces moved in
+    place by one all-to-all of the local shard, as GSPMD moves them
+    (collective-permutes in XLA's HLO: swiglu's gate/up split, the
+    mLSTM's up/z split); DTensor itself would gather the whole dim."""
+    if not _is_dtensor(x):
+        return x.chunk(parts, dim)
+    from torch.distributed.tensor import DTensor, Shard
+    dim = dim % x.ndim
+    cut = [i for i, p in enumerate(x.placements) if p == Shard(dim)]
+    size = x.shape[dim]
+    if len(cut) != 1 or size % parts:
+        return x.chunk(parts, dim)
+    md, = cut
+    mesh = x.device_mesh
+    n = mesh.shape[md]
+    if n == 1 or (size // parts) % n:
+        return x.chunk(parts, dim)
+    r = mesh.get_coordinate()[md]
+    piece = size // parts // n                     # rows of one piece
+    # this rank holds global pieces r*parts + j; piece p goes to rank
+    # p % n as that rank's piece of chunk p // n
+    dest = [(r * parts + j) % n for j in range(parts)]
+    js = sorted(range(parts), key=lambda j: dest[j])
+    order = None if js == sorted(js) else torch.cat([
+        torch.arange(j * piece, (j + 1) * piece, device=x.to_local().device)
+        for j in js])
+    split_in = [dest.count(d) * piece for d in range(n)]
+    split_out = [sum((c * n + r) // parts == s for c in range(parts)) * piece
+                 for s in range(n)]
+    local = x.to_local().movedim(dim, 0)
+    out = _Relayout.apply(local, (mesh, md), order, split_in, split_out)
+    shape = x.shape[:dim] + (size // parts,) + x.shape[dim + 1:]
+    return tuple(DTensor.from_local(
+        out[c * piece:(c + 1) * piece].movedim(0, dim), mesh, x.placements,
+        run_check=False, shape=shape, stride=_contiguous_stride(shape))
+        for c in range(parts))
+
+
+def pieces(x: torch.Tensor, n: int, logical: str) -> int:
+    """How many ranks share each of ``n`` items (heads) of DTensor ``x``
+    that the ``logical`` rule cuts over one mesh axis with more ranks than
+    items: its ranks over ``n`` where ``n`` divides them, else 1 (and 1
+    outside :func:`sharding_ctx` or on a plain tensor)."""
+    mesh, rules = _CTX.mesh, _CTX.rules
+    if mesh is None or not _is_dtensor(x):
+        return 1
+    rule = rules.get(logical)
+    axes = (rule,) if isinstance(rule, str) else tuple(rule or ())
+    ranks = mesh_shape(mesh).get(axes[0], 1) if len(axes) == 1 else 1
+    return ranks // n if ranks > n and ranks % n == 0 else 1
+
+
+def parts_group(x: torch.Tensor, dim: int, k: int):
+    """(the process group of this rank and the others that share its
+    piece, the whole mesh dim): DTensor ``x``'s dim ``dim`` is cut over
+    one mesh dim, seen here as groups of ``k`` consecutive ranks (the
+    ranks that split one mLSTM head's P). Each group is made once a mesh:
+    every rank makes every group, in the same order."""
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    md = next(i for i, p in enumerate(x.placements) if p == Shard(dim))
+    groups = mesh.__dict__.setdefault("_parts_groups", {})
+    if (md, k) not in groups:
+        import numpy as np
+        import torch.distributed as dist
+        # init_device_mesh's layout (the ranks in order, mesh dims major to
+        # minor), checked against this rank's own line
+        line = np.moveaxis(np.arange(math.prod(mesh.shape)).reshape(
+            tuple(mesh.shape)), md, -1).reshape(-1, mesh.shape[md])
+        mine = dist.get_process_group_ranks(mesh.get_group(md))
+        if mine not in line.tolist():
+            raise ValueError("a mesh whose ranks are not in order")
+        ranks = line.reshape(-1, k).tolist()
+        groups[(md, k)] = dist.new_subgroups_by_enumeration(ranks)[0]
+    return groups[(md, k)], (mesh, md)
+
+
+class _GroupSum(torch.autograd.Function):
+    """Partial sums summed over ``group`` (an all-reduce); each rank's
+    gradient is its share of the downstream work, summed the same way."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        from torch.distributed import _functional_collectives as fc
+        ctx.group = group
+        return fc.wait_tensor(fc.all_reduce(t.contiguous(), "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed import _functional_collectives as fc
+        return fc.wait_tensor(fc.all_reduce(g.contiguous(), "sum",
+                                            ctx.group)), None
+
+
+class _GroupGather(torch.autograd.Function):
+    """Each rank's piece of dim ``dim`` gathered over ``group`` (an
+    all-gather, in rank order); the gradient reduce-scattered back."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        from torch.distributed import _functional_collectives as fc
+        ctx.dim, ctx.group = dim, group
+        return fc.wait_tensor(fc.all_gather_tensor(t.contiguous(), dim,
+                                                   group))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed import _functional_collectives as fc
+        return fc.wait_tensor(fc.reduce_scatter_tensor(
+            g.contiguous(), "sum", ctx.dim, ctx.group)), None, None
+
+
+def group_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over ``group``; ``t`` itself without one."""
+    return t if group is None else _GroupSum.apply(t, group)
+
+
+def group_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """``t``'s pieces along ``dim`` gathered over ``group`` in rank order;
+    ``t`` itself without one."""
+    return t if group is None else _GroupGather.apply(t, dim % t.ndim, group)
 
 
 def _local_range(n: int, dim: int, mesh, placed) -> Tuple[int, int]:
@@ -326,7 +556,9 @@ def per_shard(fn, ref: torch.Tensor, *args: torch.Tensor,
     have no head dim; K and V are whole over the query heads); by default
     each is cut as ``ref``. Each tensor of ``kw`` is whole on every rank.
     The result (a tensor of global ``shape``, or a tuple of them and a
-    tuple of shapes) is cut as ``out_dims`` says (default: as ``ref``).
+    tuple of shapes) is cut as ``out_dims`` says (default: as ``ref``);
+    ``"sum"`` in place of a dim makes it a partial sum over the mesh dims
+    that cut ``dims[i]`` (each rank's share of a masked gather).
     A tensor whole over a mesh dim that cuts the work gets its gradient
     summed over it. With ``offsets``, ``fn`` also gets ``offsets=``: this
     rank's start along each of ``dims`` (0 off a mesh).
@@ -350,7 +582,8 @@ def per_shard(fn, ref: torch.Tensor, *args: torch.Tensor,
 
     def placed(at):             # a tensor whose dims[i] is its dim at[i]
         return tuple(Replicate() if i is None or at[i] is None
-                     else Shard(at[i]) for i in cuts)
+                     else Partial() if at[i] == "sum" else Shard(at[i])
+                     for i in cuts)
 
     def summed(at):             # its gradient: whole where work is cut
         return tuple(Partial() if i is not None and at[i] is None else p
@@ -371,42 +604,40 @@ def per_shard(fn, ref: torch.Tensor, *args: torch.Tensor,
     out = fn(local(ref, dims), *map(local, args, arg_dims), **kw)
 
     def wrap(t, shp, at):
-        stride = [1] * len(shp)
-        for i in range(len(shp) - 2, -1, -1):
-            stride[i] = stride[i + 1] * shp[i + 1]
         return DTensor.from_local(t.contiguous(), mesh, placed(at),
                                   run_check=False, shape=torch.Size(shp),
-                                  stride=tuple(stride))
+                                  stride=_contiguous_stride(shp))
     if isinstance(out, tuple):
         return tuple(map(wrap, out, shape, out_dims or (dims,) * len(out)))
     return wrap(out, shape, out_dims or dims)
 
 
 def take_last(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
-    """``torch.gather(x, -1, index[..., None])[..., 0]``. On a DTensor cut
-    along its last dim, each shard picks the indices it holds (zero
-    elsewhere) and a sum over those mesh axes gives the rest: JAX's
-    masked sum, one small all-reduce and the last dim never gathered.
-    DTensor's own gather rule fails on that layout."""
-    if _is_dtensor(x):
-        from torch.distributed.tensor import DTensor, Partial, Replicate, \
-            Shard
-        last = Shard(x.ndim - 1)
-        if last in x.placements:
-            mesh = x.device_mesh
-            off, n = _local_range(x.shape[-1], x.ndim - 1, mesh,
-                                  x.placements)
-            idx = index.redistribute(mesh, [Replicate() if p == last else p
-                                            for p in x.placements])
-            i = idx.to_local().long() - off
-            held = (i >= 0) & (i < n)
-            got = torch.gather(x.to_local(), -1,
-                               i.clamp(0, max(n - 1, 0))[..., None])
-            got = torch.where(held, got[..., 0], 0.0)
-            return DTensor.from_local(
-                got, mesh, [Partial() if p == last else p
-                            for p in x.placements], run_check=False)
-    return torch.gather(x, -1, index.long()[..., None])[..., 0]
+    """``torch.gather(x, -1, index[..., None])[..., 0]``. On a DTensor,
+    on each rank's local tensors, ``index`` cut as ``x``'s other dims: a
+    gather (and its gradient, a scatter) on every rank's own rows, where
+    DTensor's gather rule replicates both (the sequence cut over "model":
+    the whole batch's logits gradient on every rank). Where ``x``'s last
+    dim is cut too, each shard picks the indices it holds (zero elsewhere)
+    and a sum over those mesh axes gives the rest: JAX's masked sum, one
+    small all-reduce and the last dim never gathered."""
+    if not _is_dtensor(x):
+        return torch.gather(x, -1, index.long()[..., None])[..., 0]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    last = Shard(x.ndim - 1)
+    mesh = x.device_mesh
+    off, n = _local_range(x.shape[-1], x.ndim - 1, mesh, x.placements)
+    idx = index.redistribute(mesh, [Replicate() if p == last else p
+                                    for p in x.placements])
+    i = idx.to_local().long() - off
+    got = torch.gather(x.to_local(), -1,
+                       i.clamp(0, max(n - 1, 0))[..., None])[..., 0]
+    if last in x.placements:
+        got = torch.where((i >= 0) & (i < n), got, 0.0)
+    shape = x.shape[:-1]
+    return DTensor.from_local(
+        got, mesh, [Partial() if p == last else p for p in x.placements],
+        run_check=False, shape=shape, stride=_contiguous_stride(shape))
 
 
 def put_prefix(buf: torch.Tensor, i: int, value: torch.Tensor) -> None:

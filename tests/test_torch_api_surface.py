@@ -207,11 +207,14 @@ SLICE_8C = {
     # placements and the explicit redistributes DTensor needs where GSPMD
     # reshards on its own (align, flatten, full, per_shard with its
     # per-argument cuts and offsets, put_prefix, take_last, unflatten,
-    # unshard)
+    # unshard), the products and splits laid out as GSPMD lays them
+    # (matmul, chunk), and the groups of ranks that share a head's P
+    # (pieces, parts_group, group_sum, group_gather)
     "parallel/sharding": (set(), {
-        "NamedSharding", "Spec", "align", "flatten", "full", "mesh_shape",
-        "per_shard", "placements", "put_prefix", "take_last", "unflatten",
-        "unshard"}),
+        "NamedSharding", "Spec", "align", "chunk", "flatten", "full",
+        "group_gather", "group_sum", "matmul", "mesh_shape", "parts_group",
+        "per_shard", "pieces", "placements", "put_prefix", "take_last",
+        "unflatten", "unshard"}),
     # compat_make_mesh is JAX's AxisType shim; make_mesh is its twin over
     # the fake process group, teardown frees a process's one default group
     "launch/mesh": ({"compat_make_mesh"}, {"make_mesh", "teardown"}),
@@ -223,14 +226,15 @@ SLICE_8C = {
     "parallel/collectives": (set(), {"sp_decode_combine",
                                      "sp_decode_partial"}),
     # the TPU v5e constants and the XLA readers have no meaning on the
-    # card; the port's rates, its profile and the trace counter
+    # card; the port's rates, its profile, the trace counter and the call
+    # site it files each collective under
     "core/roofline": (
         {"HBM_BW", "ICI_BW", "MXU_DIM", "PEAK_FLOPS", "PEAK_OPS_INT8",
          "VMEM_BYTES", "analyze_compiled", "collective_bytes_from_hlo",
          "cost_analysis_dict", "mxu_utilization", "peak_ops"},
         {"COLLECTIVES", "DeviceProfile", "H100", "KINDS", "MEM_BW",
          "NVLINK_BW", "PRODUCTS", "TraceCounter", "analyze_trace",
-         "device_profile", "profile_for"}),
+         "call_site", "device_profile", "profile_for"}),
     # the heterogeneous-stage entry point is the serving engine's
     # gpipe_schedule
     "parallel/pipeline_par": ({"pipeline_forward_stages"},

@@ -7,14 +7,19 @@ default group), so each side runs in one subprocess and the tests compare
 what they print: the smoke cell's argument bytes a device (exact, equal to
 XLA's ``memory_analysis``), the work each rank's attention core and SSM
 scans do (the batch x heads they run, equal to the batch extent of XLA's
-batched dot), ``model_flops_for`` of every cell (equal), the collective
-counter on a product DTensor must gather, and the CLIs.
+batched dot), the products a device (equal to the HLO's dots), the
+collective bytes a device (at most 1.25 x XLA's, every layer unrolled on
+both sides), the sequence cut over "model", the MoE's dispatch and
+combine and the mLSTM's P cut against XLA's extents, ``model_flops_for``
+of every cell (equal), the collective counter on a product DTensor must
+gather, and the CLIs.
 ``repro.launch.dryrun`` is imported only in the subprocess: it forces 512
 devices when imported.
 """
 import ast
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -58,42 +63,62 @@ CORES = {"attention": ("bqhgd,bkhd->bhgqk", "attention", ("_naive",
                                                          "_chunked")),
          "ssd": ("bqjh,bjhp->bqhp", "ssm", ("_ssd_scan",)),
          "mlstm": ("bihp,bjhp->bijh", "ssm", ("_mlstm_scan",))}
+# the sequence cut over "model" (the hill climb's sequence-parallel
+# iterations) on qwen3-8b's smoke cell; the MoE smoke cell (dbrx-132b,
+# 4 experts on 4 model ranks); the mLSTM where GSPMD cuts each head's P
+# (xlstm-125m's 4 heads on 16 model ranks, 4 ranks a head)
+SEQ_RULES = {"seq": ("model",)}
+MOE_CELL = ("dbrx_132b", (2, 4), "prefill")
+P_CUT_CELL = ("xlstm_125m", (1, 16))
+# the smoke cells whose products a device are held against the dots of
+# XLA's HLO: the attention families (the SSM scans' einsums decompose into
+# products of other shapes in XLA and in torch)
+DOT_CELLS = (("qwen3_8b", (2, 4), ()), ("qwen3_8b", (2, 4), SEQ_RULES),
+             ("dbrx_132b", (2, 4), ()))
 
 
-def _cell_key(arch, mesh, kind):
-    return f"{arch}/{mesh[0]}x{mesh[1]}/{kind}"
+def _cell_key(arch, mesh, kind, rules=()):
+    return f"{arch}/{mesh[0]}x{mesh[1]}/{kind}" + ("/seq" if rules else "")
 
 
 @functools.lru_cache(maxsize=None)
 def _jax_side() -> dict:
-    """JAX on 8 forced devices: the qwen3-8b smoke cell of each kind on a
-    (2, 4) mesh (``memory_analysis`` and the HLO collectives), each core's
-    batch extent in the ``CORE_CELLS`` (read from the HLO right after
-    XLA's SPMD partitioner, where each dot has its local shape and still
-    its einsum's name), and ``model_flops_for`` of every full-size
-    cell."""
+    """JAX on 16 forced devices, every layer and chunk unrolled (XLA's HLO
+    holds a scanned body once, whatever its trip count): the qwen3-8b
+    smoke cell of each kind on a (2, 4) mesh (``memory_analysis`` and the
+    HLO collectives), each core's batch extent in the ``CORE_CELLS`` (read
+    from the HLO right after XLA's SPMD partitioner, where each dot has
+    its local shape and still its einsum's name), the ``DOT_CELLS``'
+    products a device (each dot's 2 x output x contraction), the
+    sequence-cut cell's argument bytes and attention score block, the MoE
+    cell's dispatch and combine extents and the collectives at them, the
+    mLSTM's extent and P width at ``P_CUT_CELL``, and ``model_flops_for``
+    of every full-size cell."""
     return _run(f"""
-        import math, os, re, shutil, tempfile
+        import dataclasses, math, os, re, shutil, tempfile
         dump = tempfile.mkdtemp()
         os.environ["XLA_FLAGS"] = (
-            "--xla_force_host_platform_device_count=8 --xla_dump_to=" + dump
-            + " --xla_dump_hlo_pass_re=spmd-partitioning")
+            "--xla_force_host_platform_device_count=16 --xla_dump_to="
+            + dump + " --xla_dump_hlo_pass_re=spmd-partitioning")
         import json, jax
-        jax.devices()              # 8 devices, before dryrun asks for 512
+        jax.devices()              # 16 devices, before dryrun asks for 512
         from repro.configs import ARCH_IDS, get_config
         from repro.core import roofline as R
         from repro.core.config import ShapeSpec, applicable_shapes
         from repro.launch import dryrun as D
         from repro.launch.mesh import compat_make_mesh, rules_for_mesh
         from repro.parallel.sharding import DEFAULT_RULES, sharding_ctx
-        DOT = re.compile(r"= \\w+\\[([\\d,]*)\\]\\S* dot\\(.*?"
-                         r"lhs_batch_dims=\\{{([\\d,]*)\\}}.*?"
-                         r'op_name="([^"]*)"')
+        INSTR = re.compile(r"^\\s*(?:ROOT\\s+)?(%[\\w.\\-]+) = \\(?\\w+"
+                           r"\\[([\\d,]*)\\]\\S* ([\\w-]+)\\(([^)]*)\\)")
         CORES = {{k: v[0] for k, v in {CORES!r}.items()}}
 
-        def compile_cell(cfg, mesh, kind):
-            rules = dict(DEFAULT_RULES, **rules_for_mesh(mesh))
+        def dims(text):
+            return [int(d) for d in text.split(",") if d]
+
+        def compile_cell(cfg, mesh, kind, over=()):
+            rules = dict(DEFAULT_RULES, **rules_for_mesh(mesh), **dict(over))
             shape = ShapeSpec("smoke", 32, 8, kind)
+            cfg = dataclasses.replace(cfg, scan_layers=False)
             seen = set(os.listdir(dump))
             with sharding_ctx(mesh, rules):
                 fn, args, donate = D.build_cell(cfg, shape, mesh, rules)
@@ -102,30 +127,77 @@ def _jax_side() -> dict:
                         *args).compile()
             new, = [f for f in set(os.listdir(dump)) - seen
                     if f.endswith(".txt") and ".after_spmd-partitioning." in f]
-            cores = {{}}
+            shapes, got = {{}}, {{"cores": {{}}, "score": [], "width": [],
+                                 "dots": 0, "dispatch": [], "combine": [],
+                                 "combine_ar": []}}
             with open(os.path.join(dump, new)) as f:
-                for line in f:
-                    m = DOT.search(line)
-                    if not m or "transpose(" in m.group(3):  # forward only
-                        continue
+                lines = f.read().splitlines()
+            for line in lines:
+                m = INSTR.match(line)
+                if m:
+                    shapes[m.group(1)] = dims(m.group(2))
+            for line in lines:
+                m = INSTR.match(line)
+                name = re.search(r'op_name="([^"]*)"', line)
+                if not m or not name:
+                    continue
+                out, op, name = dims(m.group(2)), m.group(3), name.group(1)
+                operands = re.findall(r"%[\\w.\\-]+", m.group(4))
+                forward = "transpose(" not in name
+                if op == "dot":
+                    lhs = shapes[operands[0]]
+                    lc, lb = (dims(a.group(1)) if a else [] for a in (
+                        re.search(r"lhs_contracting_dims=\\{{([\\d,]*)\\}}",
+                                  line),
+                        re.search(r"lhs_batch_dims=\\{{([\\d,]*)\\}}",
+                                  line)))
+                    got["dots"] += 2 * math.prod(out) * math.prod(
+                        lhs[d] for d in lc)
                     for core, einsum in CORES.items():
-                        if einsum + "/" in m.group(3):
-                            dims = [int(d) for d in m.group(1).split(",")]
-                            n = len(m.group(2).split(","))
-                            cores.setdefault(core, set()).add(
-                                math.prod(dims[:n]))
-            return c, {{k: sorted(v) for k, v in cores.items()}}
+                        if forward and einsum in name:
+                            got["cores"].setdefault(core, set()).add(
+                                math.prod(out[:len(lb)]))
+                            if core == "attention":
+                                got["score"].append(math.prod(out))
+                            if core == "mlstm":
+                                got["width"].append(lhs[lc[0]])
+                elif forward and op == "scatter" and len(out) == 4 \\
+                        and "vmap()/scatter-add" in name:
+                    got["dispatch"].append(out)
+                elif forward and op == "gather" and "vmap()/gather" in name \\
+                        and len(shapes[operands[0]]) == 4:
+                    got["combine"].append([shapes[operands[0]], out])
+                elif forward and op == "all-reduce" \\
+                        and "vmap()/gather" in name:
+                    got["combine_ar"].append(out)
+            got["cores"] = {{k: sorted(v) for k, v in got["cores"].items()}}
+            for k in ("score", "width"):
+                got[k] = sorted(set(got[k]))
+            for k in ("dispatch", "combine"):
+                got[k] = sorted(set(map(json.dumps, got[k])))
+            return c, got
 
-        out = {{"smoke": {{}}, "cores": {{}}, "flops": {{}}}}
+        out = {{"smoke": {{}}, "cores": {{}}, "dots": {{}}, "flops": {{}}}}
         cfg = get_config("qwen3_8b").smoke()
         mesh = compat_make_mesh((2, 4), ("data", "model"))
         for kind in {KINDS!r}:
-            c, cores = compile_cell(cfg, mesh, kind)
+            c, got = compile_cell(cfg, mesh, kind)
             out["smoke"][kind] = {{
                 "args": int(c.memory_analysis().argument_size_in_bytes),
                 "coll": R.collective_bytes_from_hlo(c.as_text())}}
+            out["dots"]["qwen3_8b/2x4/" + kind] = got["dots"]
             if kind in {CORE_KINDS!r}:
-                out["cores"]["qwen3_8b/2x4/" + kind] = cores
+                out["cores"]["qwen3_8b/2x4/" + kind] = got["cores"]
+            c, got = compile_cell(cfg, mesh, kind, {SEQ_RULES!r})
+            out["dots"]["qwen3_8b/2x4/" + kind + "/seq"] = got["dots"]
+            out["smoke"][kind + "/seq"] = {{
+                "args": int(c.memory_analysis().argument_size_in_bytes),
+                "score": got["score"]}}
+            c, got = compile_cell(get_config("dbrx_132b").smoke(), mesh, kind)
+            out["dots"]["dbrx_132b/2x4/" + kind] = got["dots"]
+            if kind == {MOE_CELL[2]!r}:
+                out["moe"] = {{k: got[k] for k in ("dispatch", "combine",
+                                                   "combine_ar")}}
         for arch, shape in {CORE_CELLS!r}:
             if arch == "qwen3_8b":
                 continue
@@ -133,7 +205,14 @@ def _jax_side() -> dict:
             for kind in {CORE_KINDS!r}:
                 key = f"{{arch}}/{{shape[0]}}x{{shape[1]}}/{{kind}}"
                 out["cores"][key] = compile_cell(
-                    get_config(arch).smoke(), mesh, kind)[1]
+                    get_config(arch).smoke(), mesh, kind)[1]["cores"]
+        arch, shape = {P_CUT_CELL!r}
+        mesh = compat_make_mesh(shape, ("data", "model"))
+        out["p_cut"] = {{}}
+        for kind in {CORE_KINDS!r}:
+            got = compile_cell(get_config(arch).smoke(), mesh, kind)[1]
+            out["p_cut"][kind] = {{"cores": got["cores"]["mlstm"],
+                                  "width": got["width"]}}
         shutil.rmtree(dump)
         for a in ARCH_IDS:
             for s in applicable_shapes(get_config(a)):
@@ -142,15 +221,16 @@ def _jax_side() -> dict:
         print(json.dumps(out))
     """)
 
-
 @functools.lru_cache(maxsize=None)
 def _port_side() -> dict:
-    """The port on a fake (2, 4) mesh: the same smoke cells traced (and
-    the ``CORE_CELLS``, each core's function wrapped to record the batch x
-    heads of rank 0's shard), and a ``Shard(0)`` x ``Shard(1)`` product on
-    a fake 1-D mesh of 4."""
+    """The port on fake meshes: the same smoke cells traced (each core's
+    function wrapped to record the batch x heads of rank 0's shard, the
+    attention's score block and the mLSTM's P width; the MoE's dispatch
+    and combine to record their local extents), the qwen3-8b cells' and
+    the MoE cell's collectives by call site, and a ``Shard(0)`` x
+    ``Shard(1)`` product on a fake 1-D mesh of 4."""
     return _run(f"""
-        import json, torch
+        import json, math, torch
         from torch._subclasses.fake_tensor import FakeTensorMode
         from torch.distributed import tensor as dt
         from torch.distributed.tensor import Shard
@@ -159,14 +239,19 @@ def _port_side() -> dict:
         from repro_torch.core.roofline import TraceCounter
         from repro_torch.launch import dryrun as D
         from repro_torch.launch.mesh import make_mesh, smoke_mesh, teardown
-        from repro_torch.models import attention, ssm
-        out = {{"smoke": {{}}, "cores": {{}}}}
-        seen = {{}}
+        from repro_torch.models import attention, mlp, ssm
+        out = {{"smoke": {{}}, "cores": {{}}, "dots": {{}}, "sites": {{}}}}
+        seen, score, width, moe = {{}}, set(), set(), {{}}
 
         def record(core, fn):      # a (B, S, heads..., width) first input
             def run(x, *a, **k):
                 seen.setdefault(core, set()).add(
                     x.numel() // (x.shape[1] * x.shape[-1]))
+                if core == "attention":
+                    score.add(x.numel() // x.shape[-1]
+                              * k.get("chunk", a[0].shape[1]))
+                if core == "mlstm":         # the P of v: the q.k part
+                    width.add(a[1].shape[-1])
                 return fn(x, *a, **k)
             return run
         for core, (_, mod, names) in {CORES!r}.items():
@@ -174,32 +259,66 @@ def _port_side() -> dict:
             for name in names:
                 setattr(mod, name, record(core, getattr(mod, name)))
 
+        def extent(key, fn, at):   # a local shape of the MoE's
+            def run(*a, **k):
+                r = fn(*a, **k)
+                moe.setdefault(key, set()).add(json.dumps(at(a, r)))
+                return r
+            return run
+        mlp._dispatch = extent("dispatch", mlp._dispatch,
+                               lambda a, r: list(r[0].shape))
+        mlp._gather = extent("combine", mlp._gather,
+                             lambda a, r: [list(a[0].shape), list(r.shape)])
+
         def cores():
             got = {{k: sorted(v) for k, v in seen.items()}}
             seen.clear()
             return got
 
-        cfg = get_config("qwen3_8b").smoke()
+        def trace(arch, mesh, kind, rules=None, sites=False):
+            shape = ShapeSpec("smoke", 32, 8, kind)
+            return D.trace_cell(get_config(arch).smoke(), shape, mesh,
+                                D.cell_rules(mesh, shape, rules),
+                                sites=sites)
+
         mesh = make_mesh((2, 4), ("data", "model"))
         for kind in {KINDS!r}:
-            shape = ShapeSpec("smoke", 32, 8, kind)
-            c, arg_bytes = D.trace_cell(cfg, shape, mesh,
-                                        D.cell_rules(mesh, shape))
+            c, arg_bytes = trace("qwen3_8b", mesh, kind, sites=True)
             out["smoke"][kind] = {{"args": arg_bytes, "coll": c.coll,
-                                  "ops": c.ops, "peak": c.peak}}
+                                  "ops": c.ops, "peak": c.peak,
+                                  "sites": c.sites}}
+            out["dots"]["qwen3_8b/2x4/" + kind] = sum(c.ops.values())
             out["cores"]["qwen3_8b/2x4/" + kind] = cores()
-        for arch, shp in {CORE_CELLS!r}:
+            score.clear()
+            c, arg_bytes = trace("qwen3_8b", mesh, kind, {SEQ_RULES!r})
+            out["dots"]["qwen3_8b/2x4/" + kind + "/seq"] = sum(
+                c.ops.values())
+            out["smoke"][kind + "/seq"] = {{"args": arg_bytes,
+                                           "score": sorted(score)}}
+            seen.clear()
+            c, _ = trace("dbrx_132b", mesh, kind, sites=True)
+            out["dots"]["dbrx_132b/2x4/" + kind] = sum(c.ops.values())
+            if kind == {MOE_CELL[2]!r}:
+                out["moe"] = {{k: sorted(v) for k, v in moe.items()}}
+                out["moe"]["sites"] = c.sites
+            moe.clear()
+            seen.clear()
+        for arch, shp in {CORE_CELLS!r} + ({P_CUT_CELL!r},):
             if arch == "qwen3_8b":
                 continue
             if tuple(mesh.shape) != tuple(shp):
                 teardown()
                 mesh = make_mesh(shp, ("data", "model"))
             for kind in {CORE_KINDS!r}:
-                shape = ShapeSpec("smoke", 32, 8, kind)
-                D.trace_cell(get_config(arch).smoke(), shape, mesh,
-                             D.cell_rules(mesh, shape))
-                out["cores"][f"{{arch}}/{{shp[0]}}x{{shp[1]}}/{{kind}}"] = \
-                    cores()
+                width.clear()
+                trace(arch, mesh, kind)
+                got = cores()
+                if (arch, tuple(shp)) == {P_CUT_CELL!r}:
+                    out.setdefault("p_cut", {{}})[kind] = {{
+                        "cores": got["mlstm"], "width": sorted(width)}}
+                else:
+                    out["cores"][f"{{arch}}/{{shp[0]}}x{{shp[1]}}/{{kind}}"] \\
+                        = got
         teardown()
         mesh = make_mesh((4,), ("model",))
         with FakeTensorMode():
@@ -263,17 +382,96 @@ def test_smoke_trace_counts_products_and_collectives(kind):
     assert got["coll"]["all-gather"] > 0        # the FSDP weight gathers
 
 
+# where the port reduce-scatters and XLA's CPU pipeline all-reduces the
+# same partial sum and slices it (it never forms a reduce-scatter: a
+# partial product whose output is cut compiles to all-reduce +
+# dynamic-slice), with the same operand bytes: the gradient of a forward
+# all-gather, ZeRO-3's weight gathers (``unshard``) and ``matmul``'s
+NAMED_RS = ("< unshard", "< matmul")
+
+
 @pytest.mark.parametrize("kind", KINDS)
 def test_smoke_collectives_beside_jax(kind):
-    """Not a gate (PERF.md section 7): the collective bytes a device the
-    port's trace counts beside those JAX's ``collective_bytes_from_hlo``
-    reads in XLA's HLO of the same cell; both move some bytes for every
-    kind of step. ``pytest -s`` prints them."""
-    port = _port_side()["smoke"][kind]["coll"]
+    """The gate on the dry run's collectives: the bytes a device of
+    qwen3-8b ``smoke()`` on (2, 4), traced by the port, are at most 1.25 x
+    those JAX's ``collective_bytes_from_hlo`` reads in XLA's HLO of the
+    same cell with every layer unrolled; and the port reduce-scatters
+    only the gradients of its forward all-gathers (``NAMED_RS``), where
+    XLA's HLO, which holds no reduce-scatter, all-reduces the same bytes.
+    ``pytest -s`` prints both by kind and the port's by call site."""
+    port = _port_side()["smoke"][kind]
     jax_ = _jax_side()["smoke"][kind]["coll"]
-    print(f"\n[collectives] qwen3-8b smoke {kind} (2, 4): port {port}; "
-          f"JAX {jax_}")
-    assert sum(port.values()) > 0 and sum(jax_.values()) > 0
+    total, total_jax = sum(port["coll"].values()), sum(jax_.values())
+    print(f"\n[collectives] qwen3-8b smoke {kind} (2, 4): port {total} B "
+          f"{port['coll']}; JAX {total_jax} B {jax_}")
+    for site, got in sorted(port["sites"].items(),
+                            key=lambda kv: -sum(kv[1].values())):
+        print(f"  {sum(got.values()):8d} {site} {got}")
+    assert 0 < total <= 1.25 * total_jax
+    assert jax_["reduce-scatter"] == 0
+    unnamed = {site: got["reduce-scatter"]
+               for site, got in port["sites"].items()
+               if got.get("reduce-scatter")
+               and not (site.startswith("grad of ")
+                        and site.endswith(NAMED_RS))}
+    assert not unnamed, unnamed
+
+
+# the decode step's one token leaves no sequence to cut, and the port's
+# step is the default rules' (equal to XLA's 229,376 products there); with
+# the sequence rule GSPMD gathers the MLP's weights whole for that token
+# and runs 376,832, so the seq cell's decode is not held
+DOT_IDS = [_cell_key(a, m, k, r) for a, m, r in DOT_CELLS for k in KINDS
+           if not (r and k == "decode")]
+
+
+@pytest.mark.parametrize("cell", DOT_IDS)
+def test_smoke_products_equal_xla_dots(cell):
+    """Rank 0's products a device (the trace's counter) equal the dots of
+    XLA's HLO after its SPMD partitioner (2 x output x contraction each),
+    forward, backward and serving, the sequence cut included: the port
+    computes what each device of JAX's program computes, no more."""
+    assert _port_side()["dots"][cell] == _jax_side()["dots"][cell]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_seq_cut_cell_arguments_and_core_as_jax(kind):
+    """qwen3-8b ``smoke()`` on (2, 4) with the sequence cut over "model"
+    (F4): the argument bytes a device equal XLA's, and each attention
+    core's score block on rank 0 (batch x queries x heads x keys of a KV
+    chunk) equals the output of XLA's dot of the same core: each rank its
+    own queries, every head, as GSPMD cuts it."""
+    port = _port_side()["smoke"][kind + "/seq"]
+    jax_ = _jax_side()["smoke"][kind + "/seq"]
+    assert port["args"] == jax_["args"]
+    assert port["score"] == jax_["score"]
+    assert kind == "decode" or port["score"]
+
+
+def test_moe_dispatch_and_combine_as_jax():
+    """dbrx-132b ``smoke()`` on (2, 4), prefill: each rank scatters its
+    tokens into its own expert's queues only, (G, 1 expert of 4, C, D) as
+    XLA's scatter, and the combine gathers each choice's row from the
+    rank's own expert, (G, T K, D) out of (G, 1, C, D) as XLA's gather,
+    the shares summed by all-reduces of XLA's bytes."""
+    port, jax_ = _port_side()["moe"], _jax_side()["moe"]
+    assert port["dispatch"] == jax_["dispatch"] and port["dispatch"]
+    assert port["combine"] == jax_["combine"] and port["combine"]
+    ar = sum(got.get("all-reduce", 0) for site, got in port["sites"].items()
+             if site.endswith(" moe_forward < shard")
+             and not site.startswith("grad of"))
+    assert ar == sum(4 * math.prod(s) for s in jax_["combine_ar"]) > 0
+
+
+@pytest.mark.parametrize("kind", CORE_KINDS)
+def test_mlstm_p_cut_as_jax(kind):
+    """xlstm-125m ``smoke()`` on (1, 16): 4 mLSTM heads over 16 model
+    ranks, where GSPMD cuts each head's P over 4 of them; rank 0's scan
+    runs the batch x 1 head and 4 of P's 16, the extent and contraction
+    width of XLA's q.k dot (xlstm-125m at TP 16: 1 head x 48 of 192)."""
+    port, jax_ = _port_side()["p_cut"][kind], _jax_side()["p_cut"][kind]
+    assert port["cores"] == jax_["cores"]
+    assert port["width"] == jax_["width"] == [4]
 
 
 def test_collective_counter_records_the_gather():

@@ -7,14 +7,16 @@ held against the same step on plain tensors in the same process.
 
 The dry run only traces these paths on fake tensors; here the explicit
 redistributes (``unflatten``, ``align``, ``per_shard``, ``take_last``,
-``unshard``, ``full``, ``put_prefix`` and ``shard``'s cotangent) compute
-real numbers, so a wrong offset, layout or gradient shows. Meshes: (2, 1)
-cuts the batch, (1, 2) the heads, the vocab, the ffn and the experts,
-(2, 2) both, and (1, 4) the query heads and the SSM heads four ways
-(GQA's 2 KV heads stay whole: ``unflatten`` gathers them), one a rank,
-and in two test-only variants unevenly: ``qwen3_gqa6`` across the KV
-groups, ``xlstm_h2`` with ranks that hold no head. Each smoke config,
-fp32, batch 4 x 32 tokens.
+``unshard``, ``full``, ``put_prefix`` and ``shard``'s cotangent) and the
+layouts GSPMD chooses (``matmul``'s gathered weights and all-reduced
+partial sums, ``chunk``'s all-to-all, the MoE's expert-local dispatch and
+masked combine, the mLSTM's (head, P) pieces) compute real numbers, so a
+wrong offset, layout or gradient shows. Meshes: (2, 1) cuts the batch,
+(1, 2) the heads, the vocab, the ffn and the experts, (2, 2) both, and
+(1, 4) the query heads and the SSM heads four ways (GQA's 2 KV heads stay
+whole: ``unflatten`` gathers them), one a rank, and in test-only variants
+otherwise (``VARIANTS``): unevenly, each mLSTM head's P cut, and the
+sequence cut over "model". Each smoke config, fp32, batch 4 x 32 tokens.
 
 Tolerances (fp32; sums in another order): the forward's logits, the
 prefill's last logits and one decode step's logits within 1e-5 x
@@ -44,14 +46,21 @@ RUNS = {(2, 1): ("qwen3_8b", "dbrx_132b", "zamba2_1p2b", "xlstm_125m"),
         (1, 2): ("qwen3_8b", "dbrx_132b", "zamba2_1p2b", "xlstm_125m"),
         (2, 2): ("dbrx_132b",),
         (1, 4): ("qwen3_8b", "zamba2_1p2b", "xlstm_125m", "qwen3_gqa6",
-                 "xlstm_h2")}
-# test-only configs: a smoke config with fields replaced. qwen3_gqa6 has 6
-# query heads over 2 KV heads (groups of 3): on 4 model ranks the heads
-# fall in ceil chunks of 2, so rank 0's lie inside a group, rank 1's
-# straddle two, and rank 3 holds none. xlstm_h2's 2 heads leave ranks 2
-# and 3 no mLSTM head, as xlstm-125m's 4 do 12 of TP 16's ranks
-VARIANTS = {"qwen3_gqa6": ("qwen3_8b", {"n_heads": 6, "n_kv_heads": 2}),
-            "xlstm_h2": ("xlstm_125m", {"n_heads": 2, "n_kv_heads": 2})}
+                 "xlstm_h2", "xlstm_h1", "qwen3_seq", "dbrx_seq")}
+# test-only configs: a smoke config with fields replaced, and rules over
+# the defaults. qwen3_gqa6 has 6 query heads over 2 KV heads (groups of
+# 3): on 4 model ranks the heads fall in ceil chunks of 2, so rank 0's
+# lie inside a group, rank 1's straddle two, and rank 3 holds none.
+# xlstm_h2's 2 mLSTM heads and xlstm_h1's 1 are each cut with P over 2
+# and 4 ranks (each rank a piece of a head's P, as GSPMD cuts xlstm-125m's
+# 4 heads on TP 16). qwen3_seq and dbrx_seq cut the sequence over "model"
+# (the hill climb's sequence-parallel iterations); dbrx_seq in 2 token
+# groups, one expert a rank
+VARIANTS = {"qwen3_gqa6": ("qwen3_8b", {"n_heads": 6, "n_kv_heads": 2}, {}),
+            "xlstm_h2": ("xlstm_125m", {"n_heads": 2, "n_kv_heads": 2}, {}),
+            "xlstm_h1": ("xlstm_125m", {"n_heads": 1, "n_kv_heads": 1}, {}),
+            "qwen3_seq": ("qwen3_8b", {}, {"seq": ["model"]}),
+            "dbrx_seq": ("dbrx_132b", {"moe_groups": 2}, {"seq": ["model"]})}
 CASES = [(m, a) for m, archs in RUNS.items() for a in archs]
 OUT_RTOL, SUM_RTOL = 1e-5, 1e-4
 
@@ -80,7 +89,6 @@ _WORKER = textwrap.dedent("""
     dist.init_process_group("gloo", init_method=url, rank=rank,
                             world_size=world)
     mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
-    rules = DEFAULT_RULES
     B, S, S_MAX = 4, 32, 40
     OCFG = AdamWConfig(state_dtype="float32")
 
@@ -116,8 +124,9 @@ _WORKER = textwrap.dedent("""
 
     res = {}
     for arch in sys.argv[6].split(","):
-        name, over = VARIANTS.get(arch, (arch, {}))
+        name, over, seq = VARIANTS.get(arch, (arch, {}, {}))
         cfg = dataclasses.replace(get_config(name).smoke(), **over)
+        rules = dict(DEFAULT_RULES, **{k: tuple(v) for k, v in seq.items()})
         params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
         rng = np.random.RandomState(0)
         batch = {k: torch.from_numpy(rng.randint(0, cfg.vocab, (B, S))
