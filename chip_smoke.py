@@ -241,8 +241,8 @@ Phases (any failure exits non-zero):
    printed (argument and peak bytes, products, bytes, collectives by kind,
    the three roofline terms, the trace's seconds), and each cell's
    products a device by dtype, useful share, argument and peak bytes and
-   collectives by kind with T_coll beside PR 28's tree's reading on the
-   card's machine (``DRYRUN_BEFORE``, ``COLL_BEFORE``); xlstm-125m's
+   collectives by kind with T_coll beside the slice-8e tree's reading on
+   the card's machine (``DRYRUN_BEFORE``, ``COLL_BEFORE``); xlstm-125m's
    prefill on pod16x16 (``DRYRUN_P_CUT``), whose rank 0 must run its
    mLSTM scan on 1 head x 48 of P's 192. The dry run of phase
    17's cell (Qwen3-8B, 8 layers, B 2 x 4096, bf16, fp32 AdamW) on a
@@ -377,37 +377,38 @@ DRYRUN_CELLS = (("qwen3_8b", "train_4k", False, None),
                 ("qwen3_8b", "decode_32k", False, None),
                 ("dbrx_132b", "train_4k", False, None),
                 ("zamba2_1p2b", "long_500k", False, None))
-# each cell as PR 28's tree read it on the card's machine (torch 2.11,
-# `python -m repro_torch.launch.dryrun` from a `git archive` checkout):
-# products a device by dtype, useful share, argument and peak bytes a
-# device, printed beside this run's
+# each cell as the slice-8e tree (commit e783c4d) read it on the card's
+# machine (torch 2.11, `python -m repro_torch.launch.dryrun` from a
+# `git archive` checkout): products a device by dtype, useful share,
+# argument and peak bytes a device, printed beside this run's
 DRYRUN_BEFORE = {
     "qwen3_8b/train_4k/pod16x16": (
         {"bfloat16": 228062763417600, "float32": 39582418599936},
-        0.8076539519846427, 323586052, 40760962592),
+        0.8076539519846427, 323586052, 37250059808),
     "qwen3_8b/train_4k/pod2x16x16": (
         {"bfloat16": 114031381708800, "float32": 19791209299968},
-        0.8076539519846427, 323323908, 21091511840),
+        0.8076539519846427, 323323908, 19342347808),
     "qwen3_8b/decode_32k/pod16x16": (
-        {"bfloat16": 7568621568, "float32": 9663676416}, 1.0361624647263297,
-        2480531492, 5245401124),
+        {"bfloat16": 7568621568, "float32": 9663676416},
+        1.0361624647263297, 2480531492, 5245270052),
     "dbrx_132b/train_4k/pod16x16": (
         {"bfloat16": 20911371130503168, "float32": 68032281968640},
-        0.04390108512553003, 5193003012, 404857864256),
+        0.04390108512553003, 5193003012, 353389572162),
     "zamba2_1p2b/long_500k/pod16x16": (
-        {"bfloat16": 188317696, "float32": 1880293376}, 0.06119315550100662,
-        130036904, 1206759080)}
+        {"bfloat16": 188317696, "float32": 1880293376},
+        0.06119315550100662, 130036904, 1206754984)}
 # and its collective bytes a device by kind (all-gather, all-reduce,
 # reduce-scatter, all-to-all, collective-permute), from the same run
 COLL_BEFORE = {
-    "qwen3_8b/train_4k/pod16x16": (23127883776, 107380803592, 2191785984,
-                                   0, 0),
-    "qwen3_8b/train_4k/pod2x16x16": (11652268032, 55001724936, 2191785984,
-                                     0, 0),
-    "qwen3_8b/decode_32k/pod16x16": (140751360, 4784128, 2359296, 0, 0),
-    "dbrx_132b/train_4k/pod16x16": (680700739584, 109042032136, 1750597632,
-                                    0, 0),
-    "zamba2_1p2b/long_500k/pod16x16": (3914116752, 217240, 28672, 0, 0)}
+    "qwen3_8b/train_4k/pod16x16": (1384611840, 107380541448, 2191785984,
+                                   21743271936, 0),
+    "qwen3_8b/train_4k/pod2x16x16": (780632064, 55001593864, 2191785984,
+                                     10871635968, 0),
+    "qwen3_8b/decode_32k/pod16x16": (139866624, 7143424, 0, 884736, 0),
+    "dbrx_132b/train_4k/pod16x16": (197516918784, 4747606449672,
+                                    1750597632, 0, 0),
+    "zamba2_1p2b/long_500k/pod16x16": (3914102416, 245912, 0, 14336, 0)}
+BEFORE = "8e"                    # the slice whose tree read them
 # the hill climb's sequence-parallel iterations (launch/hillclimb.py's
 # PLANS: cell, iteration), each traced at full width in a process of its
 # own beside the cells above; on PR 28's tree both failed under torch 2.11
@@ -1704,8 +1705,8 @@ def _result(proc: subprocess.Popen, what: str, timeout: float) -> dict:
 
 def slice8c(*, card: str, seed: int = 0) -> dict:
     """Phase 19 (``ROADMAP.md`` Queue 1 slice 8c): (a) the dry-run cells
-    (``DRYRUN_CELLS``, each beside PR 28's ``DRYRUN_BEFORE`` and
-    ``COLL_BEFORE``) and the hill climb's sequence-parallel iterations
+    (``DRYRUN_CELLS``, each beside the slice-8e tree's ``DRYRUN_BEFORE``
+    and ``COLL_BEFORE``) and the hill climb's sequence-parallel iterations
     (``DRYRUN_SEQ``), each in its own process, started once (c) and (d)
     are timed and read last; (b) the dry run of phase 17's cell on a
     (1, 1) mesh against the card's memory: the argument bytes predicted must be what the state
@@ -1872,18 +1873,21 @@ def slice8c(*, card: str, seed: int = 0) -> dict:
         key = f"{arch_c}/{shape_c}/{mesh}"
         ops0, useful0, args0, peak0 = DRYRUN_BEFORE[key]
         coll0 = dict(zip(KINDS, COLL_BEFORE[key]))
+        was = f"({BEFORE}"
         print(f"[dryrun] {what}: products a device "
-              + ", ".join(f"{k} {v:.4e} (PR 28 {ops0.get(k, 0):.4e})"
+              + ", ".join(f"{k} {v:.4e} {was} {ops0.get(k, 0):.4e})"
                           for k, v in sorted(r["flops_by_dtype"].items()))
-              + f"; useful {r['useful_flops_ratio']:.2%} (PR 28 "
-              f"{useful0:.2%}); args {r['argument_bytes_per_device']} B (PR "
-              f"28 {args0}); peak {r['peak_bytes_per_device']} B (PR 28 "
+              + f"; useful {r['useful_flops_ratio']:.2%} {was} "
+              f"{useful0:.2%}); args {r['argument_bytes_per_device']} B "
+              f"{was} {args0}); peak {r['peak_bytes_per_device']} B {was} "
               f"{peak0})")
+        total, total0 = r["collective_bytes_per_device"], sum(coll0.values())
         print(f"[dryrun] {what}: collectives a device by kind "
-              + ", ".join(f"{k} {r['coll_breakdown'].get(k, 0):.4e} (PR 28 "
-                          f"{v:.4e})" for k, v in coll0.items())
-              + f"; T_coll {r['t_collective'] * 1e3:.2f} ms (PR 28 "
-              f"{sum(coll0.values()) / NVLINK_BW * 1e3:.2f} ms)")
+              + ", ".join(f"{k} {r['coll_breakdown'].get(k, 0):.0f} {was} "
+                          f"{v})" for k, v in coll0.items())
+              + f"; {total:.0f} B in all ({total - total0:+.0f}); T_coll "
+              f"{r['t_collective'] * 1e3:.4f} ms {was} "
+              f"{total0 / NVLINK_BW * 1e3:.4f} ms)")
         out["cells"].append(dict(r, layers=lay, before={
             "flops_by_dtype": ops0, "useful_flops_ratio": useful0,
             "argument_bytes_per_device": args0,

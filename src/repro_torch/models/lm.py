@@ -32,7 +32,6 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.core.config import ModelConfig
@@ -44,7 +43,8 @@ from repro_torch.models.layers import (cross_entropy, dense_init, dtype_of,
                                        embed_init, rms_norm)
 from repro_torch.models.mlp import (init_mlp_params, init_moe_params,
                                     mlp_forward, moe_forward)
-from repro_torch.parallel.sharding import matmul, put_prefix, shard, unshard
+from repro_torch.parallel.sharding import (matmul, put_prefix, shard,
+                                           take_rows, unshard)
 from repro_torch.pipeline.compile import resolve_device
 
 __all__ = ["VOCAB_ALIGN", "DecodeCache", "batch_logical_axes",
@@ -251,7 +251,7 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
 def _embed_tokens(params: Tree, tokens: torch.Tensor,
                   frontend_embed: Optional[torch.Tensor],
                   cfg: ModelConfig) -> torch.Tensor:
-    x = F.embedding(tokens, unshard(params["embed"]))
+    x = take_rows(params["embed"], tokens)
     if cfg.frontend:
         fe = matmul(frontend_embed.to(x.dtype),
                     unshard(params["frontend_proj"]))
@@ -395,8 +395,7 @@ def decode_step(params: Tree, tokens: torch.Tensor, cache: DecodeCache,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, DecodeCache]:
     """One decode step: tokens (B, 1) -> (logits (B, 1, Vp), new cache).
     Functional, as in JAX: the cache passed in is left as it was."""
-    x = shard(F.embedding(tokens, unshard(params["embed"])),
-              "batch", "seq", "embed")
+    x = shard(take_rows(params["embed"], tokens), "batch", "seq", "embed")
     pos = cache.pos
     blocks = params["blocks"]
 

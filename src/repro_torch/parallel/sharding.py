@@ -31,6 +31,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 AxisRule = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[AxisRule, ...]
@@ -40,7 +41,8 @@ __all__ = ["DEFAULT_RULES", "align", "AxisRule", "batch_sharding", "chunk",
            "matmul", "mesh_shape", "named", "NamedSharding",
            "param_shardings", "param_spec", "parts_group", "per_shard",
            "pieces", "placements", "put_prefix", "shard", "sharding_ctx",
-           "Spec", "spec_for", "take_last", "unflatten", "unshard"]
+           "Spec", "spec_for", "take_last", "take_rows", "unflatten",
+           "unshard"]
 
 # Default logical-axis -> mesh-axis rules (single pod). launch/mesh.py
 # extends "batch" with the "pod" axis for the multi-pod mesh.
@@ -637,6 +639,105 @@ def take_last(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     shape = x.shape[:-1]
     return DTensor.from_local(
         got, mesh, [Partial() if p == last else p for p in x.placements],
+        run_check=False, shape=shape, stride=_contiguous_stride(shape))
+
+
+class _TakeRows(torch.autograd.Function):
+    """The rows of local ``table`` (this rank's vocab rows from ``off``,
+    its own columns) that the ids of every rank of ``group`` (a mesh dim
+    of ``n`` ranks, this one ``r``) pick, zero where a row lies on another
+    rank; each rank's block of them sent to it by one all-to-all (this
+    rank's own kept), so each rank ends with its own ids' rows, ``n``
+    column pieces side by side. The backward sends each piece's gradient
+    back and scatter-adds it into the local rows: the rank's own rows and
+    columns, never the whole table."""
+
+    @staticmethod
+    def forward(ctx, table, ids, off, group, n, r):
+        from torch.distributed import _functional_collectives as fc
+        every = fc.wait_tensor(fc.all_gather_tensor(ids, 0, group)) \
+            if n > 1 else ids
+        i = every.long() - off
+        hit = ((i >= 0) & (i < table.shape[0]))[:, None]
+        i = i.clamp(0, max(table.shape[0] - 1, 0))
+        rows = torch.where(hit, F.embedding(i, table), 0.0)
+        ctx.save_for_backward(i, hit)
+        ctx.args = (table.shape, group, n, r)
+        return _TakeRows._swap(rows.chunk(n), group, n, r, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        i, hit = ctx.saved_tensors
+        shape, group, n, r = ctx.args
+        g = _TakeRows._swap(g.chunk(n, dim=1), group, n, r, 0)
+        return (torch.zeros(shape, dtype=g.dtype, device=g.device)
+                .index_add_(0, i, torch.where(hit, g, 0.0)),
+                None, None, None, None, None)
+
+    @staticmethod
+    def _swap(pieces, group, n, r, dim):
+        """``pieces[j]`` to rank ``j`` (one all-to-all of the others),
+        what each rank ``j`` sent in its place, joined along ``dim``."""
+        if n == 1:
+            return pieces[0].contiguous()
+        from torch.distributed import _functional_collectives as fc
+        send = torch.cat([p for j, p in enumerate(pieces) if j != r])
+        split = [0 if j == r else pieces[j].shape[0] for j in range(n)]
+        got = fc.wait_tensor(fc.all_to_all_single(send.contiguous(), split,
+                                                  split, group))
+        got = list(got.split([s for j, s in enumerate(split) if j != r]))
+        got.insert(r, pieces[r])
+        return torch.cat(got, dim=dim)
+
+
+def take_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(tokens, table)``. On a DTensor table inside
+    :func:`sharding_ctx` whose columns one mesh dim cuts (the "fsdp" rule)
+    and whose ids that dim cuts too (the batch), the lookup is XLA's: the
+    ids gathered over that dim, each rank's own rows picked on its own
+    columns (shifted by its vocab offset, zero elsewhere, as
+    :func:`take_last` masks), the pieces sent back to the ranks whose ids
+    they are by one all-to-all, and the rows' partial sums left to the
+    caller's :func:`shard` (one all-reduce over the vocab's axes); the
+    gradient scatter-adds into each rank's own rows and columns. It is
+    taken where it moves fewer bytes (as the dry run counts a collective:
+    its operand) than gathering the table's columns (:func:`unshard`, and
+    a reduce-scatter of at least the gathered table in the backward),
+    which stays the lookup elsewhere: where few ids meet a large table (a
+    decode step), and not where many do (``train_4k``, ``prefill_32k``)."""
+    if _CTX.mesh is None or not _is_dtensor(table):
+        return F.embedding(tokens, table)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh, tp = table.device_mesh, table.placements
+    kp = (tokens.placements if _is_dtensor(tokens)
+          else (Replicate(),) * len(tp))
+    cols = [d for d, p in enumerate(tp) if p == Shard(1)]
+    md = cols[0] if len(cols) == 1 else None
+    if (md is None or not isinstance(kp[md], Shard)
+            or tokens.shape[kp[md].dim] % _ways(tokens, kp[md].dim)
+            or table.shape[1] % mesh.shape[md]
+            or any(p == Shard(0) and q != Replicate()
+                   for p, q in zip(tp, kp))):
+        return F.embedding(tokens, unshard(table))
+    n, ids = mesh.shape[md], tokens.to_local()
+    off, vl = _local_range(table.shape[0], 0, mesh, tp)
+    if n > 1:
+        L, c, b = ids.numel(), table.shape[1] // n, table.element_size()
+        grad = table.requires_grad and torch.is_grad_enabled()
+        if L * ids.element_size() + (n - 1) * L * c * b * (1 + grad) >= \
+                vl * c * b * (1 + n * grad):
+            return F.embedding(tokens, unshard(table))
+    # the table's gradient: its own shard, summed where the ids are cut
+    # and the table is whole (the batch over "pod")
+    held = [Partial() if p == Replicate() and q != Replicate() else p
+            for p, q in zip(tp, kp)]
+    got = _TakeRows.apply(table.to_local(grad_placements=held),
+                          ids.reshape(-1).contiguous(), off, (mesh, md), n,
+                          mesh.get_coordinate()[md])
+    shape = tokens.shape + table.shape[1:]
+    return DTensor.from_local(
+        got.reshape(ids.shape + table.shape[1:]), mesh,
+        [Partial() if p == Shard(0) else q for p, q in zip(tp, kp)],
         run_check=False, shape=shape, stride=_contiguous_stride(shape))
 
 

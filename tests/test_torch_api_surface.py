@@ -206,15 +206,15 @@ SLICE_8C = {
     # the port's DTensor layer: the NamedSharding record, the spec tuple,
     # placements and the explicit redistributes DTensor needs where GSPMD
     # reshards on its own (align, flatten, full, per_shard with its
-    # per-argument cuts and offsets, put_prefix, take_last, unflatten,
-    # unshard), the products and splits laid out as GSPMD lays them
+    # per-argument cuts and offsets, put_prefix, take_last, take_rows,
+    # unflatten, unshard), the products and splits laid out as GSPMD lays them
     # (matmul, chunk), and the groups of ranks that share a head's P
     # (pieces, parts_group, group_sum, group_gather)
     "parallel/sharding": (set(), {
         "NamedSharding", "Spec", "align", "chunk", "flatten", "full",
         "group_gather", "group_sum", "matmul", "mesh_shape", "parts_group",
         "per_shard", "pieces", "placements", "put_prefix", "take_last",
-        "unflatten", "unshard"}),
+        "take_rows", "unflatten", "unshard"}),
     # compat_make_mesh is JAX's AxisType shim; make_mesh is its twin over
     # the fake process group, teardown frees a process's one default group
     "launch/mesh": ({"compat_make_mesh"}, {"make_mesh", "teardown"}),

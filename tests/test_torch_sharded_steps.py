@@ -163,6 +163,69 @@ _WORKER = textwrap.dedent("""
 """)
 
 
+# the lookup alone (``sharding.take_rows``): a V x D table cut over
+# "model" by rows and over "data" by columns, the ids' batch over "data"
+LOOKUP_MESHES = ((2, 2), (1, 4), (4, 1))
+LOOKUP_V, LOOKUP_D = 32, 8
+
+_LOOKUP_WORKER = textwrap.dedent("""
+    import sys
+    import numpy as np, torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.sharding import (DEFAULT_RULES, batch_sharding,
+                                               named, sharding_ctx, shard,
+                                               take_rows)
+
+    torch.set_num_threads(1)
+    rank, world, url, out = (int(sys.argv[1]), int(sys.argv[2]),
+                             sys.argv[3], sys.argv[4])
+    shape = tuple(map(int, sys.argv[5].split("x")))
+    V, D = int(sys.argv[6]), int(sys.argv[7])
+    dist.init_process_group("gloo", init_method=url, rank=rank,
+                            world_size=world)
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+    gathers = []                   # the table gathered: not this lookup
+    unshard = sharding.unshard
+    sharding.unshard = lambda *a, **k: gathers.append(1) or unshard(*a, **k)
+
+    rng = np.random.RandomState(0)
+    table = torch.from_numpy(rng.randn(V, D).astype(np.float32))
+    g = torch.from_numpy(rng.randn(4, 3, D).astype(np.float32))
+    m = V // shape[1]              # a model rank's rows
+    edges = sorted({0, V - 1} | {k + d for k in range(m, V, m)
+                                 for d in (-1, 0)})
+    ids = (edges + edges[::-1])[:12]          # each edge, most twice
+    tokens = torch.tensor(ids + list(rng.randint(0, V, 12 - len(ids))),
+                          dtype=torch.int32).reshape(4, 3)
+    t = distribute_tensor(table.clone(), mesh, named(
+        mesh, DEFAULT_RULES, (V, D), "vocab", "fsdp").placements)
+    t.requires_grad_(True)
+    tok = distribute_tensor(tokens, mesh, batch_sharding(
+        mesh, (4, 3)).placements)
+    with sharding_ctx(mesh):
+        with torch.no_grad():
+            served = take_rows(t, tok).full_tensor()
+        y = shard(take_rows(t, tok), "batch", "seq", "embed")
+        y.backward(distribute_tensor(g, mesh, y.placements))
+    want = F.embedding(tokens.long(), table)
+    scatter = torch.zeros(V, D).index_add_(0, tokens.reshape(-1).long(),
+                                           g.reshape(-1, D))
+    res = {"served": torch.equal(served, want),
+           "forward": torch.equal(y.full_tensor(), want),
+           "grad": torch.equal(t.grad.full_tensor(), scatter),
+           "placements": str(t.grad.placements) == str(t.placements),
+           "gathers": len(gathers)}
+    if rank == 0:
+        with open(out, "w") as f:
+            f.write(repr(res))
+    dist.destroy_process_group()
+""")
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -194,6 +257,54 @@ def _run(mesh):
     for r in range(world):
         os.remove(str(out) % r)
     return got
+
+
+@functools.lru_cache(maxsize=None)
+def _lookup(mesh):
+    """Rank 0's checks of the lookup on ``mesh``, from gloo processes."""
+    world = mesh[0] * mesh[1]
+    out = Path(os.environ.get("TMPDIR", "/tmp")) / (
+        f"lookup_{os.getpid()}_{mesh[0]}x{mesh[1]}.txt")
+    url = f"tcp://localhost:{_free_port()}"
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _LOOKUP_WORKER, str(r), str(world), url,
+         str(out), f"{mesh[0]}x{mesh[1]}", str(LOOKUP_V), str(LOOKUP_D)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    try:
+        errs = [p.communicate(timeout=300)[1] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), "\n".join(errs)[-4000:]
+    got = eval(out.read_text())
+    out.unlink()
+    return got
+
+
+_LOOKUP_IDS = [f"{m[0]}x{m[1]}" for m in LOOKUP_MESHES]
+
+
+@pytest.mark.parametrize("mesh", LOOKUP_MESHES, ids=_LOOKUP_IDS)
+def test_lookup_on_the_table_shards_is_bit_equal(mesh):
+    """``take_rows`` on a table cut by rows over "model" and by columns
+    over "data", ids at every model rank's edges (0, V/m - 1, V/m, V - 1)
+    and repeated: served (no gradient) and in training, the rows equal
+    ``F.embedding``'s bit for bit (each row summed from one rank's pick
+    and the others' zeros), and the table is never gathered."""
+    got = _lookup(mesh)
+    assert got["served"] and got["forward"]
+    assert got["gathers"] == 0
+
+
+@pytest.mark.parametrize("mesh", LOOKUP_MESHES, ids=_LOOKUP_IDS)
+def test_lookup_gradient_is_the_plain_scatter_add(mesh):
+    """The table's gradient, laid out as the table, equals the plain
+    scatter-add of the rows' gradient into the whole table (each row's
+    sum in the ids' order, as ``index_add_`` takes them)."""
+    got = _lookup(mesh)
+    assert got["grad"] and got["placements"]
 
 
 def _rel(rows):

@@ -304,6 +304,22 @@ def test_shard_and_helpers_leave_plain_tensors_alone():
                          shape=x.shape).equal(2 * x)
 
 
+def test_take_rows_on_plain_tensors_is_f_embedding(monkeypatch):
+    """``take_rows`` on a plain table, outside a context and inside one,
+    is one call of ``F.embedding`` on the same arguments."""
+    table = torch.arange(40.0).reshape(10, 4)
+    ids = torch.tensor([[0, 9, 3], [3, 3, 1]], dtype=torch.int32)
+    calls = []
+    embedding = torch.nn.functional.embedding
+    monkeypatch.setattr(torch.nn.functional, "embedding",
+                        lambda i, t: calls.append((i, t)) or embedding(i, t))
+    with tsh.sharding_ctx(FakeMesh({"data": 2, "model": 4})):
+        inside = tsh.take_rows(table, ids)
+    assert torch.equal(tsh.take_rows(table, ids), inside)
+    assert torch.equal(inside, embedding(ids, table))
+    assert len(calls) == 2 and all(i is ids and t is table for i, t in calls)
+
+
 def test_forward_is_bit_equal_inside_and_outside_a_context():
     """Plain tensors inside ``sharding_ctx`` see every annotation as a
     no-op: the forward and the loss are bit-equal to a run outside it."""
