@@ -8,7 +8,8 @@ kernel layer, and only when a measurement runs:
   * :mod:`repro_torch.obs.trace`: :class:`TraceRecorder`, Chrome
     trace-event JSON (Perfetto), byte-deterministic on the modelled clock,
     with the compile phase's ``sweep`` / ``measure`` spans on the
-    ``compile`` track;
+    ``compile`` track, and the gang loop's host spans on the epoch clock
+    (``host_spans``);
   * :mod:`repro_torch.obs.metrics`: :class:`MetricsRegistry` of counters,
     gauges, histograms and windows; JSON and Prometheus text;
   * :mod:`repro_torch.obs.profiler`: plans timed on the card (CUDA

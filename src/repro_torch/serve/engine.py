@@ -54,7 +54,11 @@ engine's points, with its names) and a
 registry's ``serve_<key>_total`` counters (:data:`SERVE_COUNTERS`' keys)
 and its latency histogram, and the report reads this run's deltas back
 from them, so the report and the exported metrics are one set of books.
-Left as None, both are throwaway instances.
+Left as None, the trace records nothing and the registry is a throwaway
+one. On the measured clock the gang loop also times its host work (the
+call, each round's drain, pack, copy, launches and sync, the report) on
+the epoch clock, when a recorder is given or a torch profile runs: the
+host spans of :mod:`repro_torch.obs.trace`.
 
 Gang rounds are the default. ``scheduler="continuous"`` (modelled clock
 only) hands the whole call to
@@ -79,7 +83,9 @@ from repro_torch.core.roofline import device_profile
 from repro_torch.kernels.autotune import DEFAULT_BUDGET
 from repro_torch.models.cnn import CNN, QuantCNN
 from repro_torch.obs.metrics import MetricsRegistry, record_report
-from repro_torch.obs.trace import CAT_REQUEST, FLEET_TRACK, TraceRecorder
+from repro_torch.obs.trace import (CAT_REQUEST, FLEET_TRACK, NULL_RECORDER,
+                                   HostCall, TraceRecorder, host_call,
+                                   now_ns)
 from repro_torch.parallel.pipeline_par import gpipe_schedule
 from repro_torch.serve.faults import FaultSchedule
 from repro_torch.serve.report import FleetReport, fleet_report
@@ -109,11 +115,12 @@ SERVE_COUNTERS = (
 
 def _serve_obs(trace, metrics, n_replicas, *, scheduler, clock):
     """The (trace, metrics) pair a serving loop records into: the caller's,
-    or fresh ones when None, so the loops record unconditionally. Tracks
-    are registered up front (fleet first, then each replica), so thread
-    ids never depend on event order. Returns ``(trace, metrics, counters,
-    their values before this run, the latency histogram)``."""
-    trace = trace if trace is not None else TraceRecorder()
+    else a recorder that keeps nothing and a fresh registry, so the loops
+    record unconditionally. Tracks are registered up front (fleet first,
+    then each replica), so thread ids never depend on event order.
+    Returns ``(trace, metrics, counters, their values before this run,
+    the latency histogram)``."""
+    trace = trace if trace is not None else NULL_RECORDER
     metrics = metrics if metrics is not None else MetricsRegistry()
     trace.track(FLEET_TRACK)
     for r in range(n_replicas):
@@ -266,6 +273,7 @@ class ServeEngine:
         self._pending_swap = None
         self._warm = set()              # versions whose first round ran
         self._streams = None            # [replica][stage], made on first use
+        self._host: Optional[HostCall] = None   # the serve call's host spans
         self.admission_groups = 0       # slot forwards of the last
         #                                 continuous run (0 for gang runs)
 
@@ -363,7 +371,12 @@ class ServeEngine:
         its padded rows), and the argmax of the logits widened to fp32
         comes back in one copy; returns (R, batch) predictions."""
         R, M, mb = self.replicas, self.n_micro, self.mb
+        hs = self._host
+        if hs is not None:
+            t = now_ns()
         x = torch.from_numpy(packed).to(self.device)
+        if hs is not None:
+            t = hs.span("h2d", t)
         rows = [[x[(m * R + r) * mb:(m * R + r + 1) * mb] for m in range(M)]
                 for r in range(R)]
         with torch.inference_mode():
@@ -371,7 +384,12 @@ class ServeEngine:
                     for r in range(R)]
             flat = torch.cat([outs[r][m].float().argmax(-1)
                               for m in range(M) for r in range(R)])
-        return self._unpack_preds(flat.cpu().numpy())
+        if hs is not None:
+            t = hs.span("enqueue", t)
+        preds = flat.cpu().numpy()
+        if hs is not None:
+            hs.span("sync", t)
+        return self._unpack_preds(preds)
 
     def _slot_fn(self, v: int):
         """The continuous scheduler's execution unit: ``imgs`` (batch, H,
@@ -470,6 +488,20 @@ class ServeEngine:
             from repro_torch.serve.scheduler import ContinuousScheduler
             return ContinuousScheduler(self).serve(
                 requests, faults=faults, trace=trace, metrics=metrics)
+        hs = self._host = (host_call(trace) if self.clock_mode == "measured"
+                           else None)
+        done, rep = self._gang(requests, faults, trace, metrics)
+        if hs is not None:
+            # closed out here, so the loop's frame and its arrays, freed
+            # as it returns, are inside the call's span
+            hs.span("serve", hs.t0, {"n": len(requests),
+                                     "rounds": rep.rounds})
+            self._host = None
+        return done, rep
+
+    def _gang(self, requests, faults, trace, metrics):
+        """The gang loop of :meth:`serve`."""
+        hs = self._host
         R = self.replicas
         self.admission_groups = 0
         trace, metrics, ctr, ctr0, hist = _serve_obs(
@@ -667,14 +699,26 @@ class ServeEngine:
                 clock = max(clock, min(cands))
                 continue
             # ---- one gang round over the surviving replicas -------------
+            if hs is not None:
+                hs.rnd = ctr["rounds"].value - ctr0["rounds"]
+                t = now_ns()
             round_items = router.drain_round(up)
+            if hs is not None:
+                hs.span("drain", t, {
+                    "n_real": sum(n for _, _, _, n in round_items),
+                    "rids": [q.rid for _, take, _, _ in round_items
+                             for q in take]})
             up_at_drain = list(up)
             version_at_drain = list(version)
             need = sorted({version_at_drain[r]
                            for r, _, _, n_real in round_items if n_real})
             t_wall = 0.0
             if self.execute:
+                if hs is not None:
+                    t = now_ns()
                 packed = self._pack(round_items)
+                if hs is not None:
+                    hs.span("pack", t)
                 if not set(version_at_drain) <= self._warm:
                     # first launches (and kernel builds) outside the clock
                     self._round_preds(packed, version_at_drain)
@@ -750,6 +794,9 @@ class ServeEngine:
             self._pending_swap = None
         # the report reads this run's deltas from the registry: one set of
         # books for the counters, the snapshot and the report
+        if hs is not None:
+            hs.rnd = None
+            t = now_ns()
         n_of = {k: c.value - ctr0[k] for k, c in ctr.items()}
         metrics.gauge("fleet_replicas_serving",
                       "up replicas at run end").set(sum(up))
@@ -766,4 +813,6 @@ class ServeEngine:
             n_swapped=n_of["swapped"], slo_s=self.slo,
             device=str(self.device))
         record_report(metrics, rep)
+        if hs is not None:
+            hs.span("report", t)
         return done, rep
