@@ -33,12 +33,17 @@ Phases (any failure exits non-zero):
    calibrated forward gives each layer, timed beside the plain version,
    one library call where one exists and the card's bound; conv_pipe's
    int8 rows (the int8 tensor cores) and matmul_pipe's (a split-K
-   IMMA stream over a cluster) print as the redesigned rows of 2.
+   IMMA stream over a cluster) print as the redesigned rows of 2. The
+   int8 glue is held and timed alike: the edge quantize
+   (``quantize_codes``), lrn_pwl's int8 mode (``lrn_pwl_s8``, against
+   the dequantize -> LRN -> quantize chain) and the pool on codes
+   (``max_pool_codes``, against ``pool_ref``), bound by their bytes.
    Then each model's sum of each redesigned fp32 and int8 kernel's
    launches beside the library's (cuDNN, cuBLAS, ``torch._int_mm`` +
    epilogue; none for the int8 conv) and the replaced sum.
 3b. int8 forward: ``.forward(x)`` must launch the int8 conv mode 5x,
-   lrn_pwl 2x and the int8 matmul mode 3x (and no fp32 conv or matmul),
+   lrn_pwl's int8 mode 2x, the int8 matmul mode 3x, the edge quantize
+   once and the pool on codes 2x (and no fp32 conv, LRN or matmul),
    and its logits must equal bit for bit the fold of 2b over the kernels'
    plain versions (``use_kernels=False`` runs the exact-power LRN, not
    the PWL, so it is printed beside them, as is the top-1 agreement with
@@ -78,7 +83,8 @@ Phases (any failure exits non-zero):
    forward must launch conv_pipe 13x and matmul_pipe 3x and come within
    1e-3 x max|logit| of the fold over the plain versions; the int8 forward,
    calibrated on the card on the default batch, must launch the int8
-   modes 13x and 3x and equal its plain fold bit for bit.
+   modes 13x and 3x and the edge quantize once and equal its plain fold
+   bit for bit.
 8. bf16 kernels vs plain: ``compile_cnn(..., Precision(dtype="bfloat16"))``
    of the same AlexNet and VGG-16 weights; at every layer of each bf16
    forward, the bf16 modes of conv_pipe, lrn_pwl and matmul_pipe within
@@ -290,9 +296,10 @@ PWL_BOUND = 5e-3       # the paper's 0.5 % PWL error against the exact LRN
 # the launch counters, by kernel and mode (name_s8: the int8 mode,
 # name_bf16: the bf16 mode)
 COUNTERS = ("conv_pipe", "conv_pipe_s8", "conv_pipe_bf16", "lrn_pwl",
-            "lrn_pwl_bf16", "matmul_pipe", "matmul_pipe_s8",
+            "lrn_pwl_s8", "lrn_pwl_bf16", "matmul_pipe", "matmul_pipe_s8",
             "matmul_pipe_bf16", "flash_attention", "flash_attention_bf16",
-            "decode_attention", "decode_attention_bf16")
+            "decode_attention", "decode_attention_bf16", "quantize_codes",
+            "max_pool_codes")
 
 
 def expected(**n):
@@ -302,14 +309,19 @@ def expected(**n):
 
 
 EXPECTED_LAUNCHES = expected(conv_pipe=5, lrn_pwl=2, matmul_pipe=3)
-EXPECTED_LAUNCHES_INT8 = expected(conv_pipe_s8=5, lrn_pwl=2, matmul_pipe_s8=3)
+EXPECTED_LAUNCHES_INT8 = expected(conv_pipe_s8=5, lrn_pwl_s8=2,
+                                  matmul_pipe_s8=3, quantize_codes=1,
+                                  max_pool_codes=2)
 EXPECTED_VGG = expected(conv_pipe=13, matmul_pipe=3)
-EXPECTED_VGG_INT8 = expected(conv_pipe_s8=13, matmul_pipe_s8=3)
+EXPECTED_VGG_INT8 = expected(conv_pipe_s8=13, matmul_pipe_s8=3,
+                             quantize_codes=1)
 EXPECTED_BF16 = {"alexnet": expected(conv_pipe_bf16=5, lrn_pwl_bf16=2,
                                      matmul_pipe_bf16=3),
                  "vgg16": expected(conv_pipe_bf16=13, matmul_pipe_bf16=3)}
 REPLACES = {"conv_pipe": "src/repro/kernels/conv_pipe.py:198",
             "lrn_pwl": "src/repro/kernels/lrn_pwl.py:88",
+            # the int8 fold's glue, which XLA fuses in the JAX package
+            "quantize_codes": "none", "max_pool_codes": "none",
             "matmul_pipe": "src/repro/kernels/matmul_pipe.py:66",
             "flash_attention": "src/repro/kernels/flash_attention.py:63",
             "decode_attention": "src/repro/kernels/decode_attention.py:83"}
@@ -1930,7 +1942,12 @@ def main() -> int:
                                                       decode_attention_plain)
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
-    from repro_torch.kernels.lrn_pwl import lrn_pwl, lrn_pwl_plain
+    from repro_torch.kernels.codes import (max_pool_codes,
+                                           max_pool_codes_plain,
+                                           quantize_codes,
+                                           quantize_codes_plain)
+    from repro_torch.kernels.lrn_pwl import (lrn_pwl, lrn_pwl_plain,
+                                             lrn_pwl_s8_plain)
     from repro_torch.kernels.matmul_pipe import (fc_split, matmul_pipe,
                                                  matmul_pipe_plain)
     from repro_torch.kernels.ref import lrn_ref, pool_ref
@@ -1946,7 +1963,9 @@ def main() -> int:
     wrappers = {"conv_pipe": conv_pipe, "lrn_pwl": lrn_pwl,
                 "matmul_pipe": matmul_pipe,
                 "flash_attention": flash_attention,
-                "decode_attention": decode_attention}
+                "decode_attention": decode_attention,
+                "quantize_codes": quantize_codes,
+                "max_pool_codes": max_pool_codes}
 
     def counter(c):
         """(wrapper, attribute) of counter ``c``."""
@@ -2271,16 +2290,52 @@ def main() -> int:
 
     def int8_rows(cfg, qp, x):
         """Each int8 kernel of one int8 forward held bit for bit against
-        its plain version (the exact-int oracle) on the codes the fold over
-        the plain versions gives it, and timed (phases 2b and 7). Returns
-        (rows, the fold's logits)."""
+        its plain version (the exact-int oracle; the glue's: the chain it
+        replaces) on the codes the fold over the plain versions gives it,
+        and timed (phases 2b and 7). Returns (rows, the fold's logits)."""
         rows = []
-        h = quantize(x, qp.in_scale)
+
+        def add(row, got, want, nbytes, h, l, kw):
+            """Hold ``got`` against ``want`` bit for bit, time the row
+            and add it to ``rows``."""
+            torch.cuda.synchronize()
+            check(got.shape == want.shape and got.dtype == want.dtype,
+                  f"{cfg.name} {row['layer']}: {got.dtype} "
+                  f"{tuple(got.shape)} vs {want.dtype} "
+                  f"{tuple(want.shape)}")
+            diff = (got.float() - want.float()).abs()
+            row["bytes"] = nbytes + got.numel() * got.element_size()
+            row["out"] = str(got.dtype).replace("torch.", "")
+            row["n_differ"] = int((diff > 0).sum())
+            row["max_abs_err"] = diff.max().item()
+            row["tol"] = 0.0
+            row["mode"] = "int8"
+            row["model"] = cfg.name
+            fns = row["run"], row["library"]
+            measure(row, int8_rate)
+            check(torch.equal(got, want),
+                  f"{cfg.name} {row['layer']} {row['kernel']}: "
+                  f"{row['n_differ']} outputs differ from the plain "
+                  f"version")
+            if row["kernel"] in OLD_MS:
+                redesign_line(cfg, row, h, l, kw, *fns)
+            rows.append(row)
+
+        def glue(kernel, layer, run, plain, shape):
+            """A row of the int8 glue, bound by its bytes."""
+            return dict(kernel=kernel, layer=layer, shape=list(shape),
+                        run=run, plain=plain, library=None, ops=0)
+
         with torch.inference_mode():
+            h = quantize_codes_plain(x, qp.in_scale)
+            add(glue("quantize_codes", "edge",
+                     lambda: quantize_codes(x, qp.in_scale),
+                     lambda: quantize_codes_plain(x, qp.in_scale), x.shape),
+                quantize_codes(x, qp.in_scale), h, 4 * x.numel(), x, None,
+                None)
             for group in fuse_plan(cfg):
                 l = cfg.layers[group[0]]
                 ql = qp.layers[group[0]]
-                row = None
                 if l.kind == "conv":
                     l, _, kw = conv_kw(cfg, group)
                     kw.update(scale=ql.scale, out_scale=ql.y_scale)
@@ -2326,33 +2381,25 @@ def main() -> int:
                     check(torch.equal(lrn_pwl(xf), lrn_pwl_plain(xf)),
                           f"lrn{group}: lrn_pwl differs from its plain "
                           f"version on the int8 path's input")
-                    want = quantize(lrn_pwl_plain(xf), ql.y_scale)
+                    kw = dict(x_scale=ql.x_scale, y_scale=ql.y_scale)
+                    got = lrn_pwl(h, **kw)
+                    want = lrn_pwl_s8_plain(h, ql.x_scale, ql.y_scale)
+                    row = glue("lrn_pwl_s8", f"lrn{group}",
+                               lambda h=h, kw=kw: lrn_pwl(h, **kw),
+                               lambda h=h, ql=ql: lrn_pwl_s8_plain(
+                                   h, ql.x_scale, ql.y_scale), h.shape)
+                    nbytes = h.numel()
                 else:
+                    got = max_pool_codes(h, l.kernel, l.stride)
                     want = pool_ref(h, l.pool, l.kernel, l.stride)
-                if row is not None:
-                    torch.cuda.synchronize()
-                    check(got.shape == want.shape and got.dtype == want.dtype,
-                          f"{cfg.name} {row['layer']}: {got.dtype} "
-                          f"{tuple(got.shape)} vs {want.dtype} "
-                          f"{tuple(want.shape)}")
-                    diff = (got.float() - want.float()).abs()
-                    row["bytes"] = nbytes + got.numel() * got.element_size()
-                    row["out"] = str(got.dtype).replace("torch.", "")
-                    row["n_differ"] = int((diff > 0).sum())
-                    row["max_abs_err"] = diff.max().item()
-                    row["tol"] = 0.0
-                    row["mode"] = "int8"
-                    row["model"] = cfg.name
-                    fns = row["run"], row["library"]
-                    measure(row, int8_rate)
-                    check(torch.equal(got, want),
-                          f"{cfg.name} {row['layer']} {row['kernel']}: "
-                          f"{row['n_differ']} outputs differ from the plain "
-                          f"version")
-                    if row["kernel"] in OLD_MS:
-                        redesign_line(cfg, row, h, l,
-                                      kw if l.kind == "conv" else None, *fns)
-                    rows.append(row)
+                    row = glue("max_pool_codes", f"pool{group}",
+                               lambda h=h, l=l: max_pool_codes(
+                                   h, l.kernel, l.stride),
+                               lambda h=h, l=l: max_pool_codes_plain(
+                                   h, l.kernel, l.stride), h.shape)
+                    nbytes, kw = h.numel(), None
+                add(row, got, want, nbytes, h, l,
+                    kw if l.kind == "conv" else None)
                 h = want
         return rows, h
 
@@ -3452,14 +3499,18 @@ def main() -> int:
             ("matmul_pipe_s8", "int8", int8_rate),
             ("matmul_pipe_bf16", "bf16", bf16_rate),
             ("lrn_pwl", "fp32", fp32_rate),
+            ("lrn_pwl_s8", "int8", int8_rate),
             ("lrn_pwl_bf16", "bf16", bf16_rate),
             ("flash_attention", "fp32", fp32_rate),
             ("flash_attention_bf16", "bf16", bf16_rate),
             ("decode_attention", "fp32", fp32_rate),
-            ("decode_attention_bf16", "bf16", bf16_rate)):
+            ("decode_attention_bf16", "bf16", bf16_rate),
+            ("quantize_codes", "int8", int8_rate),
+            ("max_pool_codes", "int8", int8_rate)):
         base = kname.removesuffix("_s8").removesuffix("_bf16")
         e = {"name": kname, "mode": mode, "route": "cuda",
-             "source": f"src/repro_torch/csrc/{base}.cu",
+             "source": "src/repro_torch/csrc/"
+                       f"{'codes' if base.endswith('_codes') else base}.cu",
              "replaces": REPLACES[base]}
         if base in ("flash_attention", "decode_attention"):
             e.update(entry(kname, mrows, rate, layer[mode]["launches"]))

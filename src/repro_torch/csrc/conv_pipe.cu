@@ -728,22 +728,6 @@ template <int TPB, int TN, int BK> struct S8Tile {
                 "the threads cover B's 4-k x CB-channel pieces once");
 };
 
-// The int8 code of v, clip(rint(v / out_scale), -127, 127), with the
-// quotient rounded as __fdiv_rn rounds it, but without the division where it
-// cannot matter: t = v * inv (inv = 1 / out_scale, rounded) lies within 1.5
-// * 2^-23 * |t| of the rounded quotient q, so where t is more than |t| *
-// 2^-20 from the half-integer between its two nearest integers, t and q lie
-// on the same side of it and rint(t) == rint(q); nearer (or |t| >= 2^21),
-// the division decides.
-__device__ __forceinline__ float quant_code(float v, float out_scale,
-                                            float inv) {
-  const float t = __fmul_rn(v, inv);
-  const float h = floorf(t) + 0.5f;
-  const float q =
-      fabsf(t - h) > fabsf(t) * 0x1p-20f ? t : __fdiv_rn(v, out_scale);
-  return fminf(fmaxf(rintf(q), -127.f), 127.f);
-}
-
 // avec: x's 16-byte vectors hold 16 channels of one pixel (C/G % 16 == 0, x
 // 16-byte aligned); bvec: w's rows hold CB channels of one group in one
 // aligned load (Mg % CB == 0, w CB-byte aligned); ovec: out takes 16-byte

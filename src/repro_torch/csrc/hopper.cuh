@@ -2,9 +2,10 @@
 // memory addresses, cp.async copies into a ring of stages, ldmatrix
 // fragment loads, the bf16 and int8 mma.sync tensor-core products, the
 // deterministic split-K sum of a thread-block cluster (fp32 or int32
-// partials), and programmatic dependent launch. Every source that
-// includes this header is rebuilt when it changes
-// (kernels/build.py:library_path hashes the headers a source includes).
+// partials), programmatic dependent launch, and the int8 requantize
+// (quant_code). Every source that includes this header is rebuilt when it
+// changes (kernels/build.py:library_path hashes the headers a source
+// includes).
 #pragma once
 
 #include <cstdint>
@@ -129,4 +130,24 @@ int launch_dependent(void (*kernel)(Params...), dim3 grid, int threads,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// The int8 code of v, clip(rint(v / out_scale), -127, 127), with the
+// quotient rounded as __fdiv_rn rounds it, but without the division where it
+// cannot matter: t = v * inv (inv = 1 / out_scale, rounded) lies within 1.5
+// * 2^-23 * |t| of the rounded quotient q, so where t is more than |t| *
+// 2^-20 from the nearest half-integer, t and q lie on the same side of it
+// and rint(t) == rint(q); nearer, the division decides. Past +-127 the code
+// is +-127 either way, so t is clipped first. The rounding and the cast take
+// no conversion instruction (those run at a quarter of the fp32 rate): c +
+// 1.5 * 2^23 lies in [2^23, 2^24), where the float's step is 1, so the sum
+// rounds c half to even and its low byte is the code in two's complement.
+constexpr float QUANT_MAGIC = 12582912.f;       // 1.5 * 2^23
+__device__ __forceinline__ int8_t quant_code(float v, float out_scale,
+                                             float inv) {
+  float c = fminf(fmaxf(__fmul_rn(v, inv), -127.f), 127.f);
+  const float r = __fsub_rn(__fadd_rn(c, QUANT_MAGIC), QUANT_MAGIC);
+  if (!(fabsf(__fsub_rn(c, r)) < 0.5f - fabsf(c) * 0x1p-20f))
+    c = fminf(fmaxf(__fdiv_rn(v, out_scale), -127.f), 127.f);
+  return (int8_t)__float_as_int(__fadd_rn(c, QUANT_MAGIC));
 }

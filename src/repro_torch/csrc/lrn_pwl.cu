@@ -2,7 +2,9 @@
 //
 // Replaces the TPU kernel src/repro/kernels/lrn_pwl.py:lrn_pwl (body
 // _lrn_kernel, _pwlf), both of its element types. x (B, H, W, C) fp32 or
-// bf16, NHWC; y the same shape and type.
+// bf16, NHWC; y the same shape and type. A third mode, int8, replaces what
+// XLA fused around that kernel in the JAX package's int8 CNN fold: int8
+// codes in and out, dequantized on load and requantized on store.
 //
 //   acc = x[c]^2 + sum_{d=1..n/2} (x[c+d]^2 + x[c-d]^2)   (zeros past the edges)
 //   z   = k + (alpha/n) * acc
@@ -19,8 +21,8 @@
 //
 // Design (vector path, C a multiple of the 16-byte vector and n <= 5): one
 // thread takes one 16-byte vector of consecutive channels of one pixel (4
-// fp32 or 8 bf16 values), with 32-bit offsets and one 32-bit division a
-// vector for its place in the pixel. The squares of its +-1 and +-2
+// fp32, 8 bf16 or 16 int8 values), with 32-bit offsets and one 32-bit
+// division a vector for its place in the pixel. The squares of its +-1 and +-2
 // neighbours come from the adjacent lanes (__shfl_up_sync /
 // __shfl_down_sync); lanes 0 and 31 read the two channels across the
 // warp's edge from memory, and the halo is zero at a pixel's first and
@@ -53,6 +55,25 @@
 // bf16: every value is widened to fp32 on load and the computation is the
 // fp32 one, in the same order; y is rounded once to bf16 on store, as the
 // JAX kernel computes in fp32 and casts on output (lrn_pwl.py:74,85).
+//
+// int8 (the fixed-point fold's LRN, between two int8 conv groups): each code
+// q is dequantized on load, x = __fmul_rn((float)q, x_step), the fp32
+// computation runs as above, and y is requantized on store, clip(rint(y /
+// y_step), -127, 127) with the quotient rounded as __fdiv_rn rounds it
+// (quant_code): bit for bit quantize(lrn_pwl(dequantize(q))), the chain the
+// fold ran before in about nine launches, which moved 4-byte values through
+// device memory at every step (1.9 GB and 1.2 GB at AlexNet's batch-128
+// LRNs against 122 MB for one pass of codes). One 16-byte vector is 16
+// channels, so AlexNet's C of 96 and 256 takes the vector path. At 1 + 1
+// bytes a value the bytes no longer bound it: the instructions do. A
+// vector's path is about 615 SASS instructions (38 a value: the
+// dequantize, the five-term window, the LUT and the requantize, none a
+// conversion and a division only near a rounding tie), 0.070 ms at the
+// card's issue rate for AlexNet's two batch-128 LRNs against 0.036 ms of
+// bytes; timed alone (CUDA events, 4 rotating inputs) lrn1 (128x55x55x96)
+// takes 0.0584 ms and lrn2 (128x27x27x256) 0.0387 ms, against 0.76 and
+// 0.50 ms for the chain. A float2 LUT, a byte-permute dequantize and the
+// near-tie divisions moved out of the vector's loop were no faster.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,35 +85,55 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int MAX_HALF = 2;      // the vector path's widest window: n <= 5
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+// The int8 mode's steps: a code q is the value q * x; a value v has the
+// code clip(rint(v / y), -127, 127). The float modes ignore them.
+struct Steps {
+  float x, y, y_inv;             // y_inv = 1 / y, rounded (quant_code)
+};
+
+// One value of T widened to fp32 (an int8 code dequantized), and an fp32
+// value stored as T (rounded once to bf16, requantized to int8)
+__device__ __forceinline__ float widen(float v, Steps) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v, Steps) {
   return __bfloat162float(v);
 }
-__device__ __forceinline__ void put(float* y, int i, float v) { y[i] = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* y, int i, float v) {
+// (float)v as 1.5 * 2^23 + v less 1.5 * 2^23, without a conversion
+// instruction (quant_code)
+__device__ __forceinline__ float widen(int8_t v, Steps s) {
+  const float f = __fsub_rn(__int_as_float(__float_as_int(QUANT_MAGIC) + v),
+                            QUANT_MAGIC);
+  return __fmul_rn(f, s.x);
+}
+__device__ __forceinline__ void put(float* y, int i, float v, Steps) {
+  y[i] = v;
+}
+__device__ __forceinline__ void put(__nv_bfloat16* y, int i, float v, Steps) {
   y[i] = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void put(int8_t* y, int i, float v, Steps s) {
+  y[i] = quant_code(v, s.y, s.y_inv);
 }
 
 // 16 bytes of T: V values, widened to fp32 on load, rounded on store
 template <typename T> struct Vec16;
 template <> struct Vec16<float> {
   static constexpr int V = 4;
-  __device__ static void load(const float* p, float (&f)[4]) {
+  __device__ static void load(const float* p, float (&f)[4], Steps) {
     const float4 t = __ldg(reinterpret_cast<const float4*>(p));
     f[0] = t.x; f[1] = t.y; f[2] = t.z; f[3] = t.w;
   }
-  __device__ static void store(float* p, const float (&f)[4]) {
+  __device__ static void store(float* p, const float (&f)[4], Steps) {
     *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
   }
   // channels p[0] and p[1] (8-byte aligned)
-  __device__ static void load2(const float* p, float& a, float& b) {
+  __device__ static void load2(const float* p, float& a, float& b, Steps) {
     const float2 t = __ldg(reinterpret_cast<const float2*>(p));
     a = t.x; b = t.y;
   }
 };
 template <> struct Vec16<__nv_bfloat16> {
   static constexpr int V = 8;
-  __device__ static void load(const __nv_bfloat16* p, float (&f)[8]) {
+  __device__ static void load(const __nv_bfloat16* p, float (&f)[8], Steps) {
     const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
     const uint32_t u[4] = {t.x, t.y, t.z, t.w};
 #pragma unroll
@@ -102,7 +143,8 @@ template <> struct Vec16<__nv_bfloat16> {
       f[2 * e + 1] = __high2float(b);
     }
   }
-  __device__ static void store(__nv_bfloat16* p, const float (&f)[8]) {
+  __device__ static void store(__nv_bfloat16* p, const float (&f)[8],
+                               Steps) {
     uint32_t u[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -114,10 +156,36 @@ template <> struct Vec16<__nv_bfloat16> {
     *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
   }
   // channels p[0] and p[1] (4-byte aligned)
-  __device__ static void load2(const __nv_bfloat16* p, float& a, float& b) {
+  __device__ static void load2(const __nv_bfloat16* p, float& a, float& b,
+                               Steps) {
     const __nv_bfloat162 t = *reinterpret_cast<const __nv_bfloat162*>(p);
     a = __low2float(t);
     b = __high2float(t);
+  }
+};
+template <> struct Vec16<int8_t> {
+  static constexpr int V = 16;
+  union Codes {
+    uint4 u;
+    int8_t c[16];
+  };
+  __device__ static void load(const int8_t* p, float (&f)[16], Steps s) {
+    Codes t;
+    t.u = __ldg(reinterpret_cast<const uint4*>(p));
+#pragma unroll
+    for (int e = 0; e < 16; ++e) f[e] = widen(t.c[e], s);
+  }
+  __device__ static void store(int8_t* p, const float (&f)[16], Steps s) {
+    Codes t;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) t.c[e] = quant_code(f[e], s.y, s.y_inv);
+    *reinterpret_cast<uint4*>(p) = t.u;
+  }
+  // channels p[0] and p[1] (2-byte aligned)
+  __device__ static void load2(const int8_t* p, float& a, float& b, Steps s) {
+    const char2 t = __ldg(reinterpret_cast<const char2*>(p));
+    a = widen((int8_t)t.x, s);
+    b = widen((int8_t)t.y, s);
   }
 };
 
@@ -154,7 +222,8 @@ __global__ void lrn_pwl_vec_kernel(const T* __restrict__ x, T* __restrict__ y,
                                    const float* __restrict__ slope,
                                    const float* __restrict__ icpt, int n_seg,
                                    int n_vec, int nv, int half, float k,
-                                   float alpha_n, int shift, int base) {
+                                   float alpha_n, int shift, int base,
+                                   Steps st) {
   using Vt = Vec16<T>;
   constexpr int V = Vt::V;
   extern __shared__ float lut[];               // [slope | intercept]
@@ -165,7 +234,7 @@ __global__ void lrn_pwl_vec_kernel(const T* __restrict__ x, T* __restrict__ y,
   const bool in = g < n_vec;
   const int cv = in ? g % nv : 0;              // its place in its pixel
   float xc[V] = {}, w[V + 4];
-  if (in) Vt::load(x + g * V, xc);
+  if (in) Vt::load(x + g * V, xc, st);
 #pragma unroll
   for (int e = 0; e < V; ++e) w[e + 2] = __fmul_rn(xc[e], xc[e]);
   // w[0..1]: the squares of channels c-2, c-1 before the vector, from the
@@ -175,12 +244,12 @@ __global__ void lrn_pwl_vec_kernel(const T* __restrict__ x, T* __restrict__ y,
   w[V + 2] = __shfl_down_sync(0xffffffffu, w[2], 1);
   w[V + 3] = __shfl_down_sync(0xffffffffu, w[3], 1);
   if (lane == 0 && in && cv > 0) {             // across the warp's first edge
-    Vt::load2(x + g * V - 2, w[0], w[1]);
+    Vt::load2(x + g * V - 2, w[0], w[1], st);
     w[0] = __fmul_rn(w[0], w[0]);
     w[1] = __fmul_rn(w[1], w[1]);
   }
   if (lane == 31 && in && cv < nv - 1) {       // across its last edge
-    Vt::load2(x + g * V + V, w[V + 2], w[V + 3]);
+    Vt::load2(x + g * V + V, w[V + 2], w[V + 3], st);
     w[V + 2] = __fmul_rn(w[V + 2], w[V + 2]);
     w[V + 3] = __fmul_rn(w[V + 3], w[V + 3]);
   }
@@ -200,7 +269,7 @@ __global__ void lrn_pwl_vec_kernel(const T* __restrict__ x, T* __restrict__ y,
     }
     out[e] = pwl(lut, n_seg, xc[e], acc, k, alpha_n, shift, base);
   }
-  if (in) Vt::store(y + g * V, out);
+  if (in) Vt::store(y + g * V, out, st);
 }
 
 // One element a thread (C not a multiple of the vector, or a wider
@@ -210,22 +279,22 @@ __global__ void lrn_pwl_kernel(const T* __restrict__ x, T* __restrict__ y,
                                const float* __restrict__ slope,
                                const float* __restrict__ icpt, int n_seg,
                                int total, int C, int half, float k,
-                               float alpha_n, int shift, int base) {
+                               float alpha_n, int shift, int base, Steps st) {
   extern __shared__ float lut[];               // [slope | intercept]
   stage(lut, slope, icpt, n_seg);
   const unsigned u = blockIdx.x * blockDim.x + threadIdx.x;
   if (u >= (unsigned)total) return;
   const int i = (int)u;
   const int c = i % C;
-  const float xc = widen(x[i]);
+  const float xc = widen(x[i], st);
   float acc = __fmul_rn(xc, xc);
   for (int d = 1; d <= half; ++d) {
-    const float r = c + d < C ? widen(x[i + d]) : 0.f;
+    const float r = c + d < C ? widen(x[i + d], st) : 0.f;
     acc = __fadd_rn(acc, __fmul_rn(r, r));
-    const float l = c - d >= 0 ? widen(x[i - d]) : 0.f;
+    const float l = c - d >= 0 ? widen(x[i - d], st) : 0.f;
     acc = __fadd_rn(acc, __fmul_rn(l, l));
   }
-  put(y, i, pwl(lut, n_seg, xc, acc, k, alpha_n, shift, base));
+  put(y, i, pwl(lut, n_seg, xc, acc, k, alpha_n, shift, base), st);
 }
 
 // One pass over the tensor: a thread a vector where the vector path
@@ -233,7 +302,7 @@ __global__ void lrn_pwl_kernel(const T* __restrict__ x, T* __restrict__ y,
 template <typename T>
 int launch(const T* x, T* y, const float* slope, const float* icpt, int n_seg,
            long long total, int C, int n, float k, float alpha_n, int shift,
-           int base, void* stream) {
+           int base, Steps steps, void* stream) {
   constexpr int V = Vec16<T>::V;
   if (total < 1 || total >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   const size_t lut_bytes = 2 * n_seg * sizeof(float);
@@ -247,26 +316,27 @@ int launch(const T* x, T* y, const float* slope, const float* icpt, int n_seg,
     return launch_dependent(lrn_pwl_vec_kernel<T>,
                             dim3((n_vec + THREADS - 1) / THREADS), THREADS,
                             lut_bytes, st, x, y, slope, icpt, n_seg, n_vec,
-                            C / V, half, k, alpha_n, shift, base);
+                            C / V, half, k, alpha_n, shift, base, steps);
   }
   return launch_dependent(lrn_pwl_kernel<T>,
                           dim3((unsigned)((total + THREADS - 1) / THREADS)),
                           THREADS, lut_bytes, st, x, y, slope, icpt, n_seg,
-                          (int)total, C, half, k, alpha_n, shift, base);
+                          (int)total, C, half, k, alpha_n, shift, base,
+                          steps);
 }
 
 }  // namespace
 
-// Plain C entry points (fp32 and bf16 x/y; fp32 LUT). The vector path
-// takes C a multiple of 4 fp32 or 8 bf16 channels, n <= 5, x and y 16-byte
-// aligned; anything else the scalar path. total from 1 to 2^31 - 1. Each
-// returns the launch's error (or cudaErrorInvalidValue).
+// Plain C entry points (fp32, bf16 or int8 x/y; fp32 LUT). The vector path
+// takes C a multiple of 4 fp32, 8 bf16 or 16 int8 channels, n <= 5, x and y
+// 16-byte aligned; anything else the scalar path. total from 1 to 2^31 - 1.
+// Each returns the launch's error (or cudaErrorInvalidValue).
 extern "C" int lrn_pwl_f32(const float* x, float* y, const float* slope,
                            const float* icpt, int n_seg, long long total,
                            int C, int n, float k, float alpha_n, int shift,
                            int base, void* stream) {
   return launch(x, y, slope, icpt, n_seg, total, C, n, k, alpha_n, shift,
-                base, stream);
+                base, Steps{}, stream);
 }
 
 extern "C" int lrn_pwl_bf16(const __nv_bfloat16* x, __nv_bfloat16* y,
@@ -275,5 +345,15 @@ extern "C" int lrn_pwl_bf16(const __nv_bfloat16* x, __nv_bfloat16* y,
                             float alpha_n, int shift, int base,
                             void* stream) {
   return launch(x, y, slope, icpt, n_seg, total, C, n, k, alpha_n, shift,
-                base, stream);
+                base, Steps{}, stream);
+}
+
+// int8 codes in (step x_step) and out (step y_step, positive and finite)
+extern "C" int lrn_pwl_s8(const int8_t* x, int8_t* y, const float* slope,
+                          const float* icpt, int n_seg, long long total,
+                          int C, int n, float k, float alpha_n, int shift,
+                          int base, float x_step, float y_step,
+                          void* stream) {
+  return launch(x, y, slope, icpt, n_seg, total, C, n, k, alpha_n, shift,
+                base, Steps{x_step, y_step, 1.0f / y_step}, stream);
 }

@@ -22,8 +22,8 @@ import time
 from pathlib import Path
 from typing import Dict, List
 
-KERNELS = ("conv_pipe", "decode_attention", "flash_attention", "lrn_pwl",
-           "matmul_pipe")
+KERNELS = ("codes", "conv_pipe", "decode_attention", "flash_attention",
+           "lrn_pwl", "matmul_pipe")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -8,21 +8,27 @@ exponent bits plus the top n mantissa bits,
 
 Kernel: ``csrc/lrn_pwl.cu``, which replaces the TPU kernel
 ``src/repro/kernels/lrn_pwl.py:lrn_pwl`` in both of its element types
-(fp32, and bf16 computed in fp32 and rounded once on output). It is bound
-by device-memory bytes (one read and one write of the activation): a
-thread takes one 16-byte vector of one pixel's channels and gets the
-window's halo from its neighbouring lanes by shuffles, one pass with
-no loop; where C is no multiple of the vector a thread takes one element.
-It launches as a programmatic dependent, which overlaps it with an LRN
-before it but not with conv_pipe, its predecessor in the forward. See the source for
-the design and its times. :func:`lrn_pwl` launches it on a CUDA tensor
-and runs :func:`lrn_pwl_plain` on a CPU tensor.
+(fp32, and bf16 computed in fp32 and rounded once on output), and in an
+int8 mode the int8 fold's dequantize -> LRN -> requantize, which XLA fused
+around that kernel in the JAX package (codes in and out, bit for bit the
+chain). The float modes are bound by device-memory bytes (one read and
+one write of the activation), the int8 mode, at a byte a value, by its
+instructions: a thread takes one 16-byte vector of one pixel's channels
+and gets the window's halo from its neighbouring lanes by shuffles, one
+pass with no loop; where C is no multiple of the vector a thread takes
+one element. It launches as a programmatic dependent, which overlaps it
+with an LRN before it but not with conv_pipe, its predecessor in the
+forward. See the source for the design and its times. :func:`lrn_pwl`
+launches it on a CUDA tensor and runs :func:`lrn_pwl_plain` (int8:
+:func:`lrn_pwl_s8_plain`) on a CPU tensor.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+import math
+import numbers
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -88,6 +94,21 @@ def lrn_pwl_plain(x: torch.Tensor, *, n: int = LRN_N, k: float = LRN_K,
     return x * (slope[addr] * z + icpt[addr])
 
 
+def lrn_pwl_s8_plain(q: torch.Tensor, x_scale: float, y_scale: float, *,
+                     n: int = LRN_N, k: float = LRN_K,
+                     alpha: float = LRN_ALPHA, beta: float = LRN_BETA,
+                     n_sub_bits: int = 2) -> torch.Tensor:
+    """The int8 mode's plain version: int8 codes ``q`` at step ``x_scale``
+    -> int8 codes at step ``y_scale``, by the chain the mode replaces,
+    ``quantize(lrn_pwl_plain(dequantize(q, x_scale)), y_scale)``."""
+    # imported here: repro_torch.quant imports kernels.ref, which imports
+    # this module's constants
+    from repro_torch.quant.core import dequantize, quantize
+    y = lrn_pwl_plain(dequantize(q, x_scale), n=n, k=k, alpha=alpha,
+                      beta=beta, n_sub_bits=n_sub_bits)
+    return quantize(y, y_scale)
+
+
 # (device index, beta, n_sub_bits) -> (slope, intercept, shift, base, n_seg)
 _LUTS: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor, int, int, int]] = {}
 
@@ -105,39 +126,66 @@ def _device_lut(device: torch.device, beta: float, n_sub_bits: int):
     return lut
 
 
-_ENTRY = {torch.float32: "lrn_pwl_f32", torch.bfloat16: "lrn_pwl_bf16"}
+_ENTRY = {torch.float32: "lrn_pwl_f32", torch.bfloat16: "lrn_pwl_bf16",
+          torch.int8: "lrn_pwl_s8"}
 
 
 @functools.lru_cache(maxsize=None)
 def _entry(dtype: torch.dtype):
     from repro_torch.kernels import build
     fn = getattr(build.load("lrn_pwl"), _ENTRY[dtype])
+    steps = [ctypes.c_float] * 2 if dtype == torch.int8 else []
     fn.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+        *steps, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def lrn_pwl(x: torch.Tensor, *, n: int = LRN_N, k: float = LRN_K,
-            alpha: float = LRN_ALPHA, beta: float = LRN_BETA,
-            n_sub_bits: int = 2) -> torch.Tensor:
-    """LRN with the PWL-exponent approximation. x (B, H, W, C) fp32 or
-    bf16; y in x's dtype.
+def _steps(x: torch.Tensor, x_scale, y_scale) -> bool:
+    """Whether ``x`` is int8 codes, whose mode takes both steps (Python
+    numbers; ``y_scale`` positive and finite, as it divides); a float ``x``
+    takes neither."""
+    int8 = x.dtype == torch.int8
+    given = (x_scale is not None, y_scale is not None)
+    if given != (int8, int8):
+        raise ValueError(f"lrn_pwl: x_scale and y_scale go with int8 codes "
+                         f"and only with them; got {x.dtype} with "
+                         f"x_scale={x_scale!r}, y_scale={y_scale!r}")
+    if int8 and not (isinstance(x_scale, numbers.Real)
+                     and isinstance(y_scale, numbers.Real)
+                     and math.isfinite(y_scale) and y_scale > 0):
+        raise ValueError(f"lrn_pwl: the steps must be Python numbers, "
+                         f"y_scale positive and finite; got "
+                         f"x_scale={x_scale!r}, y_scale={y_scale!r}")
+    return int8
 
-    A CPU tensor runs :func:`lrn_pwl_plain`; a CUDA tensor launches the
-    kernel (counted in ``lrn_pwl.launches``, fp32, or
-    ``lrn_pwl.launches_bf16``) or raises."""
+
+def lrn_pwl(x: torch.Tensor, *, x_scale: Optional[float] = None,
+            y_scale: Optional[float] = None, n: int = LRN_N,
+            k: float = LRN_K, alpha: float = LRN_ALPHA,
+            beta: float = LRN_BETA, n_sub_bits: int = 2) -> torch.Tensor:
+    """LRN with the PWL-exponent approximation. x (B, H, W, C) fp32 or
+    bf16, y in x's dtype; or the int8 mode: x int8 codes at step
+    ``x_scale``, y int8 codes at step ``y_scale``.
+
+    A CPU tensor runs :func:`lrn_pwl_plain` (:func:`lrn_pwl_s8_plain`);
+    a CUDA tensor launches the kernel (counted in ``lrn_pwl.launches``,
+    fp32, ``lrn_pwl.launches_bf16`` or ``lrn_pwl.launches_s8``) or
+    raises."""
+    int8 = _steps(x, x_scale, y_scale)
+    kw = dict(n=n, k=k, alpha=alpha, beta=beta, n_sub_bits=n_sub_bits)
     if x.device.type == "cpu":
-        return lrn_pwl_plain(x, n=n, k=k, alpha=alpha, beta=beta,
-                             n_sub_bits=n_sub_bits)
+        if int8:
+            return lrn_pwl_s8_plain(x, x_scale, y_scale, **kw)
+        return lrn_pwl_plain(x, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"lrn_pwl: unsupported device {x.device}")
     if x.dim() != 4 or x.dtype not in _ENTRY or not x.is_contiguous():
         raise ValueError(
-            f"lrn_pwl: needs a contiguous 4-D float32 or bfloat16 NHWC "
-            f"tensor, got {tuple(x.shape)} {x.dtype} "
+            f"lrn_pwl: needs a contiguous 4-D float32, bfloat16 or int8 "
+            f"NHWC tensor, got {tuple(x.shape)} {x.dtype} "
             f"contiguous={x.is_contiguous()}")
     total = x.numel()
     if total >= 2 ** 31:
@@ -147,15 +195,18 @@ def lrn_pwl(x: torch.Tensor, *, n: int = LRN_N, k: float = LRN_K,
     y = torch.empty_like(x)
     if total == 0:
         return y
+    steps = (float(x_scale), float(y_scale)) if int8 else ()
     err = _entry(x.dtype)(x.data_ptr(), y.data_ptr(), slope.data_ptr(),
                           icpt.data_ptr(), n_seg, total, x.shape[3], n, k,
-                          alpha / n, shift, base,
+                          alpha / n, shift, base, *steps,
                           # the current stream's handle, without building a
                           # Stream object (5 us of host time a call)
                           torch._C._cuda_getCurrentRawStream(x.device.index))
     if err:
         raise RuntimeError(f"lrn_pwl kernel launch failed: CUDA error {err}")
-    if x.dtype == torch.bfloat16:
+    if int8:
+        lrn_pwl.launches_s8 += 1
+    elif x.dtype == torch.bfloat16:
         lrn_pwl.launches_bf16 += 1
     else:
         lrn_pwl.launches += 1
@@ -164,3 +215,4 @@ def lrn_pwl(x: torch.Tensor, *, n: int = LRN_N, k: float = LRN_K,
 
 lrn_pwl.launches = 0             # fp32 launches
 lrn_pwl.launches_bf16 = 0        # bf16 launches
+lrn_pwl.launches_s8 = 0          # int8 launches

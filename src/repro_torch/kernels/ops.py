@@ -4,19 +4,25 @@
 fused kernels (on a CUDA tensor the hand-written kernel, on a CPU tensor
 its plain version), False the exact oracles of :mod:`.ref` and
 :mod:`repro_torch.quant.ref` (for LRN the exact power, not the PWL
-approximation; for attention the JAX oracle with its ``tril`` mask).
+approximation; for attention the JAX oracle with its ``tril`` mask). The
+int8 fold's glue (the edge quantize, the LRN on codes, a max-pool on
+codes) runs its kernels of :mod:`.codes` and ``lrn_pwl``'s int8 mode, or
+``quant.core``'s quantize around the oracles.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.codes import max_pool_codes, quantize_codes
 from repro_torch.kernels.conv_pipe import conv_pipe
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.lrn_pwl import lrn_pwl
 from repro_torch.kernels.matmul_pipe import matmul_pipe
 from repro_torch.quant import ref as quant_ref
+from repro_torch.quant.core import dequantize, quantize
 
-__all__ = ["attention", "fc", "fc_q", "fused_conv", "fused_conv_q", "lrn"]
+__all__ = ["attention", "fc", "fc_q", "fused_conv", "fused_conv_q", "lrn",
+           "lrn_q", "pool_q", "quantize_q"]
 
 
 def fused_conv(x, w, b, *, stride=1, pad=0, relu=True, pool=None, pool_k=2,
@@ -48,6 +54,31 @@ def fused_conv_q(x_q, w_q, b, scale, *, out_scale=None, stride=1, pad=0,
 def lrn(x, *, use_kernels=True):
     """Cross-channel LRN: the PWL kernel, or the exact power."""
     return lrn_pwl(x) if use_kernels else ref.lrn_ref(x)
+
+
+def lrn_q(q, x_scale, y_scale, *, use_kernels=True):
+    """LRN on int8 codes (steps ``x_scale`` in, ``y_scale`` out), off the
+    fixed-point pipeline as in the paper: the PWL kernel's int8 mode
+    (dequantize, LRN, requantize in one pass), or the exact power between
+    a dequantize and a quantize."""
+    if use_kernels:
+        return lrn_pwl(q, x_scale=x_scale, y_scale=y_scale)
+    return quantize(ref.lrn_ref(dequantize(q, x_scale)), y_scale)
+
+
+def pool_q(q, *, pool="max", k=2, s=2, use_kernels=True):
+    """A standalone pool on int8 codes (max commutes with the int8 map, so
+    the codes keep their step): the max-pool kernel, or ``pool_ref``, which
+    refuses avg on codes."""
+    if use_kernels and pool == "max":
+        return max_pool_codes(q, k, s)
+    return ref.pool_ref(q, pool, k, s)
+
+
+def quantize_q(x, scale, *, use_kernels=True):
+    """fp32 -> int8 codes at the per-tensor step ``scale`` (the network
+    edge): the quantize kernel, or ``quant.core.quantize``."""
+    return quantize_codes(x, scale) if use_kernels else quantize(x, scale)
 
 
 def fc(x, w, b=None, *, relu=False, use_kernels=True, split=None):

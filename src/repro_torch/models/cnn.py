@@ -10,11 +10,12 @@ JAX package's layout, so parameters carry over with no transpose.
 
 Fixed-point serving (the paper's precision trade): with a
 :class:`~repro_torch.quant.QuantizedCNNParams` (from ``calibrate_cnn``)
-the same groups run in int8 (:func:`run_group_quant`): int8 codes flow
-between groups, conv and fc run the int8 kernel modes (int32
-accumulation, requantize epilogue), standalone max-pools run on the
-codes, and LRN dequantizes around its kernel, off the fixed-point
-pipeline as in the paper. The final fc emits fp32 logits.
+the same groups run in int8 (:func:`run_group_quant`): the batch is
+quantized at the network edge, int8 codes flow between groups, conv and
+fc run the int8 kernel modes (int32 accumulation, requantize epilogue),
+standalone max-pools run on the codes, and LRN runs off the fixed-point
+pipeline as in the paper, in its kernel's int8 mode (dequantize, LRN,
+requantize in one pass). The final fc emits fp32 logits.
 """
 from __future__ import annotations
 
@@ -30,7 +31,6 @@ from repro_torch.core.config import CNNConfig, fuse_groups
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import pool_ref
 from repro_torch.quant.calibrate import QuantizedCNNParams, QuantLayer
-from repro_torch.quant.core import dequantize, quantize
 
 Params = List[Optional[Dict[str, torch.Tensor]]]
 
@@ -210,12 +210,12 @@ def run_group_quant(qp: QuantizedCNNParams, q: torch.Tensor, cfg: CNNConfig,
             use_kernels=use_kernels, **_plan_kw(plans, group, "conv"))
     if l.kind == "pool":
         # max-pool commutes with the int8 map: pool the codes, keep scale
-        return pool_ref(q, l.pool, l.kernel, l.stride)
+        return ops.pool_q(q, pool=l.pool, k=l.kernel, s=l.stride,
+                          use_kernels=use_kernels)
     if l.kind == "lrn":
         # LRN is nonlinear in scale: run it off the fixed-point pipeline
         # (as PipeCNN does) and requantize its output
-        xf = ops.lrn(dequantize(q, ql.x_scale), use_kernels=use_kernels)
-        return quantize(xf, ql.y_scale)
+        return ops.lrn_q(q, ql.x_scale, ql.y_scale, use_kernels=use_kernels)
     return ops.fc_q(q.reshape(q.shape[0], -1), ql.w_q, ql.b, ql.scale,
                     relu=l.relu, out_scale=ql.y_scale,
                     use_kernels=use_kernels, **_plan_kw(plans, group, "fc"))
@@ -229,7 +229,7 @@ def cnn_forward_stage_quant(qp: QuantizedCNNParams, q: torch.Tensor,
     ``q`` is int8 codes at an interior boundary, or the raw fp32 batch
     for the first stage, which is quantized at the network edge."""
     if q.dtype != torch.int8:
-        q = quantize(q, qp.in_scale)
+        q = ops.quantize_q(q, qp.in_scale, use_kernels=use_kernels)
     for group in groups:
         q = run_group_quant(qp, q, cfg, group, use_kernels=use_kernels,
                             plans=plans)
@@ -241,7 +241,7 @@ def _quant_groups(qp: QuantizedCNNParams, x: torch.Tensor, cfg: CNNConfig,
     """Run the int8 pipeline one fusion group at a time, yielding
     ``(group, activation, scale)``: int8 codes with step ``scale``, or the
     final fp32 logits with ``scale=None``."""
-    q = quantize(x, qp.in_scale)
+    q = ops.quantize_q(x, qp.in_scale, use_kernels=use_kernels)
     s = qp.in_scale
     for group in fuse_plan(cfg):
         l = cfg.layers[group[0]]

@@ -119,6 +119,9 @@ OPS_SURFACE = {
     "fused_conv",
     "fused_conv_q",
     "lrn",
+    "lrn_q",
+    "pool_q",
+    "quantize_q",
 }
 
 # JAX names the port does not export, each for a reason of its design
@@ -143,7 +146,9 @@ PORT_ONLY = {
                          "conv_bound", "gemm_bound", "rule_plan",
                          "rule_gemm_plan", "manual_plan", "default_backend",
                          "is_port_backend"},
-    "OPS_SURFACE": set(),
+    # the int8 fold's glue, which XLA fuses in the JAX package and the port
+    # dispatches to its kernels (kernels/codes.py, lrn_pwl's int8 mode)
+    "OPS_SURFACE": {"lrn_q", "pool_q", "quantize_q"},
 }
 
 MODULES = {"PIPELINE_SURFACE": (pipeline, PIPELINE_SURFACE),

@@ -36,19 +36,23 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
+from repro_torch.kernels.codes import (max_pool_codes, max_pool_codes_plain,
+                                       quantize_codes)
 from repro_torch.kernels.conv_pipe import (CHANNELS, POSITIONS, conv_pipe,
                                            conv_pipe_plain, pool_tile)
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention,
                                                  flash_attention_plain)
-from repro_torch.kernels.lrn_pwl import lrn_pwl, lrn_pwl_plain
+from repro_torch.kernels.lrn_pwl import (lrn_pwl, lrn_pwl_plain,
+                                          lrn_pwl_s8_plain)
+from repro_torch.kernels.ref import pool_ref
 from repro_torch.kernels.matmul_pipe import (FC_FEATURES, fc_chunk,
                                              matmul_pipe,
                                              matmul_pipe_plain)
 from repro_torch.models.cnn import init_cnn_params
 from repro_torch.pipeline import ExecutionSpec, Precision, compile_cnn
-from repro_torch.quant import calibrate_cnn, quantize
+from repro_torch.quant import calibrate_cnn, dequantize, quantize
 
 
 @pytest.fixture
@@ -512,6 +516,195 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         matmul_pipe(xf, wf.t().contiguous().t(), b, scale=s)  # not contiguous
 
 
+# -- the int8 glue: lrn_pwl's int8 mode, the edge quantize, the pool on codes
+
+def _glue_counts():
+    return (lrn_pwl.launches, lrn_pwl.launches_s8, quantize_codes.launches,
+            max_pool_codes.launches)
+
+
+def _codes_with_ends(rng, shape, dev):
+    """Random int8 codes with +127 and -127 in every pixel."""
+    q = rng.integers(-127, 128, shape).astype(np.int8)
+    q[..., 0], q[..., -1] = 127, -127
+    return torch.from_numpy(q).to(dev)
+
+
+def _lrn_chain(q, xs, ys):
+    """What the int8 fold ran before the mode: dequantize, the fp32 LRN
+    kernel, quantize, each its own launches."""
+    return quantize(lrn_pwl(dequantize(q, xs)), ys)
+
+
+# AlexNet's two LRNs at batch 2 (16-byte vectors), a C that is no multiple
+# of 16 and one under it (the scalar path), pixels straddling warps
+LRN_S8_SHAPES = [(2, 55, 55, 96), (2, 27, 27, 256), (2, 6, 6, 24),
+                 (1, 5, 7, 3), (2, 6, 6, 48)]
+LRN_S8_STEPS = [(0.0371, 0.05), (1.0 / 127, 2.0 / 127), (0.5, 0.25)]
+
+
+@pytest.mark.parametrize("steps", LRN_S8_STEPS, ids=str)
+@pytest.mark.parametrize("shape", LRN_S8_SHAPES, ids=str)
+def test_lrn_pwl_int8_kernel_equals_the_chain(cuda, shape, steps):
+    """One launch of the int8 mode equals its plain version and the chain
+    of launches it replaces, bit for bit."""
+    xs, ys = steps
+    q = _codes_with_ends(np.random.default_rng(40), shape, cuda)
+    n0 = _glue_counts()
+    got = lrn_pwl(q, x_scale=xs, y_scale=ys)
+    assert _glue_counts() == (n0[0], n0[1] + 1, n0[2], n0[3])
+    _equal(got, lrn_pwl_s8_plain(q, xs, ys))
+    _equal(got, _lrn_chain(q, xs, ys))
+
+
+@pytest.mark.parametrize("C", [96, 256, 24])
+def test_lrn_pwl_int8_rounds_ties_as_the_chain(cuda, C):
+    """Steps that put the dequantize's products on fp32 rounding ties (x
+    step 1 + 2^-23 times a power of two: q * x_step needs 31 bits, and an
+    odd q drops a half ulp) and the requantize's quotients within an ulp
+    of a half-integer (y step = 2 y0 / (2j + 1) for values y0 the chain
+    gives): quant_code's fallback to the division decides those."""
+    xs = float(np.float32(1 + 2 ** -23) * np.float32(2 ** -5))
+    rng = np.random.default_rng(41)
+    # codes from -3 to 3 (odd ones tie), so that windows, and the values
+    # the chain gives, repeat across the tensor
+    q = torch.from_numpy(rng.integers(-3, 4, (2, 9, 9, C)).astype(
+        np.int8)).to(cuda)
+    y = lrn_pwl(dequantize(q, xs)).flatten()
+    nonzero = y.nonzero().flatten().cpu().numpy()
+    for j, i in enumerate(rng.choice(nonzero, 6)):
+        ys = abs(float(y[i])) * 2 / (2 * j + 3)
+        _equal(lrn_pwl(q, x_scale=xs, y_scale=ys), _lrn_chain(q, xs, ys))
+
+
+def _quantize_values(rng, s, n=250_000):
+    """Exact ties (k + 0.5) * s, values past +-127 steps, and noise."""
+    ties = (rng.integers(-140, 140, n) + 0.5) * np.float32(s)
+    far = rng.choice([-1.0, 1.0], n) * rng.uniform(127.5, 400, n) * s
+    return np.concatenate([ties, far, rng.standard_normal(2 * n) * 3,
+                           [np.inf, -np.inf]]).astype(np.float32)
+
+
+@pytest.mark.parametrize("s", [0.0371, 1.0 / 127, 0.1, 2.5])
+def test_quantize_codes_equals_quantize(cuda, s):
+    rng = np.random.default_rng(42)
+    x = torch.from_numpy(_quantize_values(rng, s)).to(cuda)
+    n0 = _glue_counts()
+    got = quantize_codes(x, s)
+    assert _glue_counts() == (*n0[:2], n0[2] + 1, n0[3])
+    _equal(got, quantize(x, s))
+    _equal(got.cpu(), quantize(x.cpu(), s))
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 17, 4099])
+def test_quantize_codes_tails_and_unaligned(cuda, n):
+    """A total that is no multiple of 4 (the last values one at a time),
+    and x or y off the 16- and 4-byte alignment (all of them so)."""
+    s = 0.0371
+    x = torch.from_numpy(_quantize_values(np.random.default_rng(43), s,
+                                          n)[:n]).to(cuda)
+    _equal(quantize_codes(x, s), quantize(x, s))
+    buf = torch.empty(n + 1, dtype=torch.float32, device=cuda)
+    xu = buf[1:]
+    xu.copy_(x)
+    assert xu.data_ptr() % 16
+    _equal(quantize_codes(xu, s), quantize(x, s))
+
+
+POOL_S8_SHAPES = [(2, 55, 55, 96), (2, 27, 27, 256), (2, 13, 13, 16),
+                  (1, 9, 11, 3), (2, 8, 8, 40)]
+
+
+@pytest.mark.parametrize("k,s", [(3, 2), (2, 2)], ids=["3x3s2", "2x2s2"])
+@pytest.mark.parametrize("shape", POOL_S8_SHAPES, ids=str)
+def test_max_pool_codes_equals_pool_ref(cuda, shape, k, s):
+    """Every int8 code, -128 too, through the vector (C % 16 == 0) and the
+    scalar paths."""
+    q = torch.from_numpy(np.random.default_rng(44).integers(
+        -128, 128, shape).astype(np.int8)).to(cuda)
+    n0 = _glue_counts()
+    got = max_pool_codes(q, k, s)
+    assert _glue_counts() == (*n0[:3], n0[3] + 1)
+    _equal(got, pool_ref(q, "max", k, s))
+    _equal(got, max_pool_codes_plain(q, k, s))
+
+
+def test_max_pool_codes_unaligned(cuda):
+    q = torch.from_numpy(np.random.default_rng(45).integers(
+        -128, 128, (2, 13, 13, 32)).astype(np.int8)).to(cuda)
+    buf = torch.empty(q.numel() + 1, dtype=torch.int8, device=cuda)
+    qu = buf[1:].view(q.shape)
+    qu.copy_(q)
+    assert qu.data_ptr() % 16
+    _equal(max_pool_codes(qu, 3, 2), pool_ref(q, "max", 3, 2))
+
+
+def test_glue_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros((1, 8, 8, 16), dtype=torch.int8, device=cuda)
+    n0 = _glue_counts()
+    with pytest.raises(ValueError):
+        lrn_pwl(q)                                      # no steps
+    with pytest.raises(ValueError):
+        lrn_pwl(q, x_scale=0.1, y_scale=0.0)            # a zero step
+    with pytest.raises(ValueError):
+        quantize_codes(q.float(), torch.tensor(0.1))    # a tensor step
+    with pytest.raises(ValueError):
+        quantize_codes(q.double(), 0.1)                 # fp64
+    with pytest.raises(ValueError):
+        quantize_codes(q.float().transpose(1, 2), 0.1)  # not contiguous
+    with pytest.raises(ValueError):
+        max_pool_codes(q.float(), 2, 2)                 # not codes
+    with pytest.raises(ValueError):
+        max_pool_codes(q, 9, 2)                         # window past H
+    assert _glue_counts() == n0
+
+
+def _int8_alexnet(cuda, batch=2):
+    cfg = get_config("alexnet")
+    compiled = compile_cnn(cfg, ExecutionSpec(
+        precision=Precision(quant="int8", calib=4)),
+        generator=torch.Generator().manual_seed(46), device=cuda)
+    x = torch.from_numpy(np.random.default_rng(47).standard_normal(
+        (batch, cfg.input_hw, cfg.input_hw, cfg.input_ch)).astype(
+            np.float32)).to(cuda)
+    return cfg, compiled, x
+
+
+def test_int8_alexnet_forward_equals_the_chain(cuda):
+    """Full-width AlexNet in int8: the forward, with its glue in the new
+    kernels, gives the logits of the fold as it ran before (quantize,
+    dequantize -> fp32 lrn_pwl -> quantize, pool_ref), bit for bit."""
+    from repro_torch.models.cnn import run_group_quant
+    cfg, compiled, x = _int8_alexnet(cuda)
+    qp = compiled.params
+    got = compiled.forward(x)
+    with torch.inference_mode():
+        q = quantize(x, qp.in_scale)
+        for group in compiled.model.groups:
+            l, ql = cfg.layers[group[0]], qp.layers[group[0]]
+            if l.kind == "pool":
+                q = pool_ref(q, l.pool, l.kernel, l.stride)
+            elif l.kind == "lrn":
+                q = _lrn_chain(q, ql.x_scale, ql.y_scale)
+            else:
+                q = run_group_quant(qp, q, cfg, group,
+                                    plans=compiled.model.plans)
+    _equal(got, q)
+
+
+def test_int8_alexnet_forward_launches_the_glue_kernels(cuda):
+    """One forward: 2 int8 LRNs, 1 edge quantize, 2 pools, no fp32 LRN,
+    beside conv_pipe's 5 and matmul_pipe's 3 int8 launches."""
+    _, compiled, x = _int8_alexnet(cuda)
+    n0 = _glue_counts()
+    c0, m0 = conv_pipe.launches_s8, matmul_pipe.launches_s8
+    compiled.forward(x)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_glue_counts(), n0)) == (0, 2, 1, 2)
+    assert (conv_pipe.launches_s8 - c0, matmul_pipe.launches_s8 - m0) == \
+        (5, 3)
+
+
 # ---------------------------------------------------------------------------
 # the bf16 modes of the CNN kernels
 # ---------------------------------------------------------------------------
@@ -762,13 +955,13 @@ def test_lrn_pwl_bf16_kernel_matches_plain(cuda, shape):
     version (fp32 inside, one rounding on store)."""
     rng = np.random.default_rng(22)
     x = _bf(rng.standard_normal(shape) * 4, cuda)
-    n0, h0, _ = _counts(lrn_pwl)
+    n0, h0, s0 = _counts(lrn_pwl)
     got, want = lrn_pwl(x), lrn_pwl_plain(x)
     _close_bf16(got, want)
     w = want.float()
     ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
     assert bool(((got.float() - w).abs() <= ulp).all())
-    assert _counts(lrn_pwl) == (n0, h0 + 1, 0)
+    assert _counts(lrn_pwl) == (n0, h0 + 1, s0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -1391,7 +1584,7 @@ def test_artifact_saved_on_the_card_reloads_equal(cuda, mode, tmp_path):
 # the launch counter of each AlexNet kernel a forward runs, by mode
 SLOT_COUNTERS = {"fp32": ("launches", "launches", "launches"),
                  "bf16": ("launches_bf16", "launches_bf16", "launches_bf16"),
-                 "int8": ("launches_s8", "launches", "launches_s8")}
+                 "int8": ("launches_s8", "launches_s8", "launches_s8")}
 
 
 def _slot_compile(cuda, mode):

@@ -34,7 +34,13 @@ from repro.quant import observers as jobs
 from repro.quant import ref as jqref
 from repro_torch.configs import get_config
 from repro_torch.core.config import SpecError
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as kref
+from repro_torch.kernels.codes import (max_pool_codes, max_pool_codes_plain,
+                                       quantize_codes, quantize_codes_plain)
 from repro_torch.kernels.conv_pipe import conv_pipe
+from repro_torch.kernels.lrn_pwl import (lrn_pwl, lrn_pwl_plain,
+                                          lrn_pwl_s8_plain)
 from repro_torch.kernels.matmul_pipe import matmul_pipe
 from repro_torch.models import cnn
 from repro_torch.models.cnn import params_from_jax
@@ -340,7 +346,8 @@ def test_alexnet_int8_groups_match_jax(use_kernels):
     LRN groups within one code; then the whole forward."""
     jcfg, cfg, jqp, qp, x = _jax_qp("alexnet")
     q = jcore.quantize(jnp.asarray(x), jqp.in_scale)
-    _eq(cnn.quantize(_t(x), qp.in_scale).numpy(), q)
+    _eq(ops.quantize_q(_t(x), qp.in_scale,
+                       use_kernels=use_kernels).numpy(), q)
     for group in jcnn.fuse_plan(jcfg):
         want = (_jax_kernel_group(jqp, q, jcfg, group) if use_kernels else
                 jcnn.run_group_quant(jqp, q, jcfg, group, use_pallas=False))
@@ -385,6 +392,127 @@ def test_quant_module_stages_and_buffers():
             assert a.w_q is b.w_q and a.y_scale == b.y_scale
     with pytest.raises(ValueError):
         cnn.QuantCNN(cfg, QuantizedCNNParams(qp.layers[:-1]))
+
+
+# -- the int8 glue: lrn_pwl's int8 mode, the edge quantize, the pool on codes --
+
+def _glue_launches():
+    return (lrn_pwl.launches, lrn_pwl.launches_s8, quantize_codes.launches,
+            max_pool_codes.launches)
+
+
+def _codes_with_ends(rng, shape):
+    """Random int8 codes with +127 and -127 in every pixel."""
+    q = rng.integers(-127, 128, shape).astype(np.int8)
+    q[..., 0], q[..., -1] = 127, -127
+    return torch.from_numpy(q)
+
+
+@pytest.mark.parametrize("steps", [(0.0371, 0.05), (1.0 / 127, 2.0 / 127),
+                                   (0.5, 0.25)])
+@pytest.mark.parametrize("shape", [(1, 13, 13, 96), (1, 6, 6, 256),
+                                   (2, 5, 7, 12), (1, 4, 4, 3)])
+def test_lrn_pwl_s8_plain_is_the_chain(shape, steps):
+    """The int8 mode on a CPU tensor is its plain version, which is the
+    chain the int8 fold ran before: quantize(lrn_pwl(dequantize(q)))."""
+    xs, ys = steps
+    q = _codes_with_ends(np.random.default_rng(31), shape)
+    want = quantize(lrn_pwl_plain(dequantize(q, xs)), ys)
+    n0 = _glue_launches()
+    _eq(lrn_pwl(q, x_scale=xs, y_scale=ys).numpy(), want.numpy())
+    _eq(lrn_pwl_s8_plain(q, xs, ys).numpy(), want.numpy())
+    assert _glue_launches() == n0             # a CPU tensor launches nothing
+
+
+@pytest.mark.parametrize("s", [0.0371, 1.0 / 127, 2.5])
+def test_quantize_codes_plain_is_quantize(s):
+    rng = np.random.default_rng(32)
+    x = np.concatenate([_with_ties(rng, s), rng.standard_normal(64) * 200 * s,
+                        [np.inf, -np.inf]]).astype(np.float32)
+    n0 = _glue_launches()
+    want = quantize(_t(x), s).numpy()
+    _eq(quantize_codes(_t(x), s).numpy(), want)
+    _eq(quantize_codes_plain(_t(x), s).numpy(), want)
+    assert _glue_launches() == n0
+
+
+@pytest.mark.parametrize("k,s", [(3, 2), (2, 2)])
+@pytest.mark.parametrize("shape", [(2, 13, 13, 96), (1, 7, 9, 3)])
+def test_max_pool_codes_plain_is_pool_ref(shape, k, s):
+    q = torch.from_numpy(np.random.default_rng(33).integers(
+        -128, 128, shape).astype(np.int8))
+    n0 = _glue_launches()
+    want = kref.pool_ref(q, "max", k, s).numpy()
+    _eq(max_pool_codes(q, k, s).numpy(), want)
+    _eq(max_pool_codes_plain(q, k, s).numpy(), want)
+    assert _glue_launches() == n0
+
+
+def test_glue_wrappers_refuse_what_they_do_not_take():
+    q = torch.zeros((1, 4, 4, 16), dtype=torch.int8)
+    for bad in (dict(), dict(x_scale=0.1), dict(y_scale=0.1),
+                dict(x_scale=0.1, y_scale=0.0),
+                dict(x_scale=0.1, y_scale=float("nan")),
+                dict(x_scale=torch.tensor(0.1), y_scale=0.1)):
+        with pytest.raises(ValueError):
+            lrn_pwl(q, **bad)
+    with pytest.raises(ValueError):
+        lrn_pwl(q.float(), x_scale=0.1, y_scale=0.1)     # steps on floats
+    meta = torch.zeros((1, 4, 4, 16), device="meta")
+    with pytest.raises(ValueError):
+        quantize_codes(meta, 0.1)
+    with pytest.raises(ValueError):
+        max_pool_codes(meta.to(torch.int8), 2, 2)
+
+
+def _parent_fold(qp, x, cfg, groups):
+    """The int8 fold as it ran before its glue had kernels: quantize at
+    the edge, pool_ref on the codes, and dequantize -> the fp32 LRN ->
+    quantize around each LRN; every other group as the fold runs it."""
+    q = quantize(x, qp.in_scale)
+    for group in groups:
+        l, ql = cfg.layers[group[0]], qp.layers[group[0]]
+        if l.kind == "pool":
+            q = kref.pool_ref(q, l.pool, l.kernel, l.stride)
+        elif l.kind == "lrn":
+            q = quantize(lrn_pwl(dequantize(q, ql.x_scale)), ql.y_scale)
+        else:
+            q = cnn.run_group_quant(qp, q, cfg, group)
+    return q
+
+
+@pytest.mark.parametrize("arch", ["alexnet", "vgg16"])
+def test_int8_fold_with_kernels_on_the_cpu_is_the_parents_path(arch):
+    """use_kernels=True on CPU tensors runs the glue's plain versions: the
+    logits equal the fold's before the glue had kernels, bit for bit, and
+    nothing launches."""
+    _, cfg, _, qp, x = _jax_qp(arch)
+    m = cnn.QuantCNN(cfg, qp, use_kernels=True)
+    want = _parent_fold(qp, _t(x), cfg, m.groups)
+    n0 = _glue_launches()
+    _eq(m(_t(x)).numpy(), want.numpy())
+    _eq(cnn.cnn_forward_quant(qp, _t(x), cfg).numpy(), want.numpy())
+    assert _glue_launches() == n0
+
+
+@pytest.mark.parametrize("use_kernels", [False, True],
+                         ids=["oracles", "kernels"])
+def test_int8_lrn_dispatch(monkeypatch, use_kernels):
+    """use_kernels=False runs the exact LRN (lrn_ref) between a dequantize
+    and a quantize; True runs lrn_pwl's int8 mode on the codes."""
+    _, cfg, _, qp, x = _jax_qp("alexnet")
+    seen = []
+
+    def spy(name, fn):
+        def call(x, *a, **kw):
+            seen.append((name, x.dtype))
+            return fn(x, *a, **kw)
+        return call
+    monkeypatch.setattr(kref, "lrn_ref", spy("lrn_ref", kref.lrn_ref))
+    monkeypatch.setattr(ops, "lrn_pwl", spy("lrn_pwl", ops.lrn_pwl))
+    cnn.QuantCNN(cfg, qp, use_kernels=use_kernels)(_t(x))
+    assert seen == ([("lrn_pwl", torch.int8)] * 2 if use_kernels else
+                    [("lrn_ref", torch.float32)] * 2)
 
 
 # -- compile_cnn(Precision(quant="int8")) ------------------------------------------
