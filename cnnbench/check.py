@@ -11,9 +11,11 @@ number below is held to its limit (``limits/<workload>.json``):
   standard deviation; the widest, and the mean, over the window. A request
   that never came back reads inf.
 * ``logit_err`` (a closed mix, logits): for every forward kept from the
-  window (a seeded sample), the largest absolute difference between the
-  program's logits and the reference's, over the largest reference
-  logit; the widest over the kept forwards.
+  window (a seeded sample and the last), the largest absolute difference
+  between the program's logits and the reference's, over the largest
+  reference logit; the widest over the kept forwards. ``top1_gap`` and
+  ``top1_gap_mean`` of a closed mix are those of the program's best class
+  of each kept row. A cell compares the numbers its limits file names.
 
 The control is the nearest lower precision in the program's place, run
 through the same window and the same comparison as the program
@@ -23,6 +25,7 @@ program's own int8 path, for an int8 configuration the reference in int4
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -80,17 +83,21 @@ def rotation_logits(cfg: dict, mix: dict, seed: int, device, slots
     return out
 
 
-def logit_err(cfg: dict, mix: dict, seed: int, device,
-              kept: List[Tuple[int, torch.Tensor]]) -> float:
-    """The widest ``logit_err`` over kept ``(forward index, logits)``."""
+def offline_numbers(cfg: dict, mix: dict, seed: int, device,
+                    kept: List[Tuple[int, torch.Tensor]]) -> Dict[str, float]:
+    """Over kept ``(forward index, logits)``: the widest ``logit_err`` (inf
+    where a logit is NaN or nothing was kept), and ``top1_gap`` and
+    ``top1_gap_mean`` of the program's best class of every kept row."""
     rot = mix["rotation"]
     ref = rotation_logits(cfg, mix, seed, device, [i % rot for i, _ in kept])
-    worst = 0.0
+    worst, gaps = (0.0 if kept else math.inf), []
     for i, y in kept:
-        r = ref[i % rot]
-        worst = max(worst, float((y.float() - r).abs().max()
-                                 / r.abs().max()))
-    return worst
+        r, y = ref[i % rot], y.float()
+        err = float((y - r).abs().max() / r.abs().max())
+        worst = max(worst, math.inf if math.isnan(err) else err)
+        gaps.append(reference.top1_gap(r, y.argmax(dim=1)))
+    return {"logit_err": worst,
+            **_gap_numbers(torch.cat(gaps) if gaps else torch.empty(0))}
 
 
 class LowerReference:

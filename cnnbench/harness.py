@@ -247,8 +247,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
         numbers = check.served_numbers(cfg, mix, seed, device, w["picks"],
                                        w["preds"])
     else:
-        numbers = {"logit_err": check.logit_err(cfg, mix, seed, device,
-                                                kept)}
+        numbers = check.offline_numbers(cfg, mix, seed, device, kept)
     del kept
     if readings is not None:
         readings.update(numbers)

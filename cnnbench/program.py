@@ -5,6 +5,7 @@ program (``repro_torch``, from ``src/``).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import List
 
@@ -15,8 +16,16 @@ from cnnbench.config import layers
 
 
 def port_config(cfg: dict):
-    """The program's ``CNNConfig`` of a configuration file."""
+    """The program's ``CNNConfig`` of a configuration file. A layer's
+    ``input`` and ``residual`` are passed only where the layer has them;
+    a key the program's ``ConvLayer`` has no field for raises."""
     from repro_torch.core.config import CNNConfig, ConvLayer
+    have = {f.name for f in dataclasses.fields(ConvLayer)}
+    for l in layers(cfg):
+        missing = sorted(set(l) - have)
+        if missing:
+            raise TypeError(f"cnnbench: the program's ConvLayer has no "
+                            f"field {missing[0]!r}")
     return CNNConfig(
         name=cfg["name"], input_hw=cfg["input_hw"],
         input_ch=cfg["input_ch"], n_classes=cfg["n_classes"],

@@ -25,6 +25,22 @@ Precisions (``forward(..., precision)``):
 Every precision computes the LRN by PipeCNN's piecewise-linear z^-beta
 (:func:`lrn_pwl`), the configuration's LRN, except the calibration
 forward, which observes the exact one.
+
+The layers are a graph (:mod:`cnnbench.config`): each function runs the
+fusion groups in order and keeps a group's output while a later group
+reads it. A conv with a ``residual`` adds its source's output, in this
+order, each operation rounded to fp32:
+
+* ``"float32"`` / ``"bfloat16"``: ``y = conv + b``, then ``y = y +
+  src.float()``, then the ReLU and the group's pool; the result is rounded
+  once to the run dtype;
+* ``"int8"`` / ``"int4"``: ``y = acc.float() * mult + b``, then ``y = y +
+  src_codes.float() * src_step``, then the ReLU, the pool and the
+  requantize to the group's output step.
+
+A max pool pads with minus infinity (with the least code on codes); an
+avg pool sums its window in fp32 in row-major order and divides by the
+window's size, and takes no codes.
 """
 from __future__ import annotations
 
@@ -35,7 +51,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cnnbench.config import fusion_groups, layers
+from cnnbench.config import group_sources, layers
 
 QMAX = {"int8": 127, "int4": 7}
 EPS = 1e-12
@@ -46,12 +62,14 @@ def _tf32_off():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def conv(x, w, b, l, pool_layer=None):
-    """fp32 conv + bias (+ ReLU) (+ the group's pool), NHWC in and out,
-    contiguous."""
+def conv(x, w, b, l, pool_layer=None, res=None):
+    """fp32 conv + bias (+ the residual ``res``) (+ ReLU) (+ the group's
+    pool), NHWC in and out, contiguous."""
     y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
                  stride=l["stride"], padding=l["pad"], groups=l["groups"])
     y = y.permute(0, 2, 3, 1) + b
+    if res is not None:
+        y = y + res.float()
     if l["relu"]:
         y = torch.clamp_min(y, 0.0)
     if pool_layer is not None:
@@ -60,11 +78,49 @@ def conv(x, w, b, l, pool_layer=None):
 
 
 def pool(x, l):
-    k, s = l["kernel"], l["stride"]
-    win = x.unfold(1, k, s).unfold(2, k, s)
+    """``l``'s pool of NHWC ``x``: a max pool over the window padded with
+    ``l["pad"]`` of the least value (minus infinity; the least code on
+    codes), an avg pool as the fp32 row-major sum of the window over its
+    size, in ``x``'s dtype."""
+    k, s, p = l["kernel"], l["stride"], l["pad"]
     if l["pool"] == "max":
+        if p:
+            low = -math.inf if x.is_floating_point() \
+                else torch.iinfo(x.dtype).min
+            x = F.pad(x, (0, 0, p, p, p, p), value=low)
+        win = x.unfold(1, k, s).unfold(2, k, s)
         return win.amax(dim=(-2, -1)).contiguous()
-    return win.float().mean(dim=(-2, -1)).to(x.dtype).contiguous()
+    if not x.is_floating_point():
+        raise ValueError("cnnbench: an avg pool takes no codes: fuse it "
+                         "with the conv before it")
+    oh = (x.shape[1] - k) // s + 1
+    ow = (x.shape[2] - k) // s + 1
+    acc = None
+    for i in range(k):
+        for j in range(k):
+            sl = x[:, i:i + (oh - 1) * s + 1:s, j:j + (ow - 1) * s + 1:s]
+            acc = sl.float() if acc is None else acc + sl.float()
+    return (acc / float(k * k)).to(x.dtype).contiguous()
+
+
+def run_groups(cfg: dict, x, step):
+    """``step(group, h, res)`` over the fusion groups in order, ``h`` the
+    output the group reads (``x`` for the image) and ``res`` its
+    residual's source (None without one); each output is kept while a
+    later group reads it. Returns the last group's output."""
+    plan = group_sources(cfg)
+    last = {}
+    for gi, (_, src, res) in enumerate(plan):
+        last[src] = gi
+        if res is not None:
+            last[res] = gi
+    outs = {-1: x}
+    for gi, (group, src, res) in enumerate(plan):
+        y = step(group, outs[src], None if res is None else outs[res])
+        for j in [j for j, g in last.items() if g == gi]:
+            del outs[j]
+        outs[group[-1]] = y
+    return y
 
 
 def fc(x, w, b, l):
@@ -124,21 +180,21 @@ def forward(cfg: dict, params: List[Optional[Dict[str, torch.Tensor]]],
     _tf32_off()
     dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[precision]
     ls = layers(cfg)
-    h = x.to(dt)
+
+    def step(group, h, res):
+        l, p = ls[group[0]], params[group[0]]
+        if l["kind"] == "conv":
+            y = conv(h.float(), p["w"].float(), p["b"].float(), l,
+                     ls[group[1]] if len(group) == 2 else None, res)
+        elif l["kind"] == "pool":
+            y = pool(h.float(), l)
+        elif l["kind"] == "lrn":
+            y = lrn_pwl(h.float(), cfg["lrn"])
+        else:
+            y = fc(h, p["w"], p["b"], l)
+        return y.to(dt)
     with torch.inference_mode():
-        for group in fusion_groups(cfg):
-            l, p = ls[group[0]], params[group[0]]
-            if l["kind"] == "conv":
-                y = conv(h.float(), p["w"].float(), p["b"].float(), l,
-                         ls[group[1]] if len(group) == 2 else None)
-            elif l["kind"] == "pool":
-                y = pool(h.float(), l)
-            elif l["kind"] == "lrn":
-                y = lrn_pwl(h.float(), cfg["lrn"])
-            else:
-                y = fc(h, p["w"], p["b"], l)
-            h = y.to(dt)
-    return h.float()
+        return run_groups(cfg, x.to(dt), step).float()
 
 
 # ---------------------------------------------------------------------------
@@ -159,46 +215,55 @@ def quant(x: torch.Tensor, step, qmax: int) -> torch.Tensor:
 def calibrate(cfg: dict, params, calib: torch.Tensor, qmax: int) -> dict:
     """Steps and codes of the fixed-point model: the abs-max of the fp32
     forward (exact LRN) on ``calib`` at the input and at every group
-    boundary whose step is used (not after a standalone pool, which passes
+    output whose step is used (not after a standalone pool, which passes
     its input's step on, nor after the last group, whose logits stay
-    fp32); weights per output channel."""
+    fp32); weights per output channel. A group reads its input's codes at
+    ``in_step`` and its residual's at ``res_step``."""
     _tf32_off()
-    ls, groups = layers(cfg), fusion_groups(cfg)
-    amax = []
+    ls = layers(cfg)
+    amax = {}
+
+    def step(group, h, res):
+        l, p = ls[group[0]], params[group[0]]
+        if l["kind"] == "conv":
+            y = conv(h, p["w"].float(), p["b"].float(), l,
+                     ls[group[1]] if len(group) == 2 else None, res)
+        elif l["kind"] == "pool":
+            y = pool(h, l)
+        elif l["kind"] == "lrn":
+            y = lrn_exact(h, cfg["lrn"])
+        else:
+            y = fc(h, p["w"], p["b"], l)
+        amax[group] = float(y.abs().max())
+        return y
     with torch.inference_mode():
         h = calib.float()
         in_amax = float(h.abs().max())
-        for group in groups:
-            l, p = ls[group[0]], params[group[0]]
-            if l["kind"] == "conv":
-                h = conv(h, p["w"].float(), p["b"].float(), l,
-                         ls[group[1]] if len(group) == 2 else None)
-            elif l["kind"] == "pool":
-                h = pool(h, l)
-            elif l["kind"] == "lrn":
-                h = lrn_exact(h, cfg["lrn"])
-            else:
-                h = fc(h, p["w"], p["b"], l)
-            amax.append(float(h.abs().max()))
+        run_groups(cfg, h, step)
     q = {"in_step": max(in_amax, EPS) / qmax, "groups": {}}
-    step = q["in_step"]
-    for gi, group in enumerate(groups):
+    steps = {-1: q["in_step"]}
+    plan = group_sources(cfg)
+    for gi, (group, src, res) in enumerate(plan):
         l = ls[group[0]]
-        last = gi == len(groups) - 1
-        out_step = None if last else max(amax[gi], EPS) / qmax
-        g = {"in_step": step, "out_step": out_step}
+        in_step = steps[src]
+        out_step = None if gi == len(plan) - 1 \
+            else max(amax[group], EPS) / qmax
+        g = {"in_step": in_step, "out_step": out_step}
         if l["kind"] in ("conv", "fc"):
             w = params[group[0]]["w"].float()
             red = tuple(range(w.dim() - 1))
             ws = torch.clamp_min(w.abs().amax(dim=red, keepdim=True), EPS) \
                 / _f32(float(qmax), w)
             g["w_q"] = quant(w, ws, qmax)
-            g["mult"] = ws.reshape(-1) * _f32(step, w)
+            g["mult"] = ws.reshape(-1) * _f32(in_step, w)
             g["b"] = params[group[0]]["b"].float()
+            if res is not None:
+                g["res_step"] = steps[res]
         elif l["kind"] == "pool":
-            g["out_step"] = step
+            g["out_step"] = in_step
         q["groups"][group] = g
-        step = g["out_step"] if g["out_step"] is not None else step
+        steps[group[-1]] = g["out_step"] if g["out_step"] is not None \
+            else in_step
     return q
 
 
@@ -222,29 +287,29 @@ def forward_fixed(cfg: dict, qm: dict, x: torch.Tensor, qmax: int
     """fp32 logits of the fixed-point model ``qm`` (:func:`calibrate`) on
     fp32 images ``x``."""
     ls = layers(cfg)
-    with torch.inference_mode():
-        h = quant(x, qm["in_step"], qmax)
-        for group in fusion_groups(cfg):
-            l, g = ls[group[0]], qm["groups"][group]
-            if l["kind"] in ("conv", "fc"):
-                if l["kind"] == "conv":
-                    acc = _conv_int(h, g["w_q"], l)
-                else:
-                    acc = h.reshape(h.shape[0], -1).double() \
-                        @ g["w_q"].double()
-                y = acc.float() * g["mult"] + g["b"]
-                if l["relu"]:
-                    y = torch.clamp_min(y, 0.0)
-                if len(group) == 2:
-                    y = pool(y, ls[group[1]])
-                h = y if g["out_step"] is None else \
-                    quant(y, g["out_step"], qmax)
-            elif l["kind"] == "pool":
-                h = pool(h, l)
+
+    def step(group, h, res):
+        l, g = ls[group[0]], qm["groups"][group]
+        if l["kind"] in ("conv", "fc"):
+            if l["kind"] == "conv":
+                acc = _conv_int(h, g["w_q"], l)
             else:
-                y = lrn_pwl(h.float() * _f32(g["in_step"], h), cfg["lrn"])
-                h = quant(y, g["out_step"], qmax)
-    return h.float()
+                acc = h.reshape(h.shape[0], -1).double() @ g["w_q"].double()
+            y = acc.float() * g["mult"] + g["b"]
+            if res is not None:
+                y = y + res.float() * _f32(g["res_step"], y)
+            if l["relu"]:
+                y = torch.clamp_min(y, 0.0)
+            if len(group) == 2:
+                y = pool(y, ls[group[1]])
+            return y if g["out_step"] is None else \
+                quant(y, g["out_step"], qmax)
+        if l["kind"] == "pool":
+            return pool(h, l)
+        y = lrn_pwl(h.float() * _f32(g["in_step"], h), cfg["lrn"])
+        return quant(y, g["out_step"], qmax)
+    with torch.inference_mode():
+        return run_groups(cfg, quant(x, qm["in_step"], qmax), step).float()
 
 
 def logits(cfg: dict, params, x: torch.Tensor, precision: str, *,

@@ -11,7 +11,7 @@ wants ``correct`` to come out false:
   shifted by one (serve), or one row's logits a forward negated
   (offline).
 
-(There is no exchange between chips to leave out: both cells run on one.)
+(There is no exchange between chips to leave out: every cell runs on one.)
 The control tests put the nearest lower precision in the program's place
 (``run_cell(control=True)``) and want ``correct`` to come out false: at a
 size a test run holds, and at the cell's own on the card.
@@ -23,6 +23,7 @@ from repro_torch.serve.engine import ServeEngine
 from cnnbench import check, config, harness, traffic
 
 SERVE, OFFLINE = "vgg16_bf16.serve_b8", "alexnet_int8.offline_b128"
+OFFLINE_BF16 = "vgg16_bf16.offline_b64"
 
 
 def _run(cell, seed=2 ** 31 + 17):
@@ -83,11 +84,19 @@ def test_offline_check_sees_the_fault(kind, monkeypatch):
     assert out["correct"] is False, out["compared"]
 
 
+@pytest.mark.parametrize("kind", ["stale", "half", "altered"])
+def test_bf16_offline_check_sees_the_fault(kind, monkeypatch):
+    assert _run(OFFLINE_BF16)["correct"] is True
+    monkeypatch.setattr(CompiledCNN, "forward", _forward_fault(kind))
+    out = _run(OFFLINE_BF16)
+    assert out["correct"] is False, out["compared"]
+
+
 def _published_classes(monkeypatch):
-    """The served check at the test size reads a gap among the published
-    1,000 classes and over a pool of 1,024 images, so that the small
-    model's fewer near-ties show: its last FC widened back, its pool
-    widened."""
+    """The bf16 checks at the test size read a gap among the published
+    1,000 classes (and the served one over a pool of 1,024 images), so
+    that the small model's fewer near-ties show: its last FC widened
+    back, its pool widened."""
     shrink, resolve = config.shrink, config.resolve
 
     def wide(cfg):
@@ -103,14 +112,15 @@ def _published_classes(monkeypatch):
     monkeypatch.setattr(config, "resolve", wide_pool)
 
 
-@pytest.mark.parametrize("cell", [SERVE, OFFLINE])
+@pytest.mark.parametrize("cell", [SERVE, OFFLINE, OFFLINE_BF16])
 def test_the_control_fails_the_cells_limit(cell, monkeypatch):
     """The control in the program's place (``run_cell(control=True)``),
     through the window and the comparison of a run, comes out not
     correct; the program at the same size, correct."""
     seconds = 0.3
-    if cell == SERVE:
+    if cell in (SERVE, OFFLINE_BF16):
         _published_classes(monkeypatch)
+    if cell == SERVE:
         seconds = 2.0
     run = lambda seed, control: harness.run_cell(
         cell, seed, seconds, False, device="cpu", shrink=True,
@@ -122,7 +132,7 @@ def test_the_control_fails_the_cells_limit(cell, monkeypatch):
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("cell", [SERVE, OFFLINE])
+@pytest.mark.parametrize("cell", [SERVE, OFFLINE, OFFLINE_BF16])
 def test_the_control_fails_the_cells_limit_on_the_card(cell, cuda):
     """The same at the cell's own size, on the card."""
     for seed in (2 ** 31 + 101, 2 ** 31 + 102, 2 ** 31 + 103):
@@ -131,7 +141,7 @@ def test_the_control_fails_the_cells_limit_on_the_card(cell, cuda):
         assert out["correct"] is False, out["compared"]
 
 
-@pytest.mark.parametrize("cell", [SERVE, OFFLINE])
+@pytest.mark.parametrize("cell", [SERVE, OFFLINE, OFFLINE_BF16])
 def test_the_control_is_one_precision_below_the_configuration(cell):
     r = config.resolve(cell)
     cfg, seed = config.shrink(r["config"]), 5

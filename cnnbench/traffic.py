@@ -27,7 +27,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from cnnbench.config import layers
+from cnnbench.config import layer_shapes, layers, source
 
 # stream ids: each random draw of a run has its own, so one draw never
 # shifts another
@@ -97,27 +97,25 @@ def weights(cfg: dict, seed: int, device, dtype: torch.dtype
             ) -> List[Optional[Dict[str, torch.Tensor]]]:
     """The model's parameters in ``dtype`` on ``device``, aligned with the
     configuration's layers (None for a pool or an LRN): HWIO conv weights
-    He-normal, (K, N) FC weights with standard deviation 1/sqrt(K),
-    biases normal with ``weights.bias_std``. Two draws in all (weights,
-    biases), each one call over the whole model, then scaled in place."""
+    He-normal, their input channels those of the output the conv reads,
+    (K, N) FC weights with standard deviation 1/sqrt(K), biases normal
+    with ``weights.bias_std``. Two draws in all (weights, biases), each one
+    call over the whole model, then scaled in place."""
     shapes, fans, outs = [], [], []
-    shape = (cfg["input_hw"], cfg["input_hw"], cfg["input_ch"])
-    for l in layers(cfg):
+    ls, out_shapes = layers(cfg), layer_shapes(cfg)
+    image = (cfg["input_hw"], cfg["input_hw"], cfg["input_ch"])
+    for i, l in enumerate(ls):
+        j = source(ls, i)
+        shape = image if j == -1 else out_shapes[j]
         if l["kind"] == "conv":
             cg = shape[2] // l["groups"]
             shapes.append((l["kernel"], l["kernel"], cg, l["out_ch"]))
             fans.append(2.0 / (l["kernel"] ** 2 * cg))
-            h = (shape[0] + 2 * l["pad"] - l["kernel"]) // l["stride"] + 1
-            shape = (h, h, l["out_ch"])
-        elif l["kind"] == "pool":
-            h = (shape[0] - l["kernel"]) // l["stride"] + 1
-            shape = (h, h, shape[2])
+            outs.append(l["out_ch"])
         elif l["kind"] == "fc":
             k = math.prod(shape)
             shapes.append((k, l["out_ch"]))
             fans.append(1.0 / k)
-            shape = (l["out_ch"],)
-        if l["kind"] in ("conv", "fc"):
             outs.append(l["out_ch"])
         else:
             shapes.append(None)
